@@ -5,7 +5,8 @@
   placement    — placement solvers (chain DP / local search / repair)
   splitter     — Split Revision: joint split+placement DP (numpy + torch)
   triggers     — Θ thresholds + ShouldReconfigure (Table I)
-  profiling    — Monitoring & Capacity Profiling (CP)
+  profiling    — Monitoring & Capacity Profiling (CP), measured segment
+                 profiles and the calibrated cost model
   orchestrator — Adaptive Orchestrator (AO), Alg. 1
   broadcast    — Reconfiguration Broadcast (RB), 2-phase versioned rollout
   privacy      — trusted sets, Eq. (5)/(9)
@@ -41,7 +42,14 @@ from .placement import (
     surrogate_cost,
 )
 from .privacy import TrustPolicy, assert_privacy_ok
-from .profiling import CapacityProfiler, NodeSample
+from .profiling import (
+    CalibratedCostModel,
+    CapacityProfiler,
+    ModelProfile,
+    NodeSample,
+    SegmentProfile,
+    SegmentProfileEntry,
+)
 from .splitter import (
     SplitRevision,
     TorchJointSplitter,
@@ -59,11 +67,13 @@ from .triggers import (
 )
 
 __all__ = [
-    "AdaptiveOrchestrator", "AnalyticCostModel", "CapacityProfiler",
+    "AdaptiveOrchestrator", "AnalyticCostModel", "CalibratedCostModel",
+    "CapacityProfiler",
     "CostBreakdown", "CostModel", "CostWeights", "Decision", "DecisionKind",
-    "EWMA", "GraphNode", "InProcessAgent", "ModelGraph", "NodeSample",
+    "EWMA", "GraphNode", "InProcessAgent", "ModelGraph", "ModelProfile",
+    "NodeSample",
     "PartitionConfig", "ReconfigurationBroadcast", "RolloutPolicy",
-    "Solution", "SolveThrottle", "SplitRevision", "SplitScheme",
+    "SegmentProfile", "SegmentProfileEntry", "Solution", "SolveThrottle", "SplitRevision", "SplitScheme",
     "SystemState", "Thresholds", "TorchJointSplitter", "TriggerState",
     "TrustPolicy", "Workload", "assert_privacy_ok", "chain_latency",
     "coalesce_same_node", "decision_gate", "evaluate", "hysteresis_keep",

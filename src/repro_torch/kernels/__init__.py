@@ -7,6 +7,8 @@ function, ``ops.py`` the model-layout entry points and ``ref.py`` oracles in
 the TPU kernels' layout.  Nothing is compiled at import time.
 
   K1  flash_attention               prefill attention (every layer)
+  K3  decode_attention              one-token attention vs the KV cache
+                                    (every layer of every decode step)
   K2  quantize_int8/dequantize_int8 boundary-activation compression
 """
 

@@ -40,6 +40,8 @@ _SIGNATURES = {
     "flash_attention_fwd": [_VOID] * 4 + [_INT] * 8 + [_FLOAT, _FLOAT, _VOID],
     "quantize_int8_fwd": [_VOID] * 3 + [_INT] * 3 + [_VOID],
     "dequantize_int8_fwd": [_VOID] * 3 + [_INT] * 3 + [_VOID],
+    "decode_attention_fwd": [_VOID] * 4 + [_INT] + [_VOID] * 3 + [_INT] * 9
+    + [_FLOAT, _FLOAT, _VOID],
 }
 
 

@@ -32,6 +32,35 @@ def flash_attention_ref(q, k, v, *, n_heads, n_kv, causal=True, window=0,
     return torch.einsum("bqk,bkh->bqh", p, vv).to(q.dtype)
 
 
+def decode_attention_ref(q, k_cache, v_cache, cur_len, *, window=0,
+                         logit_cap=0.0, scale=None):
+    """q: [B,H,hd]; caches [B,S,KV,hd] — the reference model path's math.
+
+    As the reference's oracle (its ``models.attention.decode_attention``):
+    q is scaled in its own dtype and the probabilities are cast to the
+    cache dtype before P·V, with float32 accumulation; ``cur_len`` is a
+    scalar or [B].
+    """
+    b, s, kv, hd = k_cache.shape
+    h = q.shape[1]
+    sc = (hd ** -0.5) if scale is None else scale
+    qg = q.reshape(b, kv, h // kv, hd) * torch.tensor(sc, dtype=q.dtype)
+    sim = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float())
+    if logit_cap:
+        sim = logit_cap * torch.tanh(sim / logit_cap)
+    pos = torch.arange(s)
+    cur = torch.as_tensor(cur_len).reshape(-1, 1)
+    mask = pos[None, :] < cur
+    if window > 0:
+        mask &= pos[None, :] > cur - 1 - window
+    mask = mask.expand(b, s).to(q.device)
+    sim = torch.where(mask[:, None, None, :], sim, NEG_INF)
+    p = torch.softmax(sim, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(b, h, hd).to(q.dtype)
+
+
 def quantize_int8_ref(x):
     xf = x.float()
     scale = torch.clamp_min(xf.abs().amax(dim=1, keepdim=True), 1e-12) / 127.0

@@ -1,6 +1,7 @@
-"""Model families: the decoder-only transformer (dense GQA)."""
+"""Model families: the decoder-only transformer (dense GQA), with its
+prefill + KV-cache decode serving path."""
 
-from . import transformer
+from . import transformer, transformer_serve
 from .api import ModelBundle, bundle_for
 
-__all__ = ["ModelBundle", "bundle_for", "transformer"]
+__all__ = ["ModelBundle", "bundle_for", "transformer", "transformer_serve"]

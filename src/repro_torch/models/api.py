@@ -1,9 +1,9 @@
 """Unified model API: one ModelBundle per architecture family.
 
 Downstream code (serving engine, orchestrator graph extraction) goes through
-this interface.  The port's bundle carries what the prefill serving path
-needs: the config, a param initializer, and the computational graph the
-orchestrator partitions.
+this interface.  The port's bundle carries what serving needs: the config,
+a param initializer, prefill and decode over a KV cache, and the
+computational graph the orchestrator partitions.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from functools import partial
 from typing import Any, Callable
 
 from ..core.graph import GraphNode, ModelGraph
-from . import transformer
+from . import transformer, transformer_serve
 
 __all__ = ["ModelBundle", "bundle_for"]
 
@@ -24,6 +24,9 @@ class ModelBundle:
     cfg: Any
     family: str
     init: Callable[..., Any]                  # (generator, device, dtype) -> params
+    prefill: Callable[..., tuple]             # (params, batch, max_len) -> (logits, cache)
+    decode: Callable[..., tuple]              # (params, cache, tokens, pos)
+    cache_spec: Callable[..., Any]            # (batch, max_len) -> meta-tensor tree
     model_graph: Callable[[], ModelGraph]
 
     def num_params(self) -> int:
@@ -44,11 +47,20 @@ def _graph_from_blocks(name: str, n_layers: int, d_model: int,
 
 
 def _transformer_bundle(arch: str, cfg: transformer.TransformerConfig) -> ModelBundle:
+    def prefill(params, batch, max_len=None):
+        return transformer_serve.prefill(params, cfg, batch["tokens"],
+                                         max_len=max_len)
+
+    def decode(params, cache, tokens, pos):
+        return transformer_serve.decode_step(params, cfg, cache, tokens, pos)
+
     # weight and activation bytes are counted at 2 bytes an element (bf16)
     emb_b = 2.0 * cfg.vocab * cfg.d_model
     return ModelBundle(
         arch=arch, cfg=cfg, family="transformer",
         init=partial(transformer.init_params, cfg),
+        prefill=prefill, decode=decode,
+        cache_spec=partial(transformer_serve.cache_spec, cfg),
         model_graph=lambda: _graph_from_blocks(
             arch, cfg.n_layers, cfg.d_model,
             2.0 * cfg.active_params_per_block, 2.0 * cfg.params_per_block,

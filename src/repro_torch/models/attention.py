@@ -1,11 +1,13 @@
 """Attention cores of the model families.
 
 :func:`chunked_attention` is the prefill attention of every transformer
-layer.  In the reference it is an XLA online-softmax scan; here it is a call
-into the K1 flash kernel (``kernels/flash_attention.py``), whose arithmetic
-follows the reference's TPU kernel: q is scaled and the probabilities are
-multiplied into V in float32, where the reference's XLA path scales q and
-casts the probabilities to the activation dtype (bf16) first.
+layer, :func:`decode_attention` the one-token attention of every decode
+step.  In the reference both are XLA code; here they call the K1 flash
+kernel (``kernels/flash_attention.py``) and the K3 decode kernel
+(``kernels/decode_attention.py``), whose arithmetic follows the reference's
+TPU kernels: q is scaled and the probabilities are multiplied into V in
+float32, where the reference's XLA path scales q and casts the
+probabilities to the activation dtype (bf16) first.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 
 from ..kernels import ops as kops
 
-__all__ = ["chunked_attention"]
+__all__ = ["chunked_attention", "decode_attention", "update_kv_cache"]
 
 
 def chunked_attention(
@@ -30,3 +32,38 @@ def chunked_attention(
     """Prefill attention over the whole sequence. Returns [B, S, H, hd]."""
     return kops.flash_attention(q, k, v, causal=causal, window=int(window),
                                 logit_cap=logit_cap, scale=scale)
+
+
+def decode_attention(
+    q: torch.Tensor,             # [B, H, hd] — one new token per sequence
+    k_cache: torch.Tensor,       # [B, S, KV, hd]
+    v_cache: torch.Tensor,       # [B, S, KV, hd]
+    cur_len,                     # int, or int tensor [] or [B]: valid entries
+    *,
+    window: int = 0,
+    logit_cap: float = 0.0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Single-step GQA attention over the cache. Returns [B, H, hd]."""
+    return kops.decode_attention(q, k_cache, v_cache, cur_len,
+                                 window=int(window), logit_cap=logit_cap,
+                                 scale=scale)
+
+
+def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    k_new: torch.Tensor, v_new: torch.Tensor, pos):
+    """Write [B, KV, hd] (or [B,1,KV,hd]) entries at ``pos``, in place.
+
+    Returns the same two tensors it was given.  ``pos`` (a host int) is
+    placed as JAX's ``dynamic_update_slice`` places it in the reference: a
+    negative one counts from the end (+S), then it clamps to [0, S-1], so a
+    write past the end overwrites the last slot.
+    """
+    if k_new.ndim == 3:
+        k_new, v_new = k_new[:, None], v_new[:, None]
+    s = k_cache.shape[1]
+    p = int(pos)
+    p = min(max(p + s if p < 0 else p, 0), s - 1)
+    k_cache[:, p:p + 1] = k_new
+    v_cache[:, p:p + 1] = v_new
+    return k_cache, v_cache

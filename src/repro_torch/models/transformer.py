@@ -239,9 +239,10 @@ def dense_ffn(x: torch.Tensor, p: Params, cfg: TransformerConfig) -> torch.Tenso
     return h @ p["wo"].to(h.dtype)
 
 
-def attn_forward(x: torch.Tensor, p: Params, cfg: TransformerConfig, *,
-                 window: int) -> torch.Tensor:
-    """Full-sequence attention (prefill compute). x: [B,S,d]."""
+def project_qkv(x: torch.Tensor, p: Params, cfg: TransformerConfig,
+                pos: torch.Tensor):
+    """q [B,S,H,hd], k/v [B,S,KV,hd] of x [B,S,d] at positions ``pos`` [S]:
+    projections, optional qk-norm, RoPE on q and k."""
     b, s, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
     q = (x @ p["wq"].to(x.dtype).reshape(d, h * hd)).view(b, s, h, hd)
@@ -250,25 +251,40 @@ def attn_forward(x: torch.Tensor, p: Params, cfg: TransformerConfig, *,
     if cfg.qk_norm:
         q = apply_norm(q, p["q_norm"], "rms")
         k = apply_norm(k, p["k_norm"], "rms")
-    pos = torch.arange(s, device=x.device)
     rd = int(cfg.hd * cfg.rope_frac) if cfg.rope_frac < 1.0 else None
     q = apply_rope(q, pos, cfg.rope_theta, rope_dim=rd)
     k = apply_rope(k, pos, cfg.rope_theta, rope_dim=rd)
+    return q, k, v
+
+
+def attn_forward(x: torch.Tensor, p: Params, cfg: TransformerConfig, *,
+                 window: int):
+    """Full-sequence attention (prefill compute). x: [B,S,d].
+
+    Returns ``(out [B,S,d], k, v)``: k and v are the post-RoPE keys and
+    values it attended over, what prefill writes into the KV cache.
+    """
+    b, s, d = x.shape
+    h, hd = cfg.n_heads, cfg.hd
+    q, k, v = project_qkv(x, p, cfg, torch.arange(s, device=x.device))
     o = chunked_attention(q, k, v, causal=True, window=window,
                           logit_cap=cfg.attn_softcap, scale=cfg.attn_scale)
-    return o.reshape(b, s, h * hd) @ p["wo"].to(o.dtype).reshape(h * hd, d)
+    return o.reshape(b, s, h * hd) @ p["wo"].to(o.dtype).reshape(h * hd, d), k, v
 
 
 # --------------------------------------------------------------------------- #
 # block + full model forward (prefill)
 # --------------------------------------------------------------------------- #
 def block_forward(x: torch.Tensor, p: Params, cfg: TransformerConfig, *,
-                  window: int) -> torch.Tensor:
+                  window: int, return_kv: bool = False):
+    """One block. With ``return_kv``: ``(x, (k, v))``, k/v as attn_forward's."""
     check_supported(cfg)
     h = apply_norm(x, p["ln1"], cfg.norm)
-    x = x + attn_forward(h, p["attn"], cfg, window=window)
+    attn, k, v = attn_forward(h, p["attn"], cfg, window=window)
+    x = x + attn
     h = apply_norm(x, p["ln2"], cfg.norm)
-    return x + dense_ffn(h, p["mlp"], cfg)
+    x = x + dense_ffn(h, p["mlp"], cfg)
+    return (x, (k, v)) if return_kv else x
 
 
 def embed_tokens(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,

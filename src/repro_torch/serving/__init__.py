@@ -1,9 +1,12 @@
-"""Split-inference serving: segments, transport, engine."""
+"""Split-inference serving: segments, transport, engine, batching, profiler."""
 
+from .batching import BatchStats, Request, WaveBatcher
 from .engine import SplitInferenceEngine
+from .profiler import SegmentProfiler
 from .segments import BoundSegment, SegmentChain, SegmentRunner, split_params
 from .transfer import ActivationTransport, TransferStats
 
-__all__ = ["ActivationTransport", "BoundSegment", "SegmentChain",
-           "SegmentRunner", "SplitInferenceEngine", "TransferStats",
+__all__ = ["ActivationTransport", "BatchStats", "BoundSegment", "Request",
+           "SegmentChain", "SegmentProfiler", "SegmentRunner",
+           "SplitInferenceEngine", "TransferStats", "WaveBatcher",
            "split_params"]

@@ -92,14 +92,17 @@ def test_flash_plain_matches_kernel_layout_refs(s, h, kv, hd, window, cap,
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("n,d", [(64, 128), (33, 256), (16, 4096)])
 def test_int8_plain_bit_identical_to_pallas_kernel(n, d, dtype):
-    """No tolerance on q or on dequantization.
+    """Stated tolerance: q bit-identical; scales ≤ 1 ulp from the Pallas
+    kernel, bit-identical to its oracle; dequantization bit-identical.
 
     q is bit-identical to the reference kernel.  The scales are bit-identical
     to the reference's oracle (``ref.quantize_int8_ref``: an IEEE division by
     127) and within one unit in the last place of the Pallas kernel run under
     jit, where XLA turns the division by the constant 127 into a
-    multiplication by its rounded reciprocal.  Dequantization of the same
-    (q, scales) is bit-identical.
+    multiplication by its rounded reciprocal (e.g. one row of [64, 128],
+    seed 8192, differs by 1.9e-9).  The port follows the oracle.  This is a
+    float output within its tolerance, not a fault of either package.
+    Dequantization of the same (q, scales) is bit-identical.
     """
     (jx,), (tx,) = _inputs([(n, d)], dtype, seed=n * d)
     jq, js = jax_ops.quantize_int8(jx, block_rows=16, interpret=True)

@@ -10,12 +10,18 @@ Tolerances are those of tests/test_kernels.py for attention (2e-5 float32,
 2e-2 bfloat16); int8 is held bit for bit.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_bundle
+from repro_torch.kernels import decode_attention as k3
 from repro_torch.kernels import flash_attention as k1
 from repro_torch.kernels import int8_transfer as k2
+from repro_torch.models.transformer import tree_map
+from repro_torch.serving import Request, WaveBatcher
 
 
 @pytest.fixture
@@ -74,3 +80,104 @@ def test_flash_kernel_rejects_unsupported_head_dim():
     q = _normal((1, 8, 2, 48), torch.bfloat16, 0)
     with pytest.raises(ValueError, match="hd"):
         k1.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kv,hd,cur,window,cap", [
+    (8, 640, 32, 8, 128, 576, 0, 0.0),        # generation path shape
+    (8, 640, 32, 8, 128, 513, 0, 0.0),        # cur_len one past a split edge
+    (2, 100, 8, 2, 64, 100, 0, 0.0),          # ragged S, full cache
+    (4, 640, 32, 8, 128, [1, 128, 300, 640], 0, 0.0),   # cur_len per row
+    (8, 640, 32, 8, 128, 576, 128, 0.0),      # sliding window
+    (8, 640, 32, 8, 128, 576, 0, 50.0),       # soft-cap
+    (2, 96, 8, 1, 32, 77, 16, 30.0),          # MQA (G=8) + window + cap
+    (2, 64, 4, 4, 16, 33, 0, 0.0),            # MHA, smallest head dim
+    (3, 200, 32, 1, 64, [5, 199, 120], 0, 0.0),  # G=32: four head groups
+    (1, 32768, 32, 8, 128, 30001, 0, 0.0),    # long cache, many splits
+])
+def test_decode_kernel_matches_plain(b, s, h, kv, hd, cur, window, cap, dtype, tol):
+    q = _normal((b, h, hd), dtype, 1)
+    kc = _normal((b, s, kv, hd), dtype, 2)
+    vc = _normal((b, s, kv, hd), dtype, 3)
+    cur_len = torch.tensor(cur, dtype=torch.int32, device="cuda")
+    n_split, _ = k3.split_plan(b, h, kv, s, torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
+    before = k3.decode_attention.launches
+    got = k3.decode_attention(q, kc, vc, cur_len, window=window, logit_cap=cap)
+    torch.cuda.synchronize()
+    assert k3.decode_attention.launches == before + 1
+    want = k3.decode_attention_plain(q, kc, vc, cur_len, window=window,
+                                     logit_cap=cap)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if s == 32768:
+        assert n_split > 8
+
+
+def test_decode_kernel_int_cur_len_and_rejects():
+    q = _normal((2, 8, 64), torch.bfloat16, 4)
+    kc = _normal((2, 50, 2, 64), torch.bfloat16, 5)
+    got = k3.decode_attention(q, kc, kc, 37)
+    want = k3.decode_attention_plain(q, kc, kc, 37)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    with pytest.raises(ValueError, match="hd"):
+        k3.decode_attention(q[..., :48].contiguous(), kc[..., :48].contiguous(),
+                            kc[..., :48].contiguous(), 3)
+    strided = torch.empty(2, 2, 50, 64, dtype=torch.bfloat16,
+                          device="cuda").transpose(1, 2)     # [2,50,2,64] view
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.decode_attention(q, strided, strided, 3)
+    with pytest.raises(ValueError, match="lies on"):
+        k3.decode_attention(q, kc, kc, torch.tensor(3))
+
+
+def _recording(bundle, logits_log):
+    def prefill(params, batch, max_len=None):
+        logits, cache = bundle.prefill(params, batch, max_len=max_len)
+        logits_log.append([logits.cpu().numpy()])
+        return logits, cache
+
+    def decode(params, cache, tokens, pos):
+        logits, cache = bundle.decode(params, cache, tokens, pos)
+        logits_log[-1].append(logits.cpu().numpy())
+        return logits, cache
+
+    return dataclasses.replace(bundle, prefill=prefill, decode=decode)
+
+
+def test_wave_batcher_card_matches_cpu():
+    """Greedy generation on the reduced model: the card (K1, K3 kernels)
+    and the CPU (plain versions) give the same stats and the same tokens,
+    except where the CPU's top-2 margin at that step is under 10 % of the
+    logit scale (bf16 activations round differently on the two devices)."""
+    bundle = get_bundle("llama3-8b", reduced=True)
+    cpu_params = bundle.init(torch.Generator().manual_seed(0), "cpu",
+                             torch.float32)
+    gpu_params = tree_map(lambda a: a.to("cuda"), cpu_params)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, bundle.cfg.vocab, 9 + 3 * i, dtype=np.int32)
+               for i in range(7)]
+    runs = []
+    for params in (cpu_params, gpu_params):
+        log = []
+        wb = WaveBatcher(_recording(bundle, log), params, max_batch=4,
+                         max_len=64)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=12)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            wb.submit(r)
+        k1_0, k3_0 = k1.flash_attention.launches, k3.decode_attention.launches
+        stats = wb.run()
+        runs.append((stats, reqs, log, k1.flash_attention.launches - k1_0,
+                     k3.decode_attention.launches - k3_0))
+    (cs, creqs, clog, _, _), (gs, greqs, _, k1_n, k3_n) = runs
+    assert vars(gs) == vars(cs) and gs.waves == 2
+    n_layers = bundle.cfg.n_layers
+    assert k1_n == n_layers * gs.waves and k3_n == n_layers * gs.decode_steps
+    for i, (cr, gr) in enumerate(zip(creqs, greqs)):
+        assert len(gr.output) == len(cr.output) == 12
+        w, row = divmod(i, 4)
+        for step, (a, g) in enumerate(zip(cr.output, gr.output)):
+            if a != g:
+                top = np.sort(clog[w][step][row])
+                assert top[-1] - top[-2] < 0.10 * np.abs(top).max(), (i, step)
+                break
