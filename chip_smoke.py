@@ -9,13 +9,19 @@ Phases, in order; any failure ends the script with a non-zero exit and no
 result line:
 
 1. print the card's name and power limit, build the Hopper kernels from
-   ``src/repro_torch/kernels/csrc`` and print the build time;
+   ``src/repro_torch/kernels/csrc`` and print the build time and ptxas'
+   registers and spills;
 2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (K1 flash prefill attention and K3 decode attention:
-   bf16 2e-2 / fp32 2e-5, the tolerances of tests/test_kernels.py; K2 int8
-   quantize/dequantize: bit for bit) and time kernel, plain version and,
-   for K1 and K3, PyTorch's ``scaled_dot_product_attention`` as a yardstick
-   (the port never calls it);
+   main paths' shapes and time kernel, plain version and, where one PyTorch
+   call computes the same function, that call as a yardstick (the port
+   never calls it).  Tolerances are those of tests/test_kernels.py: K1
+   flash prefill attention and K3 decode attention bf16 2e-2 / fp32 2e-5
+   (SDPA beside them), K2 int8 quantize/dequantize bit for bit, K4 SSD
+   chunk scan 1e-4 fp32 (y and state) / 2e-2 bf16 at the mamba2-1.3b
+   prefill shape, a ragged S with state_in and G=2, K5 RG-LRU scan 1e-5
+   fp32 / 2e-2 bf16 at the recurrentgemma-9b shape with and without h0 and
+   a ragged W, and K1 at head dim 256 (Griffin's shape, SDPA beside it, and
+   S=4096 where the window of 2048 bites);
 3. serve 8 requests of 512 tokens through full-width, full-depth bf16
    Llama-3-8B (random weights from a seed) with int8 boundaries, through
    ``repro_torch.launch.serve``;
@@ -29,10 +35,23 @@ result line:
    boundaries; per-segment H100 times and measured/analytic ratios;
 7. follow examples/quickstart.py steps 3-5 at full width: deploy the even
    3-way split, congest, re-split, and check split == monolith (1e-3);
-8. hold the reduced model on the card against the same model on the CPU
-   (the plain versions) on a small input;
+   then the two recurrent families at full width and depth, bf16:
+   - mamba2-1.3b: serve as phase 3 (K4 = 48 per request), generate 16
+     requests of 64 new tokens (K4 = 48 per wave, no launch in a decode
+     step), prefill + decode == full forward (B=2, S=513, rel < 1e-1: bf16
+     rounding alone grows to ~5e-2 over 48 layers, with K4 or with its
+     plain version, both printed beside it with the gap at cut depths);
+   - recurrentgemma-9b: serve (K5 = 26 and K1 = 12 per request), generate
+     16 requests of 32 new tokens over a 640-slot ring, prefill + decode ==
+     full forward at B=1, S=2,561 over a 2,048-slot ring that wraps (rel <
+     5e-2 on unit-variance attention scores, ``conditioned_griffin``; the
+     served weights' figure printed beside it);
+8. hold each family's reduced model on the card against the same model on
+   the CPU (the plain versions) through a SegmentChain with int8
+   boundaries, with exact launch counts;
 9. print the ``kernels`` line (K1/K2 launches from phase 3, K3's from
-   phase 4) and, last, ``{"ok": true, "device": {...}}``.
+   phase 4, K4's from the Mamba-2 serve, K5's from the Griffin serve) and,
+   last, ``{"ok": true, "device": {...}}``.
 
 Every phase that drives a path sets the launch counts to 0 just before it
 and checks them just after.
@@ -40,6 +59,8 @@ and checks them just after.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import itertools
 import json
 import pathlib
@@ -63,14 +84,25 @@ PATH = dict(b=1, s=512, h=32, kv=8, hd=128)      # llama3-8b prefill, 512 tokens
 ROWS = (512, 4096)                                # one boundary at that shape
 DECODE = dict(b=8, s=640, h=32, kv=8, hd=128)     # a generation wave's decode
 DECODE_CUR = 576                                  # cache entries in use
-GEN = dict(requests=16, max_batch=8, max_len=640, prompt=(384, 512),
-           new_tokens=64)
 FAMILIES = {"flash_fwd_kernel": "K1", "quantize_rows": "K2",
             "decode_split_kernel": "K3", "decode_combine_kernel": "K3",
+            "ssd_cb_kernel": "K4", "ssd_scan_kernel": "K4", "rglru_": "K5",
             "gemm": "matmul", "nvjet": "matmul", "xmma": "matmul",
             "cutlass": "matmul"}
 SERVE_ARGV = ["--full", "--param-dtype", "bfloat16", "--compress",
               "--requests", "8", "--prompt-len", "512", "--device", "cuda"]
+# mamba2-1.3b prefill of 512 tokens: x [1,512,64,64], B/C [1,512,1,128]
+SSD_PATH = dict(b=1, s=512, h=64, g=1, n=128, p=64, chunk=256)
+LRU_PATH = (1, 512, 4096)                         # recurrentgemma-9b, 512 tokens
+GRIFFIN_ATTN = dict(b=1, s=512, h=16, kv=1, hd=256, window=2048)
+FAMILY_GEN = {  # WaveBatcher runs: 16 requests over 8 slots, 2 waves
+    "llama3-8b": dict(requests=16, max_batch=8, max_len=640,
+                      prompt=(384, 512), new_tokens=64),
+    "mamba2-1.3b": dict(requests=16, max_batch=8, max_len=640,
+                        prompt=(384, 512), new_tokens=64),
+    "recurrentgemma-9b": dict(requests=16, max_batch=8, max_len=640,
+                              prompt=(384, 512), new_tokens=32),
+}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -268,6 +300,160 @@ def phase_kernels(k1, k2) -> list[dict]:
     return rows
 
 
+def phase_flash_hd256(k1) -> None:
+    """Phase 2, K1 at Griffin's head dim: against its plain version at the
+    recurrentgemma-9b request shape and where the window bites; time beside
+    SDPA at the request shape (S=512 < window, so causal SDPA computes the
+    same function)."""
+    import torch.nn.functional as F
+
+    b, s, h, kv, hd, window = GRIFFIN_ATTN.values()
+    cases = [  # (label, dtype, tol, s)
+        ("griffin", torch.bfloat16, 2e-2, s),
+        ("window bites", torch.bfloat16, 2e-2, 4096),
+        ("griffin fp32", torch.float32, 2e-5, s),
+    ]
+    for label, dt, tol, ss in cases:
+        q = normal((b, ss, h, hd), dt, 11)
+        k = normal((b, ss, kv, hd), dt, 12)
+        v = normal((b, ss, kv, hd), dt, 13)
+        got = k1.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        want = k1.flash_attention_plain(q, k, v, window=window)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+        err = float((got.float() - want.float()).abs().max())
+        print(f"K1 hd256 {label}: {tuple(q.shape)} kv {tuple(k.shape)} {dt} "
+              f"window={window} max_abs_err={err:.3e} (atol=rtol={tol})")
+        if label != "griffin":
+            continue
+        ms = timed("K1 hd256 kernel", lambda: k1.flash_attention(
+            q, k, v, window=window), 50, "flash_fwd_kernel")
+        plain_ms = timed("K1 hd256 plain", lambda: k1.flash_attention_plain(
+            q, k, v, window=window), 10)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = timed("K1 hd256 sdpa", lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 50)
+        n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+        n_flops = 4.0 * hd * b * h * attention_pairs(s, True, window)
+        b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+        print(f"K1 hd256 time {ms:.4f} ms; plain {plain_ms:.4f} ms; sdpa "
+              f"{lib_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}: "
+              f"{n_bytes / 1e6:.2f} MB, {n_flops / 1e9:.3f} GFLOP)")
+
+
+def ssd_inputs(b, s, h, g, n, p, dtype, seed):
+    """x, dt, A, B, C, state with the distributions of tests/test_kernels.py."""
+    x = normal((b, s, h, p), dtype, seed) * 0.5
+    dt = torch.nn.functional.softplus(normal((b, s, h), torch.float32, seed + 1))
+    a = -torch.exp(torch.linspace(0.0, 1.0, h, device="cuda"))
+    bm = normal((b, s, g, n), dtype, seed + 2) * 0.3
+    cm = normal((b, s, g, n), dtype, seed + 3) * 0.3
+    return x, dt, a, bm, cm, normal((b, h, n, p), torch.float32, seed + 4)
+
+
+def ssd_flops(b, s, h, g, n, p, chunk) -> tuple[float, float]:
+    """(products this input needs: lower triangles, C B^T once per group;
+    the TPU kernel's count: full Q x Q tiles, C B^T per head)."""
+    need = tpu = 0.0
+    for c0 in range(0, s, chunk):
+        q = min(chunk, s - c0)
+        tri = q * (q + 1) / 2
+        need += 2 * b * (g * tri * n + h * (tri * p + 2 * q * n * p))
+        tpu += 2 * b * h * (q * q * n + q * q * p + 2 * q * n * p)
+    return need, tpu
+
+
+def phase_ssd_kernel(k4) -> dict:
+    """Phase 2, K4: the SSD chunk scan against its plain version; time, bound."""
+    P = SSD_PATH
+    cases = [  # (label, dtype, tol, b, s, h, g, n, p, chunk, with_state)
+        ("path", torch.bfloat16, 2e-2, *P.values(), False),
+        ("path fp32", torch.float32, 1e-4, *P.values(), False),
+        ("ragged + state_in", torch.bfloat16, 2e-2, 1, 300, 64, 1, 128, 64, 256, True),
+        ("G=2, H=4", torch.float32, 1e-4, 2, 200, 4, 2, 32, 64, 64, True),
+    ]
+    row = None
+    for label, dt, tol, b, s, h, g, n, p, chunk, with_state in cases:
+        x, dtv, a, bm, cm, st = ssd_inputs(b, s, h, g, n, p, dt, 21)
+        st = st if with_state else None
+        y, state = k4.ssd(x, dtv, a, bm, cm, chunk=chunk, state_in=st,
+                          return_state=True)
+        torch.cuda.synchronize()
+        wy, wst = k4.ssd_plain(x, dtv, a, bm, cm, chunk=chunk, state_in=st,
+                               return_state=True)
+        torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(state, wst, atol=1e-4, rtol=1e-4)
+        err = float((y.float() - wy.float()).abs().max())
+        serr = float((state - wst).abs().max())
+        print(f"K4 {label}: x {tuple(x.shape)} B/C {tuple(bm.shape)} {dt} chunk "
+              f"{chunk} state_in={with_state} max_abs_err y {err:.3e} (max |y| "
+              f"{float(wy.float().abs().max()):.3e}; atol=rtol={tol}), state "
+              f"{serr:.3e} (max |state| {float(wst.abs().max()):.3e}; "
+              f"atol=rtol=1e-4)")
+        if label != "path":
+            continue
+
+        def kernel():
+            return k4.ssd(x, dtv, a, bm, cm, chunk=chunk, return_state=True)
+
+        ms = timed("K4 kernel", kernel, 50, "ssd_")
+        plain_ms = timed("K4 plain", lambda: k4.ssd_plain(
+            x, dtv, a, bm, cm, chunk=chunk, return_state=True), 10)
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in (x, dtv, a, bm, cm, y, state))
+        need, tpu = ssd_flops(b, s, h, g, n, p, chunk)
+        b_ms, b_by = bound(n_bytes, need, BF16_FLOPS)
+        row = dict(name="ssd", route="cuda",
+                   source="src/repro_torch/kernels/csrc/ssd_chunk.cu",
+                   replaces="src/repro/kernels/ssd_chunk.py:69",
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None)
+        print(f"K4 time {ms:.4f} ms; plain {plain_ms:.4f} ms; no library call "
+              f"computes the chunked SSD; bound {b_ms:.5f} ms ({b_by}: "
+              f"{n_bytes / 1e6:.2f} MB; {need / 1e9:.3f} GFLOP this input needs "
+              f"at the bf16 tensor peak, {tpu / 1e9:.3f} GFLOP as the TPU kernel "
+              f"counts)")
+    return row
+
+
+def phase_rglru_kernel(k5) -> dict:
+    """Phase 2, K5: the RG-LRU scan against its plain version; time, bound."""
+    b, s, w = LRU_PATH
+    cases = [  # (label, dtype, tol, shape, with_h0)
+        ("path", torch.float32, 1e-5, (b, s, w), True),
+        ("no h0", torch.float32, 1e-5, (b, s, w), False),
+        ("ragged W", torch.float32, 1e-5, (2, 200, 4000), True),
+        ("bf16", torch.bfloat16, 2e-2, (b, s, w), False),
+    ]
+    row = None
+    for label, dt, tol, shape, with_h0 in cases:
+        a = torch.sigmoid(normal(shape, torch.float32, 31)).to(dt)
+        x = normal(shape, dt, 32)
+        h0 = normal((shape[0], shape[2]), torch.float32, 33) if with_h0 else None
+        got = k5.rglru(a, x, h0)
+        torch.cuda.synchronize()
+        want = k5.rglru_plain(a, x, h0)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+        err = float((got.float() - want.float()).abs().max())
+        print(f"K5 {label}: {shape} {dt} h0={with_h0} max_abs_err={err:.3e} "
+              f"(atol=rtol={tol})")
+        if label != "path":
+            continue
+        ms = timed("K5 kernel", lambda: k5.rglru(a, x, h0), 100, "rglru_")
+        plain_ms = timed("K5 plain", lambda: k5.rglru_plain(a, x, h0), 2)
+        n_bytes = sum(t.numel() * t.element_size() for t in (a, x, h0, got))
+        b_ms, b_by = bound(n_bytes, 2.0 * a.numel(), FP32_FLOPS)
+        row = dict(name="rglru", route="cuda",
+                   source="src/repro_torch/kernels/csrc/rglru.cu",
+                   replaces="src/repro/kernels/rglru.py:41",
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None)
+        print(f"K5 time {ms:.4f} ms; plain {plain_ms:.4f} ms; no library call "
+              f"computes a linear recurrence; bound {b_ms:.5f} ms ({b_by}: "
+              f"{n_bytes / 1e6:.2f} MB)")
+    return row
+
+
 def breakdown(label: str, fn) -> dict:
     """One traced call of ``fn``: device time by kernel family, idle share."""
     from torch.profiler import ProfilerActivity, profile
@@ -356,71 +542,6 @@ def phase_decode_kernel(k3) -> dict:
     return row
 
 
-def phase_generate(bundle, params, counters) -> dict:
-    """Phase 4: WaveBatcher on the full-width model; launches, times."""
-    import dataclasses
-
-    from repro_torch.serving import Request, WaveBatcher
-
-    step_ms = []
-
-    def timed_decode(p, cache, tokens, pos):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = bundle.decode(p, cache, tokens, pos)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    wb = WaveBatcher(dataclasses.replace(bundle, decode=timed_decode), params,
-                     max_batch=GEN["max_batch"], max_len=GEN["max_len"])
-    rng = np.random.default_rng(5)
-    lo, hi = GEN["prompt"]
-    reqs = [Request(rid=i, prompt=rng.integers(0, bundle.cfg.vocab,
-                                               int(rng.integers(lo, hi + 1)),
-                                               dtype=np.int32),
-                    max_new_tokens=GEN["new_tokens"])
-            for i in range(GEN["requests"])]
-    for r in reqs:
-        wb.submit(r)
-    reset(counters)
-    t0 = time.perf_counter()
-    stats = wb.run()
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    counts = {fn.__name__: fn.launches for fn in counters}
-    n_layers = bundle.cfg.n_layers
-    out_tokens = sum(len(r.output) for r in reqs)
-    print(f"generate: {stats.waves} waves, {stats.prefill_tokens} prefill "
-          f"tokens, {stats.decode_steps} decode steps, {out_tokens} new tokens "
-          f"in {gen_s:.3f} s ({out_tokens / gen_s:.1f} tokens/s end to end); "
-          f"launches {counts}")
-    if not (all(r.done for r in reqs) and stats.completed == len(reqs)
-            and stats.waves == 2):
-        raise AssertionError(f"generation did not finish as planned: {stats}")
-    if counts["decode_attention"] != n_layers * stats.decode_steps:
-        raise AssertionError(f"K3 launches {counts} != {n_layers} x "
-                             f"{stats.decode_steps} decode steps")
-    if counts["flash_attention"] != n_layers * stats.waves:
-        raise AssertionError(f"K1 launches {counts} != {n_layers} x {stats.waves}")
-    if not all(len(r.output) == GEN["new_tokens"] and
-               all(0 <= t < bundle.cfg.vocab for t in r.output) for r in reqs):
-        raise AssertionError("generated tokens out of range or short")
-    med = float(np.median(step_ms))
-    b = GEN["max_batch"]
-    print(f"decode step (B={b}, full width): median {med:.3f} ms, min "
-          f"{min(step_ms):.3f}, max {max(step_ms):.3f} over {len(step_ms)}; "
-          f"{b * 1e3 / med:.1f} tokens/s in decode")
-    # one decode step traced, on a fresh wave's cache
-    toks = torch.as_tensor(rng.integers(0, bundle.cfg.vocab, (b, 512),
-                                        dtype=np.int32), device="cuda")
-    logits, cache = bundle.prefill(params, {"tokens": toks}, max_len=GEN["max_len"])
-    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-    bundle.decode(params, cache, nxt, 512)
-    breakdown("decode step", lambda: bundle.decode(params, cache, nxt, 513))
-    return counts
-
-
 def conditioned(params, cfg):
     """The served weights with wq and wk rescaled by sqrt(H/d) and
     sqrt(KV/d): unit-variance attention scores.
@@ -439,40 +560,6 @@ def conditioned(params, cfg):
     attn["wq"] = attn["wq"] * (cfg.n_heads / cfg.d_model) ** 0.5
     attn["wk"] = attn["wk"] * (cfg.n_kv / cfg.d_model) ** 0.5
     return {**params, "blocks": {**params["blocks"], "attn": attn}}
-
-
-def phase_prefill_decode(bundle, params, counters) -> None:
-    """Phase 5: prefill + one decode step == the full prefill's logits."""
-    B, S = 2, 129
-    toks = torch.as_tensor(np.random.default_rng(6).integers(
-        0, bundle.cfg.vocab, (B, S), dtype=np.int32), device="cuda")
-
-    def rel_err(p) -> float:
-        logits_full, _ = bundle.prefill(p, {"tokens": toks})
-        _, cache = bundle.prefill(p, {"tokens": toks[:, :-1]}, max_len=S)
-        logits_dec, _ = bundle.decode(p, cache, toks[:, -1], S - 1)
-        a, d = logits_full.float(), logits_dec.float()
-        if not bool(torch.isfinite(d).all()):
-            raise AssertionError("prefill+decode: non-finite logits")
-        return float((a - d).abs().max() / (a.abs().max() + 1e-9))
-
-    served = rel_err(params)
-    well = conditioned(params, bundle.cfg)
-    reset(counters)
-    rel = rel_err(well)
-    torch.cuda.synchronize()
-    counts = {fn.__name__: fn.launches for fn in counters}
-    del well
-    print(f"prefill+decode vs full forward (B={B}, S={S}, bf16, full width "
-          f"and depth): rel {rel:.3e} on unit-variance scores (held < 2e-2); "
-          f"{served:.3e} on the served weights (chaotic, not held); "
-          f"launches {counts}")
-    n = bundle.cfg.n_layers
-    if counts != {"flash_attention": 2 * n, "quantize_int8": 0,
-                  "dequantize_int8": 0, "decode_attention": n}:
-        raise AssertionError(f"prefill+decode launches {counts}")
-    if not rel < 2e-2:
-        raise AssertionError(f"prefill+decode != full forward: rel {rel}")
 
 
 def phase_profile(bundle, params, counters) -> None:
@@ -506,8 +593,248 @@ def phase_profile(bundle, params, counters) -> None:
     n = bundle.cfg.n_layers
     if counts != {"flash_attention": n * (1 + warmup + reps),
                   "quantize_int8": cuts, "dequantize_int8": cuts,
-                  "decode_attention": 0}:
+                  "decode_attention": 0, "ssd": 0, "rglru": 0}:
         raise AssertionError(f"profile launches {counts}")
+
+
+def counts_of(counters) -> dict:
+    return {fn.__name__: fn.launches for fn in counters}
+
+
+def request_latency(engine, label: str) -> None:
+    """Median of 5 untraced 512-token requests through the active split,
+    then one traced request."""
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, engine.bundle.cfg.vocab, (1, 512), dtype=np.int32), device="cuda")
+    req = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.infer_logits(toks)
+        torch.cuda.synchronize()
+        req.append((time.perf_counter() - t0) * 1e3)
+    print(f"{label} request prefill (512 tokens, split "
+          f"{engine.config.boundaries}): {[round(r, 3) for r in req]} ms; "
+          f"median {float(np.median(req)):.3f} ms")
+    breakdown(f"{label} request", lambda: engine.infer_logits(toks))
+
+
+def phase_family_serve(serve, arch: str, counters, per_request: dict):
+    """Serve 8 requests of 512 tokens through full-width bf16 ``arch`` with
+    int8 boundaries; ``per_request`` the launches one request makes."""
+    reset(counters)
+    t0 = time.perf_counter()
+    out, engine = serve.run(serve.parse_args(["--arch", arch] + SERVE_ARGV))
+    torch.cuda.synchronize()
+    counts = counts_of(counters)
+    print(f"serve {arch}: {out} in {time.perf_counter() - t0:.1f} s (init "
+          f"included); launches {counts}")
+    transfers = engine.transfer_stats().transfers
+    want = {"decode_attention": 0, "quantize_int8": transfers,
+            "dequantize_int8": transfers,
+            **{k: 8 * n for k, n in per_request.items()}}
+    if transfers == 0 or any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"{arch} serve launches {counts}, want {want}")
+    request_latency(engine, arch)
+    return counts, engine
+
+
+def phase_family_generate(bundle, params, counters, per_wave: dict,
+                          per_step: dict | None = None) -> dict:
+    """WaveBatcher on a full-width model: its prefill launches ``per_wave``
+    once a wave and each decode step exactly ``per_step`` (Llama: K3 in
+    every layer; the recurrent families none, their decode being plain
+    torch state updates as in the reference)."""
+    from repro_torch.serving import Request, WaveBatcher
+
+    gen = FAMILY_GEN[bundle.arch]
+    per_step = per_step or {}
+    step_ms, step_launches = [], []
+
+    def timed_decode(p, cache, tokens, pos):
+        before = sum(counts_of(counters).values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = bundle.decode(p, cache, tokens, pos)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_launches.append(sum(counts_of(counters).values()) - before)
+        return out
+
+    wb = WaveBatcher(dataclasses.replace(bundle, decode=timed_decode), params,
+                     max_batch=gen["max_batch"], max_len=gen["max_len"])
+    rng = np.random.default_rng(5)
+    lo, hi = gen["prompt"]
+    reqs = [Request(rid=i, prompt=rng.integers(0, bundle.cfg.vocab,
+                                               int(rng.integers(lo, hi + 1)),
+                                               dtype=np.int32),
+                    max_new_tokens=gen["new_tokens"])
+            for i in range(gen["requests"])]
+    for r in reqs:
+        wb.submit(r)
+    reset(counters)
+    t0 = time.perf_counter()
+    stats = wb.run()
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = counts_of(counters)
+    out_tokens = sum(len(r.output) for r in reqs)
+    print(f"generate {bundle.arch}: {stats.waves} waves, {stats.prefill_tokens} "
+          f"prefill tokens, {stats.decode_steps} decode steps, {out_tokens} new "
+          f"tokens in {gen_s:.3f} s ({out_tokens / gen_s:.1f} tokens/s end to "
+          f"end); launches {counts}")
+    if not (all(r.done for r in reqs) and stats.completed == len(reqs)
+            and stats.waves == 2):
+        raise AssertionError(f"generation did not finish as planned: {stats}")
+    want = {name: per_wave.get(name, 0) * stats.waves
+            + per_step.get(name, 0) * stats.decode_steps for name in counts}
+    if counts != want or set(step_launches) != {sum(per_step.values())}:
+        raise AssertionError(f"{bundle.arch} generation launches {counts}, want "
+                             f"{want}; launches per decode step "
+                             f"{sorted(set(step_launches))}")
+    if not all(len(r.output) == gen["new_tokens"] and
+               all(0 <= t < bundle.cfg.vocab for t in r.output) for r in reqs):
+        raise AssertionError("generated tokens out of range or short")
+    med = float(np.median(step_ms))
+    b = gen["max_batch"]
+    print(f"{bundle.arch} decode step (B={b}, full width): median {med:.3f} ms, "
+          f"min {min(step_ms):.3f}, max {max(step_ms):.3f} over {len(step_ms)}; "
+          f"{b * 1e3 / med:.1f} tokens/s in decode")
+    toks = torch.as_tensor(rng.integers(0, bundle.cfg.vocab, (b, 512),
+                                        dtype=np.int32), device="cuda")
+    logits, cache = bundle.prefill(params, {"tokens": toks}, max_len=gen["max_len"])
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    bundle.decode(params, cache, nxt, 512)
+    breakdown(f"{bundle.arch} decode step",
+              lambda: bundle.decode(params, cache, nxt, 513))
+    return counts
+
+
+def conditioned_griffin(params, cfg):
+    """Griffin's served weights with every attention layer's wq and wk
+    rescaled by sqrt(H/d) and sqrt(1/d): unit-variance scores, for the
+    reason ``conditioned`` gives (the reference's ``dense_init`` takes the
+    fan-in of wq [d,H,hd] and wk [d,1,hd] from H and 1).  Shares every
+    other tensor with ``params``."""
+    def scaled(t):
+        return {**t, "wq": t["wq"] * (cfg.n_heads / cfg.d_model) ** 0.5,
+                "wk": t["wk"] * (1.0 / cfg.d_model) ** 0.5}
+
+    groups = {k: scaled(v) if cfg.pattern[int(k[1:])] == "attn" and k[0] == "t"
+              else v for k, v in params["groups"].items()}
+    tail = [{"t": scaled(t["t"]) if kind == "attn" else t["t"], "m": t["m"]}
+            for t, kind in zip(params["tail"], cfg.tail_kinds())]
+    return {**params, "groups": groups, "tail": tail}
+
+
+def prefill_decode_rel(bundle, params, toks) -> float:
+    """rel max |logits| gap: full prefill vs prefill of S-1 + one decode."""
+    s = toks.shape[1]
+    logits_full, _ = bundle.prefill(params, {"tokens": toks})
+    _, cache = bundle.prefill(params, {"tokens": toks[:, :-1]}, max_len=s)
+    logits_dec, _ = bundle.decode(params, cache, toks[:, -1], s - 1)
+    a, d = logits_full.float(), logits_dec.float()
+    if not bool(torch.isfinite(d).all()):
+        raise AssertionError("prefill+decode: non-finite logits")
+    return float((a - d).abs().max() / (a.abs().max() + 1e-9))
+
+
+def phase_family_prefill_decode(bundle, params, counters, b: int, s: int,
+                                per_prefill: dict, tol: float,
+                                conditioner=None, per_decode=None) -> None:
+    """prefill + one decode step == the full prefill's logits, rel < ``tol``;
+    with a ``conditioner`` the check holds on its weights, and the served
+    weights' figure is printed beside it."""
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, bundle.cfg.vocab, (b, s), dtype=np.int32), device="cuda")
+    served = prefill_decode_rel(bundle, params, toks) if conditioner else None
+    held = conditioner(params, bundle.cfg) if conditioner else params
+    reset(counters)
+    rel = prefill_decode_rel(bundle, held, toks)
+    torch.cuda.synchronize()
+    counts = counts_of(counters)
+    del held
+    print(f"{bundle.arch} prefill+decode vs full forward (B={b}, S={s}, bf16, "
+          f"full width and depth): rel {rel:.3e} (held < {tol:g}"
+          + (f", unit-variance scores; served weights {served:.3e}, not held"
+             if conditioner else "") + f"); launches {counts}")
+    per_decode = per_decode or {}
+    want = {name: 2 * per_prefill.get(name, 0) + per_decode.get(name, 0)
+            for name in counts}
+    if counts != want:
+        raise AssertionError(f"prefill+decode launches {counts}, want {want}")
+    if not rel < tol:
+        raise AssertionError(f"{bundle.arch} prefill+decode != full forward: {rel}")
+
+
+@contextlib.contextmanager
+def plain_ssd():
+    """K4's plain version in place of the kernel on the model path: the
+    control that separates the kernel's share of a gap from bf16 rounding."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_chunk import ssd_plain
+
+    kernel = ops.ssd
+    ops.ssd = ssd_plain
+    try:
+        yield
+    finally:
+        ops.ssd = kernel
+
+
+def mamba2_gap_controls(bundle, params, b: int, s: int) -> None:
+    """Where Mamba-2's prefill+decode gap comes from (printed, not held):
+    the same check at cut depths, and at full depth with K4's plain version
+    in the model."""
+    from repro_torch.models.api import bundle_for
+    from repro_torch.models.common import tree_map
+
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, bundle.cfg.vocab, (b, s), dtype=np.int32), device="cuda")
+    depth = {}
+    for n in (1, 12, 24):
+        cut = bundle_for(bundle.arch, dataclasses.replace(bundle.cfg, n_layers=n))
+        p = {**params, "blocks": tree_map(lambda a, n=n: a[:n], params["blocks"])}
+        depth[n] = prefill_decode_rel(cut, p, toks)
+    with plain_ssd():
+        plain = prefill_decode_rel(bundle, params, toks)
+    print(f"{bundle.arch} prefill+decode gap by depth (same input): "
+          + ", ".join(f"{n} layers {r:.3e}" for n, r in depth.items())
+          + f"; 48 layers with K4's plain version in the model {plain:.3e}")
+
+
+def phase_reduced(arch: str, counters, per_forward: dict, conditioner=None) -> None:
+    """Phase 8: the reduced model on the card against the same model on the
+    CPU (the plain versions), through a SegmentChain with int8 boundaries."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import ActivationTransport, SegmentChain
+
+    small = get_bundle(arch, reduced=True)
+    cpu_params = small.init(torch.Generator().manual_seed(0), "cpu", torch.float32)
+    if conditioner is not None:
+        cpu_params = conditioner(cpu_params, small.cfg)
+    gpu_params = tree_map(lambda a: a.to("cuda"), cpu_params)
+    toks = np.random.default_rng(2).integers(0, small.cfg.vocab, (2, 24),
+                                             dtype=np.int32)
+    bounds = (0, 2, 3, len(small.model_graph()))
+    ref = SegmentChain(small, cpu_params, bounds,
+                       ActivationTransport(compress=True))(torch.as_tensor(toks))
+    reset(counters)
+    got = SegmentChain(small, gpu_params, bounds, ActivationTransport(
+        compress=True))(torch.as_tensor(toks, device="cuda")).cpu()
+    counts = counts_of(counters)
+    want = {name: per_forward.get(name, 0) for name in counts}
+    want["quantize_int8"] = want["dequantize_int8"] = 2
+    if counts != want:
+        raise AssertionError(f"reduced {arch} on the card: launches {counts}, "
+                             f"want {want}")
+    scale = float(ref.abs().max())
+    d = (got - ref).abs()
+    print(f"reduced {arch}, card vs CPU: max |d| {float(d.max()):.4f}, mean "
+          f"{float(d.mean()):.5f}, logit scale {scale:.3f}; launches {counts}")
+    if not (float(d.max()) <= 0.10 * scale and float(d.mean()) <= 0.005 * scale):
+        raise AssertionError(f"card and CPU disagree on the reduced {arch}")
 
 
 def reset(counters) -> None:
@@ -521,7 +848,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    from repro_torch.configs import get_bundle
     from repro_torch.core import (AdaptiveOrchestrator, CapacityProfiler,
                                   InProcessAgent, ReconfigurationBroadcast,
                                   SplitRevision, Thresholds, Workload)
@@ -530,13 +856,13 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as k3
     from repro_torch.kernels import flash_attention as k1
     from repro_torch.kernels import int8_transfer as k2
+    from repro_torch.kernels import rglru as k5
+    from repro_torch.kernels import ssd_chunk as k4
     from repro_torch.launch import serve
-    from repro_torch.models.transformer import tree_map
-    from repro_torch.serving import (ActivationTransport, SegmentChain,
-                                     SplitInferenceEngine)
+    from repro_torch.serving import SplitInferenceEngine
 
     counters = (k1.flash_attention, k2.quantize_int8, k2.dequantize_int8,
-                k3.decode_attention)
+                k3.decode_attention, k4.ssd, k5.rglru)
     t_start = time.perf_counter()
     # the float32 plain versions are references: full float32 products
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -554,55 +880,35 @@ def main() -> int:
     res = build.build()
     print(f"kernel build: {res.seconds:.1f} s -> {res.path.relative_to(ROOT)}")
     for line in res.log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(key in line for key in ("Compiling entry", "registers", "spill")) \
+                or line.startswith("=="):
             print(f"  {line.strip()}")
 
     # ---- phase 2: kernels against their plain versions ----
     rows = phase_kernels(k1, k2)
     rows.append(phase_decode_kernel(k3))
+    rows.append(phase_ssd_kernel(k4))
+    rows.append(phase_rglru_kernel(k5))
+    phase_flash_hd256(k1)
 
     # ---- phase 3: serve (the main path) ----
-    reset(counters)
-    t0 = time.perf_counter()
-    out, engine = serve.run(serve.parse_args(SERVE_ARGV))
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    serve_counts = {fn.__name__: fn.launches for fn in counters}
-    print(f"serve {SERVE_ARGV}: {out} in {serve_s:.1f} s (init included)")
-    print(f"serve launches: {serve_counts}")
-    n_layers = engine.bundle.cfg.n_layers
-    transfers = engine.transfer_stats().transfers
-    if serve_counts["flash_attention"] != n_layers * 8 or \
-            serve_counts["decode_attention"] != 0:
-        raise AssertionError(f"launches {serve_counts}: want {n_layers} x 8 "
-                             f"flash, no decode")
-    if not (serve_counts["quantize_int8"] == serve_counts["dequantize_int8"]
-            == transfers > 0):
-        raise AssertionError(f"int8 launches {serve_counts} != {transfers} transfers")
-    # request latency at the served shape, after the counted run
-    toks = torch.as_tensor(np.random.default_rng(1).integers(
-        0, engine.bundle.cfg.vocab, (1, 512), dtype=np.int32), device="cuda")
-    req = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        engine.infer_logits(toks)
-        torch.cuda.synchronize()
-        req.append((time.perf_counter() - t0) * 1e3)
-    print(f"request prefill (512 tokens, split {engine.config.boundaries}): "
-          f"{[round(r, 3) for r in req]} ms; median {float(np.median(req)):.3f} ms")
-    breakdown("request", lambda: engine.infer_logits(toks))
+    llama = {"flash_attention": 32}
+    serve_counts, engine = phase_family_serve(serve, "llama3-8b", counters,
+                                              {**llama, "ssd": 0, "rglru": 0})
     # the later phases run on the served model's weights
     bundle, params = engine.bundle, engine.params
     del engine
     torch.cuda.empty_cache()
 
     # ---- phase 4: generation (WaveBatcher, K1 prefill + K3 decode) ----
-    gen_counts = phase_generate(bundle, params, counters)
+    gen_counts = phase_family_generate(bundle, params, counters, llama,
+                                       {"decode_attention": 32})
     torch.cuda.empty_cache()
 
     # ---- phase 5: prefill + decode == full forward ----
-    phase_prefill_decode(bundle, params, counters)
+    phase_family_prefill_decode(bundle, params, counters, 2, 129, llama, 2e-2,
+                                conditioner=conditioned,
+                                per_decode={"decode_attention": 32})
 
     # ---- phase 6: segment profiler ----
     phase_profile(bundle, params, counters)
@@ -644,39 +950,57 @@ def main() -> int:
         raise AssertionError(f"split != monolith: {err}")
     if qs_counts != {"flash_attention": 2 * bundle.cfg.n_layers,
                      "quantize_int8": 0, "dequantize_int8": 0,
-                     "decode_attention": 0}:
+                     "decode_attention": 0, "ssd": 0, "rglru": 0}:
         raise AssertionError(f"quickstart launches {qs_counts}")
     del qs_engine, params, split_logits, mono_logits
     torch.cuda.empty_cache()
 
-    # ---- phase 8: card vs CPU on the reduced model (small input) ----
-    small = get_bundle("llama3-8b", reduced=True)
-    cpu_params = small.init(torch.Generator().manual_seed(0), "cpu", torch.float32)
-    gpu_params = tree_map(lambda a: a.to("cuda"), cpu_params)
-    toks = np.random.default_rng(2).integers(0, small.cfg.vocab, (2, 24),
-                                             dtype=np.int32)
-    bounds = (0, 2, 3, len(small.model_graph()))
-    ref = SegmentChain(small, cpu_params, bounds,
-                       ActivationTransport(compress=True))(torch.as_tensor(toks))
-    reset(counters)
-    got = SegmentChain(small, gpu_params, bounds, ActivationTransport(
-        compress=True))(torch.as_tensor(toks, device="cuda")).cpu()
-    small_counts = {fn.__name__: fn.launches for fn in counters}
-    if small_counts != {"flash_attention": small.cfg.n_layers,
-                        "quantize_int8": 2, "dequantize_int8": 2,
-                        "decode_attention": 0}:
-        raise AssertionError(f"reduced model on the card: launches {small_counts}")
-    scale = float(ref.abs().max())
-    d = (got - ref).abs()
-    print(f"reduced model, card vs CPU: max |d| {float(d.max()):.4f}, mean "
-          f"{float(d.mean()):.5f}, logit scale {scale:.3f}")
-    if not (float(d.max()) <= 0.10 * scale and float(d.mean()) <= 0.005 * scale):
-        raise AssertionError("card and CPU disagree on the reduced model")
+    # ---- Mamba-2 at full width: serve (K4), generate, prefill+decode ----
+    m_counts, engine = phase_family_serve(serve, "mamba2-1.3b", counters,
+                                          {"ssd": 48, "flash_attention": 0,
+                                           "rglru": 0})
+    bundle, params = engine.bundle, engine.params
+    del engine
+    torch.cuda.empty_cache()
+    phase_family_generate(bundle, params, counters, {"ssd": bundle.cfg.n_layers})
+    torch.cuda.empty_cache()
+    # bf16 rounding grows over depth to ~5e-2 at 48 layers with the kernel
+    # and with its plain version alike (printed below), so the gate is 1e-1
+    phase_family_prefill_decode(bundle, params, counters, 2, 513,
+                                {"ssd": bundle.cfg.n_layers}, 1e-1)
+    mamba2_gap_controls(bundle, params, 2, 513)
+    del bundle, params
+    torch.cuda.empty_cache()
+
+    # ---- Griffin at full width: serve (K5, K1 hd 256), generate, ring ----
+    g_counts, engine = phase_family_serve(serve, "recurrentgemma-9b", counters,
+                                          {"rglru": 26, "flash_attention": 12,
+                                           "ssd": 0})
+    bundle, params = engine.bundle, engine.params
+    del engine
+    torch.cuda.empty_cache()
+    per_wave = {"rglru": bundle.cfg.n_rec, "flash_attention": bundle.cfg.n_attn}
+    phase_family_generate(bundle, params, counters, per_wave)
+    torch.cuda.empty_cache()
+    # S = 2,561 > window 2,048: K1's window masks in the prefill, the ring wraps
+    phase_family_prefill_decode(bundle, params, counters, 1, 2561, per_wave,
+                                5e-2, conditioner=conditioned_griffin)
+    del bundle, params
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: card vs CPU on each family's reduced model ----
+    for arch, per_forward, cond in (
+            ("llama3-8b", {"flash_attention": 2}, None),
+            ("mamba2-1.3b", {"ssd": 2}, None),
+            ("recurrentgemma-9b", {"rglru": 4, "flash_attention": 1},
+             conditioned_griffin)):
+        phase_reduced(arch, counters, per_forward, cond)
 
     # ---- phase 9: result ----
+    launches_from = {"decode_attention": gen_counts, "ssd": m_counts,
+                     "rglru": g_counts}
     for row in rows:
-        row["launches"] = (gen_counts if row["name"] == "decode_attention"
-                           else serve_counts)[row["name"]]
+        row["launches"] = launches_from.get(row["name"], serve_counts)[row["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}")

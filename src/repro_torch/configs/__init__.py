@@ -3,7 +3,8 @@
 ``get(arch_id)`` returns the full production config; ``get_reduced`` returns
 the same family at smoke-test scale; ``get_bundle`` wraps either in the
 unified ModelBundle API.  The port carries the architectures whose family it
-runs so far: the paper's Llama3-8B.
+runs so far: the paper's Llama3-8B (transformer), mamba2-1.3b (Mamba-2,
+kernel K4) and recurrentgemma-9b (Griffin, kernels K5 and K1).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from typing import Any
 
 _MODULES = {
     "llama3-8b": "llama3_8b",
+    "mamba2-1.3b": "mamba2_1_3b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 ALL_ARCHS = tuple(_MODULES)

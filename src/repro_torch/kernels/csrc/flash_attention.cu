@@ -25,6 +25,10 @@
 // so row max and row sum are xor-shuffles over lane offsets 8, 4, 2, 1.
 // Q and K tiles are stored with a row stride of HD + 1 floats so that the 16
 // key columns of a half-warp fall in 16 different banks.
+//
+// Shared memory is 4 (64 (HD+1) + 64 (HD+1) + 64 HD + 64 * 65) bytes: 213,760
+// at HD = 256 (Griffin's local attention), under the 232,448 a Hopper block
+// may opt into, so the same tiling holds there with one block per SM.
 
 #include <stdint.h>
 
@@ -219,6 +223,7 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
     case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

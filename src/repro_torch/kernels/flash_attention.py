@@ -13,7 +13,8 @@ rate.  Bytes bound it on paper.  The kernel (``csrc/flash_attention.cu``)
 keeps the whole softmax state in registers and never writes the S x S score
 matrix, so it moves only those bytes; its products are float32 FMAs from
 shared memory, as the TPU kernel computes in float32, so in practice the
-CUDA cores' float32 rate bounds this first version, not memory.
+CUDA cores' float32 rate bounds this first version, not memory.  Griffin's
+local attention runs it at hd=256 (B=1, S=512, H=16, KV=1, window 2048).
 
 The wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches the kernel or raises.
@@ -29,7 +30,7 @@ __all__ = ["flash_attention", "flash_attention_plain"]
 
 NEG_INF = -2.0e38
 _DTYPES = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -79,8 +80,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, logit_cap=0.0,
     """Prefill attention: q [B,S,H,hd], k/v [B,S,KV,hd] -> [B,S,H,hd].
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
-    Hopper kernel (contiguous float32 or bfloat16, hd in 16/32/64/128) or
-    raise.  ``flash_attention.launches`` counts kernel launches.
+    Hopper kernel (contiguous float32 or bfloat16, hd in 16/32/64/128/256)
+    or raise.  ``flash_attention.launches`` counts kernel launches.
     """
     _check(q, k, v)
     if q.device.type == "cpu":

@@ -1,10 +1,12 @@
 """Model-layout entry points of the Hopper kernels.
 
-Model code calls these.  Unlike the reference's ``ops``, nothing is padded
-or transposed here: the kernels take the model layout ([B,S,H,hd] for
-prefill attention, q [B,H,hd] against [B,S,KV,hd] caches for decode
-attention, [N,D] for int8 rows) and mask ragged edges themselves.  Each
-entry point takes its kernel's plain version for CPU tensors only.
+Model code calls these.  Unlike the reference's ``ops``, nothing is padded,
+transposed or repeated here: the kernels take the model layout ([B,S,H,hd]
+for prefill attention, q [B,H,hd] against [B,S,KV,hd] caches for decode
+attention, x [B,S,H,P] with grouped B/C [B,S,G,N] for the SSD scan,
+[B,S,W] for the RG-LRU scan, [N,D] for int8 rows) and mask ragged edges
+themselves.  Each entry point takes its kernel's plain version for CPU
+tensors only.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention
 from .int8_transfer import dequantize_int8, quantize_int8
+from .rglru import rglru
+from .ssd_chunk import ssd
 
 __all__ = ["decode_attention", "flash_attention", "quantize_int8",
-           "dequantize_int8"]
+           "dequantize_int8", "rglru", "ssd"]

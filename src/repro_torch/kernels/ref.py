@@ -1,6 +1,6 @@
-"""Oracles in the TPU kernels' own layout ([B·H, S, hd] rows), as written in
-the reference's ``kernels/ref.py``; tests hold the kernels' plain versions
-against these as well as against the reference."""
+"""Oracles in the TPU kernels' own layout ([B·H, S, ·] rows, [B, S, W] for
+the RG-LRU), as written in the reference's ``kernels/ref.py``; tests hold the
+kernels' plain versions against these as well as against the reference."""
 
 from __future__ import annotations
 
@@ -59,6 +59,30 @@ def decode_attention_ref(q, k_cache, v_cache, cur_len, *, window=0,
     out = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(b, h, hd).to(q.dtype)
+
+
+def ssd_chunk_ref(x, dt, a, bm, cm):
+    """x: [BH,S,P], dt: [BH,S], a: [BH], bm/cm: [BH,S,N] — O(S²) SSD."""
+    dta = dt * a[:, None]                                  # [BH,S]
+    cums = torch.cumsum(dta, dim=1)
+    diff = cums[:, :, None] - cums[:, None, :]             # [BH,i,j]
+    s = x.shape[1]
+    tri = torch.tril(torch.ones((s, s), dtype=torch.bool, device=x.device))
+    L = torch.where(tri[None], torch.exp(diff), 0.0)
+    scores = torch.einsum("bin,bjn->bij", cm.float(), bm.float()) * L
+    xbar = x.float() * dt[..., None]
+    return torch.einsum("bij,bjp->bip", scores, xbar).to(x.dtype)
+
+
+def rglru_ref(a, x):
+    """Sequential recurrence h_t = a_t h_{t-1} + x_t. a/x: [B,S,W]."""
+    h = torch.zeros((a.shape[0], a.shape[2]), dtype=torch.float32,
+                    device=a.device)
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t].float() * h + x[:, t].float()
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(x.dtype)
 
 
 def quantize_int8_ref(x):

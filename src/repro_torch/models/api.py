@@ -2,7 +2,8 @@
 
 Downstream code (serving engine, orchestrator graph extraction) goes through
 this interface.  The port's bundle carries what serving needs: the config,
-a param initializer, prefill and decode over a KV cache, and the
+a param initializer, prefill and decode over the family's cache (KV cache,
+SSM state, or LRU state plus a ring of the attention window), and the
 computational graph the orchestrator partitions.
 """
 
@@ -12,8 +13,12 @@ from dataclasses import dataclass
 from functools import partial
 from typing import Any, Callable
 
+import numpy as np
+import torch
+
 from ..core.graph import GraphNode, ModelGraph
-from . import transformer, transformer_serve
+from . import griffin, mamba2, transformer, transformer_serve
+from .common import apply_norm, layer
 
 __all__ = ["ModelBundle", "bundle_for"]
 
@@ -69,7 +74,95 @@ def _transformer_bundle(arch: str, cfg: transformer.TransformerConfig) -> ModelB
     )
 
 
+def _mamba2_bundle(arch: str, cfg: mamba2.Mamba2Config) -> ModelBundle:
+    def prefill(params, batch, max_len=None):
+        """Last-position logits and the decode state {"ssm", "conv"}, conv in
+        bf16; the state's size does not depend on ``max_len``."""
+        del max_len
+        x = mamba2.embed_tokens(params, cfg, batch["tokens"])
+        b = x.shape[0]
+        cache = mamba2.init_cache(cfg, b, 0, device=x.device)
+        for i in range(cfg.n_layers):
+            x, (ssm, conv) = mamba2.block_forward(
+                x, layer(params["blocks"], i), cfg, return_state=True)
+            cache["ssm"][i] = ssm
+            cache["conv"][i] = conv
+        x = apply_norm(x[:, -1:], params["final_norm"], cfg.norm)
+        return mamba2.logits_fn(params, cfg, x)[:, 0], cache
+
+    def decode(params, cache, tokens, pos):
+        return mamba2.decode_step(params, cfg, cache, tokens, pos)
+
+    emb_b = 2.0 * cfg.vocab * cfg.d_model
+    return ModelBundle(
+        arch=arch, cfg=cfg, family="mamba2",
+        init=partial(mamba2.init_params, cfg),
+        prefill=prefill, decode=decode,
+        cache_spec=partial(mamba2.cache_spec, cfg),
+        model_graph=lambda: _graph_from_blocks(
+            arch, cfg.n_layers, cfg.d_model,
+            2.0 * cfg.params_per_block, 2.0 * cfg.params_per_block,
+            emb_b, 0.0 if cfg.tie_embeddings else emb_b,
+            2.0 * cfg.vocab * cfg.d_model),
+    )
+
+
+def _griffin_bundle(arch: str, cfg: griffin.GriffinConfig) -> ModelBundle:
+    def prefill(params, batch, max_len=None):
+        """Last-position logits and the decode cache: per recurrent layer the
+        LRU state and conv tail, per attention layer a ring of ``w =
+        min(window, max_len)`` slots holding the last min(S, w) post-RoPE
+        k/v at slot ``pos % w``, and ``slot_pos``; layers in global order,
+        which is the reference's group-major order."""
+        x = griffin.embed_tokens(params, cfg, batch["tokens"])
+        b, s, _ = x.shape
+        w = min(cfg.window, max_len or s)                # ring size
+        m = min(s, w)                                    # tail tokens kept
+        cache = griffin.init_cache(cfg, b, w, device=x.device)
+        tail_pos = torch.arange(s - m, s, device=x.device)
+        slots = tail_pos % w
+        cache["slot_pos"][:, slots] = tail_pos.to(torch.int32)
+        ri = ai = 0
+        for li in range(cfg.n_layers):
+            kind, tm, mp = griffin.layer_params(params, cfg, li)
+            if kind == "rec":
+                x, (lru, conv) = griffin.rec_forward(x, tm, cfg,
+                                                     return_state=True)
+                cache["lru"][ri] = lru
+                cache["conv"][ri] = conv
+                ri += 1
+            else:
+                x, (k, v) = griffin.attn_forward(x, tm, cfg, return_kv=True)
+                cache["k"][ai][:, slots] = k[:, s - m:].to(torch.bfloat16)
+                cache["v"][ai][:, slots] = v[:, s - m:].to(torch.bfloat16)
+                ai += 1
+            x = griffin.mlp_forward(x, mp, cfg)
+        x = apply_norm(x[:, -1:], params["final_norm"], cfg.norm)
+        return griffin.logits_fn(params, cfg, x)[:, 0], cache
+
+    def decode(params, cache, tokens, pos):
+        return griffin.decode_step(params, cfg, cache, tokens, pos)
+
+    emb_b = 2.0 * cfg.vocab * cfg.d_model
+    mean_block = float(np.mean([cfg.params_per_layer(k)
+                                for k in cfg.layer_kinds()]))
+    return ModelBundle(
+        arch=arch, cfg=cfg, family="griffin",
+        init=partial(griffin.init_params, cfg),
+        prefill=prefill, decode=decode,
+        cache_spec=partial(griffin.cache_spec, cfg),
+        model_graph=lambda: _graph_from_blocks(
+            arch, cfg.n_layers, cfg.d_model, 2.0 * mean_block, 2.0 * mean_block,
+            emb_b, 0.0 if cfg.tie_embeddings else emb_b,
+            2.0 * cfg.vocab * cfg.d_model),
+    )
+
+
 def bundle_for(arch: str, cfg: Any) -> ModelBundle:
     if isinstance(cfg, transformer.TransformerConfig):
         return _transformer_bundle(arch, cfg)
+    if isinstance(cfg, mamba2.Mamba2Config):
+        return _mamba2_bundle(arch, cfg)
+    if isinstance(cfg, griffin.GriffinConfig):
+        return _griffin_bundle(arch, cfg)
     raise TypeError(f"config type {type(cfg).__name__} is not ported yet")

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -65,6 +65,23 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
+def causal_conv1d(u: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                  prev: torch.Tensor | None = None) -> torch.Tensor:
+    """Causal depthwise conv: u [B,S,C], w [K,C], bias [C]; ``prev``
+    [B,K-1,C] is the history before u (zeros when None).  The K taps are
+    added in order in u's dtype, as the reference's Mamba-2 and Griffin do."""
+    k = w.shape[0]
+    if prev is None:
+        up = F.pad(u, (0, 0, k - 1, 0))
+    else:
+        up = torch.cat([prev.to(u.dtype), u], dim=1)
+    s = u.shape[1]
+    out = up[:, 0:s, :] * w[0][None, None, :]
+    for i in range(1, k):
+        out = out + up[:, i:i + s, :] * w[i][None, None, :]
+    return out + bias[None, None, :]
+
+
 # --------------------------------------------------------------------------- #
 # rotary embeddings
 # --------------------------------------------------------------------------- #
@@ -111,3 +128,43 @@ def embed_init(gen: torch.Generator, shape, device,
                dtype=torch.float32) -> torch.Tensor:
     return (torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=device) * 0.02).to(dtype)
+
+
+# --------------------------------------------------------------------------- #
+# parameter trees
+# --------------------------------------------------------------------------- #
+def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
+    """Apply ``fn`` to every tensor of a nested dict/list param tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def layer(blocks: Params, i: int) -> Params:
+    """The i-th layer of a stacked block tree (views, no copies)."""
+    return tree_map(lambda a: a[i], blocks)
+
+
+def _tree_set(dst: Any, i: int, src: Any) -> None:
+    """dst[...][i] = src[...] for every leaf (fills one layer of a stack)."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _tree_set(dst[k], i, src[k])
+    else:
+        dst[i] = src
+
+
+def stack_layers(n: int, make: Callable[[], Params]) -> Params:
+    """``n`` layers from ``make()``, stacked on a new leading axis.
+
+    Each layer is drawn on its own and written into the stacked tensors, so
+    a float32 draw never holds more than one layer's tensor at a time.
+    """
+    first = make()
+    stacked = tree_map(lambda a: a.new_empty((n, *a.shape)), first)
+    _tree_set(stacked, 0, first)
+    for i in range(1, n):
+        _tree_set(stacked, i, make())
+    return stacked

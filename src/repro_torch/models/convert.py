@@ -3,7 +3,8 @@
 The reference's param tree, with its leaves as numpy arrays (the caller
 makes them with ``jax.tree_util.tree_map(np.asarray, params)``), has the
 port's structure and layouts already: nested dicts, blocks stacked on a
-leading L axis, ``wq`` [d,H,hd] and so on.  Conversion is leaf by leaf.
+leading L axis (Griffin: ``groups`` stacked per pattern position and a
+``tail`` list), ``wq`` [d,H,hd] and so on.  Conversion is leaf by leaf.
 """
 
 from __future__ import annotations
@@ -19,15 +20,17 @@ from .transformer import TransformerConfig, check_supported
 __all__ = ["params_from_jax"]
 
 
-def params_from_jax(np_tree: Any, cfg: TransformerConfig,
+def params_from_jax(np_tree: Any, cfg: Any,
                     device: str | torch.device = "cuda",
                     dtype=torch.float32) -> Any:
-    """Numpy param tree -> the port's param tree on ``device``.
+    """Numpy param tree of any ported family -> the port's tree on ``device``.
 
     Floating leaves (including bfloat16 ones) become ``dtype``; integer
-    leaves keep their type.
+    leaves keep their type; lists stay lists.  Transformer configs are
+    checked for features not ported yet.
     """
-    check_supported(cfg)
+    if isinstance(cfg, TransformerConfig):
+        check_supported(cfg)
     dev = resolve_device(device)
 
     def conv(x):

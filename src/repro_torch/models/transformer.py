@@ -15,7 +15,7 @@ raise ``NotImplementedError`` until their slice.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any
 
 import numpy as np
 import torch
@@ -29,8 +29,10 @@ from .common import (
     apply_rope,
     dense_init,
     embed_init,
+    layer,
     norm_params,
     softcap,
+    stack_layers,
 )
 
 # --------------------------------------------------------------------------- #
@@ -152,24 +154,6 @@ def check_supported(cfg: TransformerConfig) -> None:
 # --------------------------------------------------------------------------- #
 # parameter trees
 # --------------------------------------------------------------------------- #
-def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
-    """Apply ``fn`` to every tensor of a nested dict/list param tree."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def _tree_set(dst: Any, i: int, src: Any) -> None:
-    """dst[...][i] = src[...] for every leaf (fills one layer of a stack)."""
-    if isinstance(dst, dict):
-        for k in dst:
-            _tree_set(dst[k], i, src[k])
-    else:
-        dst[i] = src
-
-
 def _block_params(cfg: TransformerConfig, gen: torch.Generator, device,
                   dtype) -> Params:
     d, hd, h, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv
@@ -201,9 +185,8 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 
     The distributions are the reference's (``dense_init``: normal with std
     1/sqrt(shape[-2]) per block tensor; ``embed_init``: std 0.02); the
-    numbers differ, since the generators do.  Each layer is drawn on its own
-    and written into the stacked tensors, so the float32 draw never holds
-    more than one layer's tensor at a time.
+    numbers differ, since the generators do.  Layers are drawn one at a
+    time into the stacked tensors (``stack_layers``).
     """
     check_supported(cfg)
     dev = resolve_device(device)
@@ -213,18 +196,9 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     }
     if not cfg.tie_embeddings:
         params["head"] = dense_init(generator, (cfg.d_model, cfg.vocab), dev, dtype)
-    first = _block_params(cfg, generator, dev, dtype)
-    blocks = tree_map(lambda a: a.new_empty((cfg.n_layers, *a.shape)), first)
-    _tree_set(blocks, 0, first)
-    for i in range(1, cfg.n_layers):
-        _tree_set(blocks, i, _block_params(cfg, generator, dev, dtype))
-    params["blocks"] = blocks
+    params["blocks"] = stack_layers(
+        cfg.n_layers, lambda: _block_params(cfg, generator, dev, dtype))
     return params
-
-
-def layer(params_blocks: Params, i: int) -> Params:
-    """The i-th layer of a stacked block tree (views, no copies)."""
-    return tree_map(lambda a: a[i], params_blocks)
 
 
 # --------------------------------------------------------------------------- #

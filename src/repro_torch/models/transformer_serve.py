@@ -18,14 +18,13 @@ from typing import Any
 import torch
 
 from .attention import decode_attention, update_kv_cache
-from .common import Params, apply_norm
+from .common import Params, apply_norm, layer
 from .transformer import (
     TransformerConfig,
     block_forward,
     check_supported,
     dense_ffn,
     embed_tokens,
-    layer,
     logits_fn,
     project_qkv,
 )

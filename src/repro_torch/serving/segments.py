@@ -15,16 +15,18 @@ from typing import Any
 
 import torch
 
-from ..models import transformer
+from ..models import griffin, mamba2, transformer
 from ..models.api import ModelBundle
-from ..models.common import apply_norm
+from ..models.common import apply_norm, layer, tree_map
 
 __all__ = ["BoundSegment", "SegmentChain", "SegmentRunner", "split_params"]
+
+_MODELS = {"transformer": transformer, "mamba2": mamba2, "griffin": griffin}
 
 
 def _slice_blocks(params: Any, lo: int, hi: int) -> Any:
     """Layers [lo, hi) of the stacked blocks: views, never copies."""
-    return transformer.tree_map(lambda a: a[lo:hi], params["blocks"])
+    return tree_map(lambda a: a[lo:hi], params["blocks"])
 
 
 @dataclass
@@ -35,8 +37,10 @@ class SegmentRunner:
     the full parameter tree and the runner picks its own layers out of it.
     ``local=True`` expects the segment-local view produced by
     :func:`split_params` (what actually ships to a node): block stacks are
-    pre-sliced to this segment, so they are consumed whole.  Attention
-    windows always use global layer positions.
+    pre-sliced to this segment, so they are consumed whole.  Layer-position
+    effects (attention windows, Griffin's layer-kind pattern) always use
+    global positions; Griffin's ``groups`` and ``tail`` are shipped whole
+    and indexed globally in both modes.
     """
 
     bundle: ModelBundle
@@ -54,27 +58,36 @@ class SegmentRunner:
         Returns boundary activations, or fp32 logits if hi == n_units.
         """
         b = self.bundle
-        if b.family != "transformer":
-            raise NotImplementedError(f"{b.family} segments are not ported yet")
+        fam = b.family
+        model = _MODELS.get(fam)
+        if model is None:
+            raise NotImplementedError(f"{fam} segments are not ported yet")
         cfg = b.cfg
         L = self.n_units - 2                 # number of blocks
         lo, hi = self.lo, self.hi
         if not 0 <= lo < hi <= L + 2:
             raise ValueError(f"segment [{lo}, {hi}) outside 0..{L + 2}")
         if lo == 0:
-            x = transformer.embed_tokens(params, cfg, x)
+            x = model.embed_tokens(params, cfg, x)
             lo = 1
         blo, bhi = lo - 1, min(hi - 1, L)
-        if bhi > blo:
-            windows = cfg.windows()
+        if bhi > blo and fam == "griffin":
+            for li in range(blo, bhi):
+                x = griffin.layer_forward(
+                    x, *griffin.layer_params(params, cfg, li), cfg)
+        elif bhi > blo:
             sub = params["blocks"] if self.local else _slice_blocks(params, blo, bhi)
+            windows = cfg.windows() if fam == "transformer" else None
             for i in range(bhi - blo):
-                x = transformer.block_forward(
-                    x, transformer.layer(sub, i), cfg,
-                    window=int(windows[blo + i]))
+                lp = layer(sub, i)
+                if fam == "transformer":
+                    x = transformer.block_forward(x, lp, cfg,
+                                                  window=int(windows[blo + i]))
+                else:
+                    x = mamba2.block_forward(x, lp, cfg)
         if hi == L + 2:
             x = apply_norm(x, params["final_norm"], cfg.norm)
-            return transformer.logits_fn(params, cfg, x)
+            return model.logits_fn(params, cfg, x)
         return x
 
 
@@ -84,7 +97,8 @@ def split_params(bundle: ModelBundle, params: Any,
 
     One params-view per segment holding only what that segment's units need.
     Every tensor is a view of ``params`` (block stacks are sliced on their
-    leading axis), so staging a split allocates no weight memory.
+    leading axis; Griffin's ``groups`` and ``tail`` go whole, as in the
+    reference), so staging a split allocates no weight memory.
     """
     out = []
     L = len(bundle.model_graph()) - 2
@@ -98,8 +112,11 @@ def split_params(bundle: ModelBundle, params: Any,
             if not tied:
                 seg["head"] = params["head"]
         blo, bhi = max(lo - 1, 0), min(hi - 1, L)
-        if bhi > blo:
+        if bhi > blo and "blocks" in params:
             seg["blocks"] = _slice_blocks(params, blo, bhi)
+        elif bhi > blo:                      # griffin
+            seg["groups"] = params["groups"]
+            seg["tail"] = params["tail"]
         out.append(seg)
     return out
 

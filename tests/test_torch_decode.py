@@ -35,7 +35,7 @@ from repro_torch.kernels import decode_attention as k3
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention, transformer_serve
 from repro_torch.models.convert import params_from_jax
-from repro_torch.models.transformer import tree_map
+from repro_torch.models.common import tree_map
 from repro_torch.serving import Request, WaveBatcher
 
 ARCH = "llama3-8b"

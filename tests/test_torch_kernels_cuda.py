@@ -6,8 +6,9 @@ it runs on a machine with the card:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
-Tolerances are those of tests/test_kernels.py for attention (2e-5 float32,
-2e-2 bfloat16); int8 is held bit for bit.
+Tolerances are those of tests/test_kernels.py: attention 2e-5 float32, 2e-2
+bfloat16; SSD (K4) 1e-4 float32 for y and the float32 state, 2e-2 for bf16
+outputs; RG-LRU (K5) 1e-5 float32, 2e-2 bf16; int8 is held bit for bit.
 """
 
 import dataclasses
@@ -20,7 +21,9 @@ from repro_torch.configs import get_bundle
 from repro_torch.kernels import decode_attention as k3
 from repro_torch.kernels import flash_attention as k1
 from repro_torch.kernels import int8_transfer as k2
-from repro_torch.models.transformer import tree_map
+from repro_torch.kernels import rglru as k5
+from repro_torch.kernels import ssd_chunk as k4
+from repro_torch.models.common import tree_map
 from repro_torch.serving import Request, WaveBatcher
 
 
@@ -49,6 +52,9 @@ pytestmark = pytest.mark.usefixtures("hopper_card")
     (2, 200, 4, 1, 32, 48, 0.0, True),     # sliding window, MQA
     (1, 130, 4, 2, 16, 0, 30.0, True),     # soft-cap
     (2, 96, 4, 4, 128, 0, 0.0, False),     # non-causal
+    (1, 512, 16, 1, 256, 2048, 0.0, True),  # recurrentgemma-9b local attention
+    (1, 4096, 16, 1, 256, 2048, 0.0, True), # hd 256 where the window bites
+    (2, 70, 4, 1, 256, 24, 0.0, True),     # hd 256, ragged S, small window
 ])
 def test_flash_kernel_matches_plain(b, s, h, kv, hd, window, cap, causal,
                                     dtype, tol):
@@ -74,6 +80,90 @@ def test_int8_kernels_bit_identical_to_plain(n, d, dtype):
     assert torch.equal(q, pq) and torch.equal(s, ps)
     y = k2.dequantize_int8(q, s, dtype)
     assert torch.equal(y, k2.dequantize_int8_plain(q, s, dtype))
+
+
+def _ssd_inputs(b, s, h, g, n, p, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p), dtype=np.float32) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h), dtype=np.float32)))
+    a = -np.exp(np.linspace(0.0, 1.0, h, dtype=np.float32))
+    bm = rng.standard_normal((b, s, g, n), dtype=np.float32) * 0.3
+    cm = rng.standard_normal((b, s, g, n), dtype=np.float32) * 0.3
+    st = rng.standard_normal((b, h, n, p), dtype=np.float32)
+
+    def card(v, dt_=torch.float32):
+        return torch.from_numpy(v).to(device="cuda", dtype=dt_)
+
+    return (card(x, dtype), card(dt), card(a), card(bm, dtype), card(cm, dtype),
+            card(st))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,g,n,p,chunk,with_state", [
+    (1, 512, 64, 1, 128, 64, 256, True),   # mamba2-1.3b prefill shape
+    (2, 300, 8, 1, 128, 64, 256, True),    # ragged S (second chunk of 44)
+    (2, 64, 4, 2, 16, 8, 16, False),       # G=2 groups, P below a column tile
+    (1, 48, 4, 1, 16, 16, 16, True),       # 3 chunks of 16
+    (2, 513, 64, 1, 128, 64, 256, True),   # one step past two chunks
+    (1, 100, 2, 1, 8, 24, 64, True),       # N=8, P=24 (one and a half tiles)
+])
+def test_ssd_kernel_matches_plain(b, s, h, g, n, p, chunk, with_state, dtype, tol):
+    x, dt, a, bm, cm, st = _ssd_inputs(b, s, h, g, n, p, dtype, s + h)
+    state_in = st if with_state else None
+    before = k4.ssd.launches
+    y, state = k4.ssd(x, dt, a, bm, cm, chunk=chunk, state_in=state_in,
+                      return_state=True)
+    torch.cuda.synchronize()
+    assert k4.ssd.launches == before + 1
+    assert y.dtype == dtype and state.dtype == torch.float32
+    want_y, want_state = k4.ssd_plain(x, dt, a, bm, cm, chunk=chunk,
+                                      state_in=state_in, return_state=True)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, want_state, atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_kernel_reads_strided_views():
+    """x, B, C as slices of one conv output (the model path's layout)."""
+    b, s, h, g, n, p = 1, 200, 8, 1, 32, 16
+    rng = np.random.default_rng(0)
+    conv = torch.from_numpy(rng.standard_normal((b, s, h * p + 2 * g * n),
+                                                dtype=np.float32) * 0.5).cuda()
+    x = conv[..., :h * p].unflatten(-1, (h, p))
+    bm = conv[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+    cm = conv[..., h * p + g * n:].unflatten(-1, (g, n))
+    dt = torch.from_numpy(np.log1p(np.exp(rng.standard_normal(
+        (b, s, h), dtype=np.float32)))).cuda()
+    a = -torch.linspace(1.0, 2.0, h, device="cuda")
+    got = k4.ssd(x, dt, a, bm, cm, chunk=64)
+    want = k4.ssd_plain(x, dt, a, bm, cm, chunk=64)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    x_cols = x.transpose(2, 3).contiguous().transpose(2, 3)   # p not innermost
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.ssd(x_cols, dt, a, bm, cm, chunk=64)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,w,with_h0", [
+    (1, 512, 4096, True),       # recurrentgemma-9b prefill shape
+    (1, 512, 4096, False),
+    (2, 33, 100, True),         # ragged W, one chunk
+    (3, 200, 130, True),        # ragged S over 4 chunks
+    (1, 1, 16, True),           # one step
+])
+def test_rglru_kernel_matches_plain(b, s, w, with_h0, dtype, tol):
+    rng = np.random.default_rng(s + w)
+    a = torch.from_numpy(1 / (1 + np.exp(-rng.standard_normal((b, s, w),
+                                                              dtype=np.float32))))
+    x = torch.from_numpy(rng.standard_normal((b, s, w), dtype=np.float32))
+    a, x = a.to("cuda", dtype), x.to("cuda", dtype)
+    h0 = (torch.from_numpy(rng.standard_normal((b, w), dtype=np.float32)).cuda()
+          if with_h0 else None)
+    before = k5.rglru.launches
+    got = k5.rglru(a, x, h0)
+    torch.cuda.synchronize()
+    assert k5.rglru.launches == before + 1 and got.dtype == dtype
+    want = k5.rglru_plain(a, x, h0)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
 def test_flash_kernel_rejects_unsupported_head_dim():
