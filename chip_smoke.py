@@ -10,14 +10,18 @@ result line:
 
 1. print the card's name and power limit, build the Hopper kernels from
    ``src/repro_torch/kernels/csrc`` and print the build time and ptxas'
-   registers and spills;
+   registers and spills, then the SASS instruction census of the K1 and K3
+   kernels (``cuobjdump``) and the K1 design it shows (``wgmma``: HGMMA in
+   the bf16 kernel; the script fails if that kernel has no tensor-core
+   instruction);
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes and time kernel, plain version and, where one PyTorch
    call computes the same function, that call as a yardstick (the port
-   never calls it).  Tolerances are those of tests/test_kernels.py: K1
-   flash prefill attention and K3 decode attention bf16 2e-2 / fp32 2e-5
-   (SDPA beside them), K2 int8 quantize/dequantize bit for bit, K4 SSD
-   chunk scan 1e-4 fp32 (y and state) / 2e-2 bf16 at the mamba2-1.3b
+   never calls it), with K1's achieved TFLOP/s, K3's achieved TB/s and
+   K3's device time by kernel (one launch).  Tolerances are those of
+   tests/test_kernels.py: K1 flash prefill attention and K3 decode
+   attention bf16 2e-2 / fp32 2e-5 (SDPA beside them), K2 int8
+   quantize/dequantize bit for bit, K4 SSD chunk scan 1e-4 fp32 (y and state) / 2e-2 bf16 at the mamba2-1.3b
    prefill shape, a ragged S with state_in and G=2, K5 RG-LRU scan 1e-5
    fp32 / 2e-2 bf16 at the recurrentgemma-9b shape with and without h0 and
    a ragged W, and K1 at head dim 256 (Griffin's shape, SDPA beside it, and
@@ -64,6 +68,8 @@ import dataclasses
 import itertools
 import json
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -84,8 +90,11 @@ PATH = dict(b=1, s=512, h=32, kv=8, hd=128)      # llama3-8b prefill, 512 tokens
 ROWS = (512, 4096)                                # one boundary at that shape
 DECODE = dict(b=8, s=640, h=32, kv=8, hd=128)     # a generation wave's decode
 DECODE_CUR = 576                                  # cache entries in use
-FAMILIES = {"flash_fwd_kernel": "K1", "quantize_rows": "K2",
-            "decode_split_kernel": "K3", "decode_combine_kernel": "K3",
+K1_BF16 = "flash_fwd_wgmma_kernel"     # the tensor-core instance (bf16)
+K1_F32 = "flash_fwd_f32_kernel"       # the CUDA-core instance (float32)
+K3_KERNEL = "decode_attention_kernel"
+FAMILIES = {K1_BF16: "K1", K1_F32: "K1", "quantize_rows": "K2",
+            K3_KERNEL: "K3",
             "ssd_cb_kernel": "K4", "ssd_scan_kernel": "K4", "rglru_": "K5",
             "gemm": "matmul", "nvjet": "matmul", "xmma": "matmul",
             "cutlass": "matmul"}
@@ -125,18 +134,9 @@ def device_ms(fn, iters: int, kernel: str | None = None) -> float | None:
     ``torch.profiler`` trace of ``iters`` warm calls (host enqueue time is
     left out).  With ``kernel``, only kernels whose name holds it count.
     None when the trace holds no such device events."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in device_events(prof)
-          if kernel is None or kernel_matches(e.name, kernel)]
-    return sum(us) / iters / 1e3 if us else None
+    us = [t for name, t in kernel_split(fn, iters).items()
+          if kernel is None or kernel_matches(name, kernel)]
+    return sum(us) / 1e3 if us else None
 
 
 def device_events(prof):
@@ -148,6 +148,78 @@ def kernel_matches(name: str, kernel: str) -> bool:
     # "quantize_rows" is also a substring of "dequantize_rows"
     return kernel in name and not (kernel == "quantize_rows"
                                    and "dequantize_rows" in name)
+
+
+def kernel_split(fn, iters: int) -> dict[str, float]:
+    """Device microseconds per call of ``fn``, by kernel name, from a
+    ``torch.profiler`` trace of ``iters`` warm calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in device_events(prof):
+        # "void (anonymous namespace)::decode_attention_kernel<...>(...)"
+        m = re.search(r"([A-Za-z_]\w*)\s*[<(]",
+                      e.name.replace("(anonymous namespace)::", ""))
+        name = m.group(1) if m else e.name
+        out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / iters
+    return out
+
+
+def kernel_instance(mangled: str) -> str:
+    """``decode_attention_kernel<bf16, 128, 4>`` from a mangled name."""
+    m = re.search(f"({K1_BF16}|{K1_F32}|{K3_KERNEL})I(.*)", mangled)
+    if not m:
+        return mangled
+    base, rest = m.group(1), m.group(2).split("Ev")[0]
+    dtype = ["bf16"] if "bfloat16" in rest else ["f32"] if rest.startswith("f") else []
+    ints = re.findall(r"Li(\d+)E", rest)
+    return f"{base}<{', '.join(dtype + ints)}>"
+
+
+def sass_census(lib_path: pathlib.Path) -> str:
+    """SASS instruction counts of the K1 and K3 kernels in the built
+    library (``cuobjdump --dump-sass``), and the K1 design they show:
+    "wgmma" (HGMMA in the bf16 instance), "mma.sync" (HMMA) or neither."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([cuobjdump, "--dump-sass", str(lib_path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+    except (OSError, subprocess.SubprocessError) as exc:
+        print(f"SASS census: cuobjdump not available ({exc})")
+        return "not measured"
+    ops = ("HGMMA", "HMMA", "FFMA", "LDGSTS", "MUFU.EX2")
+    census: dict[str, dict[str, int]] = {}
+    func = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = m.group(1)
+            census[func] = dict.fromkeys(ops, 0)
+        elif func is not None:
+            for op in ops:
+                if f" {op}" in line:
+                    census[func][op] += 1
+    design = "neither"
+    for func, counts in sorted(census.items()):
+        name = kernel_instance(func)
+        if not name.startswith((K1_BF16, K1_F32, K3_KERNEL)):
+            continue
+        if name.startswith(K3_KERNEL) and ", 128," not in name:
+            continue                      # K3: the head dim of the path only
+        print(f"  SASS {name}: {counts}")
+        if K1_BF16 in func and counts["HGMMA"]:
+            design = "wgmma"
+        elif K1_BF16 in func and counts["HMMA"] and design != "wgmma":
+            design = "mma.sync"
+    return design
 
 
 def graph_ms(fn, iters: int, reps: int = 5) -> float:
@@ -240,7 +312,7 @@ def phase_kernels(k1, k2) -> list[dict]:
         if label == "path":
             k1_err = err
             ms = timed("K1 kernel", lambda: k1.flash_attention(q, k, v), 50,
-                       "flash_fwd_kernel")
+                       K1_BF16)
             plain_ms = timed("K1 plain", lambda: k1.flash_attention_plain(q, k, v), 10)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             lib_ms = timed("K1 sdpa", lambda: F.scaled_dot_product_attention(
@@ -253,8 +325,9 @@ def phase_kernels(k1, k2) -> list[dict]:
                           replaces="src/repro/kernels/flash_attention.py:88",
                           max_abs_err=k1_err, ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-            print(f"K1 time {ms:.4f} ms; plain {plain_ms:.4f} ms; "
-                  f"sdpa {lib_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}: "
+            print(f"K1 time {ms:.4f} ms ({n_flops / ms / 1e9:.1f} TFLOP/s "
+                  f"achieved); plain {plain_ms:.4f} ms; sdpa {lib_ms:.4f} ms "
+                  f"({ms / lib_ms:.2f}x); bound {b_ms:.5f} ms ({b_by}: "
                   f"{n_bytes / 1e6:.2f} MB, {n_flops / 1e9:.3f} GFLOP)")
     rows.append(k1_row)
 
@@ -327,7 +400,7 @@ def phase_flash_hd256(k1) -> None:
         if label != "griffin":
             continue
         ms = timed("K1 hd256 kernel", lambda: k1.flash_attention(
-            q, k, v, window=window), 50, "flash_fwd_kernel")
+            q, k, v, window=window), 50, K1_BF16)
         plain_ms = timed("K1 hd256 plain", lambda: k1.flash_attention_plain(
             q, k, v, window=window), 10)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -336,8 +409,9 @@ def phase_flash_hd256(k1) -> None:
         n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
         n_flops = 4.0 * hd * b * h * attention_pairs(s, True, window)
         b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
-        print(f"K1 hd256 time {ms:.4f} ms; plain {plain_ms:.4f} ms; sdpa "
-              f"{lib_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}: "
+        print(f"K1 hd256 time {ms:.4f} ms ({n_flops / ms / 1e9:.1f} TFLOP/s "
+              f"achieved); plain {plain_ms:.4f} ms; sdpa {lib_ms:.4f} ms "
+              f"({ms / lib_ms:.2f}x); bound {b_ms:.5f} ms ({b_by}: "
               f"{n_bytes / 1e6:.2f} MB, {n_flops / 1e9:.3f} GFLOP)")
 
 
@@ -517,7 +591,11 @@ def phase_decode_kernel(k3) -> dict:
         caches = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(2)]
         ring = itertools.cycle(caches)
         ms = timed("K3 kernel", lambda: k3.decode_attention(
-            q, *next(ring), cur_len), 192, "decode_")
+            q, *next(ring), cur_len), 192, K3_KERNEL)
+        by_name = kernel_split(lambda: k3.decode_attention(
+            q, *next(ring), cur_len), 48)
+        print(f"  K3 device time by kernel (profiler, us/call): "
+              + json.dumps({k: round(v, 3) for k, v in by_name.items()}))
         plain_ms = timed("K3 plain", lambda: k3.decode_attention_plain(
             q, *next(ring), cur_len), 48)
         # the yardstick attends over the cur_len valid entries only
@@ -536,8 +614,9 @@ def phase_decode_kernel(k3) -> dict:
                    replaces="src/repro/kernels/decode_attention.py:85",
                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                    bound_by=b_by, library_ms=lib_ms)
-        print(f"K3 time {ms:.5f} ms; plain {plain_ms:.4f} ms; sdpa "
-              f"{lib_ms:.5f} ms; bound {b_ms:.5f} ms ({b_by}: "
+        print(f"K3 time {ms:.5f} ms ({n_bytes / ms / 1e9:.3f} TB/s achieved); "
+              f"plain {plain_ms:.4f} ms; sdpa {lib_ms:.5f} ms "
+              f"({ms / lib_ms:.2f}x); bound {b_ms:.5f} ms ({b_by}: "
               f"{n_bytes / 1e6:.2f} MB, {n_flops / 1e6:.1f} MFLOP)")
     return row
 
@@ -883,6 +962,10 @@ def main() -> int:
         if any(key in line for key in ("Compiling entry", "registers", "spill")) \
                 or line.startswith("=="):
             print(f"  {line.strip()}")
+    design = sass_census(res.path)
+    print(f"K1 design (bf16 instance, from its SASS): {design}")
+    if design not in ("wgmma", "mma.sync", "not measured"):
+        raise AssertionError("K1's bf16 kernel runs no tensor-core instruction")
 
     # ---- phase 2: kernels against their plain versions ----
     rows = phase_kernels(k1, k2)

@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""K1 and K3 of two checkouts of this repository, timed on one card in turns.
+
+Run from the root of a checkout, on a machine with one NVIDIA H100, with a
+second checkout (for example the parent commit, unpacked by ``git archive``
+into a directory that ``.gitignore`` lists):
+
+    python3 kernel_ab.py --other build/parent [--sweep]
+
+Each checkout is measured in its own process (each imports its own
+``repro_torch`` and builds its own kernels), in the order other, this, this,
+other, so a drift of the card over the run shows as a gap between the two
+readings of one checkout.  Every measurement prints the device time per call
+of K1 (flash prefill attention) at Llama-3-8B's prefill shape and at
+Griffin's hd 256 shape, and of K3 (decode attention) at the generation
+path's decode shape, from a CUDA-graph replay (``chip_smoke.graph_ms``),
+beside the device time of each kernel the call launches, by name
+(``chip_smoke.kernel_split``: a two-kernel K3 shows its split and its
+combine), and K3 again at fewer valid cache entries (time against
+``cur_len`` separates its fixed cost from its per-key cost).  ``--sweep``
+also times this checkout's K3 over other values of
+``BLOCKS_PER_SM``, the split plan's one knob.  Prints one JSON line per
+measurement and the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent
+
+# (label, b, s, h, kv, hd, window): K1 at the two model paths' prefill shapes
+K1_SHAPES = [("llama", 1, 512, 32, 8, 128, 0),
+             ("griffin", 1, 512, 16, 1, 256, 2048)]
+
+
+def measure(root: pathlib.Path, sweep: bool) -> list[dict]:
+    import chip_smoke as cs  # this checkout's timing helpers
+    sys.path.insert(0, str(root / "src"))
+    import torch
+
+    from repro_torch.kernels import decode_attention as k3
+    from repro_torch.kernels import flash_attention as k1
+
+    rows = []
+    for label, b, s, h, kv, hd, window in K1_SHAPES:
+        q = cs.normal((b, s, h, hd), torch.bfloat16, 1)
+        k = cs.normal((b, s, kv, hd), torch.bfloat16, 2)
+        v = cs.normal((b, s, kv, hd), torch.bfloat16, 3)
+
+        def call():
+            return k1.flash_attention(q, k, v, window=window)
+
+        call()
+        torch.cuda.synchronize()
+        rows.append(dict(kernel="K1", shape=label, us=1e3 * cs.graph_ms(call, 50),
+                         by_name=cs.kernel_split(call, 20)))
+
+    b, s, h, kv, hd = cs.DECODE.values()
+    q = cs.normal((b, h, hd), torch.bfloat16, 5)
+    caches = [(cs.normal((b, s, kv, hd), torch.bfloat16, 6 + 2 * i),
+               cs.normal((b, s, kv, hd), torch.bfloat16, 7 + 2 * i))
+              for i in range(3)]          # 63 MB: each call finds its cache cold
+    cur = torch.tensor(cs.DECODE_CUR, dtype=torch.int32, device="cuda")
+    ring = itertools.cycle(caches)
+
+    def dec():
+        return k3.decode_attention(q, *next(ring), cur)
+
+    plans = [k3.BLOCKS_PER_SM] + ([x for x in (1, 3, 4, 6) if x != k3.BLOCKS_PER_SM]
+                                  if sweep else [])
+    default = k3.BLOCKS_PER_SM
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for bps in plans:
+        k3.BLOCKS_PER_SM = bps
+        dec()
+        torch.cuda.synchronize()
+        rows.append(dict(kernel="K3", shape="decode", blocks_per_sm=bps,
+                         split=list(k3.split_plan(b, h, kv, s, n_sm)),
+                         us=1e3 * cs.graph_ms(dec, 192),
+                         by_name=cs.kernel_split(dec, 48)))
+    k3.BLOCKS_PER_SM = default
+    # the same call at fewer valid keys: time against cur_len separates the
+    # per-call fixed cost (launch, cur_len, fold, combine) from the per-key one
+    for valid in (1, 64, 128, 256, 384):
+        cur_v = torch.tensor(valid, dtype=torch.int32, device="cuda")
+        rows.append(dict(kernel="K3", shape=f"decode cur_len={valid}",
+                         us=1e3 * cs.graph_ms(
+                             lambda c=cur_v: k3.decode_attention(q, *next(ring), c),
+                             192)))
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", type=pathlib.Path,
+                    help="root of the checkout to compare with")
+    ap.add_argument("--measure", type=pathlib.Path,
+                    help="(internal) measure the checkout at this root")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time this checkout's K3 over BLOCKS_PER_SM")
+    args = ap.parse_args()
+    if args.measure is not None:
+        for row in measure(args.measure.resolve(), args.sweep):
+            print("AB " + json.dumps(row))
+        return 0
+
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA card", file=sys.stderr)
+        return 2
+    if args.other is None or not (args.other / "src" / "repro_torch").is_dir():
+        print("kernel_ab: --other must name another checkout's root", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    print(f"card: {smi.stdout.strip()}")
+    order = [("other", args.other), ("this", ROOT), ("this", ROOT),
+             ("other", args.other)]
+    for turn, (who, root) in enumerate(order):
+        cmd = [sys.executable, str(ROOT / "kernel_ab.py"), "--measure", str(root)]
+        if args.sweep and who == "this" and turn == 1:
+            cmd.append("--sweep")
+        run = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                             timeout=900)
+        if run.returncode != 0:
+            print(run.stdout[-4000:], run.stderr[-4000:], file=sys.stderr)
+            return 1
+        for line in run.stdout.splitlines():
+            if line.startswith("AB "):
+                row = json.loads(line[3:])
+                by_name = {k: round(v, 3)
+                           for k, v in row.pop("by_name", {}).items()}
+                print(json.dumps({"turn": turn, "checkout": who, **row,
+                                  "us": round(row["us"], 3),
+                                  "profiler_us_by_kernel": by_name}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,46 +14,340 @@
 // masked here, not padded by the caller.  KV tiles that the causal or window
 // mask rules out for the whole query tile are never loaded.
 //
-// Products are float32 FMAs from shared memory, as the Pallas kernel computes
-// in float32 throughout (q is scaled in float32 before the product).  This
-// first version uses no tensor cores; wgmma/TMA is later work.
+// What bounds it: at Llama-3-8B's prefill shape (S=512, H=32, KV=8, HD=128)
+// the causal products are 2.15 GFLOP, 2.2 us at the bf16 tensor-core rate,
+// against 10.5 MB of q, k, v and o, 3.1 us at 3.35 TB/s: both are small, so
+// what the design must avoid is float32 FMAs (67 TFLOP/s, 32 us) and loads
+// that stall the products.  Two instances:
 //
-// Thread map (256 threads = a 16 x 16 grid, ty = tid / 16, tx = tid % 16):
-// thread (ty, tx) owns query rows ty + 16 i (i < 4); for the score tile it
-// owns key columns tx + 16 j (j < 4), for the output head-dim columns
-// tx + 16 jj (jj < HD / 16).  The 16 threads of one row sit in one half-warp,
-// so row max and row sum are xor-shuffles over lane offsets 8, 4, 2, 1.
-// Q and K tiles are stored with a row stride of HD + 1 floats so that the 16
-// key columns of a half-warp fall in 16 different banks.
+// bfloat16 (the model path), flash_fwd_wgmma_kernel: one warpgroup (128
+// threads) owns the 64-row query tile, wgmma's M.  S = Q K^T is
+// wgmma.m64n64k16 with Q and K read from shared memory (sw128 tiles, see
+// sm90.cuh); the scale, soft-cap, mask and online softmax act on the float32
+// accumulator fragments in registers (row max and sum over the 4 lanes of a
+// quad, exp2 with log2(e) folded into the scale); P is rounded to bf16 in
+// registers and is the register A operand of O += P V (wgmma.m64nNk16, V read
+// N-major from shared memory), accumulated in float32 -- the numerics of the
+// reference model path (src/repro/models/attention.py casts P to the value
+// dtype before P V, float32 accumulation).  K/V tiles of 64 keys stream
+// through a 2-stage ring of cp.async copies: tile kt+1 is in flight while kt
+// is computed.  Head dims under 64 are stored in a 64-column panel (the
+// padding is never read by Q K^T, and its output columns are dropped).  The
+// grid's y axis walks query tiles from the last, so the causal tiles with the
+// most KV tiles start first.
 //
-// Shared memory is 4 (64 (HD+1) + 64 (HD+1) + 64 HD + 64 * 65) bytes: 213,760
-// at HD = 256 (Griffin's local attention), under the 232,448 a Hopper block
-// may opt into, so the same tiling holds there with one block per SM.
+// float32, flash_fwd_f32_kernel: float32 FMAs from shared memory, as the
+// Pallas kernel computes in float32 throughout (q scaled in float32 before
+// the product); float32 tensor cores would be TF32, which cannot meet the
+// 2e-5 float32 tolerance.  Thread map (256 threads = a 16 x 16 grid, ty =
+// tid / 16, tx = tid % 16): thread (ty, tx) owns query rows ty + 16 i
+// (i < 4); for the score tile it owns key columns tx + 16 j (j < 4), for the
+// output head-dim columns tx + 16 jj (jj < HD / 16).  The 16 threads of one
+// row sit in one half-warp, so row max and row sum are xor-shuffles over lane
+// offsets 8, 4, 2, 1.  Q and K tiles are stored with a row stride of HD + 1
+// floats so that the 16 key columns of a half-warp fall in 16 different
+// banks.  Shared memory is 4 (64 (HD+1) + 64 (HD+1) + 64 HD + 64 * 65) bytes:
+// 213,760 at HD = 256, under the 232,448 a Hopper block may opt into.
 
 #include <stdint.h>
 
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-using repro_torch::from_f32;
-using repro_torch::to_f32;
+namespace sm90 = repro_torch::sm90;
+using bf16 = __nv_bfloat16;
 
 constexpr int BQ = 64;          // query rows per block
+constexpr float NEG_INF = -2.0e38f;  // the Pallas kernel's mask value
+constexpr float LOG2E = 1.4426950408889634f;
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores (wgmma)
+// ---------------------------------------------------------------------------
+
+template <int HD>
+struct TcCfg {
+  static constexpr int HDP = HD < 64 ? 64 : HD;    // head dim as stored
+  static constexpr int BK = 64;                    // keys per tile
+  static constexpr int STAGES = 2;                 // K/V ring depth
+  static constexpr int ON = HDP < 128 ? HDP : 128;  // N of one P V wgmma
+  static constexpr int NO = HDP / ON;              // P V wgmmas per k-step
+  static constexpr int Q_BYTES = BQ * HDP * 2;
+  static constexpr int T_BYTES = BK * HDP * 2;     // one K or V tile
+  // + 1024: the tiles start at the first 1024-byte boundary (swizzle atom)
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * T_BYTES;
+};
+
+// cp.async of sequence positions [r0, r0 + R) of one head (row stride
+// `stride` elements) into an sw128 tile of R rows; positions at or past S
+// are zero-filled.
+template <int HD, int R>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          size_t stride, int r0, int S,
+                                          int tid) {
+  constexpr int CPR = HD / 8;                      // 16-byte chunks per row
+  static_assert(R * CPR % 128 == 0, "tile must split over 128 threads");
+#pragma unroll
+  for (int j = 0; j < R * CPR / 128; ++j) {
+    const int i = tid + 128 * j;
+    const int r = i / CPR, c = i % CPR, s = r0 + r;
+    const bool ok = s < S;
+    sm90::cp_async16(dst + sm90::sw128(r, c, R),
+                     src + (size_t)(ok ? s : 0) * stride + c * 8, ok);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_qk(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (N == 64) sm90::wgmma_ss_n64(d, da, db, accumulate);
+  else sm90::wgmma_ss_n32(d, da, db, accumulate);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 128) sm90::wgmma_rs_n128_tb(d, a, db, 1);
+  else sm90::wgmma_rs_n64_tb(d, a, db, 1);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(128, 1)
+flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o,
+                       int S, int H, int KV, int causal, int window,
+                       float logit_cap, float scale) {
+  using C = TcCfg<HD>;
+  constexpr int BK = C::BK, STAGES = C::STAGES, ON = C::ON, NO = C::NO;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sKV = sQ + C::Q_BYTES;  // stage s: K at 2s, V at 2s+1 tiles
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last tiles first
+  const size_t q_row = (size_t)H * HD;    // stride between sequence positions
+  const size_t kv_row = (size_t)KV * HD;
+  const bf16* qb = q + ((size_t)b * S * H + h) * HD;
+  const bf16* kb = k + ((size_t)b * S * KV + kvh) * HD;
+  const bf16* vb = v + ((size_t)b * S * KV + kvh) * HD;
+  bf16* ob = o + ((size_t)b * S * H + h) * HD;
+
+  // live KV tiles: causal -> k_start <= last query row of the tile;
+  // window -> k_start + BK - 1 > q0 - window (the Pallas block-skip rule)
+  const int n_tiles = (S + BK - 1) / BK;
+  const int kt_end = causal ? min(n_tiles, (q0 + BQ - 1) / BK + 1) : n_tiles;
+  int kt_begin = 0;
+  if (window > 0) {
+    const int lo = q0 - window - BK + 1;  // live iff kt * BK > lo
+    kt_begin = lo < 0 ? 0 : lo / BK + 1;
+  }
+
+  // prologue: Q with the first STAGES - 1 K/V tiles, one commit group each
+  load_tile<HD, BQ>(sQ, qb, q_row, q0, S, tid);
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    const int kt = kt_begin + st;
+    if (kt < kt_end) {
+      load_tile<HD, BK>(sKV + 2 * st * C::T_BYTES, kb, kv_row, kt * BK, S, tid);
+      load_tile<HD, BK>(sKV + (2 * st + 1) * C::T_BYTES, vb, kv_row, kt * BK,
+                        S, tid);
+    }
+    sm90::cp_async_commit();
+  }
+
+  // accumulator fragments: this thread holds rows r_lo and r_lo + 8 of the
+  // tile, columns 8 j + c_lo and 8 j + c_lo + 1 of every 8-column block j;
+  // element 4 j + e sits at row r_lo + 8 (e >> 1), column 8 j + c_lo + (e & 1)
+  const int r_lo = warp * 16 + (lane >> 2);
+  const int c_lo = 2 * (lane & 3);
+  float oacc[NO][ON / 2];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int i = 0; i < ON / 2; ++i) oacc[n][i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};      // this thread's columns only; summed at the end
+  const float scale2 = scale * LOG2E;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int it = kt - kt_begin;
+    sm90::cp_async_wait<STAGES - 2>();  // tile kt (and Q) landed
+    sm90::fence_async_shared();
+    __syncthreads();  // ... for every thread; tile kt-1's readers are done
+    {
+      const int nk = kt + STAGES - 1;
+      const int ns = (it + STAGES - 1) % STAGES;
+      if (nk < kt_end) {
+        load_tile<HD, BK>(sKV + 2 * ns * C::T_BYTES, kb, kv_row, nk * BK, S, tid);
+        load_tile<HD, BK>(sKV + (2 * ns + 1) * C::T_BYTES, vb, kv_row, nk * BK,
+                          S, tid);
+      }
+      sm90::cp_async_commit();
+    }
+    const uint32_t sK = sKV + 2 * (it % STAGES) * C::T_BYTES;
+    const uint32_t sV = sK + C::T_BYTES;
+
+    // S = Q K^T over the real head dim (16 columns a step)
+    float sacc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
+    sm90::fence_regs(sacc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint64_t da = sm90::desc_sw128(
+          sQ + (kk >> 2) * (BQ * 128) + (kk & 3) * 32, 16, 1024);
+      const uint64_t db = sm90::desc_sw128(
+          sK + (kk >> 2) * (BK * 128) + (kk & 3) * 32, 16, 1024);
+      wgmma_qk<BK>(sacc, da, db, kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sacc);
+
+    // scale, soft-cap, mask (only on tiles that cross an edge), row max
+    const int k0 = kt * BK;
+    const bool edge = (causal && k0 + BK - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + BQ - 1 - window) ||
+                      k0 + BK > S;
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      float s;
+      if (logit_cap > 0.f)
+        s = logit_cap * tanhf(sacc[i] * scale / logit_cap) * LOG2E;
+      else
+        s = sacc[i] * scale2;
+      if (edge) {
+        const int qp = q0 + r_lo + 8 * ((i >> 1) & 1);
+        const int kp = k0 + 8 * (i >> 2) + c_lo + (i & 1);
+        const bool ok = kp < S && (!causal || kp <= qp) &&
+                        (window <= 0 || kp > qp - window);
+        s = ok ? s : NEG_INF;
+      }
+      sacc[i] = s;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s);
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+    // P in bf16: the A fragment of k-step kk is elements 8 kk .. 8 kk + 7
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int i = 0; i < BK / 2; i += 2) {
+      const int r = (i >> 1) & 1;
+      const float p0 = exp2f(sacc[i] - m[r]);
+      const float p1 = exp2f(sacc[i + 1] - m[r]);
+      l[r] += p0 + p1;
+      pa[i >> 3][(i >> 1) & 3] = sm90::pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int i = 0; i < ON / 2; ++i) oacc[n][i] *= corr[(i >> 1) & 1];
+
+    // O += P V: V N-major, panels of 64 head-dim columns, 16 keys a step
+#pragma unroll
+    for (int n = 0; n < NO; ++n) sm90::fence_regs(oacc[n]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const uint64_t db = sm90::desc_sw128(
+            sV + n * (ON / 64) * (BK * 128) + kk * 2048, BK * 128, 1024);
+        wgmma_pv<ON>(oacc[n], pa[kk], db);
+      }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int n = 0; n < NO; ++n) sm90::fence_regs(oacc[n]);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int j = 0; j < ON / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qp = q0 + r_lo + 8 * r;
+        const int col = n * ON + 8 * j + c_lo;
+        if (qp < S && col < HD) {
+          const uint32_t pk = sm90::pack_bf16(oacc[n][4 * j + 2 * r] * inv[r],
+                                              oacc[n][4 * j + 2 * r + 1] * inv[r]);
+          *reinterpret_cast<uint32_t*>(ob + qp * q_row + col) = pk;
+        }
+      }
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                         int B, int S, int H, int KV, int causal, int window,
+                         float logit_cap, float scale, cudaStream_t stream) {
+  constexpr int smem = TcCfg<HD>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (S + BQ - 1) / BQ);
+  flash_fwd_wgmma_kernel<HD><<<grid, 128, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, KV, causal,
+      window, logit_cap, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
+                           void* o, int B, int S, int H, int KV, int HD,
+                           int causal, int window, float logit_cap, float scale,
+                           cudaStream_t stream) {
+  switch (HD) {
+    case 16: return launch_wgmma<16>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
+    case 32: return launch_wgmma<32>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
+    case 64: return launch_wgmma<64>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
+    case 128: return launch_wgmma<128>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
+    case 256: return launch_wgmma<256>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+
 constexpr int BK = 64;          // keys per tile
 constexpr int THREADS = 256;
-constexpr float NEG_INF = -2.0e38f;  // the Pallas kernel's mask value
 
 template <int HD>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1));
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                 int KV, int causal, int window, float logit_cap, float scale) {
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int S,
+                     int H, int KV, int causal, int window, float logit_cap,
+                     float scale) {
   constexpr int QS = HD + 1;     // row stride of the Q and K tiles
   constexpr int PS = BK + 1;     // row stride of the P tile
   constexpr int DJ = HD / 16;    // output columns per thread
@@ -73,14 +367,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BQ;
   const size_t q_row = (size_t)H * HD;    // stride between sequence positions
   const size_t kv_row = (size_t)KV * HD;
-  const T* qb = q + ((size_t)b * S * H + h) * HD;
-  const T* kb = k + ((size_t)b * S * KV + kvh) * HD;
-  const T* vb = v + ((size_t)b * S * KV + kvh) * HD;
-  T* ob = o + ((size_t)b * S * H + h) * HD;
+  const float* qb = q + ((size_t)b * S * H + h) * HD;
+  const float* kb = k + ((size_t)b * S * KV + kvh) * HD;
+  const float* vb = v + ((size_t)b * S * KV + kvh) * HD;
+  float* ob = o + ((size_t)b * S * H + h) * HD;
 
   for (int i = tid; i < BQ * HD; i += THREADS) {
     const int r = i / HD, d = i % HD, s = q0 + r;
-    Qs[r * QS + d] = s < S ? to_f32(qb[s * q_row + d]) * scale : 0.f;
+    Qs[r * QS + d] = s < S ? qb[s * q_row + d] * scale : 0.f;
   }
 
   float m[4], l[4], acc[4][DJ];
@@ -108,8 +402,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BK * HD; i += THREADS) {
       const int r = i / HD, d = i % HD, s = k0 + r;
       const bool in = s < S;
-      Ks[r * QS + d] = in ? to_f32(kb[s * kv_row + d]) : 0.f;
-      Vs[r * HD + d] = in ? to_f32(vb[s * kv_row + d]) : 0.f;
+      Ks[r * QS + d] = in ? kb[s * kv_row + d] : 0.f;
+      Vs[r * HD + d] = in ? vb[s * kv_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -191,39 +485,38 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int jj = 0; jj < DJ; ++jj)
-        ob[s * q_row + tx + 16 * jj] = from_f32<T>(acc[i][jj] / denom);
+        ob[s * q_row + tx + 16 * jj] = acc[i][jj] / denom;
     }
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int S, int H, int KV, int causal, int window,
-                   float logit_cap, float scale, cudaStream_t stream) {
+template <int HD>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int B, int S, int H, int KV, int causal, int window,
+                       float logit_cap, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, causal, window,
-      logit_cap, scale);
+  flash_fwd_f32_kernel<HD><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, causal,
+      window, logit_cap, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int H, int KV, int HD, int causal,
-                        int window, float logit_cap, float scale,
-                        cudaStream_t stream) {
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
+                         int B, int S, int H, int KV, int HD, int causal,
+                         int window, float logit_cap, float scale,
+                         cudaStream_t stream) {
   switch (HD) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
+    case 16: return launch_f32<16>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
+    case 32: return launch_f32<32>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
+    case 64: return launch_f32<64>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
+    case 128: return launch_f32<128>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
+    case 256: return launch_f32<256>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -231,7 +524,7 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success).  is_bf16 selects the
-// storage type of q, k, v and o: 1 bfloat16, 0 float32.
+// storage type of q, k, v and o: 1 bfloat16 (tensor-core kernel), 0 float32.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int is_bf16, int B, int S, int H,
                                    int KV, int HD, int causal, int window,
@@ -239,10 +532,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, o, B, S, H, KV, HD, causal,
-                                      window, logit_cap, scale, st);
-  return dispatch_hd<float>(q, k, v, o, B, S, H, KV, HD, causal, window,
-                            logit_cap, scale, st);
+    return dispatch_wgmma(q, k, v, o, B, S, H, KV, HD, causal, window,
+                          logit_cap, scale, st);
+  return dispatch_f32(q, k, v, o, B, S, H, KV, HD, causal, window, logit_cap,
+                      scale, st);
 }
 
 extern "C" const char* kernels_error_string(int err) {

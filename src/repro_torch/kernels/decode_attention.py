@@ -13,13 +13,22 @@ scalar only; the model path passes either (``pos + 1`` in decode).  The
 kernel reads it from an int32 tensor on the card, so a decode step makes no
 host sync for it.
 
-What bounds it on the H100: bytes.  At the decode shape of the generation
-path (B=8, cur_len 576, KV=8, hd=128, bf16) the cache read alone is 18.9 MB,
-5.6 us at 3.35 TB/s, against 75 MFLOP.  The kernel
-(``csrc/decode_attention.cu``) is split-KV (flash-decoding): the grid is
-chunks of the cache x KV heads x B, so the 64 (batch, KV head) pairs of that
-shape become ~300 blocks over the 132 SMs; a second small kernel combines
-the chunks.  Chunks past ``cur_len`` or before the window load nothing.
+What bounds it on the H100, on paper: bytes.  At the decode shape of the
+generation path (B=8, cur_len 576, KV=8, hd=128, bf16) the cache read alone
+is 18.9 MB, 5.6 us at 3.35 TB/s, against 75 MFLOP; measured, a fixed cost
+per call and each block's per-stage reduction take more (PERF.md).  The
+kernel (``csrc/decode_attention.cu``) is split-KV (flash-decoding) in one
+launch: the grid is chunks of the cache x head groups x B, so the 64
+(batch, KV head) pairs of that shape become 256 blocks, one wave of 2 an
+SM; each block streams its chunk through a 4-stage ``cp.async`` ring,
+writes a float32 partial, and the last block of each (batch, head group) to
+finish combines the partials.  Chunks past ``cur_len`` or before the window
+load nothing.
+
+The wrapper keeps one zeroed counter buffer per card for those tickets (the
+kernel leaves it at 0), so calls on one card must be ordered on one stream
+(as the model path is), and a CUDA graph captures the call without a
+memset.
 
 The wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches the kernel or raises.
@@ -40,7 +49,7 @@ NEG_INF = -2.0e38
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (16, 32, 64, 128)
 SPLIT_MIN_KEYS = 64      # no chunk shorter than this many cache entries
-BLOCKS_PER_SM = 2        # split until the grid holds about this many waves
+BLOCKS_PER_SM = 2        # kernel blocks resident on an SM: one wave of them
 
 
 def _check(q, k_cache, v_cache, cur_len) -> None:
@@ -105,17 +114,30 @@ def _sm_count(index: int) -> int:
 def split_plan(b: int, h: int, kv: int, s: int, n_sm: int) -> tuple[int, int]:
     """(n_split, chunk): how the kernel cuts the cache axis.
 
-    Enough chunks that the grid holds about ``BLOCKS_PER_SM`` blocks per SM,
-    none shorter than ``SPLIT_MIN_KEYS`` keys; chunk lengths are multiples of
-    16.  It depends on the shapes only, never on ``cur_len``'s value.
+    As many chunks as one wave of ``BLOCKS_PER_SM`` blocks per SM holds (a
+    second wave would wait for the first), none shorter than
+    ``SPLIT_MIN_KEYS`` keys; chunk lengths are multiples of 16.  It depends
+    on the shapes only, never on ``cur_len``'s value.
     """
     g = h // kv
     gb = next(x for x in (8, 4, 2, 1) if g % x == 0)   # the kernel's GB
     blocks = b * h // gb
-    want = math.ceil(BLOCKS_PER_SM * n_sm / blocks)
+    want = BLOCKS_PER_SM * n_sm // blocks
     n_split = max(1, min(want, math.ceil(s / SPLIT_MIN_KEYS)))
     chunk = 16 * math.ceil(math.ceil(s / n_split) / 16)
     return math.ceil(s / chunk), chunk
+
+
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """The card's ticket counters, at least ``n``, allocated zeroed once."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
 
 
 def _cur_len_tensor(cur_len, b: int, device: torch.device) -> torch.Tensor:
@@ -154,18 +176,23 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, logit_cap=0.0,
     if b == 0 or s == 0:
         raise ValueError("empty batch or cache")
     cur = _cur_len_tensor(cur_len, b, q.device)
-    n_split, chunk = split_plan(b, h, kv, s, _sm_count(q.device.index or 0))
-    rows = b * h * n_split
-    ws = torch.empty(rows * (hd + 2), dtype=torch.float32, device=q.device)
+    device = q.device
+    n_split, chunk = split_plan(b, h, kv, s, _sm_count(device.index))
     o = torch.empty_like(q)
+    ws_ml = ws_acc = counters = 0                  # one split: no workspace
+    if n_split > 1:
+        rows = b * h * n_split
+        ws = torch.empty(rows * (hd + 2), dtype=torch.float32, device=device)
+        ws_acc, ws_ml = ws.data_ptr(), ws[rows * hd:].data_ptr()
+        counters = _counters(device, b * h).data_ptr()
     sc = hd ** -0.5 if scale is None else scale
     lib = build.load()
     err = lib.decode_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cur.data_ptr(),
-        int(cur.ndim == 1), o.data_ptr(), ws.data_ptr(),
-        ws[2 * rows:].data_ptr(), int(q.dtype == torch.bfloat16), b, s, h, kv,
-        hd, n_split, chunk, int(window), float(logit_cap), float(sc),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(cur.ndim == 1), o.data_ptr(), ws_ml, ws_acc, counters,
+        int(q.dtype == torch.bfloat16), b, s, h, kv, hd, n_split, chunk,
+        int(window), float(logit_cap), float(sc),
+        torch.cuda.current_stream(device).cuda_stream)
     build.check(lib, err, "decode_attention")
     decode_attention.launches += 1
     return o

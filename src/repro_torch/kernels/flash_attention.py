@@ -9,11 +9,13 @@ h // (H / KV)), fully masked blocks skipped.
 What bounds it on the H100: at the serving shape (B=1, S=512, H=32, KV=8,
 hd=128, bf16) the function reads q, k, v and writes o, 10.5 MB, 3.1 us at
 3.35 TB/s; its causal products are 2.15 GFLOP, 2.2 us at the bf16 tensor
-rate.  Bytes bound it on paper.  The kernel (``csrc/flash_attention.cu``)
-keeps the whole softmax state in registers and never writes the S x S score
-matrix, so it moves only those bytes; its products are float32 FMAs from
-shared memory, as the TPU kernel computes in float32, so in practice the
-CUDA cores' float32 rate bounds this first version, not memory.  Griffin's
+rate.  The kernel (``csrc/flash_attention.cu``) keeps the whole softmax
+state in registers and never writes the S x S score matrix, so it moves only
+those bytes.  Its bfloat16 instance (the model path) computes both products
+on the tensor cores with ``wgmma`` (Q K^T from shared memory, P V with P in
+registers, float32 accumulation) and streams K/V tiles through a 2-stage
+``cp.async`` ring; its float32 instance keeps float32 FMAs from shared
+memory (TF32 tensor cores could not meet the float32 tolerance).  Griffin's
 local attention runs it at hd=256 (B=1, S=512, H=16, KV=1, window 2048).
 
 The wrapper takes the plain version only for tensors on the CPU; for a CUDA
@@ -95,6 +97,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, logit_cap=0.0,
                          f"got {q.dtype}, hd={hd}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("kernel takes contiguous q, k, v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("kernel takes 16-byte aligned q, k, v")
     if s == 0 or b == 0:
         raise ValueError("empty batch or sequence")
     sc = hd ** -0.5 if scale is None else scale

@@ -70,6 +70,35 @@ def test_flash_kernel_matches_plain(b, s, h, kv, hd, window, cap, causal,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kv,hd,window", [
+    (1, 1, 32, 8, 128, 0),        # one query row
+    (1, 63, 32, 8, 128, 0),       # one under a 64-row tile
+    (1, 65, 32, 8, 128, 0),       # one over
+    (2, 127, 16, 4, 128, 0),      # one under two tiles
+    (2, 129, 16, 4, 128, 0),      # one over
+    (8, 512, 32, 8, 128, 0),      # WaveBatcher prefill shape (8 slots)
+    (1, 300, 32, 4, 128, 0),      # G = 8
+    (1, 300, 8, 2, 128, 64),      # window on a tile boundary
+    (1, 300, 8, 2, 128, 65),      # one past it
+    (1, 200, 4, 1, 256, 64),      # hd 256, window on a tile boundary
+    (2, 150, 8, 2, 16, 0),        # small head dims (one 64-column panel)
+    (2, 150, 8, 2, 32, 33),
+    (2, 150, 8, 2, 64, 0),
+])
+def test_flash_kernel_tile_edges(b, s, h, kv, hd, window, dtype, tol):
+    """Shapes that cross the bf16 kernel's 64-row query and 64-key tiles,
+    its window tile rule and its padded head dims."""
+    q = _normal((b, s, h, hd), dtype, 4)
+    k = _normal((b, s, kv, hd), dtype, 5)
+    v = _normal((b, s, kv, hd), dtype, 6)
+    got = k1.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    want = k1.flash_attention_plain(q, k, v, window=window)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n,d", [(512, 4096), (33, 100), (1, 7)])
 def test_int8_kernels_bit_identical_to_plain(n, d, dtype):
@@ -184,6 +213,10 @@ def test_flash_kernel_rejects_unsupported_head_dim():
     (2, 64, 4, 4, 16, 33, 0, 0.0),            # MHA, smallest head dim
     (3, 200, 32, 1, 64, [5, 199, 120], 0, 0.0),  # G=32: four head groups
     (1, 32768, 32, 8, 128, 30001, 0, 0.0),    # long cache, many splits
+    (2, 64, 32, 8, 128, 50, 0, 0.0),          # one split: no combine
+    (8, 640, 32, 8, 128, 1, 0, 0.0),          # one valid key
+    (8, 640, 32, 8, 128, 640, 0, 0.0),        # the whole cache
+    (8, 640, 32, 8, 128, [576, 1, 640, 128, 129, 64, 65, 2], 0, 0.0),
 ])
 def test_decode_kernel_matches_plain(b, s, h, kv, hd, cur, window, cap, dtype, tol):
     q = _normal((b, h, hd), dtype, 1)
@@ -201,6 +234,39 @@ def test_decode_kernel_matches_plain(b, s, h, kv, hd, cur, window, cap, dtype, t
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     if s == 32768:
         assert n_split > 8
+    if s == 64:
+        assert n_split == 1
+
+
+@pytest.mark.parametrize("cur", [576, [576, 1, 640, 300, 129, 128, 2, 513]])
+def test_decode_kernel_repeats_bit_identical(cur):
+    """Two calls in a row and three replays of a captured CUDA graph give the
+    same bits: the last block of each head group combines the chunks in split
+    order and leaves its ticket counter at 0 for the next call or replay."""
+    b, s, h, kv, hd = 8, 640, 32, 8, 128
+    q = _normal((b, h, hd), torch.bfloat16, 7)
+    kc = _normal((b, s, kv, hd), torch.bfloat16, 8)
+    vc = _normal((b, s, kv, hd), torch.bfloat16, 9)
+    cur_len = torch.tensor(cur, dtype=torch.int32, device="cuda")
+    first = k3.decode_attention(q, kc, vc, cur_len)
+    second = k3.decode_attention(q, kc, vc, cur_len)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k3.decode_attention(q, kc, vc, cur_len)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k3.decode_attention(q, kc, vc, cur_len)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+    want = k3.decode_attention_plain(q, kc, vc, cur_len)
+    torch.testing.assert_close(first.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
 def test_decode_kernel_int_cur_len_and_rejects():
