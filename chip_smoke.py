@@ -10,10 +10,10 @@ result line:
 
 1. print the card's name and power limit, build the Hopper kernels from
    ``src/repro_torch/kernels/csrc`` and print the build time and ptxas'
-   registers and spills, then the SASS instruction census of the K1 and K3
-   kernels (``cuobjdump``) and the K1 design it shows (``wgmma``: HGMMA in
-   the bf16 kernel; the script fails if that kernel has no tensor-core
-   instruction);
+   registers and spills, then the SASS instruction census of the K1, K3 and
+   K4 kernels (``cuobjdump``) and the K1 and K4 designs it shows (``wgmma``:
+   HGMMA in the bf16 kernels; the script fails if K1's bf16 kernel or any
+   of K4's bf16 kernels has no tensor-core instruction);
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes and time kernel, plain version and, where one PyTorch
    call computes the same function, that call as a yardstick (the port
@@ -21,8 +21,11 @@ result line:
    K3's device time by kernel (one launch).  Tolerances are those of
    tests/test_kernels.py: K1 flash prefill attention and K3 decode
    attention bf16 2e-2 / fp32 2e-5 (SDPA beside them), K2 int8
-   quantize/dequantize bit for bit, K4 SSD chunk scan 1e-4 fp32 (y and state) / 2e-2 bf16 at the mamba2-1.3b
-   prefill shape, a ragged S with state_in and G=2, K5 RG-LRU scan 1e-5
+   quantize/dequantize bit for bit, K4 SSD chunk scan 1e-4 fp32 (y and
+   state) / 2e-2 bf16 y with the state at 1e-4 at the mamba2-1.3b prefill
+   shape, a ragged S with state_in, G=2 and S=2,048 over 8 chunks, each of
+   K4's two bf16 kernels against its plain stages (chunk states and carry
+   1e-4, chunk scan 2e-2) and K4's device time by kernel, K5 RG-LRU scan 1e-5
    fp32 / 2e-2 bf16 at the recurrentgemma-9b shape with and without h0 and
    a ragged W, and K1 at head dim 256 (Griffin's shape, SDPA beside it, and
    S=4096 where the window of 2048 bites);
@@ -93,9 +96,11 @@ DECODE_CUR = 576                                  # cache entries in use
 K1_BF16 = "flash_fwd_wgmma_kernel"     # the tensor-core instance (bf16)
 K1_F32 = "flash_fwd_f32_kernel"       # the CUDA-core instance (float32)
 K3_KERNEL = "decode_attention_kernel"
+K4_BF16 = ("ssd_chunk_state_kernel", "ssd_chunk_scan_kernel")  # tensor cores
+K4_F32 = ("ssd_cb_kernel", "ssd_scan_kernel")                  # CUDA cores
 FAMILIES = {K1_BF16: "K1", K1_F32: "K1", "quantize_rows": "K2",
-            K3_KERNEL: "K3",
-            "ssd_cb_kernel": "K4", "ssd_scan_kernel": "K4", "rglru_": "K5",
+            K3_KERNEL: "K3", **dict.fromkeys(K4_BF16 + K4_F32, "K4"),
+            "rglru_": "K5",
             "gemm": "matmul", "nvjet": "matmul", "xmma": "matmul",
             "cutlass": "matmul"}
 SERVE_ARGV = ["--full", "--param-dtype", "bfloat16", "--compress",
@@ -174,19 +179,21 @@ def kernel_split(fn, iters: int) -> dict[str, float]:
 
 def kernel_instance(mangled: str) -> str:
     """``decode_attention_kernel<bf16, 128, 4>`` from a mangled name."""
-    m = re.search(f"({K1_BF16}|{K1_F32}|{K3_KERNEL})I(.*)", mangled)
+    m = re.search(f"({'|'.join((K1_BF16, K1_F32, K3_KERNEL) + K4_BF16)})I(.*)",
+                  mangled)
     if not m:
-        return mangled
+        return next((k for k in K4_F32 if k in mangled), mangled)
     base, rest = m.group(1), m.group(2).split("Ev")[0]
     dtype = ["bf16"] if "bfloat16" in rest else ["f32"] if rest.startswith("f") else []
     ints = re.findall(r"Li(\d+)E", rest)
     return f"{base}<{', '.join(dtype + ints)}>"
 
 
-def sass_census(lib_path: pathlib.Path) -> str:
-    """SASS instruction counts of the K1 and K3 kernels in the built
-    library (``cuobjdump --dump-sass``), and the K1 design they show:
-    "wgmma" (HGMMA in the bf16 instance), "mma.sync" (HMMA) or neither."""
+def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
+    """SASS instruction counts of the K1, K3 and K4 kernels in the built
+    library (``cuobjdump --dump-sass``), and the designs of K1's and K4's
+    bf16 instances they show: "wgmma" (HGMMA in every bf16 kernel of the
+    family), "mma.sync" (HMMA) or "neither"."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         sass = subprocess.run([cuobjdump, "--dump-sass", str(lib_path)],
@@ -194,7 +201,7 @@ def sass_census(lib_path: pathlib.Path) -> str:
                               timeout=300).stdout
     except (OSError, subprocess.SubprocessError) as exc:
         print(f"SASS census: cuobjdump not available ({exc})")
-        return "not measured"
+        return {"K1": "not measured", "K4": "not measured"}
     ops = ("HGMMA", "HMMA", "FFMA", "LDGSTS", "MUFU.EX2")
     census: dict[str, dict[str, int]] = {}
     func = None
@@ -207,19 +214,25 @@ def sass_census(lib_path: pathlib.Path) -> str:
             for op in ops:
                 if f" {op}" in line:
                     census[func][op] += 1
-    design = "neither"
+    bf16 = {"K1": (K1_BF16,), "K4": K4_BF16}
+    found: dict[str, list[str]] = {fam: [] for fam in bf16}
     for func, counts in sorted(census.items()):
         name = kernel_instance(func)
-        if not name.startswith((K1_BF16, K1_F32, K3_KERNEL)):
+        if not name.startswith((K1_BF16, K1_F32, K3_KERNEL) + K4_BF16 + K4_F32):
             continue
+        for fam, names in bf16.items():
+            if name.startswith(names):
+                found[fam].append("wgmma" if counts["HGMMA"] else
+                                  "mma.sync" if counts["HMMA"] else "neither")
         if name.startswith(K3_KERNEL) and ", 128," not in name:
             continue                      # K3: the head dim of the path only
+        if name.startswith(K4_BF16) and not name.endswith("<2>"):
+            continue                      # K4: N = 128 (the path) only
         print(f"  SASS {name}: {counts}")
-        if K1_BF16 in func and counts["HGMMA"]:
-            design = "wgmma"
-        elif K1_BF16 in func and counts["HMMA"] and design != "wgmma":
-            design = "mma.sync"
-    return design
+    # a family's design is the weakest of its bf16 kernels'
+    order = ["neither", "mma.sync", "wgmma"]
+    return {fam: min(ds, key=order.index) if ds else "neither"
+            for fam, ds in found.items()}
 
 
 def graph_ms(fn, iters: int, reps: int = 5) -> float:
@@ -437,6 +450,29 @@ def ssd_flops(b, s, h, g, n, p, chunk) -> tuple[float, float]:
     return need, tpu
 
 
+def ssd_stage_checks(k4, label, x, dt, a, bm, cm, chunk, state_in) -> None:
+    """K4's bf16 kernels, each against its plain stages on the same inputs:
+    the chunk-state kernel's cums and chunk states S^ (from x, dt, A, B) and
+    its carry (S_in per chunk as two bf16 halves, the final state, from its
+    own S^ and cums[-1]) at 1e-4; the chunk-scan kernel's y (from the
+    kernel's cums and S_in) at 2e-2."""
+    got = k4.ssd_stages(x, dt, a, bm, cm, chunk=chunk, state_in=state_in)
+    torch.cuda.synchronize()
+    cums, shat = k4.ssd_chunk_state_plain(x, dt, a, bm, chunk=chunk)
+    s_in, final = k4.ssd_state_pass_plain(got["shat"], got["last"], state_in)
+    y = k4.ssd_chunk_scan_plain(x, dt, bm, cm, got["cums"], got["s_in"], chunk=chunk)
+    errs = {}
+    for name, mine, want, tol in (("cums", got["cums"], cums, 1e-4),
+                                  ("shat", got["shat"], shat, 1e-4),
+                                  ("s_in", got["s_in"], s_in, 1e-4),
+                                  ("state", got["state"], final, 1e-4),
+                                  ("y", got["y"].float(), y.float(), 2e-2)):
+        torch.testing.assert_close(mine, want, atol=tol, rtol=tol)
+        errs[name] = float((mine - want).abs().max())
+    print(f"  K4 {label} stages vs plain stages (max abs err): "
+          + json.dumps({k: f"{v:.3e}" for k, v in errs.items()}))
+
+
 def phase_ssd_kernel(k4) -> dict:
     """Phase 2, K4: the SSD chunk scan against its plain version; time, bound."""
     P = SSD_PATH
@@ -445,6 +481,8 @@ def phase_ssd_kernel(k4) -> dict:
         ("path fp32", torch.float32, 1e-4, *P.values(), False),
         ("ragged + state_in", torch.bfloat16, 2e-2, 1, 300, 64, 1, 128, 64, 256, True),
         ("G=2, H=4", torch.float32, 1e-4, 2, 200, 4, 2, 32, 64, 64, True),
+        ("G=2, H=4 bf16", torch.bfloat16, 2e-2, 2, 200, 4, 2, 32, 64, 64, True),
+        ("8 chunks", torch.bfloat16, 2e-2, 1, 2048, 64, 1, 128, 64, 256, True),
     ]
     row = None
     for label, dt, tol, b, s, h, g, n, p, chunk, with_state in cases:
@@ -464,6 +502,8 @@ def phase_ssd_kernel(k4) -> dict:
               f"{float(wy.float().abs().max()):.3e}; atol=rtol={tol}), state "
               f"{serr:.3e} (max |state| {float(wst.abs().max()):.3e}; "
               f"atol=rtol=1e-4)")
+        if dt == torch.bfloat16 and label != "8 chunks":
+            ssd_stage_checks(k4, label, x, dtv, a, bm, cm, chunk, st)
         if label != "path":
             continue
 
@@ -471,6 +511,9 @@ def phase_ssd_kernel(k4) -> dict:
             return k4.ssd(x, dtv, a, bm, cm, chunk=chunk, return_state=True)
 
         ms = timed("K4 kernel", kernel, 50, "ssd_")
+        by_name = kernel_split(kernel, 20)
+        print("  K4 device time by kernel (profiler, us/call): "
+              + json.dumps({k: round(v, 3) for k, v in by_name.items()}))
         plain_ms = timed("K4 plain", lambda: k4.ssd_plain(
             x, dtv, a, bm, cm, chunk=chunk, return_state=True), 10)
         n_bytes = sum(t.numel() * t.element_size()
@@ -962,10 +1005,12 @@ def main() -> int:
         if any(key in line for key in ("Compiling entry", "registers", "spill")) \
                 or line.startswith("=="):
             print(f"  {line.strip()}")
-    design = sass_census(res.path)
-    print(f"K1 design (bf16 instance, from its SASS): {design}")
-    if design not in ("wgmma", "mma.sync", "not measured"):
-        raise AssertionError("K1's bf16 kernel runs no tensor-core instruction")
+    designs = sass_census(res.path)
+    print(f"K1 and K4 designs (bf16 instances, from their SASS): {designs}")
+    for fam, design in designs.items():
+        if design not in ("wgmma", "mma.sync", "not measured"):
+            raise AssertionError(f"a bf16 kernel of {fam} runs no tensor-core "
+                                 "instruction")
 
     # ---- phase 2: kernels against their plain versions ----
     rows = phase_kernels(k1, k2)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""K1 and K3 of two checkouts of this repository, timed on one card in turns.
+"""K1, K3 and K4 of two checkouts of this repository, timed on one card in turns.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100, with a
 second checkout (for example the parent commit, unpacked by ``git archive``
@@ -12,12 +12,14 @@ Each checkout is measured in its own process (each imports its own
 other, so a drift of the card over the run shows as a gap between the two
 readings of one checkout.  Every measurement prints the device time per call
 of K1 (flash prefill attention) at Llama-3-8B's prefill shape and at
-Griffin's hd 256 shape, and of K3 (decode attention) at the generation
-path's decode shape, from a CUDA-graph replay (``chip_smoke.graph_ms``),
+Griffin's hd 256 shape, of K3 (decode attention) at the generation path's
+decode shape, and of K4 (the SSD chunk scan, bf16, final state returned) at
+Mamba-2's prefill shape, from a CUDA-graph replay (``chip_smoke.graph_ms``),
 beside the device time of each kernel the call launches, by name
 (``chip_smoke.kernel_split``: a two-kernel K3 shows its split and its
-combine), and K3 again at fewer valid cache entries (time against
-``cur_len`` separates its fixed cost from its per-key cost).  ``--sweep``
+combine; K4 its kernels), and K3 again at fewer valid cache entries (time
+against ``cur_len`` separates its fixed cost from its per-key cost).
+``--sweep``
 also times this checkout's K3 over other values of
 ``BLOCKS_PER_SM``, the split plan's one knob.  Prints one JSON line per
 measurement and the card's name and power limit.
@@ -46,8 +48,19 @@ def measure(root: pathlib.Path, sweep: bool) -> list[dict]:
 
     from repro_torch.kernels import decode_attention as k3
     from repro_torch.kernels import flash_attention as k1
+    from repro_torch.kernels import ssd_chunk as k4
 
     rows = []
+    b, s, h, g, n, p, chunk = cs.SSD_PATH.values()
+    x, dt, a, bm, cm, _ = cs.ssd_inputs(b, s, h, g, n, p, torch.bfloat16, 21)
+
+    def ssd():
+        return k4.ssd(x, dt, a, bm, cm, chunk=chunk, return_state=True)
+
+    ssd()
+    torch.cuda.synchronize()
+    rows.append(dict(kernel="K4", shape="mamba2", us=1e3 * cs.graph_ms(ssd, 50),
+                     by_name=cs.kernel_split(ssd, 20)))
     for label, b, s, h, kv, hd, window in K1_SHAPES:
         q = cs.normal((b, s, h, hd), torch.bfloat16, 1)
         k = cs.normal((b, s, kv, hd), torch.bfloat16, 2)

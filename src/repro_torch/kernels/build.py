@@ -23,7 +23,7 @@ import tempfile
 import time
 from dataclasses import dataclass
 
-__all__ = ["BuildResult", "build", "load", "check"]
+__all__ = ["BuildResult", "build", "load", "check", "counters"]
 
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -43,7 +43,7 @@ _SIGNATURES = {
     "dequantize_int8_fwd": [_VOID] * 3 + [_INT] * 3 + [_VOID],
     "decode_attention_fwd": [_VOID] * 4 + [_INT] + [_VOID] * 4 + [_INT] * 9
     + [_FLOAT, _FLOAT, _VOID],
-    "ssd_chunk_fwd": [_VOID] * 9 + [_INT] * 8 + [_LONG] * 6 + [_VOID],
+    "ssd_chunk_fwd": [_VOID] * 14 + [_INT] * 8 + [_LONG] * 6 + [_VOID],
     "rglru_fwd": [_VOID] * 5 + [_INT] * 4 + [_VOID],
     "rglru_chunk_steps": [],
 }
@@ -133,3 +133,19 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.kernels_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+_COUNTERS: dict = {}
+
+
+def counters(owner: str, device, n: int):
+    """Zeroed int32 ticket counters of one kernel family on one card, at
+    least ``n``, allocated once.  The kernels leave them at 0, so calls of
+    one family on one card must be ordered on one stream."""
+    import torch
+
+    buf = _COUNTERS.get((owner, device))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[(owner, device)] = buf
+    return buf

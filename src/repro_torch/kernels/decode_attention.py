@@ -128,18 +128,6 @@ def split_plan(b: int, h: int, kv: int, s: int, n_sm: int) -> tuple[int, int]:
     return math.ceil(s / chunk), chunk
 
 
-_COUNTERS: dict[torch.device, torch.Tensor] = {}
-
-
-def _counters(device: torch.device, n: int) -> torch.Tensor:
-    """The card's ticket counters, at least ``n``, allocated zeroed once."""
-    buf = _COUNTERS.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _COUNTERS[device] = buf
-    return buf
-
-
 def _cur_len_tensor(cur_len, b: int, device: torch.device) -> torch.Tensor:
     if isinstance(cur_len, torch.Tensor):
         return cur_len.to(torch.int32).contiguous()
@@ -184,7 +172,7 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, logit_cap=0.0,
         rows = b * h * n_split
         ws = torch.empty(rows * (hd + 2), dtype=torch.float32, device=device)
         ws_acc, ws_ml = ws.data_ptr(), ws[rows * hd:].data_ptr()
-        counters = _counters(device, b * h).data_ptr()
+        counters = build.counters("decode_attention", device, b * h).data_ptr()
     sc = hd ** -0.5 if scale is None else scale
     lib = build.load()
     err = lib.decode_attention_fwd(

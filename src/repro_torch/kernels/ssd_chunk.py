@@ -1,4 +1,4 @@
-"""K4, the Mamba-2 SSD chunk scan: the Hopper kernel's wrapper and its plain version.
+"""K4, the Mamba-2 SSD chunk scan: the Hopper kernels' wrapper and their plain versions.
 
 Replaces the Pallas TPU kernel ``repro/kernels/ssd_chunk.py::ssd_chunk``
 (``_ssd_kernel``) together with the model-layout wrapper ``ops.ssd``: per
@@ -12,15 +12,27 @@ h // (H / G), in the kernel, with no repeat.
 
 What bounds it on the H100: at the Mamba-2 prefill shape (B=1, S=512,
 H=64, P=64, G=1, N=128, chunk 256, bf16, final state returned) it moves
-10.8 MB (3.2 us at 3.35 TB/s) against ~1.6 GFLOP of products that this
-input needs (the lower triangles, C Bᵀ once per group).  The kernel
-(``csrc/ssd_chunk.cu``) computes C Bᵀ once per (batch, group, chunk), then
-runs one block per (batch·head, 16 state columns), 256 blocks at that
-shape, each walking its chunks with its slice of S in shared memory; its
-products are float32 FMAs, as the TPU kernel computes in float32.
+10.9 MB (3.2 us at 3.35 TB/s) against 1.63 GFLOP of products that this
+input needs (the lower triangles, C Bᵀ once per group).  The bf16 instance
+(``csrc/ssd_chunk.cu``) runs the chunks in parallel with every product on
+the tensor cores, in two launches: the chunk-state kernel (cums, each
+chunk's own state Ŝ with B∘w split into two bf16 halves so the state keeps
+~2⁻¹⁶ relative error, then the sequential carry over chunks in float32, by
+the last block of each head to finish) and the chunk-scan kernel (y per
+64-row tile: C Bᵀ and the masked scores times x as K1's Q Kᵀ and P V, plus
+C S_in with S_in as two halves).  Each stage has its plain version here:
+:func:`ssd_chunk_state_plain`, :func:`ssd_state_pass_plain` (the carry) and
+:func:`ssd_chunk_scan_plain`; :func:`ssd_stages` exposes the kernels'
+stages on the card so that tests can hold each against them.  The float32
+instance keeps float32 FMAs (C Bᵀ once per group, then one block per
+(batch·head, 16 state columns) walking the chunks), as the TPU kernel
+computes in float32.
 
-The wrapper takes the plain version only for tensors on the CPU; for a CUDA
-tensor it launches the kernel or raises.
+The carry's tickets count on one zeroed counter buffer per card that the
+kernel leaves at 0 (``build.counters``), so calls on one card must be
+ordered on one stream (as the model path is), and a CUDA graph captures a
+call without a memset.  The wrapper takes the plain version only for
+tensors on the CPU; for a CUDA tensor it launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -30,11 +42,13 @@ import torch.nn.functional as F
 
 from . import build
 
-__all__ = ["ssd", "ssd_plain"]
+__all__ = ["ssd", "ssd_plain", "ssd_chunk_state_plain", "ssd_state_pass_plain",
+           "ssd_chunk_scan_plain", "ssd_stages"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_STATE = 256       # the kernel keeps up to 16 x 16 state rows per thread
-MAX_CHUNK = 1024      # its chunk buffers must fit in a block's shared memory
+MAX_STATE = 256       # float32: 16 x 16 state rows a thread; bf16: 4 tiles of 64
+MAX_CHUNK = 1024      # the chunk buffers must fit in a block's shared memory
+TILE = 64             # the bf16 kernels' tile side
 
 
 def _check(x, dt, A, Bm, Cm, state_in) -> None:
@@ -67,6 +81,23 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     return diff.masked_fill(~mask, float("-inf"))
 
 
+def _padded_chunks(x, dt, Bm, Cm, q):
+    """Zero-pad S to whole chunks of q (dt = 0 past S: the state stays) and
+    split it: x [B,nc,q,H,P], dt [B,nc,q,H], B/C [B,nc,q,H,N] repeated to
+    heads, all float32."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    pad = (-s) % q
+    if pad:
+        x, Bm, Cm = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, Bm, Cm))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    nc = x.shape[1] // q
+    rep = h // g
+    return (x.reshape(b, nc, q, h, p).float(), dt.reshape(b, nc, q, h).float(),
+            Bm.reshape(b, nc, q, g, n).repeat_interleave(rep, dim=3).float(),
+            Cm.reshape(b, nc, q, g, n).repeat_interleave(rep, dim=3).float())
+
+
 def ssd_plain(x, dt, A, Bm, Cm, *, chunk: int, state_in=None,
               return_state: bool = False):
     """Chunked SSD in float32, the reference model path's arithmetic.
@@ -78,20 +109,10 @@ def ssd_plain(x, dt, A, Bm, Cm, *, chunk: int, state_in=None,
     """
     _check(x, dt, A, Bm, Cm, state_in)
     b, s, h, p = x.shape
-    g, n = Bm.shape[2], Bm.shape[3]
-    rep = h // g
+    n = Bm.shape[3]
     q = min(chunk, s)
-    pad = (-s) % q
-    if pad:
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
-    nc = x.shape[1] // q
-    xc = x.reshape(b, nc, q, h, p).float()
-    dtc = dt.reshape(b, nc, q, h).float()
-    Bc = Bm.reshape(b, nc, q, g, n).repeat_interleave(rep, dim=3).float()
-    Cc = Cm.reshape(b, nc, q, g, n).repeat_interleave(rep, dim=3).float()
+    xc, dtc, Bc, Cc = _padded_chunks(x, dt, Bm, Cm, q)
+    nc = xc.shape[1]
     state = (torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
              if state_in is None else state_in.float())
     A = A.float()
@@ -114,6 +135,48 @@ def ssd_plain(x, dt, A, Bm, Cm, *, chunk: int, state_in=None,
     return (y, state) if return_state else y
 
 
+def ssd_chunk_state_plain(x, dt, A, Bm, *, chunk: int):
+    """Stage 1: ``cums`` [B,H,nc,q] (the cumulative sum of dt·A within each
+    chunk of q = min(chunk, S)) and each chunk's own state ``Ŝ`` [B,H,nc,N,P]
+    = Σ_j (B_j w_j)ᵀ x_j with w_j = dt_j·e^{cums[-1] − cums_j}, float32."""
+    q = min(chunk, x.shape[1])
+    xc, dtc, Bc, _ = _padded_chunks(x, dt, Bm, Bm, q)
+    cums = torch.cumsum(dtc * A.float(), dim=2)                   # [B,nc,q,H]
+    w = dtc * torch.exp(cums[:, :, -1:] - cums)
+    shat = torch.einsum("bcjhn,bcjhp->bhcnp", Bc * w[..., None], xc)
+    return cums.permute(0, 3, 1, 2), shat
+
+
+def ssd_state_pass_plain(shat, last, state_in=None):
+    """Stage 2: the carry.  ``shat`` [B,H,nc,N,P], ``last`` [B,H,nc] (each
+    chunk's cums[-1]) -> (S_in [B,H,nc,N,P], the final state [B,H,N,P]) with
+    S_in(0) = ``state_in`` or 0 and S_in(c+1) = S_in(c)·e^{last_c} + Ŝ_c."""
+    state = (torch.zeros_like(shat[:, :, 0]) if state_in is None
+             else state_in.float())
+    s_in = []
+    for c in range(shat.shape[2]):
+        s_in.append(state)
+        state = state * torch.exp(last[:, :, c])[..., None, None] + shat[:, :, c]
+    return torch.stack(s_in, dim=2), state
+
+
+def ssd_chunk_scan_plain(x, dt, Bm, Cm, cums, s_in, *, chunk: int):
+    """Stage 3: y [B,S,H,P] in x's dtype from ``cums`` [B,H,nc,q] and the
+    chunks' carried states ``s_in`` [B,H,nc,N,P]: y_i = e^{cums_i}(C S_in)_i +
+    Σ_{j≤i} (C Bᵀ)_{ij} e^{cums_i − cums_j} dt_j x_j."""
+    b, s, h, p = x.shape
+    q = min(chunk, s)
+    xc, dtc, Bc, Cc = _padded_chunks(x, dt, Bm, Cm, q)
+    cs = cums.permute(0, 2, 3, 1)                                  # [B,nc,q,H]
+    diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]             # [B,nc,i,j,H]
+    keep = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    L = torch.exp(diff.masked_fill(~keep[None, None, :, :, None], float("-inf")))
+    scores = torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc) * L * dtc[:, :, None]
+    y = torch.einsum("bcijh,bcjhp->bcihp", scores, xc)
+    y = y + torch.exp(cs)[..., None] * torch.einsum("bcihn,bhcnp->bcihp", Cc, s_in)
+    return y.reshape(b, -1, h, p)[:, :s].to(x.dtype)
+
+
 def _last_two_contiguous(t: torch.Tensor) -> bool:
     return t.stride(3) == 1 and t.stride(2) == t.shape[3]
 
@@ -125,9 +188,9 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256, state_in=None,
     ``return_state``; ``state_in`` [B,H,N,P] float32 seeds the state.
 
     CPU tensors take :func:`ssd_plain`; CUDA tensors launch the Hopper
-    kernel (x, B, C float32 or bfloat16 with their last two dims contiguous;
-    N <= 256, chunk <= 1024) or raise.  ``ssd.launches`` counts kernel
-    launches.
+    kernels (x, B, C float32 or bfloat16 with their last two dims
+    contiguous; N <= 256, chunk <= 1024) or raise.  ``ssd.launches`` counts
+    the calls that launched them (one a call).
     """
     _check(x, dt, A, Bm, Cm, state_in)
     if chunk <= 0:
@@ -137,8 +200,19 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256, state_in=None,
                          return_state=return_state)
     if x.device.type != "cuda":
         raise ValueError(f"no SSD kernel for device {x.device}")
-    b, s, h, p = x.shape
-    g, n = Bm.shape[2], Bm.shape[3]
+    q = _check_kernel_inputs(x, dt, A, Bm, Cm, state_in, chunk)
+    y, state_out, _ = _launch(x, dt, A, Bm, Cm, q, state_in, return_state)
+    ssd.launches += 1
+    return (y, state_out) if return_state else y
+
+
+ssd.launches = 0
+
+
+def _check_kernel_inputs(x, dt, A, Bm, Cm, state_in, chunk: int) -> int:
+    """Raise on what the kernels do not take; return the chunk length."""
+    b, s = x.shape[:2]
+    n = Bm.shape[3]
     q = min(chunk, s)
     if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise ValueError(f"kernel takes x, B, C of one dtype in {_DTYPES}; got "
@@ -156,8 +230,47 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256, state_in=None,
         raise ValueError(f"kernel takes 0 < N <= {MAX_STATE}, chunk <= "
                          f"{MAX_CHUNK} and a non-empty input; got N={n}, "
                          f"chunk {q}, {tuple(x.shape)}")
+    return q
+
+
+def _round_up(v: int) -> int:
+    return -(-v // TILE) * TILE
+
+
+def _workspace(b, s, h, g, n, p, q, bf16: bool):
+    """The pieces of the kernels' one workspace buffer, in the order of
+    ``ssd_chunk_fwd``'s ws0..ws4: (byte offset, dtype, shape) each, each
+    piece 256-byte aligned; and the buffer's size.  float32: C Bᵀ per
+    (batch·group, chunk).  bf16: cums, cums[-1], the chunk states Ŝ, and
+    S_in's two bf16 halves in the [P tiles, N rounded up to 64, 64] layout
+    that the scan kernel copies whole."""
     nc = -(-s // q)
-    cb = torch.empty(b * g * nc * q * q, dtype=torch.float32, device=x.device)
+    if bf16:
+        half = (torch.bfloat16, (b * h, nc, _round_up(p) // TILE, _round_up(n), TILE))
+        pieces = [(torch.float32, (b * h, nc, _round_up(q))),
+                  (torch.float32, (b * h, nc)),
+                  (torch.float32, (b * h, nc, n, p)), half, half]
+    else:
+        pieces = [(torch.float32, (b * g * nc * q * q,))]
+    out, off = [], 0
+    for dtype, shape in pieces:
+        out.append((off, dtype, shape))
+        off += -(-torch.Size(shape).numel() * dtype.itemsize // 256) * 256
+    return out, off
+
+
+def _launch(x, dt, A, Bm, Cm, q, state_in, return_state):
+    """One call of ``ssd_chunk_fwd`` (two launches): (y, the final state or
+    None, (workspace buffer, its pieces))."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    pieces, nbytes = _workspace(b, s, h, g, n, p, q, x.dtype == torch.bfloat16)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    ptrs = [ws.data_ptr() + off for off, _, _ in pieces]
+    ptrs += [None] * (5 - len(ptrs))
+    # bf16: the carry's ticket counters, one per (batch·head, 64 columns of P)
+    ptrs.append(build.counters("ssd", x.device, b * h * _round_up(p) // TILE).data_ptr()
+                if x.dtype == torch.bfloat16 else None)
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     state_out = (torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
                  if return_state else None)
@@ -165,13 +278,42 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256, state_in=None,
     err = lib.ssd_chunk_fwd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         None if state_in is None else state_in.data_ptr(), y.data_ptr(),
-        None if state_out is None else state_out.data_ptr(), cb.data_ptr(),
+        None if state_out is None else state_out.data_ptr(), *ptrs,
         int(x.dtype == torch.bfloat16), b, s, h, g, n, p, q,
         x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0),
         Cm.stride(1), torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "ssd")
-    ssd.launches += 1
-    return (y, state_out) if return_state else y
+    return y, state_out, (ws, pieces)
 
 
-ssd.launches = 0
+def ssd_stages(x, dt, A, Bm, Cm, *, chunk: int = 256, state_in=None) -> dict:
+    """The bf16 kernels' stages on the card, for holding each against its
+    plain version: one call of the kernels, then their workspaces as
+    ``cums`` [B,H,nc,q], ``last`` [B,H,nc] and ``shat`` [B,H,nc,N,P]
+    (chunk states), ``s_in`` [B,H,nc,N,P] (the carry's hi + lo, in float32;
+    chunk 0's is ``state_in`` or 0) and ``state`` (the carry), and ``y`` (the
+    chunk scan).  Not on the model path: ``ssd_stages.launches`` counts its
+    calls apart from ``ssd``'s."""
+    _check(x, dt, A, Bm, Cm, state_in)
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        raise ValueError("ssd_stages runs the bf16 kernels on CUDA tensors")
+    q = _check_kernel_inputs(x, dt, A, Bm, Cm, state_in, chunk)
+    b, _, h, p = x.shape
+    n = Bm.shape[3]
+    y, state, (ws, pieces) = _launch(x, dt, A, Bm, Cm, q, state_in, True)
+    ssd_stages.launches += 1
+    cums, last, shat, hi, lo = (
+        ws[off:off + torch.Size(shape).numel() * dtype.itemsize].view(dtype).view(shape)
+        for off, dtype, shape in pieces)
+
+    def heads(t):
+        return t.reshape(b, h, *t.shape[1:])
+
+    s_in = (hi.float() + lo.float()).permute(0, 1, 3, 2, 4).flatten(3)
+    if state_in is None:        # chunk 0's S_in is 0; the kernel does not write it
+        s_in[:, 0] = 0.0
+    return dict(cums=heads(cums[..., :q]), last=heads(last), shat=heads(shat),
+                s_in=heads(s_in[..., :n, :p]), state=state, y=y)
+
+
+ssd_stages.launches = 0

@@ -4,10 +4,11 @@
 layer, :func:`decode_attention` the one-token attention of every decode
 step.  In the reference both are XLA code; here they call the K1 flash
 kernel (``kernels/flash_attention.py``) and the K3 decode kernel
-(``kernels/decode_attention.py``), whose arithmetic follows the reference's
-TPU kernels: q is scaled and the probabilities are multiplied into V in
-float32, where the reference's XLA path scales q and casts the
-probabilities to the activation dtype (bf16) first.
+(``kernels/decode_attention.py``).  K1's bf16 instance rounds the
+probabilities to bf16 before P·V, as the reference's XLA path casts them to
+the value dtype (``src/repro/models/attention.py``), with float32
+accumulation; its float32 instance and K3 multiply them into V in float32,
+as the reference's TPU kernels do.
 """
 
 from __future__ import annotations

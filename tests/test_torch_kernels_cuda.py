@@ -7,8 +7,9 @@ it runs on a machine with the card:
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
 Tolerances are those of tests/test_kernels.py: attention 2e-5 float32, 2e-2
-bfloat16; SSD (K4) 1e-4 float32 for y and the float32 state, 2e-2 for bf16
-outputs; RG-LRU (K5) 1e-5 float32, 2e-2 bf16; int8 is held bit for bit.
+bfloat16; SSD (K4) 1e-4 float32 for y and the float32 state (also in bf16),
+2e-2 for bf16 outputs; RG-LRU (K5) 1e-5 float32, 2e-2 bf16; int8 is held bit
+for bit.
 """
 
 import dataclasses
@@ -135,6 +136,7 @@ def _ssd_inputs(b, s, h, g, n, p, dtype, seed):
     (1, 48, 4, 1, 16, 16, 16, True),       # 3 chunks of 16
     (2, 513, 64, 1, 128, 64, 256, True),   # one step past two chunks
     (1, 100, 2, 1, 8, 24, 64, True),       # N=8, P=24 (one and a half tiles)
+    (1, 2048, 8, 1, 128, 64, 256, True),   # 8 chunks: the state carried 7 times
 ])
 def test_ssd_kernel_matches_plain(b, s, h, g, n, p, chunk, with_state, dtype, tol):
     x, dt, a, bm, cm, st = _ssd_inputs(b, s, h, g, n, p, dtype, s + h)
@@ -169,6 +171,102 @@ def test_ssd_kernel_reads_strided_views():
     x_cols = x.transpose(2, 3).contiguous().transpose(2, 3)   # p not innermost
     with pytest.raises(ValueError, match="contiguous"):
         k4.ssd(x_cols, dt, a, bm, cm, chunk=64)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 2e-2)])
+def test_ssd_kernel_at_wrapper_limits(dtype, tol):
+    """chunk 1024 and N 256, the largest the wrapper takes, over two chunks
+    with state_in.  bf16 is held as everywhere (y 2e-2, state 1e-4).  In
+    float32, cums grows to |cums| ~ 10^3 over 1024 steps; its float32
+    rounding (~6e-5) moves e^(cums_i - cums_j) by ~1e-4 relative, and the
+    kernel and its plain version sum cums in different orders, so y and the
+    state are held at 1e-3 here (up to 4.3e-4 measured on an H100)."""
+    x, dt, a, bm, cm, st = _ssd_inputs(1, 1100, 4, 1, 256, 64, dtype, 1104)
+    y, state = k4.ssd(x, dt, a, bm, cm, chunk=1024, state_in=st, return_state=True)
+    torch.cuda.synchronize()
+    want_y, want_state = k4.ssd_plain(x, dt, a, bm, cm, chunk=1024, state_in=st,
+                                      return_state=True)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    stol = 1e-4 if dtype == torch.bfloat16 else tol
+    torch.testing.assert_close(state, want_state, atol=stol, rtol=stol)
+
+
+@pytest.mark.parametrize("b,s,h,g,n,p,chunk,with_state", [
+    (1, 512, 64, 1, 128, 64, 256, False),  # mamba2-1.3b prefill shape
+    (1, 300, 64, 1, 128, 64, 256, True),   # ragged S with state_in
+    (2, 200, 4, 2, 32, 64, 64, True),      # G=2, 4 chunks
+    (1, 100, 2, 1, 8, 24, 64, True),       # N=8, P=24
+])
+def test_ssd_stage_kernels_match_plain_stages(b, s, h, g, n, p, chunk, with_state):
+    """Each bf16 kernel stage against its plain stage on the same inputs: the
+    chunk states (cums, S^) from x, dt, A, B; the carry (S_in per chunk as
+    its two bf16 halves, the final state) from the kernel's S^ and cums[-1];
+    the chunk scan (y) from the kernel's cums and S_in.  cums and states are
+    float32 (1e-4; cums are sums of up to 256 steps of |dt A| ~ 1, summed
+    in another order); y is bf16 (2e-2)."""
+    x, dt, a, bm, cm, st = _ssd_inputs(b, s, h, g, n, p, torch.bfloat16, s + n)
+    state_in = st if with_state else None
+    got = k4.ssd_stages(x, dt, a, bm, cm, chunk=chunk, state_in=state_in)
+    torch.cuda.synchronize()
+    cums, shat = k4.ssd_chunk_state_plain(x, dt, a, bm, chunk=chunk)
+    torch.testing.assert_close(got["cums"], cums, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got["last"], cums[..., -1], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got["shat"], shat, atol=1e-4, rtol=1e-4)
+    s_in, final = k4.ssd_state_pass_plain(got["shat"], got["last"], state_in)
+    torch.testing.assert_close(got["s_in"], s_in, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got["state"], final, atol=1e-4, rtol=1e-4)
+    y = k4.ssd_chunk_scan_plain(x, dt, bm, cm, got["cums"], got["s_in"], chunk=chunk)
+    torch.testing.assert_close(got["y"].float(), y.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_kernel_repeats_bit_identical(with_state):
+    """Two calls in a row and three replays of a captured CUDA graph give the
+    same bits: no atomics in the sums, and the carry's ticket counters are
+    left at 0 for the next call or replay."""
+    x, dt, a, bm, cm, st = _ssd_inputs(1, 512, 64, 1, 128, 64, torch.bfloat16, 3)
+    state_in = st if with_state else None
+    first = k4.ssd(x, dt, a, bm, cm, chunk=256, state_in=state_in, return_state=True)
+    second = k4.ssd(x, dt, a, bm, cm, chunk=256, state_in=state_in, return_state=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k4.ssd(x, dt, a, bm, cm, chunk=256, state_in=state_in, return_state=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k4.ssd(x, dt, a, bm, cm, chunk=256, state_in=state_in, return_state=True)
+    for _ in range(3):
+        for t in out:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(out, first))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_ssd_kernel_reads_unaligned_views(dtype, tol):
+    """x, B, C as slices of a conv output that starts one element in and has
+    an odd row width: no view is 16-byte aligned, so the kernels load element
+    by element; the results are held as the aligned ones are."""
+    b, s, h, g, n, p = 2, 300, 8, 1, 128, 64
+    rng = np.random.default_rng(5)
+    width = 1 + h * p + 2 * g * n + 1
+    conv = torch.from_numpy(rng.standard_normal((b, s, width), dtype=np.float32)
+                            * 0.3).to("cuda", dtype)
+    x = conv[..., 1:1 + h * p].unflatten(-1, (h, p))
+    bm = conv[..., 1 + h * p:1 + h * p + g * n].unflatten(-1, (g, n))
+    cm = conv[..., 1 + h * p + g * n:-1].unflatten(-1, (g, n))
+    assert x.data_ptr() % 16 and x.stride(1) % 8
+    _, dt, a, _, _, st = _ssd_inputs(b, s, h, g, n, p, dtype, 6)
+    got_y, got_st = k4.ssd(x, dt, a, bm, cm, chunk=128, state_in=st, return_state=True)
+    torch.cuda.synchronize()
+    want_y, want_st = k4.ssd_plain(x, dt, a, bm, cm, chunk=128, state_in=st,
+                                   return_state=True)
+    torch.testing.assert_close(got_y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got_st, want_st, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])

@@ -121,6 +121,48 @@ def test_ssd_plain_matches_reference_model_path_with_state(s, chunk, with_state)
     np.testing.assert_allclose(_np(tst), _np(jst), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("s,chunk,with_state", [
+    (64, 16, True), (50, 16, True), (40, 64, False), (200, 64, True),
+    (300, 256, True), (520, 256, False)])
+def test_ssd_stage_plains_compose_to_reference_model_path(s, chunk, with_state):
+    """The three plain stages of the bf16 kernels (chunk states, carry, chunk
+    scan) composed give ``ssd_chunked``'s y and final state: ragged S edges
+    (50, 300, 520), a carried ``state_in``, G=2, chunks of 16, 64 and 256.
+    Float32 throughout, 1e-5 against the port's oracle ``ssd_plain`` and,
+    for chunks up to 64, against the reference.  At chunk 256 the float32
+    sums over 256 steps, taken in another order, already put ``ssd_plain``
+    2e-5 from the reference, so there the reference is held at
+    tests/test_kernels.py's SSD tolerance (1e-4)."""
+    b, h, g, n, p = 2, 4, 2, 16, 8
+    (jx, jdt, ja, jb, jc), (tx, tdt, ta, tb, tc) = _ssd_inputs(b, s, h, g, n, p,
+                                                               seed=s + chunk + 1)
+    s0 = np.random.default_rng(11).standard_normal((b, h, n, p), dtype=np.float32)
+    jstate = jnp.asarray(s0) if with_state else None
+    tstate = torch.from_numpy(s0) if with_state else None
+    jy, jst = jax_mamba2.ssd_chunked(jx, jdt, ja, jb, jc, chunk=chunk,
+                                     state_in=jstate, return_state=True)
+    cums, shat = k4.ssd_chunk_state_plain(tx, tdt, ta, tb, chunk=chunk)
+    nc = -(-s // min(chunk, s))
+    assert tuple(cums.shape) == (b, h, nc, min(chunk, s))
+    assert tuple(shat.shape) == (b, h, nc, n, p)
+    s_in, final = k4.ssd_state_pass_plain(shat, cums[..., -1], tstate)
+    y = k4.ssd_chunk_scan_plain(tx, tdt, tb, tc, cums, s_in, chunk=chunk)
+    py, pst = k4.ssd_plain(tx, tdt, ta, tb, tc, chunk=chunk, state_in=tstate,
+                           return_state=True)
+    np.testing.assert_allclose(_np(y), _np(py), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(_np(final), _np(pst), atol=1e-5, rtol=1e-5)
+    tol = 1e-5 if chunk <= 64 else 1e-4
+    np.testing.assert_allclose(_np(y), _np(jy), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(final), _np(jst), atol=tol, rtol=tol)
+
+
+def test_ssd_stages_take_only_cuda_bf16():
+    """The stage view of the kernels runs on the card only (no plain fallback)."""
+    (_, _, _, _, _), (tx, tdt, ta, tb, tc) = _ssd_inputs(1, 16, 2, 1, 8, 8, 7)
+    with pytest.raises(ValueError, match="CUDA"):
+        k4.ssd_stages(tx.bfloat16(), tdt, ta, tb.bfloat16(), tc.bfloat16(), chunk=8)
+
+
 def test_ssd_state_carries_across_calls():
     """Two calls, the second seeded with the first's final state, give the
     one-call result: what chunked prefill relies on."""
