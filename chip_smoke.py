@@ -10,10 +10,12 @@ result line:
 
 1. print the card's name and power limit, build the Hopper kernels from
    ``src/repro_torch/kernels/csrc`` and print the build time and ptxas'
-   registers and spills, then the SASS instruction census of the K1, K3 and
-   K4 kernels (``cuobjdump``) and the K1 and K4 designs it shows (``wgmma``:
-   HGMMA in the bf16 kernels; the script fails if K1's bf16 kernel or any
-   of K4's bf16 kernels has no tensor-core instruction);
+   registers and spills, then the SASS instruction census of the K1, K2a,
+   K3 and K4 kernels (``cuobjdump``) and the designs it shows (``wgmma``:
+   HGMMA in the bf16 kernels of K1 and K4; K2a's 128-bit loads, store
+   widths and divisions; the script fails if K1's bf16 kernel or any of
+   K4's bf16 kernels has no tensor-core instruction, or a bf16 fast K2a
+   kernel no 128-bit global load);
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes and time kernel, plain version and, where one PyTorch
    call computes the same function, that call as a yardstick (the port
@@ -21,7 +23,10 @@ result line:
    K3's device time by kernel (one launch).  Tolerances are those of
    tests/test_kernels.py: K1 flash prefill attention and K3 decode
    attention bf16 2e-2 / fp32 2e-5 (SDPA beside them), K2 int8
-   quantize/dequantize bit for bit, K4 SSD chunk scan 1e-4 fp32 (y and
+   quantize/dequantize bit for bit (K2a also at Mamba-2's boundary width
+   and over the whole bf16 domain, ``bf16_domain_rows``, through both its
+   instances; its time L2-warm and L2-cold beside the graph-replay floor
+   of ``torch.cuda._sleep(0)``), K4 SSD chunk scan 1e-4 fp32 (y and
    state) / 2e-2 bf16 y with the state at 1e-4 at the mamba2-1.3b prefill
    shape, a ragged S with state_in, G=2 and S=2,048 over 8 chunks, each of
    K4's two bf16 kernels against its plain stages (chunk states and carry
@@ -91,6 +96,8 @@ FP32_FLOPS = 67e12
 
 PATH = dict(b=1, s=512, h=32, kv=8, hd=128)      # llama3-8b prefill, 512 tokens
 ROWS = (512, 4096)                                # one boundary at that shape
+MAMBA_ROWS = (512, 2048)                          # a mamba2-1.3b boundary
+L2_COLD_BYTES = 64e6                              # > the 50 MB L2: a ring of inputs
 DECODE = dict(b=8, s=640, h=32, kv=8, hd=128)     # a generation wave's decode
 DECODE_CUR = 576                                  # cache entries in use
 K1_BF16 = "flash_fwd_wgmma_kernel"     # the tensor-core instance (bf16)
@@ -98,6 +105,7 @@ K1_F32 = "flash_fwd_f32_kernel"       # the CUDA-core instance (float32)
 K3_KERNEL = "decode_attention_kernel"
 K4_BF16 = ("ssd_chunk_state_kernel", "ssd_chunk_scan_kernel")  # tensor cores
 K4_F32 = ("ssd_cb_kernel", "ssd_scan_kernel")                  # CUDA cores
+K2A = ("quantize_rows_vec", "quantize_rows")   # fast and general instances
 FAMILIES = {K1_BF16: "K1", K1_F32: "K1", "quantize_rows": "K2",
             K3_KERNEL: "K3", **dict.fromkeys(K4_BF16 + K4_F32, "K4"),
             "rglru_": "K5",
@@ -179,8 +187,8 @@ def kernel_split(fn, iters: int) -> dict[str, float]:
 
 def kernel_instance(mangled: str) -> str:
     """``decode_attention_kernel<bf16, 128, 4>`` from a mangled name."""
-    m = re.search(f"({'|'.join((K1_BF16, K1_F32, K3_KERNEL) + K4_BF16)})I(.*)",
-                  mangled)
+    names = (K1_BF16, K1_F32, K3_KERNEL) + K4_BF16 + K2A
+    m = re.search(f"(?<![A-Za-z])({'|'.join(names)})I(.*)", mangled)
     if not m:
         return next((k for k in K4_F32 if k in mangled), mangled)
     base, rest = m.group(1), m.group(2).split("Ev")[0]
@@ -189,11 +197,32 @@ def kernel_instance(mangled: str) -> str:
     return f"{base}<{', '.join(dtype + ints)}>"
 
 
+def k2a_census(lines: list[str]) -> dict[str, int]:
+    """K2a's memory instructions and divisions in one kernel's SASS: 128-bit
+    global loads, global stores by width in bits, MUFU.RCP (one in every
+    IEEE division or reciprocal) and CALL (their slow paths)."""
+    out = {"LDG.128": 0, "STG.8": 0, "STG.32": 0, "STG.64": 0, "STG.128": 0,
+           "MUFU.RCP": 0, "CALL": 0}
+    for line in lines:
+        if re.search(r"\bLDG\.E[.\w]*\.128\b", line):
+            out["LDG.128"] += 1
+        m = re.search(r"\bSTG\.E((?:\.\w+)*)", line)
+        if m:
+            mods = m.group(1).split(".")
+            width = next((w for w in ("128", "64") if w in mods),
+                         "8" if {"U8", "S8"} & set(mods) else "32")
+            out[f"STG.{width}"] += 1
+        out["MUFU.RCP"] += bool(re.search(r"\bMUFU\.RCP\b", line))
+        out["CALL"] += bool(re.search(r"\bCALL\b", line))
+    return out
+
+
 def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
-    """SASS instruction counts of the K1, K3 and K4 kernels in the built
-    library (``cuobjdump --dump-sass``), and the designs of K1's and K4's
-    bf16 instances they show: "wgmma" (HGMMA in every bf16 kernel of the
-    family), "mma.sync" (HMMA) or "neither"."""
+    """SASS instruction counts of the K1, K2a, K3 and K4 kernels in the
+    built library (``cuobjdump --dump-sass``), and the designs they show:
+    for K1's and K4's bf16 instances "wgmma" (HGMMA in every bf16 kernel of
+    the family), "mma.sync" (HMMA) or "neither"; for K2a's bf16 fast
+    instances "ldg.128" (a 128-bit global load in each) or "scalar"."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         sass = subprocess.run([cuobjdump, "--dump-sass", str(lib_path)],
@@ -201,23 +230,33 @@ def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
                               timeout=300).stdout
     except (OSError, subprocess.SubprocessError) as exc:
         print(f"SASS census: cuobjdump not available ({exc})")
-        return {"K1": "not measured", "K4": "not measured"}
+        return {"K1": "not measured", "K2a": "not measured", "K4": "not measured"}
     ops = ("HGMMA", "HMMA", "FFMA", "LDGSTS", "MUFU.EX2")
     census: dict[str, dict[str, int]] = {}
+    lines: dict[str, list[str]] = {}
     func = None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             func = m.group(1)
             census[func] = dict.fromkeys(ops, 0)
+            lines[func] = []
         elif func is not None:
+            lines[func].append(line)
             for op in ops:
                 if f" {op}" in line:
                     census[func][op] += 1
     bf16 = {"K1": (K1_BF16,), "K4": K4_BF16}
     found: dict[str, list[str]] = {fam: [] for fam in bf16}
+    k2a: list[str] = []
     for func, counts in sorted(census.items()):
         name = kernel_instance(func)
+        if name.startswith(K2A):
+            mem = k2a_census(lines[func])
+            if name.startswith(f"{K2A[0]}<bf16"):
+                k2a.append("ldg.128" if mem["LDG.128"] else "scalar")
+            print(f"  SASS {name}: {mem}")
+            continue
         if not name.startswith((K1_BF16, K1_F32, K3_KERNEL) + K4_BF16 + K4_F32):
             continue
         for fam, names in bf16.items():
@@ -231,8 +270,10 @@ def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
         print(f"  SASS {name}: {counts}")
     # a family's design is the weakest of its bf16 kernels'
     order = ["neither", "mma.sync", "wgmma"]
-    return {fam: min(ds, key=order.index) if ds else "neither"
-            for fam, ds in found.items()}
+    designs = {fam: min(ds, key=order.index) if ds else "neither"
+               for fam, ds in found.items()}
+    designs["K2a"] = "ldg.128" if k2a and "scalar" not in k2a else "scalar"
+    return designs
 
 
 def graph_ms(fn, iters: int, reps: int = 5) -> float:
@@ -360,8 +401,7 @@ def phase_kernels(k1, k2) -> list[dict]:
         if dt != torch.bfloat16:
             continue
         n, d = ROWS
-        qa_ms = timed("K2a kernel", lambda: k2.quantize_int8(x), 200,
-                      "quantize_rows")
+        qa_ms = phase_k2a_times(k2)
         qa_plain = timed("K2a plain", lambda: k2.quantize_int8_plain(x), 50)
         qa_bytes = x.numel() * 2 + q.numel() + s.numel() * 4
         qa_b, qa_by = bound(qa_bytes, 6.0 * n * d, FP32_FLOPS)   # abs,max,div,rint,clip x2
@@ -383,7 +423,74 @@ def phase_kernels(k1, k2) -> list[dict]:
         print(f"K2a time {qa_ms:.4f} ms; plain {qa_plain:.4f} ms; bound "
               f"{qa_b:.5f} ms ({qa_by}); K2b time {dq_ms:.4f} ms; plain "
               f"{dq_plain:.4f} ms; bound {dq_b:.5f} ms ({dq_by})")
+    phase_k2a_sweep(k2)
     return rows
+
+
+def phase_k2a_times(k2) -> float:
+    """Phase 2, K2a at both boundary widths (Llama/Griffin and Mamba-2), bf16:
+    L2-warm (one input replayed, as on the path, where the segment has just
+    written it) and L2-cold (a ring of copies larger than the 50 MB L2),
+    beside the graph-replay floor, ``torch.cuda._sleep(0)`` replayed the
+    same way.  Returns the L2-warm time at ``ROWS``."""
+    floor = timed("graph-replay floor (torch.cuda._sleep(0))",
+                  lambda: torch.cuda._sleep(0), 200)
+    warm_at = {}
+    for shape in (ROWS, MAMBA_ROWS):
+        x = normal(shape, torch.bfloat16, 4) * 3
+        if shape != ROWS:
+            q, s = k2.quantize_int8(x)
+            torch.cuda.synchronize()
+            pq, ps = k2.quantize_int8_plain(x)
+            if not (torch.equal(q, pq) and torch.equal(s, ps)):
+                raise AssertionError(f"K2a {shape}: q/scales differ from the plain version")
+            print(f"K2 {shape} torch.bfloat16: q and scales bit-identical")
+        warm = timed(f"K2a {shape} kernel", lambda: k2.quantize_int8(x), 200,
+                     "quantize_rows")
+        n_in = x.numel() * x.element_size()
+        copies = [x] + [x.clone() for _ in range(int(L2_COLD_BYTES // n_in))]
+        ring = itertools.cycle(copies)
+        cold = timed(f"K2a {shape} kernel, L2-cold ({len(copies)} inputs, "
+                     f"{len(copies) * n_in / 1e6:.1f} MB)",
+                     lambda: k2.quantize_int8(next(ring)), 8 * len(copies),
+                     "quantize_rows")
+        del copies
+        n_bytes = n_in + x.numel() + 4 * x.shape[0]
+        b_ms, b_by = bound(n_bytes, 6.0 * x.numel(), FP32_FLOPS)
+        print(f"K2a {shape} bf16: L2-warm {warm * 1e3:.3f} us, L2-cold "
+              f"{cold * 1e3:.3f} us, floor {floor * 1e3:.3f} us; bound "
+              f"{b_ms * 1e3:.3f} us ({b_by}: {n_bytes / 1e6:.2f} MB); warm at "
+              f"{100 * b_ms / warm:.0f} % of the bound, "
+              f"{n_bytes / warm / 1e9:.2f} TB/s")
+        warm_at[shape] = warm
+    return warm_at[ROWS]
+
+
+def phase_k2a_sweep(k2) -> None:
+    """Phase 2, K2a bit for bit against its plain version over the whole
+    bf16 domain: every finite absmax and every bf16 x with |x| <= it, both
+    signs (``bf16_domain_rows``), 4,096 to a row (the fast instance) and
+    4,095 (the general one)."""
+    for width in (ROWS[1], ROWS[1] - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pairs = 0
+        for x in k2.bf16_domain_rows(width=width, rows=32768, device="cuda"):
+            q, s = k2.quantize_int8(x)
+            pq, ps = k2.quantize_int8_plain(x)
+            if not torch.equal(s, ps):
+                raise AssertionError("K2a sweep: scales differ from the plain version")
+            bad = (q != pq).nonzero()
+            if bad.numel():
+                r, c = bad[0].tolist()
+                raise AssertionError(f"K2a sweep: {bad.shape[0]} codes differ, first "
+                                     f"a={x[r, 0].item()!r} x={x[r, c].item()!r}: "
+                                     f"{q[r, c].item()} != {pq[r, c].item()}")
+            pairs += x.numel()
+        torch.cuda.synchronize()
+        print(f"K2a exhaustive bf16 sweep, rows of {width}: {pairs} elements "
+              f"({k2.BF16_FINITE} absmax values) bit-identical to the plain "
+              f"version in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_flash_hd256(k1) -> None:
@@ -1006,11 +1113,12 @@ def main() -> int:
                 or line.startswith("=="):
             print(f"  {line.strip()}")
     designs = sass_census(res.path)
-    print(f"K1 and K4 designs (bf16 instances, from their SASS): {designs}")
+    print(f"K1, K2a and K4 designs (bf16 instances, from their SASS): {designs}")
     for fam, design in designs.items():
-        if design not in ("wgmma", "mma.sync", "not measured"):
+        if design not in ("wgmma", "mma.sync", "ldg.128", "not measured"):
             raise AssertionError(f"a bf16 kernel of {fam} runs no tensor-core "
-                                 "instruction")
+                                 "instruction" if fam != "K2a" else
+                                 "a bf16 fast K2a kernel has no 128-bit load")
 
     # ---- phase 2: kernels against their plain versions ----
     rows = phase_kernels(k1, k2)

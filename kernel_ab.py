@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""K1, K3 and K4 of two checkouts of this repository, timed on one card in turns.
+"""K1, K2, K3 and K4 of two checkouts of this repository, timed on one card in turns.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100, with a
 second checkout (for example the parent commit, unpacked by ``git archive``
@@ -18,8 +18,10 @@ Mamba-2's prefill shape, from a CUDA-graph replay (``chip_smoke.graph_ms``),
 beside the device time of each kernel the call launches, by name
 (``chip_smoke.kernel_split``: a two-kernel K3 shows its split and its
 combine; K4 its kernels), and K3 again at fewer valid cache entries (time
-against ``cur_len`` separates its fixed cost from its per-key cost).
-``--sweep``
+against ``cur_len`` separates its fixed cost from its per-key cost).  K2a
+(int8 quantize, bf16) is timed at both boundary widths, [512, 4096] and
+[512, 2048], with its input in L2 and, at [512, 4096], over a ring of
+inputs larger than the L2; K2b (dequantize) at [512, 4096].  ``--sweep``
 also times this checkout's K3 over other values of
 ``BLOCKS_PER_SM``, the split plan's one knob.  Prints one JSON line per
 measurement and the card's name and power limit.
@@ -41,6 +43,39 @@ K1_SHAPES = [("llama", 1, 512, 32, 8, 128, 0),
              ("griffin", 1, 512, 16, 1, 256, 2048)]
 
 
+def measure_k2(cs, k2) -> list[dict]:
+    """K2a at both boundary widths (L2-warm; L2-cold at the first), K2b."""
+    import torch
+
+    rows = []
+    for shape in (cs.ROWS, cs.MAMBA_ROWS):
+        x = cs.normal(shape, torch.bfloat16, 4) * 3
+
+        def quant(x=x):
+            return k2.quantize_int8(x)
+
+        quant()
+        torch.cuda.synchronize()
+        rows.append(dict(kernel="K2a", shape=f"{shape[0]}x{shape[1]}",
+                         us=1e3 * cs.graph_ms(quant, 200),
+                         by_name=cs.kernel_split(quant, 50)))
+    x = cs.normal(cs.ROWS, torch.bfloat16, 4) * 3
+    copies = [x] + [x.clone() for _ in range(int(cs.L2_COLD_BYTES // (2 * x.numel())))]
+    ring = itertools.cycle(copies)
+    rows.append(dict(kernel="K2a", shape=f"{cs.ROWS[0]}x{cs.ROWS[1]} L2-cold",
+                     us=1e3 * cs.graph_ms(lambda: k2.quantize_int8(next(ring)),
+                                          8 * len(copies))))
+    q, s = k2.quantize_int8(x)
+
+    def dequant():
+        return k2.dequantize_int8(q, s, torch.bfloat16)
+
+    rows.append(dict(kernel="K2b", shape=f"{cs.ROWS[0]}x{cs.ROWS[1]}",
+                     us=1e3 * cs.graph_ms(dequant, 200),
+                     by_name=cs.kernel_split(dequant, 50)))
+    return rows
+
+
 def measure(root: pathlib.Path, sweep: bool) -> list[dict]:
     import chip_smoke as cs  # this checkout's timing helpers
     sys.path.insert(0, str(root / "src"))
@@ -48,9 +83,10 @@ def measure(root: pathlib.Path, sweep: bool) -> list[dict]:
 
     from repro_torch.kernels import decode_attention as k3
     from repro_torch.kernels import flash_attention as k1
+    from repro_torch.kernels import int8_transfer as k2
     from repro_torch.kernels import ssd_chunk as k4
 
-    rows = []
+    rows = measure_k2(cs, k2)
     b, s, h, g, n, p, chunk = cs.SSD_PATH.values()
     x, dt, a, bm, cm, _ = cs.ssd_inputs(b, s, h, g, n, p, torch.bfloat16, 21)
 

@@ -11,11 +11,19 @@ crosses a link and dequantizes it on the other side.
 What bounds them on the H100: a few operations per byte, so bytes.  At the
 serving shape ([512, 4096] bf16) quantize reads 4.2 MB and writes 2.1 MB
 of int8 plus 2 KB of scales, dequantize the reverse: 6.3 MB each, 1.9 us
-at 3.35 TB/s.  The kernels (``csrc/int8_transfer.cu``) give each row its
-own block of 256 threads (512 blocks over 132 SMs), read each input once
-from device memory (quantize reads its row a second time, from L2) and
-write each output once.  The divisions are IEEE, so ``q`` and the scales
-are bit-identical to the plain versions and to the reference.
+at 3.35 TB/s.  Quantize (``csrc/int8_transfer.cu``, ``quantize_rows_vec``)
+gives each row four warps that load the whole row in 16-byte vectors
+into registers before anything else, reduce its absmax with warp shuffles
+and a named barrier of the row's warps, and store 8 codes a lane at a
+time: one pass over device memory.  Rows whose width is not a
+multiple of 16 bytes, or above 16,384 bf16 / 8,192 float32 elements, take
+the general instance (a block a row, two passes).  Dequantize gives each
+row a block of 256 threads.  The per-row scale is an IEEE division; the
+per-element quotient is an IEEE division for float32 input and, for bf16,
+a reciprocal product corrected by one FMA that equals the IEEE quotient for
+every finite bf16 input (``bf16_domain_rows`` generates that domain, and
+the card tests sweep all of it).  So ``q`` and the scales are bit-identical
+to the plain versions and to the reference.
 
 The wrappers take the plain versions only for tensors on the CPU; for a CUDA
 tensor they launch the kernel or raise.
@@ -28,9 +36,10 @@ import torch
 from . import build
 
 __all__ = ["quantize_int8", "dequantize_int8", "quantize_int8_plain",
-           "dequantize_int8_plain"]
+           "dequantize_int8_plain", "bf16_domain_rows", "BF16_FINITE"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
+BF16_FINITE = 0x7F80    # bit patterns 0 .. 0x7F7F: +0 to the largest finite bf16
 
 
 def quantize_int8_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -48,6 +57,41 @@ def dequantize_int8_plain(q: torch.Tensor, scales: torch.Tensor,
                           dtype=torch.bfloat16) -> torch.Tensor:
     """int8 [N, D], float32 scales [N, 1] -> [N, D] in ``dtype``."""
     return (q.float() * scales).to(dtype)
+
+
+def bf16_domain_rows(absmax_bits=None, width: int = 4096, rows: int = 8192,
+                     device="cpu"):
+    """The bf16 quantizer's whole input domain, as rows of bf16 [rows, width].
+
+    A row's quantization depends only on its absmax ``a`` and each of its
+    elements ``x``, with ``|x| <= a``, so the domain is every pair of
+    finite bf16 values (a >= 0, |x| <= a): ~1.07e9 pairs for all 32,640
+    absmax values.  For each absmax bit pattern in ``absmax_bits`` (default:
+    every finite non-negative bf16, 0 to 0x7F7F), this yields rows that
+    start with ``a`` followed by every x from +0 up to a and from -0 down to
+    -a, in order, ``width - 1`` a row, zero-padded; the last chunk is padded
+    with rows of zeros, so every chunk has the same shape.
+    """
+    ia = (torch.arange(BF16_FINITE, dtype=torch.int32, device=device)
+          if absmax_bits is None else
+          torch.as_tensor(absmax_bits, dtype=torch.int32, device=device))
+    per = width - 1
+    count = 2 * ia + 2                          # +0..a and -0..-a
+    nrows = (count + per - 1) // per
+    ends = torch.cumsum(nrows, 0, dtype=torch.int32)
+    cols = torch.arange(per, dtype=torch.int32, device=device)
+    for r0 in range(0, int(ends[-1]), rows):
+        r = torch.arange(r0, r0 + rows, dtype=torch.int32, device=device)
+        j = torch.searchsorted(ends, r, right=True)
+        pad = j >= ia.numel()
+        j = j.clamp_max(ia.numel() - 1)
+        a = ia[j][:, None]
+        t = (r - ends[j] + nrows[j])[:, None] * per + cols  # index into the x set
+        xb = torch.where(t <= a, t, (t - a - 1) | 0x8000)
+        xb = torch.where(t < 2 * a + 2, xb, 0)
+        bits = torch.where(pad[:, None], 0, torch.cat([a, xb], 1))
+        # 16-bit patterns as int16 (two's complement), seen as bf16
+        yield (bits - ((bits >> 15) << 16)).to(torch.int16).view(torch.bfloat16)
 
 
 def _stream(t: torch.Tensor) -> int:

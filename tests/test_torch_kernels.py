@@ -134,6 +134,53 @@ def test_int8_ties_round_half_to_even():
     assert np.asarray(jq).tolist() == q.tolist()
 
 
+def _bf16_bits(v: float) -> int:
+    return int(torch.tensor([v]).to(torch.bfloat16).view(torch.int16)) & 0xFFFF
+
+
+# 64 absmax bit patterns: zero, the subnormals' edges, the smallest normal,
+# both sides of the 1e-12 clamp, 1.0, 127 (scale 1), the largest finite
+# bf16, and seeded draws over the rest
+_CLAMP = _bf16_bits(1e-12)
+_ABSMAX = sorted(set(
+    [0, 1, 2, 0x7F, 0x80, 0x81, _CLAMP - 2, _CLAMP - 1, _CLAMP, _CLAMP + 1,
+     _CLAMP + 2, 0x3F7F, _bf16_bits(1.0), 0x3F81, _bf16_bits(127.0),
+     _bf16_bits(0.5), 0x7F7E, k2.BF16_FINITE - 1]
+    + np.random.default_rng(64).choice(k2.BF16_FINITE, 46, replace=False).tolist()))[:64]
+
+
+def _jax_bf16(x: torch.Tensor):
+    return jnp.asarray(x.view(torch.int16).numpy().view(ml_dtypes.bfloat16))
+
+
+@pytest.mark.parametrize("absmax", _ABSMAX, ids=hex)
+def test_int8_plain_bit_identical_to_reference_over_bf16_absmax(absmax):
+    """Every finite bf16 x with |x| <= a for one absmax a, both signs, in
+    rows that start with a: q and the scales of the plain version equal the
+    reference's oracle (eager, no Pallas) bit for bit."""
+    assert len(_ABSMAX) == 64
+    (x,) = k2.bf16_domain_rows([absmax], width=4096, rows=16)
+    q, s = k2.quantize_int8_plain(x)
+    jq, js = jax_ref.quantize_int8_ref(_jax_bf16(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    assert float(s[0, 0]) == max(float(x[0, 0]), np.float32(1e-12)) / np.float32(127)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_int8_dequant_plain_bit_identical_to_reference_over_codes(dtype):
+    """All 255 codes against the scales of the 64 absmax values above."""
+    jdt, tdt, _ = _DT[dtype]
+    a = torch.tensor(_ABSMAX, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    _, scales = k2.quantize_int8_plain(a[:, None])
+    q = torch.arange(-127, 128, dtype=torch.int8).repeat(len(_ABSMAX), 1)
+    got = k2.dequantize_int8_plain(q, scales, tdt)
+    want = jax_ref.dequantize_int8_ref(jnp.asarray(q.numpy()),
+                                       jnp.asarray(scales.numpy()), jdt)
+    assert got.dtype == tdt and got.shape == (64, 255)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
 def test_wrappers_count_only_kernel_launches():
     """On CPU tensors the wrappers run the plain versions: no launch counted."""
     before = (k1.flash_attention.launches, k2.quantize_int8.launches,

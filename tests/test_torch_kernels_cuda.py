@@ -9,7 +9,7 @@ it runs on a machine with the card:
 Tolerances are those of tests/test_kernels.py: attention 2e-5 float32, 2e-2
 bfloat16; SSD (K4) 1e-4 float32 for y and the float32 state (also in bf16),
 2e-2 for bf16 outputs; RG-LRU (K5) 1e-5 float32, 2e-2 bf16; int8 is held bit
-for bit.
+for bit, bf16 quantize over every finite input.
 """
 
 import dataclasses
@@ -100,16 +100,69 @@ def test_flash_kernel_tile_edges(b, s, h, kv, hd, window, dtype, tol):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+def _int8_rows(n, d, dtype, seed):
+    """Seeded normals x 3, with the first row on exact ties (absmax 127, so
+    scale 1 and x / scale = ±(k + 0.5)) and, for n > 1, the last all zeros."""
+    x = _normal((n, d), dtype, seed) * 3
+    k = torch.arange(d - 1, device="cuda") % 127
+    ties = (k + 0.5) * (1 - 2 * (torch.arange(d - 1, device="cuda") % 2))
+    x[0, 0] = 127.0
+    x[0, 1:] = ties.to(dtype)
+    if n > 1:
+        x[-1] = 0
+    return x
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("n,d", [(512, 4096), (33, 100), (1, 7)])
+@pytest.mark.parametrize("d", [7, 100, 2048, 2560, 3584, 4096, 7168, 12288,
+                               16384, 16392])
+@pytest.mark.parametrize("n", [1, 33, 512])
 def test_int8_kernels_bit_identical_to_plain(n, d, dtype):
-    x = _normal((n, d), dtype, n + d) * 3
+    """Every width the model variants bring (fast instance: D a multiple of
+    16 bytes up to 16,384 bf16 / 8,192 float32), the tests' ragged widths
+    and one past the fast instance (general instance); ties and zero rows."""
+    x = _int8_rows(n, d, dtype, n + d)
+    before = k2.quantize_int8.launches
     q, s = k2.quantize_int8(x)
     torch.cuda.synchronize()
+    assert k2.quantize_int8.launches == before + 1
     pq, ps = k2.quantize_int8_plain(x)
     assert torch.equal(q, pq) and torch.equal(s, ps)
     y = k2.dequantize_int8(q, s, dtype)
     assert torch.equal(y, k2.dequantize_int8_plain(q, s, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_quantize_unaligned_rows(dtype):
+    """A contiguous view that starts 2 bytes into its storage takes the
+    general instance; it quantizes bit for bit too."""
+    n, d = 33, 4096
+    flat = _normal((n * d + 1,), dtype, 9) * 3
+    x = flat[1:].view(n, d)
+    q, s = k2.quantize_int8(x)
+    torch.cuda.synchronize()
+    pq, ps = k2.quantize_int8_plain(x)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+
+
+@pytest.mark.parametrize("width", [4096, 4095], ids=["fast", "general"])
+def test_int8_quantize_exhaustive_bf16(width):
+    """K2a bit for bit against its plain version over the whole bf16 domain:
+    every finite absmax a (0, the subnormals, the 1e-12 clamp, up to
+    3.39e38) and, for each, every bf16 x with |x| <= a, both signs, packed
+    ``width`` to a row that starts with a (~1.07e9 pairs), through the fast
+    instance (4,096) and the general one (4,095: not a multiple of 8)."""
+    pairs = 0
+    for x in k2.bf16_domain_rows(width=width, rows=32768, device="cuda"):
+        q, s = k2.quantize_int8(x)
+        pq, ps = k2.quantize_int8_plain(x)
+        assert torch.equal(s, ps)
+        bad = (q != pq).nonzero()
+        assert bad.numel() == 0, \
+            [(x[r, 0].item(), x[r, c].item(), q[r, c].item(), pq[r, c].item())
+             for r, c in bad[:5].tolist()]
+        pairs += x.numel()
+    assert pairs > 1.07e9
 
 
 def _ssd_inputs(b, s, h, g, n, p, dtype, seed):
