@@ -39,10 +39,10 @@ _FLOAT = ctypes.c_float
 _LONG = ctypes.c_longlong
 # entry point -> argtypes; every pointer and the stream are c_void_p
 _SIGNATURES = {
-    "flash_attention_fwd": [_VOID] * 4 + [_INT] * 8 + [_FLOAT, _FLOAT, _VOID],
+    "flash_attention_fwd": [_VOID] * 4 + [_INT] * 9 + [_FLOAT, _FLOAT, _VOID],
     "quantize_int8_fwd": [_VOID] * 3 + [_INT] * 3 + [_VOID],
     "dequantize_int8_fwd": [_VOID] * 3 + [_INT] * 3 + [_VOID],
-    "decode_attention_fwd": [_VOID] * 4 + [_INT] + [_VOID] * 4 + [_INT] * 9
+    "decode_attention_fwd": [_VOID] * 4 + [_INT] + [_VOID] * 4 + [_INT] * 10
     + [_FLOAT, _FLOAT, _VOID],
     "ssd_chunk_fwd": [_VOID] * 14 + [_INT] * 8 + [_LONG] * 6 + [_VOID],
     "rglru_fwd": [_VOID] * 5 + [_INT] * 4 + [_VOID],

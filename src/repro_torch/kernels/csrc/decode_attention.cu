@@ -23,9 +23,16 @@
 //   stages t+1 to t+3 are in flight while stage t is reduced.  Every thread
 //   copies the 16-byte pieces that it later reads itself (HD / (16 /
 //   sizeof(T)) neighbouring lanes cover one row, a lane group takes 2 rows
-//   of each stage), so the ring needs no barrier; keys at or past the
-//   block's last valid key are not copied.  8 warps a block (2 blocks an
-//   SM) keep each warp's share of a stage short.
+//   of each stage; where that would be more than a warp, float32 at HD 256,
+//   a lane takes two neighbouring pieces of one row), so the ring needs no
+//   barrier; keys at or past the block's last valid key are not copied.  A
+//   stage is 16 KB at every head dim: it holds 512 keys at HD 8 (one lane a
+//   bf16 row) and 16 at HD 256 (a warp a row).  8 warps a block (2 blocks
+//   an SM) keep each warp's share of a stage short; a block takes at most 4
+//   query heads (GB): at HD 256 8 heads' float32 partials (66 KB) would not
+//   fit the ring's 64 KB for the fold, and at HD 128 8 heads take 212
+//   registers a thread, one block an SM, slower on an H100 than two blocks
+//   of 4 (15.2 against 10.1 us at qwen3-moe's decode, G = 8).
 // - One launch: each block folds its lane groups (shuffles within a warp,
 //   then the 8 warps through the ring's memory) into one float32 partial
 //   (m, l, acc[GB][HD]) per chunk and writes it to a workspace, then takes
@@ -57,8 +64,9 @@ namespace sm90 = repro_torch::sm90;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr int BLOCKS_PER_SM = 2;      // the wrapper's split_plan counts on it
 constexpr int STAGES = 4;             // depth of the K/V ring
-constexpr int ROWS = 2;               // key rows a lane group takes per stage
+constexpr int PIECES = 2;             // 16-byte K (and V) pieces a thread copies per stage
 constexpr int STAGE_BYTES = 16384;    // K rows, then V rows, of one stage
 constexpr float NEG_INF = -2.0e38f;   // the Pallas kernel's mask value
 constexpr float LOG2E = 1.4426950408889634f;
@@ -118,7 +126,7 @@ __device__ __forceinline__ void fma4(float4& acc, float4 x, float w) {
 // block): ws_acc [P][GB][HD] the unnormalised output, ws_ml [P][GB][2] its
 // (m, l), m in log2 units.  counters [B * (H / GB)] are 0 between calls.
 template <typename T, int HD, int GB>
-__global__ void __launch_bounds__(THREADS, GB >= 8 ? 1 : 2)
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ cur_len,
                         int cur_per_row, T* __restrict__ o,
@@ -126,8 +134,15 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         unsigned* __restrict__ counters, int S, int H, int KV,
                         int chunk, int window, float logit_cap, float scale) {
   constexpr int VEC = Pack<T>::N;        // elements per 16-byte piece
-  constexpr int TPK = HD / VEC;          // lanes that share one key row
-  static_assert(TPK >= 1 && TPK <= 32 && 32 % TPK == 0, "unsupported head dim");
+  // a lane takes PPL neighbouring pieces of a row: one, or two where one
+  // piece a lane would need more than a warp for the row (float32, HD 256)
+  constexpr int PPL = HD / VEC > 32 ? HD / VEC / 32 : 1;
+  constexpr int E = VEC * PPL;           // elements of a row a lane holds
+  constexpr int TPK = HD / E;            // lanes that share one key row
+  static_assert(TPK >= 1 && TPK <= 32 && 32 % TPK == 0 && TPK * E == HD,
+                "unsupported head dim");
+  constexpr int ROWS = PIECES / PPL;     // key rows a lane group takes per stage
+  static_assert(ROWS >= 1 && ROWS * PPL == PIECES, "pieces per row");
   constexpr int NG = THREADS / TPK;      // lane groups in the block
   constexpr int KS = NG * ROWS;          // keys a stage holds
   static_assert(2 * KS * HD * (int)sizeof(T) == STAGE_BYTES, "stage size");
@@ -145,50 +160,58 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int t = tid % TPK;               // this lane's HD slice: [t*VEC, t*VEC+VEC)
+  const int t = tid % TPK;               // this lane's HD slice: [t*E, t*E+E)
   const int grp = tid / TPK;
 
   // q, scaled by scale * log2(e) (scores in log2 units, exp2), is loaded
   // while cur_len is
-  float qv[GB][VEC];
+  float qv[GB][E];
 #pragma unroll
   for (int g = 0; g < GB; ++g) {
-    Pack<T>::unpack(load16(q + ((size_t)b * H + h0 + g) * HD + t * VEC), qv[g]);
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) qv[g][i] *= scale * LOG2E;
+    for (int pc = 0; pc < PPL; ++pc)
+      Pack<T>::unpack(load16(q + ((size_t)b * H + h0 + g) * HD + t * E + pc * VEC),
+                      qv[g] + pc * VEC);
+#pragma unroll
+    for (int i = 0; i < E; ++i) qv[g][i] *= scale * LOG2E;
   }
   const size_t pos_stride = (size_t)KV * HD;  // elements between positions
-  const T* kb = k + ((size_t)b * S * KV + kvh) * HD + t * VEC;
-  const T* vb = v + ((size_t)b * S * KV + kvh) * HD + t * VEC;
+  const T* kb = k + ((size_t)b * S * KV + kvh) * HD + t * E;
+  const T* vb = v + ((size_t)b * S * KV + kvh) * HD + t * E;
   // valid keys: k_pos < cur and, with a window, k_pos > cur - 1 - window
   const int cur = min(cur_len[cur_per_row ? b : 0], S);
   int lo = split * chunk;
   const int hi = min(min(lo + chunk, S), cur);
   if (window > 0) lo = max(lo, cur - window);
 
-  float m[GB], l[GB], acc[GB][VEC];
+  float m[GB], l[GB], acc[GB][E];
 #pragma unroll
   for (int g = 0; g < GB; ++g) {
     m[g] = NEG_INF;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < E; ++i) acc[g][i] = 0.f;
   }
 
   if (lo < hi) {  // block-uniform: every lane reaches the shuffles
     const uint32_t ring0 = sm90::smem_addr(ring);
     const int n_t = (hi - lo + KS - 1) / KS;
 
-    // stage slot of row grp + NG u, piece t: (tid + THREADS u) * 16 bytes
+    // stage slot of row grp + NG u, piece pc of this lane's slice:
+    // (tid + THREADS (u PPL + pc)) * 16 bytes
     auto fetch = [&](int tile) {
       const uint32_t st = ring0 + (tile % STAGES) * STAGE_BYTES;
 #pragma unroll
       for (int u = 0; u < ROWS; ++u) {
         const int s = lo + tile * KS + grp + NG * u;
         if (s < hi) {
-          const uint32_t slot = (tid + THREADS * u) * 16;
-          sm90::cp_async16(st + slot, kb + s * pos_stride, true);
-          sm90::cp_async16(st + STAGE_BYTES / 2 + slot, vb + s * pos_stride, true);
+#pragma unroll
+          for (int pc = 0; pc < PPL; ++pc) {
+            const uint32_t slot = (tid + THREADS * (u * PPL + pc)) * 16;
+            sm90::cp_async16(st + slot, kb + s * pos_stride + pc * VEC, true);
+            sm90::cp_async16(st + STAGE_BYTES / 2 + slot,
+                             vb + s * pos_stride + pc * VEC, true);
+          }
         }
       }
     };
@@ -205,26 +228,32 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const uint4* st = ring + (tile % STAGES) * (STAGE_BYTES / 16);
       const int base = lo + tile * KS;
 
-      uint4 kr[ROWS], vr[ROWS];
+      uint4 kr[PIECES], vr[PIECES];        // piece u PPL + pc: row u, piece pc
       bool ok[ROWS];
 #pragma unroll
       for (int u = 0; u < ROWS; ++u) {
         ok[u] = base + grp + NG * u < hi;
-        kr[u] = ok[u] ? st[tid + THREADS * u] : make_uint4(0u, 0u, 0u, 0u);
-        vr[u] = ok[u] ? st[STAGE_BYTES / 32 + tid + THREADS * u]
-                      : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int pc = 0; pc < PPL; ++pc) {
+          const int j = u * PPL + pc;
+          kr[j] = ok[u] ? st[tid + THREADS * j] : make_uint4(0u, 0u, 0u, 0u);
+          vr[j] = ok[u] ? st[STAGE_BYTES / 32 + tid + THREADS * j]
+                        : make_uint4(0u, 0u, 0u, 0u);
+        }
       }
 
       float sc[ROWS * GB];                 // score of key u, head g at u GB + g
 #pragma unroll
       for (int u = 0; u < ROWS; ++u) {
-        float kf[VEC];
-        Pack<T>::unpack(kr[u], kf);
+        float kf[E];
+#pragma unroll
+        for (int pc = 0; pc < PPL; ++pc)
+          Pack<T>::unpack(kr[u * PPL + pc], kf + pc * VEC);
 #pragma unroll
         for (int g = 0; g < GB; ++g) {
           float dot = 0.f;
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) dot = fmaf(qv[g][i], kf[i], dot);
+          for (int i = 0; i < E; ++i) dot = fmaf(qv[g][i], kf[i], dot);
           sc[u * GB + g] = dot;
         }
       }
@@ -254,7 +283,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         m[g] = m_new;
         l[g] *= corr;
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[g][i] *= corr;
+        for (int i = 0; i < E; ++i) acc[g][i] *= corr;
 #pragma unroll
         for (int u = 0; u < ROWS; ++u) {
           sc[u * GB + g] = ok[u] ? exp2f(sc[u * GB + g] - m_new) : 0.f;
@@ -264,12 +293,14 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < ROWS; ++u) {
         if (!ok[u]) continue;
-        float vf[VEC];
-        Pack<T>::unpack(vr[u], vf);
+        float vf[E];
+#pragma unroll
+        for (int pc = 0; pc < PPL; ++pc)
+          Pack<T>::unpack(vr[u * PPL + pc], vf + pc * VEC);
 #pragma unroll
         for (int g = 0; g < GB; ++g)
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) acc[g][i] = fmaf(sc[u * GB + g], vf[i], acc[g][i]);
+          for (int i = 0; i < E; ++i) acc[g][i] = fmaf(sc[u * GB + g], vf[i], acc[g][i]);
       }
     }
   }
@@ -285,7 +316,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float ws = exp2f(m[g] - mn), wo = exp2f(mo - mn);
       l[g] = l[g] * ws + lo_ * wo;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i)
+      for (int i = 0; i < E; ++i)
         acc[g][i] = acc[g][i] * ws +
                     __shfl_xor_sync(0xffffffffu, acc[g][i], off) * wo;
       m[g] = mn;
@@ -299,8 +330,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
 #pragma unroll
-      for (int i = 0; i < VEC; ++i)
-        f_acc[(warp * GB + g) * HD + t * VEC + i] = acc[g][i];
+      for (int i = 0; i < E; ++i)
+        f_acc[(warp * GB + g) * HD + t * E + i] = acc[g][i];
       if (lane == 0) {
         f_ml[(warp * GB + g) * 2] = m[g];
         f_ml[(warp * GB + g) * 2 + 1] = l[g];
@@ -422,7 +453,6 @@ cudaError_t dispatch_gb(int GB, const void* q, const void* k, const void* v,
                            counters, B, S, H, KV, n_split, chunk, window,    \
                            logit_cap, scale, stream)
   switch (GB) {
-    case 8: REPRO_DECODE_LAUNCH(8);
     case 4: REPRO_DECODE_LAUNCH(4);
     case 2: REPRO_DECODE_LAUNCH(2);
     case 1: REPRO_DECODE_LAUNCH(1);
@@ -443,10 +473,12 @@ cudaError_t dispatch_hd(int HD, int GB, const void* q, const void* k,
                             ws_acc, counters, B, S, H, KV, n_split, chunk,  \
                             window, logit_cap, scale, stream)
   switch (HD) {
+    case 8: REPRO_DECODE_HD(8);
     case 16: REPRO_DECODE_HD(16);
     case 32: REPRO_DECODE_HD(32);
     case 64: REPRO_DECODE_HD(64);
     case 128: REPRO_DECODE_HD(128);
+    case 256: REPRO_DECODE_HD(256);
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_DECODE_HD
@@ -462,20 +494,20 @@ cudaError_t dispatch_hd(int HD, int GB, const void* q, const void* k,
 // B * H * n_split * 2 (8-byte aligned), and counters B * H / GB unsigned
 // ints that are 0 (and are 0 again when the kernel ends); chunk * n_split
 // must cover S.  GB, the query heads a block
-// takes, is the largest of 8, 4, 2, 1 that divides H / KV.
+// takes, is chosen by the caller (the wrapper's heads_per_block): one of 4,
+// 2, 1 that divides H / KV.
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* cur_len, int cur_per_row,
                                     void* o, void* ws_ml, void* ws_acc,
                                     void* counters, int is_bf16, int B, int S,
-                                    int H, int KV, int HD, int n_split,
+                                    int H, int KV, int HD, int GB, int n_split,
                                     int chunk, int window, float logit_cap,
                                     float scale, void* stream) {
-  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || n_split <= 0 ||
-      chunk <= 0 || (long long)chunk * n_split < S ||
+  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || GB <= 0 ||
+      (H / KV) % GB != 0 || n_split <= 0 || chunk <= 0 ||
+      (long long)chunk * n_split < S ||
       (n_split > 1 && (!ws_ml || !ws_acc || !counters)))
     return cudaErrorInvalidValue;
-  const int G = H / KV;
-  const int GB = G % 8 == 0 ? 8 : G % 4 == 0 ? 4 : G % 2 == 0 ? 2 : 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* cl = static_cast<const int*>(cur_len);
   float* ml = static_cast<float*>(ws_ml);

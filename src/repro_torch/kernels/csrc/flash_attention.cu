@@ -8,8 +8,12 @@
 // block owns one (batch*head, 64-row query tile) and walks the KV tiles in a
 // loop of its own, keeping (m, l, acc) in float32 registers.
 //
-// Layout: q/o are contiguous [B, S, H, HD], k/v contiguous [B, S, KV, HD],
-// the model layout, so the caller transposes nothing.  Query head h reads KV
+// Layout: q is contiguous [B, S, H, DQK], k [B, S, KV, DQK], v [B, S, KV, DV]
+// and o [B, S, H, DV], the model layout, so the caller transposes nothing.
+// DQK, the head dim of q and k, may exceed DV, that of v and o: MLA
+// (DeepSeek-V2) attends with q/k of 192 = 128 nope + 64 rope columns against
+// v of 128 (reduced: 24 against 16).  The instances are pairs (DQK, DV):
+// (8..256, same) and (192, 128), (24, 16).  Query head h reads KV
 // head h / (H / KV), the Pallas index map's b // g.  The ragged edge of S is
 // masked here, not padded by the caller.  KV tiles that the causal or window
 // mask rules out for the whole query tile are never loaded.
@@ -31,8 +35,13 @@
 // reference model path (src/repro/models/attention.py casts P to the value
 // dtype before P V, float32 accumulation).  K/V tiles of 64 keys stream
 // through a 2-stage ring of cp.async copies: tile kt+1 is in flight while kt
-// is computed.  Head dims under 64 are stored in a 64-column panel (the
-// padding is never read by Q K^T, and its output columns are dropped).  The
+// is computed.  Q K^T runs over DQK rounded up to wgmma's k-step of 16: the
+// columns from DQK to that (DQK = 8 and 24) are zero-filled by the copies,
+// which is exact for the product.  Head dims under 64 are stored in a
+// 64-column panel; P V writes the V tile's width (at least 64, a legal wgmma
+// N) and the output columns past DV are dropped.  At (192, 128) the shared
+// memory is the Q tile (24 KB) and two stages of a K (24 KB) and a V (16 KB)
+// tile, 107,520 bytes with the alignment pad; at 256 it is 164,864.  The
 // grid's y axis walks query tiles from the last, so the causal tiles with the
 // most KV tiles start first.
 //
@@ -42,12 +51,13 @@
 // 2e-5 float32 tolerance.  Thread map (256 threads = a 16 x 16 grid, ty =
 // tid / 16, tx = tid % 16): thread (ty, tx) owns query rows ty + 16 i
 // (i < 4); for the score tile it owns key columns tx + 16 j (j < 4), for the
-// output head-dim columns tx + 16 jj (jj < HD / 16).  The 16 threads of one
-// row sit in one half-warp, so row max and row sum are xor-shuffles over lane
-// offsets 8, 4, 2, 1.  Q and K tiles are stored with a row stride of HD + 1
-// floats so that the 16 key columns of a half-warp fall in 16 different
-// banks.  Shared memory is 4 (64 (HD+1) + 64 (HD+1) + 64 HD + 64 * 65) bytes:
-// 213,760 at HD = 256, under the 232,448 a Hopper block may opt into.
+// output head-dim columns tx + 16 jj (jj < ceil(DV / 16); at DV = 8 the
+// threads with tx >= 8 own none).  The 16 threads of one row sit in one
+// half-warp, so row max and row sum are xor-shuffles over lane offsets 8, 4,
+// 2, 1.  Q and K tiles are stored with a row stride of DQK + 1 floats so
+// that the 16 key columns of a half-warp fall in 16 different banks.  Shared
+// memory is 4 (64 (DQK+1) + 64 (DQK+1) + 64 DV + 64 * 65) bytes: 213,760 at
+// 256, 148,224 at (192, 128), under the 232,448 a Hopper block may opt into.
 
 #include <stdint.h>
 
@@ -66,35 +76,45 @@ constexpr float LOG2E = 1.4426950408889634f;
 // bfloat16: tensor cores (wgmma)
 // ---------------------------------------------------------------------------
 
-template <int HD>
+// width of a head dim rounded up to wgmma's k-step of 16 columns, and as
+// stored: panels of 64 columns
+__host__ __device__ constexpr int pad16(int d) { return (d + 15) / 16 * 16; }
+__host__ __device__ constexpr int panels(int d) { return d < 64 ? 64 : (d + 63) / 64 * 64; }
+
+template <int DQK, int DV>
 struct TcCfg {
-  static constexpr int HDP = HD < 64 ? 64 : HD;    // head dim as stored
+  static constexpr int QKS = panels(DQK);          // q/k head dim as stored
+  static constexpr int VS = panels(DV);            // v head dim as stored
   static constexpr int BK = 64;                    // keys per tile
   static constexpr int STAGES = 2;                 // K/V ring depth
-  static constexpr int ON = HDP < 128 ? HDP : 128;  // N of one P V wgmma
-  static constexpr int NO = HDP / ON;              // P V wgmmas per k-step
-  static constexpr int Q_BYTES = BQ * HDP * 2;
-  static constexpr int T_BYTES = BK * HDP * 2;     // one K or V tile
+  static constexpr int ON = VS < 128 ? VS : 128;   // N of one P V wgmma
+  static constexpr int NO = VS / ON;               // P V wgmmas per k-step
+  static constexpr int Q_BYTES = BQ * QKS * 2;
+  static constexpr int K_BYTES = BK * QKS * 2;     // one K tile
+  static constexpr int V_BYTES = BK * VS * 2;      // one V tile
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
   // + 1024: the tiles start at the first 1024-byte boundary (swizzle atom)
-  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * T_BYTES;
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE_BYTES;
+  static_assert(SMEM <= 232448, "over the shared memory a block may use");
+  static_assert(VS % ON == 0 && ON % 64 == 0, "P V panels");
 };
 
 // cp.async of sequence positions [r0, r0 + R) of one head (row stride
-// `stride` elements) into an sw128 tile of R rows; positions at or past S
-// are zero-filled.
-template <int HD, int R>
+// `stride` elements, D real columns) into an sw128 tile of R rows; the
+// columns from D to pad16(D), and positions at or past S, are zero-filled.
+template <int D, int R>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                                           size_t stride, int r0, int S,
                                           int tid) {
-  constexpr int CPR = HD / 8;                      // 16-byte chunks per row
+  constexpr int CPR = pad16(D) / 8;                // 16-byte chunks per row
   static_assert(R * CPR % 128 == 0, "tile must split over 128 threads");
 #pragma unroll
   for (int j = 0; j < R * CPR / 128; ++j) {
     const int i = tid + 128 * j;
     const int r = i / CPR, c = i % CPR, s = r0 + r;
-    const bool ok = s < S;
+    const bool ok = s < S && c < D / 8;
     sm90::cp_async16(dst + sm90::sw128(r, c, R),
-                     src + (size_t)(ok ? s : 0) * stride + c * 8, ok);
+                     src + (size_t)(ok ? s : 0) * stride + (ok ? c * 8 : 0), ok);
   }
 }
 
@@ -112,17 +132,17 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
   else sm90::wgmma_rs_n64_tb(d, a, db, 1);
 }
 
-template <int HD>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(128, 1)
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o,
                        int S, int H, int KV, int causal, int window,
                        float logit_cap, float scale) {
-  using C = TcCfg<HD>;
+  using C = TcCfg<DQK, DV>;
   constexpr int BK = C::BK, STAGES = C::STAGES, ON = C::ON, NO = C::NO;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sKV = sQ + C::Q_BYTES;  // stage s: K at 2s, V at 2s+1 tiles
+  const uint32_t sKV = sQ + C::Q_BYTES;  // stage s: its K tile, then its V tile
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -130,12 +150,14 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KV);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last tiles first
-  const size_t q_row = (size_t)H * HD;    // stride between sequence positions
-  const size_t kv_row = (size_t)KV * HD;
-  const bf16* qb = q + ((size_t)b * S * H + h) * HD;
-  const bf16* kb = k + ((size_t)b * S * KV + kvh) * HD;
-  const bf16* vb = v + ((size_t)b * S * KV + kvh) * HD;
-  bf16* ob = o + ((size_t)b * S * H + h) * HD;
+  const size_t q_row = (size_t)H * DQK;   // strides between sequence positions
+  const size_t k_row = (size_t)KV * DQK;
+  const size_t v_row = (size_t)KV * DV;
+  const size_t o_row = (size_t)H * DV;
+  const bf16* qb = q + ((size_t)b * S * H + h) * DQK;
+  const bf16* kb = k + ((size_t)b * S * KV + kvh) * DQK;
+  const bf16* vb = v + ((size_t)b * S * KV + kvh) * DV;
+  bf16* ob = o + ((size_t)b * S * H + h) * DV;
 
   // live KV tiles: causal -> k_start <= last query row of the tile;
   // window -> k_start + BK - 1 > q0 - window (the Pallas block-skip rule)
@@ -146,17 +168,18 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int lo = q0 - window - BK + 1;  // live iff kt * BK > lo
     kt_begin = lo < 0 ? 0 : lo / BK + 1;
   }
+  auto load_kv = [&](int stage, int kt) {
+    const uint32_t st = sKV + stage * C::STAGE_BYTES;
+    load_tile<DQK, BK>(st, kb, k_row, kt * BK, S, tid);
+    load_tile<DV, BK>(st + C::K_BYTES, vb, v_row, kt * BK, S, tid);
+  };
 
   // prologue: Q with the first STAGES - 1 K/V tiles, one commit group each
-  load_tile<HD, BQ>(sQ, qb, q_row, q0, S, tid);
+  load_tile<DQK, BQ>(sQ, qb, q_row, q0, S, tid);
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
     const int kt = kt_begin + st;
-    if (kt < kt_end) {
-      load_tile<HD, BK>(sKV + 2 * st * C::T_BYTES, kb, kv_row, kt * BK, S, tid);
-      load_tile<HD, BK>(sKV + (2 * st + 1) * C::T_BYTES, vb, kv_row, kt * BK,
-                        S, tid);
-    }
+    if (kt < kt_end) load_kv(st, kt);
     sm90::cp_async_commit();
   }
 
@@ -182,24 +205,20 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     {
       const int nk = kt + STAGES - 1;
       const int ns = (it + STAGES - 1) % STAGES;
-      if (nk < kt_end) {
-        load_tile<HD, BK>(sKV + 2 * ns * C::T_BYTES, kb, kv_row, nk * BK, S, tid);
-        load_tile<HD, BK>(sKV + (2 * ns + 1) * C::T_BYTES, vb, kv_row, nk * BK,
-                          S, tid);
-      }
+      if (nk < kt_end) load_kv(ns, nk);
       sm90::cp_async_commit();
     }
-    const uint32_t sK = sKV + 2 * (it % STAGES) * C::T_BYTES;
-    const uint32_t sV = sK + C::T_BYTES;
+    const uint32_t sK = sKV + (it % STAGES) * C::STAGE_BYTES;
+    const uint32_t sV = sK + C::K_BYTES;
 
-    // S = Q K^T over the real head dim (16 columns a step)
+    // S = Q K^T over the head dim padded to 16 columns (16 a step)
     float sacc[BK / 2];
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
     sm90::fence_regs(sacc);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < pad16(DQK) / 16; ++kk) {
       const uint64_t da = sm90::desc_sw128(
           sQ + (kk >> 2) * (BQ * 128) + (kk & 3) * 32, 16, 1024);
       const uint64_t db = sm90::desc_sw128(
@@ -291,43 +310,29 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int r = 0; r < 2; ++r) {
         const int qp = q0 + r_lo + 8 * r;
         const int col = n * ON + 8 * j + c_lo;
-        if (qp < S && col < HD) {
+        if (qp < S && col < DV) {
           const uint32_t pk = sm90::pack_bf16(oacc[n][4 * j + 2 * r] * inv[r],
                                               oacc[n][4 * j + 2 * r + 1] * inv[r]);
-          *reinterpret_cast<uint32_t*>(ob + qp * q_row + col) = pk;
+          *reinterpret_cast<uint32_t*>(ob + qp * o_row + col) = pk;
         }
       }
 }
 
-template <int HD>
+template <int DQK, int DV>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          int B, int S, int H, int KV, int causal, int window,
                          float logit_cap, float scale, cudaStream_t stream) {
-  constexpr int smem = TcCfg<HD>::SMEM;
+  constexpr int smem = TcCfg<DQK, DV>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_wgmma_kernel<DQK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_fwd_wgmma_kernel<HD><<<grid, 128, smem, stream>>>(
+  flash_fwd_wgmma_kernel<DQK, DV><<<grid, 128, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, KV, causal,
       window, logit_cap, scale);
   return cudaGetLastError();
-}
-
-cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
-                           void* o, int B, int S, int H, int KV, int HD,
-                           int causal, int window, float logit_cap, float scale,
-                           cudaStream_t stream) {
-  switch (HD) {
-    case 16: return launch_wgmma<16>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
-    case 32: return launch_wgmma<32>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
-    case 64: return launch_wgmma<64>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
-    case 128: return launch_wgmma<128>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
-    case 256: return launch_wgmma<256>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -337,25 +342,27 @@ cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
 constexpr int BK = 64;          // keys per tile
 constexpr int THREADS = 256;
 
-template <int HD>
+template <int DQK, int DV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1));
+  return sizeof(float) * (BQ * (DQK + 1) + BK * (DQK + 1) + BK * DV + BQ * (BK + 1));
 }
 
-template <int HD>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, int S,
                      int H, int KV, int causal, int window, float logit_cap,
                      float scale) {
-  constexpr int QS = HD + 1;     // row stride of the Q and K tiles
+  constexpr int QS = DQK + 1;    // row stride of the Q and K tiles
   constexpr int PS = BK + 1;     // row stride of the P tile
-  constexpr int DJ = HD / 16;    // output columns per thread
+  constexpr int DJ = (DV + 15) / 16;  // output columns per thread (at most)
   extern __shared__ float smem[];
   float* Qs = smem;              // [BQ][QS], already scaled
   float* Ks = Qs + BQ * QS;      // [BK][QS]
-  float* Vs = Ks + BK * QS;      // [BK][HD]
-  float* Ps = Vs + BK * HD;      // [BQ][PS]
+  float* Vs = Ks + BK * QS;      // [BK][DV]
+  float* Ps = Vs + BK * DV;      // [BQ][PS]
+  // this thread's output columns tx + 16 jj exist (DV < 16: only tx < DV)
+  const bool has_col = DV % 16 == 0 || threadIdx.x % 16 < DV % 16;
 
   const int tid = threadIdx.x;
   const int ty = tid / 16;
@@ -365,15 +372,17 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int h = bh % H;
   const int kvh = h / (H / KV);
   const int q0 = blockIdx.x * BQ;
-  const size_t q_row = (size_t)H * HD;    // stride between sequence positions
-  const size_t kv_row = (size_t)KV * HD;
-  const float* qb = q + ((size_t)b * S * H + h) * HD;
-  const float* kb = k + ((size_t)b * S * KV + kvh) * HD;
-  const float* vb = v + ((size_t)b * S * KV + kvh) * HD;
-  float* ob = o + ((size_t)b * S * H + h) * HD;
+  const size_t q_row = (size_t)H * DQK;   // strides between sequence positions
+  const size_t k_row = (size_t)KV * DQK;
+  const size_t v_row = (size_t)KV * DV;
+  const size_t o_row = (size_t)H * DV;
+  const float* qb = q + ((size_t)b * S * H + h) * DQK;
+  const float* kb = k + ((size_t)b * S * KV + kvh) * DQK;
+  const float* vb = v + ((size_t)b * S * KV + kvh) * DV;
+  float* ob = o + ((size_t)b * S * H + h) * DV;
 
-  for (int i = tid; i < BQ * HD; i += THREADS) {
-    const int r = i / HD, d = i % HD, s = q0 + r;
+  for (int i = tid; i < BQ * DQK; i += THREADS) {
+    const int r = i / DQK, d = i % DQK, s = q0 + r;
     Qs[r * QS + d] = s < S ? qb[s * q_row + d] * scale : 0.f;
   }
 
@@ -399,11 +408,13 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's readers are done (and Qs is written)
-    for (int i = tid; i < BK * HD; i += THREADS) {
-      const int r = i / HD, d = i % HD, s = k0 + r;
-      const bool in = s < S;
-      Ks[r * QS + d] = in ? kb[s * kv_row + d] : 0.f;
-      Vs[r * HD + d] = in ? vb[s * kv_row + d] : 0.f;
+    for (int i = tid; i < BK * DQK; i += THREADS) {
+      const int r = i / DQK, d = i % DQK, s = k0 + r;
+      Ks[r * QS + d] = s < S ? kb[s * k_row + d] : 0.f;
+    }
+    for (int i = tid; i < BK * DV; i += THREADS) {
+      const int r = i / DV, d = i % DV, s = k0 + r;
+      Vs[r * DV + d] = s < S ? vb[s * v_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -413,7 +424,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float qv[4], kv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * QS + d];
@@ -470,7 +481,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * PS + c];
 #pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) vv[jj] = Vs[c * HD + tx + 16 * jj];
+      for (int jj = 0; jj < DJ; ++jj)
+        vv[jj] = has_col ? Vs[c * DV + tx + 16 * jj] : 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -481,61 +493,74 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int s = q0 + ty + 16 * i;
-    if (s < S) {
+    if (s < S && has_col) {
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int jj = 0; jj < DJ; ++jj)
-        ob[s * q_row + tx + 16 * jj] = acc[i][jj] / denom;
+        ob[s * o_row + tx + 16 * jj] = acc[i][jj] / denom;
     }
   }
 }
 
-template <int HD>
+template <int DQK, int DV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        int B, int S, int H, int KV, int causal, int window,
                        float logit_cap, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
+  constexpr size_t smem = smem_bytes<DQK, DV>();
+  static_assert(smem <= 232448, "over the shared memory a block may use");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_f32_kernel<DQK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_f32_kernel<HD><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_f32_kernel<DQK, DV><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, causal,
       window, logit_cap, scale);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
-                         int B, int S, int H, int KV, int HD, int causal,
-                         int window, float logit_cap, float scale,
-                         cudaStream_t stream) {
-  switch (HD) {
-    case 16: return launch_f32<16>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
-    case 32: return launch_f32<32>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
-    case 64: return launch_f32<64>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
-    case 128: return launch_f32<128>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
-    case 256: return launch_f32<256>(q, k, v, o, B, S, H, KV, causal, window, logit_cap, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
+// the (DQK, DV) pairs built: the wrapper's _HEAD_DIMS and _QK_V_PAIRS
+template <bool BF16>
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
+                     int B, int S, int H, int KV, int DQK, int DV, int causal,
+                     int window, float logit_cap, float scale,
+                     cudaStream_t stream) {
+#define REPRO_FLASH_PAIR(dqk, dv)                                             \
+  if (DQK == dqk && DV == dv)                                                 \
+    return BF16 ? launch_wgmma<dqk, dv>(q, k, v, o, B, S, H, KV, causal,      \
+                                        window, logit_cap, scale, stream)     \
+                : launch_f32<dqk, dv>(q, k, v, o, B, S, H, KV, causal,        \
+                                      window, logit_cap, scale, stream);
+  REPRO_FLASH_PAIR(8, 8)
+  REPRO_FLASH_PAIR(16, 16)
+  REPRO_FLASH_PAIR(32, 32)
+  REPRO_FLASH_PAIR(64, 64)
+  REPRO_FLASH_PAIR(128, 128)
+  REPRO_FLASH_PAIR(256, 256)
+  REPRO_FLASH_PAIR(192, 128)
+  REPRO_FLASH_PAIR(24, 16)
+#undef REPRO_FLASH_PAIR
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success).  is_bf16 selects the
 // storage type of q, k, v and o: 1 bfloat16 (tensor-core kernel), 0 float32.
+// HD is the head dim of q and k, HDV that of v and o.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int is_bf16, int B, int S, int H,
-                                   int KV, int HD, int causal, int window,
-                                   float logit_cap, float scale, void* stream) {
+                                   int KV, int HD, int HDV, int causal,
+                                   int window, float logit_cap, float scale,
+                                   void* stream) {
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch_wgmma(q, k, v, o, B, S, H, KV, HD, causal, window,
+    return dispatch<true>(q, k, v, o, B, S, H, KV, HD, HDV, causal, window,
                           logit_cap, scale, st);
-  return dispatch_f32(q, k, v, o, B, S, H, KV, HD, causal, window, logit_cap,
-                      scale, st);
+  return dispatch<false>(q, k, v, o, B, S, H, KV, HD, HDV, causal, window,
+                         logit_cap, scale, st);
 }
 
 extern "C" const char* kernels_error_string(int err) {

@@ -25,6 +25,14 @@ writes a float32 partial, and the last block of each (batch, head group) to
 finish combines the partials.  Chunks past ``cur_len`` or before the window
 load nothing.
 
+At hd 256 (Gemma-2's decode) a 16 KB stage holds 16 keys (a warp a bf16
+row), the ring stays 4 stages deep and 2 blocks still fit an SM.  A block
+takes at most 4 query heads (``heads_per_block``): at hd 256 8 heads'
+float32 partials would outgrow the ring that the fold reuses, and at hd
+128 8 heads' registers leave one block an SM, slower than two blocks of 4
+(qwen3-moe's decode, G = 8; PERF.md).  At hd 8 one lane holds a bf16 key
+row.
+
 The wrapper keeps one zeroed counter buffer per card for those tickets (the
 kernel leaves it at 0), so calls on one card must be ordered on one stream
 (as the model path is), and a CUDA graph captures the call without a
@@ -47,7 +55,7 @@ __all__ = ["decode_attention", "decode_attention_plain", "split_plan"]
 
 NEG_INF = -2.0e38
 _DTYPES = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 SPLIT_MIN_KEYS = 64      # no chunk shorter than this many cache entries
 BLOCKS_PER_SM = 2        # kernel blocks resident on an SM: one wave of them
 
@@ -111,6 +119,12 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def heads_per_block(g: int) -> int:
+    """The kernel's GB, the query heads one block takes, passed to it: the
+    largest of 4, 2, 1 that divides the group size g = H / KV."""
+    return next(x for x in (4, 2, 1) if g % x == 0)
+
+
 def split_plan(b: int, h: int, kv: int, s: int, n_sm: int) -> tuple[int, int]:
     """(n_split, chunk): how the kernel cuts the cache axis.
 
@@ -119,9 +133,7 @@ def split_plan(b: int, h: int, kv: int, s: int, n_sm: int) -> tuple[int, int]:
     ``SPLIT_MIN_KEYS`` keys; chunk lengths are multiples of 16.  It depends
     on the shapes only, never on ``cur_len``'s value.
     """
-    g = h // kv
-    gb = next(x for x in (8, 4, 2, 1) if g % x == 0)   # the kernel's GB
-    blocks = b * h // gb
+    blocks = b * h // heads_per_block(h // kv)
     want = BLOCKS_PER_SM * n_sm // blocks
     n_split = max(1, min(want, math.ceil(s / SPLIT_MIN_KEYS)))
     chunk = 16 * math.ceil(math.ceil(s / n_split) / 16)
@@ -140,7 +152,7 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, logit_cap=0.0,
     """Decode attention: q [B,H,hd] vs caches [B,S,KV,hd] -> [B,H,hd].
 
     CPU tensors take :func:`decode_attention_plain`; CUDA tensors launch the
-    Hopper kernel (contiguous float32 or bfloat16, hd in 16/32/64/128,
+    Hopper kernel (contiguous float32 or bfloat16, hd in 8/16/32/64/128/256,
     ``cur_len`` an int or an integer tensor on q's card) or raise.
     ``decode_attention.launches`` counts kernel launches.
     """
@@ -165,6 +177,7 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, logit_cap=0.0,
         raise ValueError("empty batch or cache")
     cur = _cur_len_tensor(cur_len, b, q.device)
     device = q.device
+    gb = heads_per_block(h // kv)
     n_split, chunk = split_plan(b, h, kv, s, _sm_count(device.index))
     o = torch.empty_like(q)
     ws_ml = ws_acc = counters = 0                  # one split: no workspace
@@ -178,7 +191,7 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, logit_cap=0.0,
     err = lib.decode_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cur.data_ptr(),
         int(cur.ndim == 1), o.data_ptr(), ws_ml, ws_acc, counters,
-        int(q.dtype == torch.bfloat16), b, s, h, kv, hd, n_split, chunk,
+        int(q.dtype == torch.bfloat16), b, s, h, kv, hd, gb, n_split, chunk,
         int(window), float(logit_cap), float(sc),
         torch.cuda.current_stream(device).cuda_stream)
     build.check(lib, err, "decode_attention")

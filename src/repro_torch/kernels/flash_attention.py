@@ -16,7 +16,9 @@ on the tensor cores with ``wgmma`` (Q K^T from shared memory, P V with P in
 registers, float32 accumulation) and streams K/V tiles through a 2-stage
 ``cp.async`` ring; its float32 instance keeps float32 FMAs from shared
 memory (TF32 tensor cores could not meet the float32 tolerance).  Griffin's
-local attention runs it at hd=256 (B=1, S=512, H=16, KV=1, window 2048).
+local attention runs it at hd=256 (B=1, S=512, H=16, KV=1, window 2048),
+Gemma-2 at hd=256 (H=16, KV=8, soft-cap 50, windows 4,096 and 0), MLA
+(DeepSeek-V2) with a qk head dim of 192 against a v head dim of 128.
 
 The wrapper takes the plain version only for tensors on the CPU; for a CUDA
 tensor it launches the kernel or raises.
@@ -32,16 +34,27 @@ __all__ = ["flash_attention", "flash_attention_plain"]
 
 NEG_INF = -2.0e38
 _DTYPES = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (16, 32, 64, 128, 256)
+# the kernel's instances: q, k and v of one head dim (8: the reduced
+# deepseek-coder-33b, musicgen-medium and internvl2-1b; 256: Gemma-2,
+# Griffin), and MLA's (qk head dim, v head dim) pairs, (192, 128) at full
+# width and (24, 16) reduced
+_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+_QK_V_PAIRS = ((192, 128), (24, 16))
+
+
+def supported(hd: int, hd_v: int) -> bool:
+    """Whether the kernel is built for q/k of head dim ``hd`` and v of
+    ``hd_v``."""
+    return (hd == hd_v and hd in _HEAD_DIMS) or (hd, hd_v) in _QK_V_PAIRS
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"want q [B,S,H,hd], k/v [B,S,KV,hd]; got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"want q [B,S,H,hd], k [B,S,KV,hd], v [B,S,KV,hd_v]; "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, s, h, hd = q.shape
     if k.shape[0] != b or k.shape[1] != s or k.shape[3] != hd:
-        raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+        raise ValueError(f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
     if h % k.shape[2]:
         raise ValueError(f"{h} query heads are not a multiple of {k.shape[2]} KV heads")
     if not (q.dtype == k.dtype == v.dtype) or not (q.device == k.device == v.device):
@@ -52,8 +65,9 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, logit_cap=0.0,
                           scale=None) -> torch.Tensor:
     """Direct softmax attention in float32; same function as the kernel.
 
-    q [B,S,H,hd], k/v [B,S,KV,hd] -> [B,S,H,hd] in q's dtype.  q is scaled in
-    float32 before the product, as the TPU kernel does.
+    q [B,S,H,hd], k [B,S,KV,hd], v [B,S,KV,hd_v] -> [B,S,H,hd_v] in q's
+    dtype.  q is scaled in float32 before the product, as the TPU kernel
+    does.
     """
     _check(q, k, v)
     b, s, h, hd = q.shape
@@ -79,22 +93,26 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, logit_cap=0.0,
 
 def flash_attention(q, k, v, *, causal=True, window=0, logit_cap=0.0,
                     scale=None) -> torch.Tensor:
-    """Prefill attention: q [B,S,H,hd], k/v [B,S,KV,hd] -> [B,S,H,hd].
+    """Prefill attention: q [B,S,H,hd], k [B,S,KV,hd], v [B,S,KV,hd_v] ->
+    [B,S,H,hd_v].
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
-    Hopper kernel (contiguous float32 or bfloat16, hd in 16/32/64/128/256)
-    or raise.  ``flash_attention.launches`` counts kernel launches.
+    Hopper kernel (contiguous float32 or bfloat16, head dims that
+    :func:`supported` names) or raise.  ``flash_attention.launches`` counts kernel
+    launches.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      logit_cap=logit_cap, scale=scale)
+    b, s, h, hd = q.shape
+    hd_v = v.shape[3]
+    if q.dtype not in _DTYPES or not supported(hd, hd_v):
+        raise ValueError(f"kernel takes {_DTYPES} with hd = hd_v in "
+                         f"{_HEAD_DIMS} or (hd, hd_v) in {_QK_V_PAIRS}; got "
+                         f"{q.dtype}, hd={hd}, hd_v={hd_v}")
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for device {q.device}")
-    b, s, h, hd = q.shape
-    if q.dtype not in _DTYPES or hd not in _HEAD_DIMS:
-        raise ValueError(f"kernel takes {_DTYPES} with hd in {_HEAD_DIMS}; "
-                         f"got {q.dtype}, hd={hd}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("kernel takes contiguous q, k, v")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -102,11 +120,11 @@ def flash_attention(q, k, v, *, causal=True, window=0, logit_cap=0.0,
     if s == 0 or b == 0:
         raise ValueError("empty batch or sequence")
     sc = hd ** -0.5 if scale is None else scale
-    o = torch.empty_like(q)
+    o = q.new_empty((b, s, h, hd_v))
     lib = build.load()
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        int(q.dtype == torch.bfloat16), b, s, h, k.shape[2], hd, int(causal),
+        int(q.dtype == torch.bfloat16), b, s, h, k.shape[2], hd, hd_v, int(causal),
         int(window), float(logit_cap), float(sc),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention")

@@ -20,7 +20,25 @@ from ..core.graph import GraphNode, ModelGraph
 from . import griffin, mamba2, transformer, transformer_serve
 from .common import apply_norm, layer
 
-__all__ = ["ModelBundle", "bundle_for"]
+__all__ = ["ModelBundle", "bundle_for", "SHAPES", "ShapeSpec"]
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """An input shape of the reference's LM families: seq_len x global_batch."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass
@@ -36,6 +54,28 @@ class ModelBundle:
 
     def num_params(self) -> int:
         return self.cfg.num_params()
+
+    def input_specs(self, shape: ShapeSpec) -> dict[str, Any]:
+        """The inputs of one step at ``shape`` as ``meta`` tensors, as the
+        reference's: token ids (and labels for training) with room left for
+        a modality prefix, whose embeddings come beside them in bf16; for
+        decode the cache, one token per row and the position."""
+        s, b = shape.seq_len, shape.global_batch
+        prefix = getattr(self.cfg, "prefix_tokens", 0)
+
+        def meta(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            spec = {"tokens": meta(b, s - prefix)}
+            if shape.kind == "train":
+                spec["labels"] = meta(b, s)
+            if prefix:
+                spec["prefix_embeds"] = meta(b, prefix, self.cfg.prefix_dim,
+                                             dtype=torch.bfloat16)
+            return spec
+        return {"cache": self.cache_spec(b, s), "tokens": meta(b),
+                "pos": meta()}
 
 
 def _graph_from_blocks(name: str, n_layers: int, d_model: int,
@@ -53,8 +93,9 @@ def _graph_from_blocks(name: str, n_layers: int, d_model: int,
 
 def _transformer_bundle(arch: str, cfg: transformer.TransformerConfig) -> ModelBundle:
     def prefill(params, batch, max_len=None):
-        return transformer_serve.prefill(params, cfg, batch["tokens"],
-                                         max_len=max_len)
+        return transformer_serve.prefill(
+            params, cfg, batch["tokens"],
+            prefix_embeds=batch.get("prefix_embeds"), max_len=max_len)
 
     def decode(params, cache, tokens, pos):
         return transformer_serve.decode_step(params, cfg, cache, tokens, pos)

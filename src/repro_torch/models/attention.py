@@ -17,20 +17,24 @@ import torch
 
 from ..kernels import ops as kops
 
-__all__ = ["chunked_attention", "decode_attention", "update_kv_cache"]
+__all__ = ["chunked_attention", "decode_attention", "update_kv_cache",
+           "write_at"]
 
 
 def chunked_attention(
     q: torch.Tensor,             # [B, S, H, hd]
     k: torch.Tensor,             # [B, S, KV, hd]
-    v: torch.Tensor,             # [B, S, KV, hd]
+    v: torch.Tensor,             # [B, S, KV, hd_v]
     *,
     causal: bool = True,
     window: int = 0,             # 0 = global; >0 = sliding window
     logit_cap: float = 0.0,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Prefill attention over the whole sequence. Returns [B, S, H, hd]."""
+    """Prefill attention over the whole sequence. Returns [B, S, H, hd_v].
+
+    v may be narrower than q and k (MLA: qk 192, v 128); K1 takes the pair.
+    """
     return kops.flash_attention(q, k, v, causal=causal, window=int(window),
                                 logit_cap=logit_cap, scale=scale)
 
@@ -62,9 +66,17 @@ def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
     """
     if k_new.ndim == 3:
         k_new, v_new = k_new[:, None], v_new[:, None]
-    s = k_cache.shape[1]
+    return write_at(k_cache, k_new, pos), write_at(v_cache, v_new, pos)
+
+
+def write_at(cache: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
+    """cache[:, pos] = new[:, 0] in place (new [B,1,...]); returns cache.
+
+    ``pos`` (a host int) is placed as JAX's ``dynamic_update_slice``: a
+    negative one counts from the end, then it clamps to [0, S-1].
+    """
+    s = cache.shape[1]
     p = int(pos)
     p = min(max(p + s if p < 0 else p, 0), s - 1)
-    k_cache[:, p:p + 1] = k_new
-    v_cache[:, p:p + 1] = v_new
-    return k_cache, v_cache
+    cache[:, p:p + 1] = new
+    return cache

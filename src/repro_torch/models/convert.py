@@ -4,7 +4,8 @@ The reference's param tree, with its leaves as numpy arrays (the caller
 makes them with ``jax.tree_util.tree_map(np.asarray, params)``), has the
 port's structure and layouts already: nested dicts, blocks stacked on a
 leading L axis (Griffin: ``groups`` stacked per pattern position and a
-``tail`` list), ``wq`` [d,H,hd] and so on.  Conversion is leaf by leaf.
+``tail`` list; DeepSeek-V2: a ``lead_blocks`` list), ``wq`` [d,H,hd] and
+so on.  Conversion is leaf by leaf.
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .transformer import TransformerConfig, check_supported
 
 __all__ = ["params_from_jax"]
 
@@ -25,17 +25,17 @@ def params_from_jax(np_tree: Any, cfg: Any,
                     dtype=torch.float32) -> Any:
     """Numpy param tree of any ported family -> the port's tree on ``device``.
 
-    Floating leaves (including bfloat16 ones) become ``dtype``; integer
-    leaves keep their type; lists stay lists.  Transformer configs are
-    checked for features not ported yet.
+    Floating leaves (including bfloat16 ones) become ``dtype``, except MoE
+    routers, which stay float32 as the reference keeps them; integer leaves
+    keep their type; lists stay lists.  ``cfg`` names the family the tree
+    belongs to; the conversion itself does not depend on it.
     """
-    if isinstance(cfg, TransformerConfig):
-        check_supported(cfg)
+    del cfg
     dev = resolve_device(device)
 
-    def conv(x):
+    def conv(x, name=""):
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
+            return {k: conv(v, k) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return [conv(v) for v in x]
         a = np.asarray(x)
@@ -43,6 +43,7 @@ def params_from_jax(np_tree: Any, cfg: Any,
             return torch.from_numpy(np.array(a)).to(dev)
         # a copy: the source buffer may be read-only, and bfloat16 leaves are
         # an extension type numpy cannot hand to torch as they are
-        return torch.from_numpy(np.array(a, np.float32)).to(device=dev, dtype=dtype)
+        to = torch.float32 if name == "router" else dtype
+        return torch.from_numpy(np.array(a, np.float32)).to(device=dev, dtype=to)
 
     return conv(np_tree)

@@ -1,19 +1,23 @@
-"""Decoder-only transformer, dense GQA (the port's first family slice).
+"""Composable decoder-only transformer: every transformer of the reference.
 
 One config dataclass + plain functions on tensors, in the reference's
 layouts: ``wq`` [d,H,hd], ``wk``/``wv`` [d,KV,hd], ``wo`` [H,hd,d], FFN
 ``wi``/``wg`` [d,ff] and ``wo`` [ff,d], blocks stacked on a leading L axis.
-Layers run as a Python loop over that axis.  Attention is the K1 flash
-kernel (``models/attention.py``); the projections, the FFN and the LM head
-are plain matrix products.
-
-The config keeps every field of the reference so that graphs and parameter
-counts agree; MoE, MLA, the parallel block, post-norm and modality prefixes
-raise ``NotImplementedError`` until their slice.
+Layers run as a Python loop over that axis.  Feature axes, as in the
+reference: GQA/MQA/MHA via ``n_kv``; MLA (DeepSeek-V2: latent KV, decoupled
+RoPE key); token-choice top-k MoE with capacity, shared experts and leading
+dense layers; per-layer sliding windows; attention and final soft-caps and
+sandwich norms (Gemma-2); the parallel block (Command-R); QK-norm (Qwen3);
+partial RoPE (StableLM-2); a projected modality prefix (InternVL2).
+Attention is the K1 flash kernel (``models/attention.py``), MLA's with a
+qk head dim wider than its v head dim; the projections, the experts, the
+FFN and the LM head are plain (batched) matrix products.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Any
 
@@ -138,17 +142,25 @@ class TransformerConfig:
         return emb + self.n_layers * self.active_params_per_block
 
 
-def check_supported(cfg: TransformerConfig) -> None:
-    """Raise for the features whose slice has not been ported yet."""
-    missing = [name for name, on in (
-        ("MoE", cfg.moe is not None), ("MLA", cfg.mla is not None),
-        ("parallel block", cfg.parallel_block), ("post-norm", cfg.post_norm),
-        ("modality prefix", bool(cfg.prefix_tokens)),
-        ("embedding inputs", cfg.embed_inputs),
-    ) if on]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet")
+def n_lead(cfg: TransformerConfig) -> int:
+    """Leading dense layers (DeepSeek-V2) before the stacked blocks."""
+    return cfg.moe.first_dense_layers if cfg.moe else 0
+
+
+@functools.lru_cache(maxsize=None)
+def lead_config(cfg: TransformerConfig) -> TransformerConfig:
+    """The config of the leading dense layers: no MoE, FFN ``dense_d_ff``."""
+    return dataclasses.replace(cfg, moe=None, d_ff=cfg.moe.dense_d_ff or cfg.d_ff)
+
+
+def layer_at(params: Params, cfg: TransformerConfig, i: int):
+    """Global layer ``i``: ``(params, config, window, cache group, index in
+    the group)``; the lead blocks come first, with window 0."""
+    nl = n_lead(cfg)
+    if i < nl:
+        return params["lead_blocks"][i], lead_config(cfg), 0, "lead", i
+    return (layer(params["blocks"], i - nl), cfg, int(cfg.windows()[i]),
+            "blocks", i - nl)
 
 
 # --------------------------------------------------------------------------- #
@@ -156,25 +168,54 @@ def check_supported(cfg: TransformerConfig) -> None:
 # --------------------------------------------------------------------------- #
 def _block_params(cfg: TransformerConfig, gen: torch.Generator, device,
                   dtype) -> Params:
+    """One block, with the reference's keys, shapes and order of draws."""
     d, hd, h, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv
-    p: dict[str, Any] = {
-        "ln1": norm_params(d, cfg.norm, device, dtype),
-        "ln2": norm_params(d, cfg.norm, device, dtype),
-        "attn": {
-            "wq": dense_init(gen, (d, h, hd), device, dtype),
-            "wk": dense_init(gen, (d, kv, hd), device, dtype),
-            "wv": dense_init(gen, (d, kv, hd), device, dtype),
-            "wo": dense_init(gen, (h, hd, d), device, dtype),
-        },
-    }
+
+    def dense(shape, dt=dtype):
+        return dense_init(gen, shape, device, dt)
+
+    def norm(width):
+        return norm_params(width, cfg.norm, device, dtype)
+
+    p: dict[str, Any] = {"ln1": norm(d)}
+    if not cfg.parallel_block:
+        p["ln2"] = norm(d)
+    if cfg.post_norm:
+        p["ln1_post"] = norm(d)
+        p["ln2_post"] = norm(d)
+    if cfg.mla is not None:
+        m = cfg.mla
+        p["attn"] = {
+            "wq": dense((d, h, m.nope_head_dim + m.rope_head_dim)),
+            "wdkv": dense((d, m.kv_lora)),
+            "wkr": dense((d, m.rope_head_dim)),
+            "kv_ln": norm_params(m.kv_lora, "rms", device, dtype),
+            "wuk": dense((m.kv_lora, h, m.nope_head_dim)),
+            "wuv": dense((m.kv_lora, h, m.v_head_dim)),
+            "wo": dense((h, m.v_head_dim, d)),
+        }
+    else:
+        p["attn"] = {"wq": dense((d, h, hd)), "wk": dense((d, kv, hd)),
+                     "wv": dense((d, kv, hd)), "wo": dense((h, hd, d))}
     if cfg.qk_norm:
         p["attn"]["q_norm"] = norm_params(hd, "rms", device, dtype)
         p["attn"]["k_norm"] = norm_params(hd, "rms", device, dtype)
-    mlp = {"wi": dense_init(gen, (d, cfg.d_ff), device, dtype),
-           "wo": dense_init(gen, (cfg.d_ff, d), device, dtype)}
-    if cfg.glu:
-        mlp["wg"] = dense_init(gen, (d, cfg.d_ff), device, dtype)
-    p["mlp"] = mlp
+
+    def ffn(width: int, prefix=()) -> Params:
+        q = {"wi": dense((*prefix, d, width)), "wo": dense((*prefix, width, d))}
+        if cfg.glu:
+            q["wg"] = dense((*prefix, d, width))
+        return q
+
+    if cfg.moe is not None:
+        moe = cfg.moe
+        # the router stays float32 whatever the param dtype, as in the reference
+        p["moe"] = {"router": dense((d, moe.num_experts), torch.float32),
+                    "experts": ffn(moe.d_expert, (moe.num_experts,))}
+        if moe.num_shared:
+            p["moe"]["shared"] = ffn(moe.d_expert * moe.num_shared)
+    else:
+        p["mlp"] = ffn(cfg.d_ff)
     return p
 
 
@@ -185,10 +226,11 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 
     The distributions are the reference's (``dense_init``: normal with std
     1/sqrt(shape[-2]) per block tensor; ``embed_init``: std 0.02); the
-    numbers differ, since the generators do.  Layers are drawn one at a
-    time into the stacked tensors (``stack_layers``).
+    numbers differ, since the generators do.  Stacked layers are drawn one
+    at a time into the stacked tensors (``stack_layers``); the lead blocks
+    (DeepSeek-V2's dense first layers) are a list, ``prefix_proj`` projects
+    modality embeddings (InternVL2).
     """
-    check_supported(cfg)
     dev = resolve_device(device)
     params: dict[str, Any] = {
         "embed": embed_init(generator, (cfg.vocab, cfg.d_model), dev, dtype),
@@ -196,13 +238,20 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     }
     if not cfg.tie_embeddings:
         params["head"] = dense_init(generator, (cfg.d_model, cfg.vocab), dev, dtype)
+    nl = n_lead(cfg)
+    if nl:
+        params["lead_blocks"] = [_block_params(lead_config(cfg), generator, dev,
+                                               dtype) for _ in range(nl)]
     params["blocks"] = stack_layers(
-        cfg.n_layers, lambda: _block_params(cfg, generator, dev, dtype))
+        cfg.n_layers - nl, lambda: _block_params(cfg, generator, dev, dtype))
+    if cfg.prefix_tokens:
+        params["prefix_proj"] = dense_init(
+            generator, (cfg.prefix_dim or cfg.d_model, cfg.d_model), dev, dtype)
     return params
 
 
 # --------------------------------------------------------------------------- #
-# FFN + attention
+# FFN: dense and MoE
 # --------------------------------------------------------------------------- #
 def dense_ffn(x: torch.Tensor, p: Params, cfg: TransformerConfig) -> torch.Tensor:
     hg = x @ p["wi"].to(x.dtype)
@@ -213,6 +262,104 @@ def dense_ffn(x: torch.Tensor, p: Params, cfg: TransformerConfig) -> torch.Tenso
     return h @ p["wo"].to(h.dtype)
 
 
+@dataclass(frozen=True)
+class MoERouting:
+    """Token-choice top-k routing of ``t`` tokens with capacity ``cap``.
+
+    ``experts``/``weights`` [t, k]: each token's experts, best first, and
+    their gate weights; ``slot`` [t, k]: the token's rank inside that
+    expert's group (>= ``cap``: dropped); ``idx``/``wmat`` [E, cap]: the
+    token and weight in each expert slot (token 0 and weight 0 where empty).
+    """
+
+    experts: torch.Tensor
+    weights: torch.Tensor
+    slot: torch.Tensor
+    idx: torch.Tensor
+    wmat: torch.Tensor
+    cap: int
+
+
+def moe_capacity(t: int, moe: MoEConfig) -> int:
+    return max(int(np.ceil(t * moe.top_k / moe.num_experts * moe.capacity_factor)), 4)
+
+
+def moe_route(xf: torch.Tensor, router: torch.Tensor,
+              moe: MoEConfig) -> MoERouting:
+    """The reference's routing (``moe_ffn``), with the same discrete output.
+
+    Softmax gates in float32; top-k with ties to the lower expert id, as
+    ``jax.lax.top_k`` (a stable descending sort); optional renormalisation;
+    slots from a stable sort by expert.  Every shape follows from t, k and
+    E, and nothing here waits on the device (no ``bincount``, no boolean
+    indexing).
+    """
+    t, k, e = xf.shape[0], moe.top_k, moe.num_experts
+    gates = torch.softmax(xf.float() @ router.float(), dim=-1)      # [t, E]
+    topv, tope = torch.sort(gates, dim=-1, descending=True, stable=True)
+    topv, tope = topv[:, :k], tope[:, :k]
+    if moe.router_scale:
+        topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
+    cap = moe_capacity(t, moe)
+    e_flat = tope.reshape(-1)
+    order = torch.argsort(e_flat, stable=True)
+    e_sorted = e_flat[order]
+    # rank inside the expert's group: position minus the group's first one
+    first = torch.searchsorted(e_sorted, e_sorted)
+    slot_sorted = torch.arange(t * k, device=xf.device) - first
+    slot = torch.empty_like(slot_sorted)
+    slot[order] = slot_sorted
+    # overflow lands in a dump column (cap), sliced off
+    col = slot_sorted.clamp_max(cap)
+    tok = torch.arange(t, device=xf.device).repeat_interleave(k)
+    idx = torch.zeros((e, cap + 1), dtype=torch.long, device=xf.device)
+    idx[e_sorted, col] = tok[order]
+    wmat = torch.zeros((e, cap + 1), dtype=torch.float32, device=xf.device)
+    wmat[e_sorted, col] = topv.reshape(-1)[order]
+    return MoERouting(tope, topv, slot.view(t, k), idx[:, :cap],
+                      wmat[:, :cap], cap)
+
+
+def moe_ffn(x: torch.Tensor, p: Params, cfg: TransformerConfig) -> torch.Tensor:
+    """Token-choice top-k MoE with capacity, gather-based dispatch.
+
+    x [B,S,d] -> [B,S,d].  The experts run as batched products over
+    [E, cap, d] (the reference leaves them to XLA).  Each token then gathers
+    its k weighted expert outputs and sums them in k order, so the result is
+    deterministic (no float scatter-add); a dropped choice adds nothing.
+    """
+    moe = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    r = moe_route(xf, p["router"], moe)
+    xin = xf[r.idx]                                               # [E, C, d]
+    we = p["experts"]
+    hg = torch.bmm(xin, we["wi"].to(xin.dtype))
+    if cfg.glu:
+        h = activation(hg, cfg.act) * torch.bmm(xin, we["wg"].to(xin.dtype))
+    else:
+        h = activation(hg, cfg.act)
+    eout = torch.bmm(h, we["wo"].to(h.dtype))                    # [E, C, d]
+    eout = eout * r.wmat[..., None].to(eout.dtype)
+    kept = r.slot < r.cap                                         # [t, k]
+    rows = r.experts * r.cap + r.slot.clamp_max(r.cap - 1)
+    picked = eout.reshape(-1, d)[rows.reshape(-1)].view(t, moe.top_k, d)
+    out = torch.where(kept[..., None], picked, 0).sum(dim=1)
+    if moe.num_shared:
+        out = out + dense_ffn(xf, p["shared"], cfg)
+    return out.reshape(b, s, d).to(x.dtype)
+
+
+def ffn_forward(x: torch.Tensor, p: Params, cfg: TransformerConfig) -> torch.Tensor:
+    """The block's FFN: MoE where the config has one, else dense."""
+    return moe_ffn(x, p["moe"], cfg) if cfg.moe is not None \
+        else dense_ffn(x, p["mlp"], cfg)
+
+
+# --------------------------------------------------------------------------- #
+# attention projections (dense GQA and MLA)
+# --------------------------------------------------------------------------- #
 def project_qkv(x: torch.Tensor, p: Params, cfg: TransformerConfig,
                 pos: torch.Tensor):
     """q [B,S,H,hd], k/v [B,S,KV,hd] of x [B,S,d] at positions ``pos`` [S]:
@@ -231,19 +378,60 @@ def project_qkv(x: torch.Tensor, p: Params, cfg: TransformerConfig,
     return q, k, v
 
 
+def project_mla(x: torch.Tensor, p: Params, cfg: TransformerConfig,
+                pos: torch.Tensor):
+    """MLA projections of x [B,S,d] at ``pos`` [S]: q_nope [B,S,H,nope],
+    q_rope [B,S,H,rope] (rotated), the normalised latent ckv [B,S,kv_lora]
+    and the shared rotated key kr [B,S,rope]; ckv and kr are what the cache
+    holds."""
+    m = cfg.mla
+    b, s, d = x.shape
+    h, qk = cfg.n_heads, m.nope_head_dim + m.rope_head_dim
+    q = (x @ p["wq"].to(x.dtype).reshape(d, h * qk)).view(b, s, h, qk)
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    ckv = apply_norm(x @ p["wdkv"].to(x.dtype), p["kv_ln"], "rms")
+    kr = x @ p["wkr"].to(x.dtype)
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+    kr = apply_rope(kr[:, :, None, :], pos, cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, ckv, kr
+
+
 def attn_forward(x: torch.Tensor, p: Params, cfg: TransformerConfig, *,
                  window: int):
     """Full-sequence attention (prefill compute). x: [B,S,d].
 
-    Returns ``(out [B,S,d], k, v)``: k and v are the post-RoPE keys and
-    values it attended over, what prefill writes into the KV cache.
+    Returns ``(out [B,S,d], cache entries)``: the post-RoPE ``{"k", "v"}``
+    it attended over, or MLA's latent ``{"ckv", "kr"}``, what prefill
+    writes into the cache.  MLA attends with k = [k_nope, shared rope key]
+    of width nope + rope and v of width v_head_dim (K1 at qk hd != v hd),
+    scaled by (nope + rope)^-0.5.
     """
     b, s, d = x.shape
-    h, hd = cfg.n_heads, cfg.hd
-    q, k, v = project_qkv(x, p, cfg, torch.arange(s, device=x.device))
+    h = cfg.n_heads
+    pos = torch.arange(s, device=x.device)
+    if cfg.mla is not None:
+        m = cfg.mla
+        q_nope, q_rope, ckv, kr = project_mla(x, p, cfg, pos)
+        lat = ckv.reshape(b * s, m.kv_lora)
+        k_nope = (lat @ p["wuk"].to(x.dtype).reshape(m.kv_lora, -1)).view(
+            b, s, h, m.nope_head_dim)
+        v = (lat @ p["wuv"].to(x.dtype).reshape(m.kv_lora, -1)).view(
+            b, s, h, m.v_head_dim)
+        k = torch.cat([k_nope, kr[:, :, None, :].expand(b, s, h, m.rope_head_dim)],
+                      dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        o = chunked_attention(q, k, v, causal=True, window=window,
+                              logit_cap=cfg.attn_softcap,
+                              scale=(m.nope_head_dim + m.rope_head_dim) ** -0.5)
+        out = o.reshape(b, s, h * m.v_head_dim) @ \
+            p["wo"].to(o.dtype).reshape(h * m.v_head_dim, d)
+        return out, {"ckv": ckv, "kr": kr}
+    hd = cfg.hd
+    q, k, v = project_qkv(x, p, cfg, pos)
     o = chunked_attention(q, k, v, causal=True, window=window,
                           logit_cap=cfg.attn_softcap, scale=cfg.attn_scale)
-    return o.reshape(b, s, h * hd) @ p["wo"].to(o.dtype).reshape(h * hd, d), k, v
+    out = o.reshape(b, s, h * hd) @ p["wo"].to(o.dtype).reshape(h * hd, d)
+    return out, {"k": k, "v": v}
 
 
 # --------------------------------------------------------------------------- #
@@ -251,14 +439,22 @@ def attn_forward(x: torch.Tensor, p: Params, cfg: TransformerConfig, *,
 # --------------------------------------------------------------------------- #
 def block_forward(x: torch.Tensor, p: Params, cfg: TransformerConfig, *,
                   window: int, return_kv: bool = False):
-    """One block. With ``return_kv``: ``(x, (k, v))``, k/v as attn_forward's."""
-    check_supported(cfg)
+    """One block: pre-norm attention and FFN, with Gemma-2's post-norms on
+    both outputs, or Command-R's parallel block (x + attn(h) + ffn(h)).
+    With ``return_kv``: ``(x, cache entries)`` as attn_forward's."""
     h = apply_norm(x, p["ln1"], cfg.norm)
-    attn, k, v = attn_forward(h, p["attn"], cfg, window=window)
-    x = x + attn
-    h = apply_norm(x, p["ln2"], cfg.norm)
-    x = x + dense_ffn(h, p["mlp"], cfg)
-    return (x, (k, v)) if return_kv else x
+    attn, kv = attn_forward(h, p["attn"], cfg, window=window)
+    if cfg.post_norm:
+        attn = apply_norm(attn, p["ln1_post"], cfg.norm)
+    if cfg.parallel_block:
+        x = x + attn + ffn_forward(h, p, cfg)
+    else:
+        x = x + attn
+        f = ffn_forward(apply_norm(x, p["ln2"], cfg.norm), p, cfg)
+        if cfg.post_norm:
+            f = apply_norm(f, p["ln2_post"], cfg.norm)
+        x = x + f
+    return (x, kv) if return_kv else x
 
 
 def embed_tokens(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
@@ -274,13 +470,21 @@ def embed_tokens(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
     return x
 
 
+def embed_prefix(params: Params, prefix_embeds: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Modality embeddings [B,P,prefix_dim], projected to d and put before
+    the text activations x [B,S,d] (InternVL2's patch embeddings)."""
+    pe = prefix_embeds.to(x.dtype) @ params["prefix_proj"].to(x.dtype)
+    return torch.cat([pe, x], dim=1)
+
+
 def forward_hidden(params: Params, cfg: TransformerConfig,
                    x: torch.Tensor) -> torch.Tensor:
-    """Run all blocks on embedded inputs x: [B,S,d] -> [B,S,d] (pre-head)."""
-    windows = cfg.windows()
+    """Run all blocks on embedded inputs x: [B,S,d] -> [B,S,d] (pre-head):
+    the lead blocks first, then the stacked ones."""
     for i in range(cfg.n_layers):
-        x = block_forward(x, layer(params["blocks"], i), cfg,
-                          window=int(windows[i]))
+        lp, lcfg, window, _, _ = layer_at(params, cfg, i)
+        x = block_forward(x, lp, lcfg, window=window)
     return apply_norm(x, params["final_norm"], cfg.norm)
 
 

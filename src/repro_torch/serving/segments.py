@@ -75,19 +75,37 @@ class SegmentRunner:
             for li in range(blo, bhi):
                 x = griffin.layer_forward(
                     x, *griffin.layer_params(params, cfg, li), cfg)
+        elif bhi > blo and fam == "transformer":
+            x = self._transformer_blocks(params, x, blo, bhi)
         elif bhi > blo:
             sub = params["blocks"] if self.local else _slice_blocks(params, blo, bhi)
-            windows = cfg.windows() if fam == "transformer" else None
             for i in range(bhi - blo):
-                lp = layer(sub, i)
-                if fam == "transformer":
-                    x = transformer.block_forward(x, lp, cfg,
-                                                  window=int(windows[blo + i]))
-                else:
-                    x = mamba2.block_forward(x, lp, cfg)
+                x = mamba2.block_forward(x, layer(sub, i), cfg)
         if hi == L + 2:
             x = apply_norm(x, params["final_norm"], cfg.norm)
             return model.logits_fn(params, cfg, x)
+        return x
+
+    def _transformer_blocks(self, params: Any, x: torch.Tensor, blo: int,
+                            bhi: int) -> torch.Tensor:
+        """Global layers [blo, bhi): the lead blocks among them first (their
+        dense config, window 0), then the stacked ones at their global
+        windows.  A local view holds only this segment's lead blocks and
+        stacked layers."""
+        cfg = self.bundle.cfg
+        nl = transformer.n_lead(cfg)
+        windows = cfg.windows()
+        for i in range(blo, min(bhi, nl)):
+            lp = params["lead_blocks"][i - blo if self.local else i]
+            x = transformer.block_forward(x, lp, transformer.lead_config(cfg),
+                                          window=0)
+        slo, shi = max(blo - nl, 0), bhi - nl
+        if shi > slo:
+            sub = params["blocks"] if self.local else \
+                _slice_blocks(params, slo, shi)
+            for i in range(shi - slo):
+                x = transformer.block_forward(x, layer(sub, i), cfg,
+                                              window=int(windows[nl + slo + i]))
         return x
 
 
@@ -97,8 +115,10 @@ def split_params(bundle: ModelBundle, params: Any,
 
     One params-view per segment holding only what that segment's units need.
     Every tensor is a view of ``params`` (block stacks are sliced on their
-    leading axis; Griffin's ``groups`` and ``tail`` go whole, as in the
-    reference), so staging a split allocates no weight memory.
+    leading axis, DeepSeek-V2's ``lead_blocks`` list to the segment's share,
+    ``prefix_proj`` goes with the embedding; Griffin's ``groups`` and
+    ``tail`` go whole, as in the reference), so staging a split allocates no
+    weight memory.
     """
     out = []
     L = len(bundle.model_graph()) - 2
@@ -111,9 +131,16 @@ def split_params(bundle: ModelBundle, params: Any,
             seg["final_norm"] = params["final_norm"]
             if not tied:
                 seg["head"] = params["head"]
+        if lo == 0 and "prefix_proj" in params:
+            seg["prefix_proj"] = params["prefix_proj"]
         blo, bhi = max(lo - 1, 0), min(hi - 1, L)
+        nl = transformer.n_lead(bundle.cfg) if bundle.family == "transformer" else 0
         if bhi > blo and "blocks" in params:
-            seg["blocks"] = _slice_blocks(params, blo, bhi)
+            if blo < nl:
+                seg["lead_blocks"] = params["lead_blocks"][blo:min(bhi, nl)]
+            slo, shi = max(blo - nl, 0), bhi - nl
+            if shi > slo:
+                seg["blocks"] = _slice_blocks(params, slo, shi)
         elif bhi > blo:                      # griffin
             seg["groups"] = params["groups"]
             seg["tail"] = params["tail"]

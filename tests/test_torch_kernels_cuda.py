@@ -7,7 +7,8 @@ it runs on a machine with the card:
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
 Tolerances are those of tests/test_kernels.py: attention 2e-5 float32, 2e-2
-bfloat16; SSD (K4) 1e-4 float32 for y and the float32 state (also in bf16),
+bfloat16 (K1 also at MLA's qk 192 / v 128 and 24 / 16 and at hd 8, K3 at hd
+8 and 256); SSD (K4) 1e-4 float32 for y and the float32 state (also in bf16),
 2e-2 for bf16 outputs; RG-LRU (K5) 1e-5 float32, 2e-2 bf16; int8 is held bit
 for bit, bf16 quantize over every finite input.
 """
@@ -98,6 +99,39 @@ def test_flash_kernel_tile_edges(b, s, h, kv, hd, window, dtype, tol):
     want = k1.flash_attention_plain(q, k, v, window=window)
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kv,dqk,dv,window,cap", [
+    (1, 512, 16, 16, 192, 128, 0, 0.0),   # deepseek-v2-lite MLA prefill
+    (2, 77, 16, 16, 192, 128, 0, 0.0),    # MLA, ragged S
+    (2, 150, 4, 4, 24, 16, 0, 0.0),       # reduced MLA (qk 24 = 16 + 8 rope)
+    (1, 70, 4, 4, 24, 16, 16, 30.0),      # reduced MLA, window and soft-cap
+    (2, 130, 7, 1, 8, 8, 0, 0.0),         # reduced deepseek-coder / internvl2
+    (2, 150, 6, 6, 8, 8, 16, 0.0),        # reduced musicgen, windowed
+    (1, 65, 4, 2, 8, 8, 0, 50.0),         # hd 8 over a tile edge, soft-cap
+    (1, 512, 16, 8, 256, 256, 4096, 50.0),  # gemma2-9b prefill: soft-cap 50
+])
+def test_flash_kernel_new_head_dims(b, s, h, kv, dqk, dv, window, cap, dtype, tol):
+    """K1 at MLA's qk head dim wider than its v head dim and at hd 8: the
+    zero-padded k-steps of Q K^T and the narrow P V panel."""
+    q = _normal((b, s, h, dqk), dtype, 7)
+    k = _normal((b, s, kv, dqk), dtype, 8)
+    v = _normal((b, s, kv, dv), dtype, 9)
+    sc = dqk ** -0.5
+    before = k1.flash_attention.launches
+    got = k1.flash_attention(q, k, v, window=window, logit_cap=cap, scale=sc)
+    torch.cuda.synchronize()
+    assert k1.flash_attention.launches == before + 1
+    assert got.shape == (b, s, h, dv) and bool(torch.isfinite(got).all())
+    want = k1.flash_attention_plain(q, k, v, window=window, logit_cap=cap, scale=sc)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_kernel_rejects_unbuilt_pairs():
+    q = _normal((1, 8, 2, 192), torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="hd_v"):
+        k1.flash_attention(q, q, q[..., :64].contiguous())
 
 
 def _int8_rows(n, d, dtype, seed):
@@ -387,6 +421,33 @@ def test_decode_kernel_matches_plain(b, s, h, kv, hd, cur, window, cap, dtype, t
         assert n_split > 8
     if s == 64:
         assert n_split == 1
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kv,hd,cur,window,cap", [
+    (8, 640, 16, 8, 256, 576, 0, 50.0),     # gemma2-9b decode (G=2), soft-cap
+    (8, 640, 16, 8, 256, 576, 4096, 50.0),  # gemma2's local layers
+    (2, 100, 8, 1, 256, 77, 16, 30.0),      # hd 256, G=8: 4 heads a block
+    (1, 32768, 16, 8, 256, 30001, 0, 0.0),  # hd 256, many splits
+    (3, 200, 16, 8, 256, [5, 199, 120], 0, 0.0),  # hd 256, cur_len per row
+    (2, 64, 7, 1, 8, 33, 0, 0.0),           # hd 8, G=7
+    (4, 640, 6, 6, 8, [1, 128, 300, 640], 0, 0.0),  # hd 8 MHA, per row
+    (2, 100, 8, 8, 8, 100, 12, 0.0),        # hd 8, window
+])
+def test_decode_kernel_new_head_dims(b, s, h, kv, hd, cur, window, cap, dtype, tol):
+    """K3 at hd 256 (a warp a bf16 key row, two pieces a lane in float32, at
+    most 4 heads a block) and hd 8 (one or two lanes a row)."""
+    q = _normal((b, h, hd), dtype, 1)
+    kc = _normal((b, s, kv, hd), dtype, 2)
+    vc = _normal((b, s, kv, hd), dtype, 3)
+    cur_len = torch.tensor(cur, dtype=torch.int32, device="cuda")
+    before = k3.decode_attention.launches
+    got = k3.decode_attention(q, kc, vc, cur_len, window=window, logit_cap=cap)
+    torch.cuda.synchronize()
+    assert k3.decode_attention.launches == before + 1
+    want = k3.decode_attention_plain(q, kc, vc, cur_len, window=window,
+                                     logit_cap=cap)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("cur", [576, [576, 1, 640, 300, 129, 128, 2, 513]])

@@ -16,7 +16,7 @@ from repro.core.broadcast import PartitionConfig as JaxPartitionConfig
 from repro.serving import ActivationTransport as JaxTransport
 from repro.serving import SegmentChain as JaxSegmentChain
 from repro.serving import SplitInferenceEngine as JaxEngine
-from repro_torch.configs import get_bundle
+from repro_torch.configs import ALL_ARCHS, get_bundle
 from repro_torch.core import PartitionConfig
 from repro_torch.models import transformer
 from repro_torch.models.convert import params_from_jax
@@ -207,10 +207,13 @@ def test_model_graph_matches_reference():
         np.testing.assert_array_equal(jg.privacy, tg.privacy)
 
 
-def test_unported_features_raise():
-    import dataclasses
-
-    cfg = dataclasses.replace(get_bundle(ARCH, reduced=True).cfg,
-                              parallel_block=True)
-    with pytest.raises(NotImplementedError, match="parallel block"):
-        transformer.init_params(cfg, torch.Generator(), "cpu")
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_every_arch_builds_reduced_on_cpu(arch):
+    """Every architecture of the reference builds in the port: its reduced
+    model initialises on the CPU and serves one finite prefill."""
+    tb = get_bundle(arch, reduced=True)
+    params = tb.init(torch.Generator().manual_seed(0), "cpu", torch.float32)
+    toks = torch.as_tensor(_tokens(tb.cfg.vocab, (1, 12), seed=9))
+    logits, _ = tb.prefill(params, {"tokens": toks}, max_len=16)
+    assert tuple(logits.shape) == (1, tb.cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
