@@ -87,7 +87,21 @@ result line:
    of three weight seeds; six on the served weights, deepseek-v2-lite and
    gemma2, whose bf16 gaps fail the gate on most seeds, on unit-variance
    scores (``conditioned``);
-9. print the ``kernels`` line (K1/K2 launches from phase 3, K3's from
+9. the fleet control plane (``FleetOrchestrator.admit/step`` on float64
+   device tables, no hand-written kernel: the launch counts stay 0) on the
+   reference benchmark's saturated fleets (benchmarks/fleet_scaling.py
+   ``_saturated_fleet``, seed 0): 32, 64 and 128 sessions with the red/black
+   fixed point, and at 32 also forecast on, fixed point off, and a
+   heartbeat drill in which MEC-2 stops beating; then an 8-session fleet
+   whose home MEC is saturated two cycles in eight (fixed point on and
+   off), where migrations and re-splits commit.  Each arm warms up as
+   ``monitoring_cost`` does and runs 15 cycles twice on the card (decisions,
+   priced latencies, resident tables and every candidate the cycle
+   computed, bit-identical) and once on the CPU (decisions identical,
+   latencies and candidates to 1e-9 relative); prints the step and
+   ``eval_time_s`` p50/p90, the decision counts and one traced cycle's
+   device-busy time and idle share beside the card's name and power limit;
+10. print the ``kernels`` line (K1/K2 launches from phase 3, K3's from
    phase 4, K4's from the Mamba-2 serve, K5's from the Griffin serve; the
    rows of K1 and K3 at the new shapes with the launches of the deepseek,
    qwen3-moe and gemma2 serve and generation runs and of the hd-8 reduced
@@ -1525,6 +1539,275 @@ def phase_zoo(serve, arch: str, counters) -> tuple[dict, dict]:
     return serve_counts, gen_counts
 
 
+# --------------------------------------------------------------------------- #
+# the fleet control plane (FleetOrchestrator on float64 device tables)
+# --------------------------------------------------------------------------- #
+# the reference's monitoring-cost fleets (benchmarks/fleet_scaling.py
+# ::monitoring_cost): sessions per arm, 15 measured cycles after warm-up
+FLEET_ARMS = {  # name: (sessions, forecast, fixed point, node-fail drill,
+    #                     home-MEC spike)
+    "32": (32, False, True, False, False),
+    "32 forecast": (32, True, True, False, False),
+    "32 greedy": (32, False, False, False, False),
+    "32 node-fail": (32, False, True, True, False),
+    "64": (64, False, True, False, False),
+    "128": (128, False, True, False, False),
+    # the saturated fleets above keep every session (each candidate is
+    # infeasible); at 8 sessions the spike makes moves commit
+    "8 spike": (8, False, True, False, True),
+    "8 spike greedy": (8, False, False, False, True),
+}
+FLEET_CYCLES = 15
+FLEET_FAILED_NODE, FLEET_FAIL_AT = 1, 3    # MEC-2 stops beating at cycle 3
+FLEET_SPIKE = (0.35, 0.85)   # home-MEC background: base, two cycles in eight
+# the candidate programs of a cycle, whose outputs are held card vs card
+# and card vs CPU: fixed point, migration DP, re-split DP, repair pass
+FLEET_PROBES = {"kernel": ("migrate_fixed_point", "migrate"),
+                "splitter": ("solve_batch",),
+                "repairer": ("repair_and_price_batch",)}
+FLEET_COUNTS = ("n_keep", "n_migrate", "n_resplit", "n_cooldown",
+                "n_conflict_keep", "n_nogain_keep", "n_node_fail",
+                "n_preempt", "fixed_point_sweeps", "fixed_point_aborts",
+                "dead_nodes", "infeasible_sids")
+FLEET_TABLES = ("seg_flops", "seg_wbytes", "seg_priv", "seg_node", "valid",
+                "xfer_bytes_tok", "n_segs", "t_in", "t_out", "lam", "source",
+                "input_bytes_tok", "active")
+
+
+def saturated_fleet(n_sessions: int, seed: int, device: str, *,
+                    forecast: bool = False, fixed_point: bool = True,
+                    heartbeats: bool = False):
+    """benchmarks/fleet_scaling.py::_saturated_fleet through the port: the
+    §IV topology loaded hard enough that triggers fire every cycle, with
+    throttling off and the cool-down below the cycle spacing; ``heartbeats``
+    adds a liveness registry over every node."""
+    from repro_torch.core import (CapacityForecaster, CapacityProfiler,
+                                  FleetOrchestrator, ForecastConfig,
+                                  InProcessAgent, ReconfigurationBroadcast,
+                                  Thresholds, Workload)
+    from repro_torch.distributed import HeartbeatRegistry
+    from repro_torch.edgesim import (MECScenarioParams, base_system_state,
+                                     fleet_model_catalog)
+
+    state = base_system_state(MECScenarioParams())
+    orch = FleetOrchestrator(
+        profiler=CapacityProfiler(base_state=state),
+        broadcast=ReconfigurationBroadcast(
+            [InProcessAgent(i) for i in range(state.num_nodes)]),
+        thresholds=Thresholds(cooldown_s=0.5),
+        solve_backoff_s=0.0,
+        forecaster=(CapacityForecaster(ForecastConfig(
+            horizon_steps=8, season_steps=8), device=device)
+            if forecast else None),
+        heartbeats=(HeartbeatRegistry(list(range(state.num_nodes)))
+                    if heartbeats else None),
+        use_fixed_point=fixed_point,
+        device=device,
+    )
+    rng = np.random.default_rng(seed)
+    catalog = fleet_model_catalog()
+    for _ in range(n_sessions):
+        _, graph = catalog[int(rng.integers(len(catalog)))]
+        wl = Workload(
+            tokens_in=int(rng.integers(32, 96)),
+            tokens_out=int(rng.integers(8, 16)),
+            arrival_rate=float(rng.uniform(2.0, 5.0)),
+        )
+        orch.admit(graph, wl, source_node=int(rng.integers(0, 3)), now=0.0)
+    return orch
+
+
+def fleet_step(orch, now: float, cycle: int | None = None,
+               spike: bool = False):
+    """One monitoring cycle; the drill's node stops beating at
+    ``FLEET_FAIL_AT`` measured cycles (``cycle`` None: warm-up, all beat);
+    ``spike`` saturates the home MEC in measured cycles 5 and 6 of eight."""
+    if spike and cycle is not None:
+        orch.profiler.base_state.background_util[0] = \
+            FLEET_SPIKE[1] if cycle % 8 in (5, 6) else FLEET_SPIKE[0]
+    hb = orch.heartbeats
+    if hb is not None:
+        for node in hb.nodes:
+            if cycle is None or not (node == FLEET_FAILED_NODE
+                                     and cycle >= FLEET_FAIL_AT):
+                hb.beat(node)
+    return orch.step(now=now)
+
+
+def fleet_warm(orch) -> float:
+    """monitoring_cost._warm: step until the buffer shapes stop growing."""
+    t = 0.0
+    for _ in range(3):
+        fleet_step(orch, t)
+        t += 1.0
+    for _ in range(8):
+        shape = (orch._buffers.n_rows, orch._buffers.max_segs)
+        fleet_step(orch, t)
+        t += 1.0
+        if (orch._buffers.n_rows, orch._buffers.max_segs) == shape:
+            break
+    return t
+
+
+def fleet_map(x, f):
+    """``x`` with ``f`` applied to every tensor inside it (dataclasses become
+    dicts of their fields, tuples and lists lists)."""
+    if isinstance(x, torch.Tensor):
+        return f(x)
+    if dataclasses.is_dataclass(x):
+        return {k.name: fleet_map(getattr(x, k.name), f)
+                for k in dataclasses.fields(x)}
+    if isinstance(x, dict):
+        return {k: fleet_map(v, f) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return [fleet_map(v, f) for v in x]
+    return x
+
+
+def fleet_probe(orch) -> list:
+    """Wrap the orchestrator's candidate programs so that every call's
+    outputs are kept: cloned on the device (no sync inside the cycle),
+    copied to the host after the run."""
+    log: list = []
+    for part, names in FLEET_PROBES.items():
+        obj = getattr(orch, part)
+        for name in names:
+            def call(*a, _fn=getattr(obj, name), _name=name, **k):
+                out = _fn(*a, **k)
+                log.append((_name, fleet_map(out, torch.clone)))
+                return out
+            setattr(obj, name, call)
+    return log
+
+
+def fleet_same(a, b, exact: bool) -> bool:
+    """Nested candidate outputs equal: bit for bit (``exact``), else
+    integers and flags identical and floats to 1e-9 relative."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(
+            fleet_same(a[k], b[k], exact) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(
+            fleet_same(x, y, exact) for x, y in zip(a, b))
+    if isinstance(a, (np.ndarray, float)):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False
+        if a.dtype.kind != "f":
+            return np.array_equal(a, b)
+        if exact:
+            return np.array_equal(a, b, equal_nan=True)
+        return np.allclose(b, a, rtol=1e-9, atol=0, equal_nan=True)
+    return a == b
+
+
+def fleet_run(arm: str, device: str) -> dict:
+    """One arm on one device: warm-up, then the measured cycles; returns the
+    per-cycle decisions, latencies, times, every candidate computed after
+    admission, and the final resident tables and session configs."""
+    n, forecast, fixed_point, drill, spike = FLEET_ARMS[arm]
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    orch = saturated_fleet(n, 0, device, forecast=forecast,
+                           fixed_point=fixed_point, heartbeats=drill)
+    admit_s = time.perf_counter() - t0
+    probes = fleet_probe(orch)
+    t = fleet_warm(orch)
+    configs0 = {sid: s.config for sid, s in orch.sessions.items()}
+    out = dict(orch=orch, t=t, admit_s=admit_s, counts=[], decisions=[],
+               lat=[], step_ms=[], eval_ms=[])
+    for c in range(FLEET_CYCLES):
+        sync()
+        t0 = time.perf_counter()
+        fd = fleet_step(orch, t + c, c, spike)
+        sync()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["eval_ms"].append(fd.eval_time_s * 1e3)
+        out["counts"].append(tuple(getattr(fd, k) for k in FLEET_COUNTS))
+        out["decisions"].append(tuple(
+            (sid, d.kind.value, d.reasons, d.config.version,
+             d.config.boundaries, d.config.assignment)
+            for sid, d in fd.per_session.items()))
+        out["lat"].append(np.array([d.predicted_latency_s
+                                    for d in fd.per_session.values()]))
+    out["tables"] = {k: getattr(orch._buffers, k).cpu()
+                     for k in FLEET_TABLES}
+    out["candidates"] = fleet_map(probes, lambda x: x.cpu().numpy())
+    out["moved"] = sum(s.config != configs0[sid]
+                       for sid, s in orch.sessions.items())
+    return out
+
+
+def phase_fleet(counters, card: str) -> None:
+    """The fleet control plane on the card: every arm twice on the card
+    (bit-identical decisions, latencies and resident tables) and once on
+    the CPU (identical decisions, latencies to 1e-9 relative)."""
+    for arm in FLEET_ARMS:
+        reset(counters)
+        a = fleet_run(arm, "cuda")
+        assert not any(counts_of(counters).values()), \
+            "the fleet path launched a hand-written kernel"
+        b = fleet_run(arm, "cuda")
+        cpu = fleet_run(arm, "cpu")
+        for other, exact in ((b, True), (cpu, False)):
+            where = "card vs card" if exact else "card vs CPU"
+            if other["decisions"] != a["decisions"] or \
+                    other["counts"] != a["counts"]:
+                raise AssertionError(f"fleet {arm}: {where} decisions differ")
+            for la, lo in zip(a["lat"], other["lat"]):
+                if exact:
+                    ok = np.array_equal(la, lo)
+                else:
+                    ok = np.allclose(lo, la, rtol=1e-9, atol=0)
+                if not ok:
+                    raise AssertionError(f"fleet {arm}: {where} latencies "
+                                         "differ")
+            if not fleet_same(a["candidates"], other["candidates"], exact):
+                raise AssertionError(f"fleet {arm}: {where} candidates "
+                                     "differ")
+            for k, ta in a["tables"].items():
+                if exact and not torch.equal(ta, other["tables"][k]):
+                    raise AssertionError(f"fleet {arm}: card tables differ "
+                                         f"({k})")
+                if not exact and not torch.allclose(
+                        ta.double(), other["tables"][k].double(),
+                        rtol=1e-12, atol=0):
+                    raise AssertionError(f"fleet {arm}: card vs CPU tables "
+                                         f"differ ({k})")
+        lat = np.concatenate(a["lat"])
+        if not np.isfinite(lat).all() or lat.size != FLEET_ARMS[arm][0] * \
+                FLEET_CYCLES:
+            raise AssertionError(f"fleet {arm}: latencies not finite or "
+                                 "sessions missing")
+        tot = {k: sum(c[i] for c in a["counts"])
+               for i, k in enumerate(FLEET_COUNTS[:10])}
+        calls = {}
+        for name, _ in a["candidates"]:
+            calls[name] = calls.get(name, 0) + 1
+        if FLEET_ARMS[arm][4] and not (
+                tot["n_migrate"] + tot["n_resplit"] > 0 and a["moved"] > 0):
+            raise AssertionError(f"fleet {arm}: no move committed")
+        sp, ev = np.array(a["step_ms"]), np.array(a["eval_ms"])
+        orch = a["orch"]
+        print(f"fleet {arm}: {FLEET_ARMS[arm][0]} sessions, "
+              f"{orch._buffers.n_rows} rows x {orch._buffers.max_segs} segs; "
+              f"admit {a['admit_s']:.2f} s (card) {cpu['admit_s']:.2f} s (CPU)"
+              f"; step p50 {np.percentile(sp, 50):.3f} ms p90 "
+              f"{np.percentile(sp, 90):.3f} ms; eval_time p50 "
+              f"{np.percentile(ev, 50):.3f} ms p90 {np.percentile(ev, 90):.3f}"
+              f" ms; CPU step p50 {np.percentile(cpu['step_ms'], 50):.3f} ms; "
+              f"card: {card}")
+        print(f"fleet {arm}: decisions over {FLEET_CYCLES} cycles "
+              + json.dumps(tot) + f"; dead nodes at the end "
+              f"{list(a['counts'][-1][10])}; sessions whose config changed "
+              f"{a['moved']}; candidates held {json.dumps(calls)}; card == "
+              "card bit for bit, card == CPU (latencies and candidates 1e-9)")
+        breakdown(f"fleet {arm} cycle", lambda: fleet_step(
+            orch, a["t"] + FLEET_CYCLES, FLEET_CYCLES, FLEET_ARMS[arm][4]))
+        del a, b, cpu
+        torch.cuda.empty_cache()
+
+
 def reset(counters) -> None:
     for fn in counters:
         fn.launches = 0
@@ -1686,7 +1969,10 @@ def main() -> int:
         if arch in HD8_ARCHS:
             hd8 = {name: hd8[name] + counts[name] for name in hd8}
 
-    # ---- phase 9: result ----
+    # ---- phase 9: the fleet control plane ----
+    phase_fleet(counters, card)
+
+    # ---- phase 10: result ----
     launches_from = {
         "decode_attention": gen_counts, "ssd": m_counts, "rglru": g_counts,
         "flash_attention@mla": zoo["deepseek-v2-lite-16b"][0],

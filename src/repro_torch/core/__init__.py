@@ -2,12 +2,18 @@
 
   graph        — the computational graph the orchestrator operates on
   cost_model   — Φ = α·L + β·U + γ·P  over system state C(t)
-  placement    — placement solvers (chain DP / local search / repair)
-  splitter     — Split Revision: joint split+placement DP (numpy + torch)
+  placement    — placement solvers (chain DP / local search / repair) and
+                 the numpy oracle of the fleet's red/black fixed point
+  splitter     — Split Revision: joint split+placement DP (numpy + torch),
+                 single-session and batched over a session axis
   triggers     — Θ thresholds + ShouldReconfigure (Table I)
   profiling    — Monitoring & Capacity Profiling (CP), measured segment
                  profiles and the calibrated cost model
   orchestrator — Adaptive Orchestrator (AO), Alg. 1
+  forecast     — short-horizon capacity forecaster (device rings)
+  fleet_eval   — batched fleet pricing / migration / repair, resident fleet
+                 state and the fused monitoring-step programs
+  fleet        — multi-session Fleet Orchestrator (admit / depart / step)
   broadcast    — Reconfiguration Broadcast (RB), 2-phase versioned rollout
   privacy      — trusted sets, Eq. (5)/(9)
 """
@@ -27,13 +33,43 @@ from .cost_model import (
     Workload,
     chain_latency,
     evaluate,
+    link_loads,
     memory_violations,
+    memory_violations_packed,
     phi,
+)
+from .fleet import (
+    AdmissionRolloutError,
+    FleetDecision,
+    FleetOrchestrator,
+    FleetSession,
+    TelemetryGuard,
+    session_induced_loads,
+)
+from .fleet_eval import (
+    BatchedMigrationSolver,
+    BatchedRepairPass,
+    FixedPointResult,
+    FleetCostEvaluator,
+    FleetStateBuffers,
+    PackedSessions,
+    ResidentFleetKernel,
+    ResidentPrice,
+    pack_sessions,
+    packed_induced_loads,
+)
+from .forecast import (
+    CapacityForecaster,
+    ForecastConfig,
+    seasonal_forecast,
+    seasonal_update,
+    worst_case_capacity,
 )
 from .graph import GraphNode, ModelGraph, SplitScheme, make_transformer_graph
 from .orchestrator import AdaptiveOrchestrator, Decision, DecisionKind
 from .placement import (
     Solution,
+    fixed_point_reference,
     local_search,
     repair_capacity,
     restrict_state,
@@ -51,34 +87,55 @@ from .profiling import (
     SegmentProfileEntry,
 )
 from .splitter import (
+    BatchedJointSplitter,
+    PackedProblem,
+    SessionProblem,
     SplitRevision,
     TorchJointSplitter,
+    brute_force_joint,
     coalesce_same_node,
+    pack_problem,
     solve_joint_dp,
 )
 from .triggers import (
     EWMA,
+    QOS_BATCH,
+    QOS_CLASSES,
+    QOS_INTERACTIVE,
+    QOS_STANDARD,
+    QoSClass,
     SolveThrottle,
     Thresholds,
     TriggerState,
+    breach_seconds,
     decision_gate,
+    forecast_reconfigure,
     hysteresis_keep,
     should_reconfigure,
 )
 
 __all__ = [
-    "AdaptiveOrchestrator", "AnalyticCostModel", "CalibratedCostModel",
-    "CapacityProfiler",
-    "CostBreakdown", "CostModel", "CostWeights", "Decision", "DecisionKind",
-    "EWMA", "GraphNode", "InProcessAgent", "ModelGraph", "ModelProfile",
-    "NodeSample",
-    "PartitionConfig", "ReconfigurationBroadcast", "RolloutPolicy",
-    "SegmentProfile", "SegmentProfileEntry", "Solution", "SolveThrottle", "SplitRevision", "SplitScheme",
-    "SystemState", "Thresholds", "TorchJointSplitter", "TriggerState",
-    "TrustPolicy", "Workload", "assert_privacy_ok", "chain_latency",
-    "coalesce_same_node", "decision_gate", "evaluate", "hysteresis_keep",
-    "local_search", "make_transformer_graph", "memory_violations", "phi",
-    "repair_capacity", "restrict_state", "select_candidate_nodes",
-    "should_reconfigure", "solve_joint_dp", "solve_placement_chain_dp",
-    "surrogate_cost",
+    "AdaptiveOrchestrator", "AdmissionRolloutError", "AnalyticCostModel",
+    "assert_privacy_ok", "BatchedJointSplitter", "BatchedMigrationSolver",
+    "BatchedRepairPass", "breach_seconds", "brute_force_joint",
+    "CalibratedCostModel", "CapacityForecaster", "CapacityProfiler",
+    "chain_latency", "coalesce_same_node", "CostBreakdown", "CostModel",
+    "CostWeights", "Decision", "decision_gate", "DecisionKind", "evaluate",
+    "EWMA", "fixed_point_reference", "FixedPointResult", "FleetCostEvaluator",
+    "FleetDecision", "FleetOrchestrator", "FleetSession", "FleetStateBuffers",
+    "forecast_reconfigure", "ForecastConfig", "GraphNode", "hysteresis_keep",
+    "InProcessAgent", "link_loads", "local_search", "make_transformer_graph",
+    "memory_violations", "memory_violations_packed", "ModelGraph",
+    "ModelProfile", "NodeSample", "pack_problem", "pack_sessions",
+    "packed_induced_loads", "PackedProblem", "PackedSessions",
+    "PartitionConfig", "phi", "QOS_BATCH", "QOS_CLASSES", "QOS_INTERACTIVE",
+    "QOS_STANDARD", "QoSClass", "ReconfigurationBroadcast", "repair_capacity",
+    "ResidentFleetKernel", "ResidentPrice", "restrict_state", "RolloutPolicy",
+    "seasonal_forecast", "seasonal_update", "SegmentProfile",
+    "SegmentProfileEntry", "select_candidate_nodes", "session_induced_loads",
+    "SessionProblem", "should_reconfigure", "Solution", "solve_joint_dp",
+    "solve_placement_chain_dp", "SolveThrottle", "SplitRevision",
+    "SplitScheme", "surrogate_cost", "SystemState", "TelemetryGuard",
+    "Thresholds", "TorchJointSplitter", "TriggerState", "TrustPolicy",
+    "Workload", "worst_case_capacity",
 ]

@@ -35,6 +35,8 @@ __all__ = [
     "utilization_term",
     "privacy_violations",
     "memory_violations",
+    "memory_violations_packed",
+    "link_loads",
     "phi",
     "evaluate",
 ]
@@ -221,6 +223,25 @@ def node_queue_loads(
     return rho
 
 
+def link_loads(
+    graph: ModelGraph,
+    boundaries: Sequence[int],
+    assignment: Sequence[int],
+    state: SystemState,
+    wl: Workload,
+) -> np.ndarray:
+    """Per-link utilization ρ_(i,j) = λ · boundary bytes / bandwidth."""
+    n = state.num_nodes
+    rho = np.zeros((n, n))
+    for j in range(1, len(assignment)):
+        src, dst = assignment[j - 1], assignment[j]
+        if src == dst:
+            continue
+        bytes_ = graph.boundary_act_bytes(boundaries[j]) * wl.total_tokens
+        rho[src, dst] += wl.arrival_rate * bytes_ / max(state.link_bw[src, dst], _EPS)
+    return rho
+
+
 def chain_latency(
     graph: ModelGraph,
     boundaries: Sequence[int],
@@ -286,6 +307,32 @@ def memory_violations(
     return np.maximum(0.0, used - state.mem_bytes)
 
 
+def memory_violations_packed(
+    seg_wbytes: np.ndarray,
+    seg_node: np.ndarray,
+    valid: np.ndarray,
+    mem_bytes: np.ndarray,
+) -> np.ndarray:
+    """Batched Eq. 4: per-(session, node) bytes over capacity, vectorized.
+
+    ``seg_wbytes`` / ``seg_node`` / ``valid`` are (B, K) packed session rows
+    (the :class:`repro_torch.core.fleet_eval.PackedSessions` layout); ``mem_bytes``
+    is (B, n) per-session residual capacity or (n,) shared.  One shot of
+    scatter-adds replaces B :func:`memory_violations` loops.  Returns (B, n).
+    """
+    seg_wbytes = np.asarray(seg_wbytes, dtype=np.float64)
+    seg_node = np.asarray(seg_node)
+    valid = np.asarray(valid, dtype=bool)
+    mem = np.asarray(mem_bytes, dtype=np.float64)
+    B, K = seg_wbytes.shape
+    n = mem.shape[-1]
+    used = np.zeros((B, n))
+    rows = np.repeat(np.arange(B), K)
+    np.add.at(used, (rows, seg_node.ravel()),
+              np.where(valid, seg_wbytes, 0.0).ravel())
+    return np.maximum(0.0, used - mem)
+
+
 # --------------------------------------------------------------------------- #
 # Φ
 # --------------------------------------------------------------------------- #
@@ -335,7 +382,8 @@ class CostModel:
     """Provider object behind every Φ-family query the control plane makes.
 
     The free functions above stay the pinned scalar reference; a ``CostModel``
-    is how the splitter selects its pricing with one constructor argument.
+    is how the splitters and the fleet control plane select their pricing
+    with one constructor argument.
     The contract hangs on :meth:`calibrated`: it maps a model graph to the
     graph the analytic formulas should be evaluated ON.  The analytic
     provider returns the graph unchanged (``calibrated(g) is g``).
@@ -344,6 +392,54 @@ class CostModel:
     def calibrated(self, graph: ModelGraph) -> ModelGraph:
         """The graph the analytic formulas should price (identity here)."""
         return graph
+
+    # ---- Φ family, evaluated on the calibrated view ------------------- #
+    def segment_exec_time(
+        self, graph: ModelGraph, lo: int, hi: int, node: int,
+        state: SystemState, wl: Workload,
+    ) -> float:
+        return segment_exec_time(self.calibrated(graph), lo, hi, node, state, wl)
+
+    def chain_latency(
+        self,
+        graph: ModelGraph,
+        boundaries: Sequence[int],
+        assignment: Sequence[int],
+        state: SystemState,
+        wl: Workload,
+        *,
+        return_parts: bool = False,
+    ):
+        return chain_latency(
+            self.calibrated(graph), boundaries, assignment, state, wl,
+            return_parts=return_parts,
+        )
+
+    def phi(
+        self,
+        graph: ModelGraph,
+        boundaries: Sequence[int],
+        assignment: Sequence[int],
+        state: SystemState,
+        wl: Workload,
+        weights: CostWeights = CostWeights(),
+    ) -> CostBreakdown:
+        return phi(self.calibrated(graph), boundaries, assignment, state, wl,
+                   weights)
+
+    def evaluate(
+        self,
+        graph: ModelGraph,
+        boundaries: Sequence[int],
+        assignment: Sequence[int],
+        state: SystemState,
+        wl: Workload,
+        weights: CostWeights = CostWeights(),
+        *,
+        mem_penalty: float = 1e3,
+    ) -> float:
+        return evaluate(self.calibrated(graph), boundaries, assignment, state,
+                        wl, weights, mem_penalty=mem_penalty)
 
 
 class AnalyticCostModel(CostModel):

@@ -1,12 +1,15 @@
-"""Trigger thresholds Θ and ShouldReconfigure (paper Table I)."""
+"""Trigger thresholds Θ, QoS classes, and ShouldReconfigure (paper Table I)."""
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 
 __all__ = ["Thresholds", "TriggerState", "should_reconfigure", "EWMA",
-           "SolveThrottle", "decision_gate", "hysteresis_keep"]
+           "SolveThrottle", "QoSClass", "QOS_INTERACTIVE", "QOS_STANDARD",
+           "QOS_BATCH", "QOS_CLASSES", "decision_gate", "hysteresis_keep",
+           "forecast_reconfigure", "breach_seconds"]
 
 
 @dataclass(frozen=True)
@@ -18,6 +21,38 @@ class Thresholds:
     bandwidth_min_bps: float = 50e6 / 8  # 50 Mbps in bytes/s
     cooldown_s: float = 30.0            # reconfiguration rate limit
     ewma_alpha: float = 0.3             # smoothing for the latency EWMA
+
+    def for_slo(self, latency_slo_s: float | None) -> "Thresholds":
+        """Per-session Θ: the latency trigger tracks the session's QoS SLO.
+
+        The util/bandwidth triggers stay fleet-level (they describe the
+        infrastructure, not the tenant); only L_max is tenant-scoped.
+        """
+        if latency_slo_s is None or latency_slo_s == self.latency_max_s:
+            return self
+        return dataclasses.replace(self, latency_max_s=latency_slo_s)
+
+
+@dataclass(frozen=True)
+class QoSClass:
+    """A tenant service class: latency SLO + admission-queue patience.
+
+    Admission control prices an arriving session's best feasible latency
+    against ``latency_slo_s`` (cf. arXiv:2504.03668 — admit only what the
+    residual capacity can serve inside the class SLO); a session that cannot
+    be admitted now may wait in the defer queue for up to
+    ``defer_timeout_s`` before it is rejected outright.
+    """
+
+    name: str = "standard"
+    latency_slo_s: float = 1.0
+    defer_timeout_s: float = 10.0
+
+
+QOS_INTERACTIVE = QoSClass("interactive", latency_slo_s=0.25, defer_timeout_s=2.0)
+QOS_STANDARD = QoSClass("standard", latency_slo_s=1.0, defer_timeout_s=10.0)
+QOS_BATCH = QoSClass("batch", latency_slo_s=4.0, defer_timeout_s=30.0)
+QOS_CLASSES = {q.name: q for q in (QOS_INTERACTIVE, QOS_STANDARD, QOS_BATCH)}
 
 
 class EWMA:
@@ -43,7 +78,7 @@ class EWMA:
 
 @dataclass
 class SolveThrottle:
-    """Solver duty-cycle limiter of the orchestrator.
+    """Solver duty-cycle limiter shared by the single- and multi-session AOs.
 
     The paper's T_cool rate-limits COMMITS, but level-based triggers keep
     firing every monitoring cycle while the environment stays degraded, and
@@ -93,10 +128,15 @@ def decision_gate(
     now: float,
     t_last_reconfig: float,
     throttle: SolveThrottle | None = None,
+    prefired: bool = False,
 ) -> str:
-    """The trigger → cool-down → duty-cycle gate of a monitoring cycle.
+    """The trigger → cool-down → duty-cycle gate every orchestrator runs.
 
-    Returns one of:
+    One copy of the decision skeleton shared by the single-session
+    :class:`~repro_torch.core.orchestrator.AdaptiveOrchestrator`, the fleet
+    monitoring cycle (:meth:`~repro_torch.core.fleet.FleetOrchestrator.step`),
+    and the fleet's PROACTIVE (forecast) path, so the three can never
+    drift.  Returns one of:
 
     * ``"keep"``      — no trigger fired; stay on the current config.
     * ``"cooldown"``  — a trigger fired inside the T_cool window.
@@ -106,9 +146,12 @@ def decision_gate(
 
     Ordering matters: ``should_reconfigure`` populates ``env.reasons``/
     ``env.kinds``, and the throttle only records a context once the
-    cool-down has passed.
+    cool-down has passed (matching the pre-existing call sites).
+    ``prefired=True`` skips the ``should_reconfigure`` evaluation — the
+    caller already ran it (e.g. :func:`forecast_reconfigure`, which also
+    namespaces the kinds) and only needs the cool-down/throttle tail.
     """
-    if not should_reconfigure(env, th):
+    if not prefired and not should_reconfigure(env, th):
         return "keep"
     if now - t_last_reconfig < th.cooldown_s:
         return "cooldown"
@@ -124,7 +167,7 @@ def hysteresis_keep(
     current_lat: float,
     min_improvement_frac: float,
 ) -> bool:
-    """Anti-thrash hysteresis of the orchestrator.
+    """Anti-thrash hysteresis shared by the single- and multi-session AOs.
 
     ``current``/``candidate`` are (boundaries, assignment) pairs.  True →
     KEEP: the candidate is identical to the incumbent, or its predicted
@@ -135,6 +178,26 @@ def hysteresis_keep(
     if candidate == current:
         return True
     return candidate_lat > current_lat * (1.0 - min_improvement_frac)
+
+
+def forecast_reconfigure(env: TriggerState, th: Thresholds) -> bool:
+    """ShouldReconfigure on a PREDICTED environment (proactive trigger).
+
+    Same Θ comparison as :func:`should_reconfigure`, applied to a
+    forecast-priced :class:`TriggerState` (the session's latency / fleet
+    util / link bandwidth under the worst-case capacity within the forecast
+    horizon).  On firing, the trigger kinds and reasons are namespaced
+    ``forecast-``/``forecast:`` so (a) operators can tell a preemptive
+    reconfiguration from a reactive one and (b) :class:`SolveThrottle`
+    treats predicted and observed degradation as DISTINCT contexts — a
+    rejected proactive solve must not debounce the reactive solve that
+    fires when the degradation actually lands, and vice versa.
+    """
+    if not should_reconfigure(env, th):
+        return False
+    env.kinds = tuple(f"forecast-{k}" for k in env.kinds)
+    env.reasons[:] = [f"forecast: {r}" for r in env.reasons]
+    return True
 
 
 def should_reconfigure(env: TriggerState, th: Thresholds) -> bool:
@@ -156,3 +219,15 @@ def should_reconfigure(env: TriggerState, th: Thresholds) -> bool:
         )
     env.kinds = tuple(kinds)
     return bool(env.reasons)
+
+
+def breach_seconds(latency_s: float, slo_s: float) -> float:
+    """Predicted per-token SLO breach magnitude, in seconds (Eq. 3 slack).
+
+    ``max(0, latency − SLO)``: the fleet-global tie-break the fixed-point
+    reconfiguration minimises (total predicted breach-seconds across the
+    triggered set), and the unit the ``--thrash`` A/B integrates into
+    breach-minutes.  Zero for any row meeting its SLO, so summing over a
+    fleet never rewards over-delivering on already-feasible sessions.
+    """
+    return max(0.0, float(latency_s) - float(slo_s))

@@ -1,5 +1,8 @@
-"""5G-MEC edge environment: the §IV scenario's system state."""
+"""5G-MEC edge environment: the §IV scenario's system state and the fleet's
+model catalog."""
 
-from .scenario import MBPS, MECScenarioParams, base_system_state
+from .scenario import (MBPS, MECScenarioParams, base_system_state,
+                       fleet_model_catalog)
 
-__all__ = ["MBPS", "MECScenarioParams", "base_system_state"]
+__all__ = ["MBPS", "MECScenarioParams", "base_system_state",
+           "fleet_model_catalog"]

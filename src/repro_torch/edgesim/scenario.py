@@ -6,6 +6,9 @@ Topology (paper §IV-a):
     node 1  MEC-2      (A100-40GB class, trusted; edge-to-edge link)
     node 2  MEC-3      (A100-40GB class, trusted; edge-to-edge link)
     node 3  cloud      (multi-GPU pool, UNtrusted; reached over the backhaul)
+
+:func:`fleet_model_catalog` lists the heterogeneous model configs the
+multi-session fleet draws its sessions from.
 """
 
 from __future__ import annotations
@@ -16,9 +19,30 @@ import numpy as np
 
 from ..core.cost_model import SystemState
 
-__all__ = ["MBPS", "MECScenarioParams", "base_system_state"]
+__all__ = ["MBPS", "MECScenarioParams", "base_system_state",
+           "fleet_model_catalog"]
 
 MBPS = 1e6 / 8.0  # bytes/s per Mb/s
+
+
+# archs spanning ~3B → ~33B: small models fit one MEC, the 33B forces cloud
+# offload of its trunk, llama/gemma sit in between, and qwen3-moe exercises
+# expert-aware pricing (active FLOPs << resident bytes)
+_FLEET_ARCHS = ("stablelm-3b", "llama3-8b", "gemma2-9b",
+                "qwen3-moe-30b-a3b", "deepseek-coder-33b")
+
+
+def fleet_model_catalog(archs: tuple[str, ...] = _FLEET_ARCHS):
+    """(arch_id, ModelGraph) pairs for the multi-session scenario.
+
+    Graphs come from the bundle API's analytic ``model_graph()`` — the same
+    accounting the serving layer uses (MoE-aware: FLOPs priced on active
+    params, bytes on resident params), so fleet pricing can never drift from
+    the model-side source of truth.
+    """
+    from ..configs import get_bundle
+
+    return [(a, get_bundle(a).model_graph()) for a in archs]
 
 
 @dataclass(frozen=True)

@@ -549,3 +549,128 @@ def test_wave_batcher_card_matches_cpu():
                 top = np.sort(clog[w][step][row])
                 assert top[-1] - top[-2] < 0.10 * np.abs(top).max(), (i, step)
                 break
+
+
+FLEET_PROBES = {"kernel": ("migrate_fixed_point", "migrate"),
+                "splitter": ("solve_batch",),
+                "repairer": ("repair_and_price_batch",)}
+
+
+def _tensors(x, f):
+    """``x`` with ``f`` applied to every tensor inside it."""
+    if isinstance(x, torch.Tensor):
+        return f(x)
+    if dataclasses.is_dataclass(x):
+        x = {k.name: getattr(x, k.name) for k in dataclasses.fields(x)}
+    if isinstance(x, dict):
+        return {k: _tensors(v, f) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return [_tensors(v, f) for v in x]
+    return x
+
+
+def _same(a, b, exact):
+    """Bit for bit (``exact``), else integers identical, floats to 1e-9."""
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _same(a[k], b[k], exact)
+    elif isinstance(a, list):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _same(x, y, exact)
+    elif isinstance(a, (np.ndarray, float)):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if exact or a.dtype.kind != "f":
+            np.testing.assert_array_equal(a, b)
+        else:
+            np.testing.assert_allclose(b, a, rtol=1e-9, atol=0)
+    else:
+        assert a == b
+
+
+def _fleet_run(device, n_sessions=16, cycles=8, spike=False):
+    """The reference benchmark's saturated fleet on ``device``; ``spike``
+    saturates the home MEC two cycles in eight, so that moves commit.
+    Returns the decisions and latencies per cycle, every candidate that the
+    fixed point, migration DP, re-split DP and repair pass computed, and
+    the resident rows."""
+    from repro_torch.core import (CapacityProfiler, FleetOrchestrator,
+                                  InProcessAgent, ReconfigurationBroadcast,
+                                  Thresholds, Workload)
+    from repro_torch.edgesim import (MECScenarioParams, base_system_state,
+                                     fleet_model_catalog)
+
+    state = base_system_state(MECScenarioParams())
+    orch = FleetOrchestrator(
+        profiler=CapacityProfiler(base_state=state),
+        broadcast=ReconfigurationBroadcast(
+            [InProcessAgent(i) for i in range(state.num_nodes)]),
+        thresholds=Thresholds(cooldown_s=0.5), solve_backoff_s=0.0,
+        device=device)
+    rng = np.random.default_rng(0)
+    catalog = fleet_model_catalog()
+    for _ in range(n_sessions):
+        _, graph = catalog[int(rng.integers(len(catalog)))]
+        wl = Workload(tokens_in=int(rng.integers(32, 96)),
+                      tokens_out=int(rng.integers(8, 16)),
+                      arrival_rate=float(rng.uniform(2.0, 5.0)))
+        orch.admit(graph, wl, source_node=int(rng.integers(0, 3)), now=0.0)
+    probes = []
+    for part, names in FLEET_PROBES.items():
+        obj = getattr(orch, part)
+        for name in names:
+            def call(*a, _fn=getattr(obj, name), **k):
+                out = _fn(*a, **k)
+                probes.append(_tensors(out, torch.clone))
+                return out
+            setattr(obj, name, call)
+    decisions, lats = [], []
+    for c in range(cycles):
+        if spike:
+            state.background_util[0] = 0.85 if c % 8 in (5, 6) else 0.35
+        fd = orch.step(now=float(c))
+        decisions.append((fd.n_keep, fd.n_migrate, fd.n_resplit,
+                          fd.n_cooldown, fd.fixed_point_sweeps,
+                          fd.fixed_point_aborts, tuple(
+                              (sid, d.kind.value, d.config.boundaries,
+                               d.config.assignment)
+                              for sid, d in fd.per_session.items())))
+        lats.append([d.predicted_latency_s for d in fd.per_session.values()])
+    buf = orch._buffers
+    tables = {k: getattr(buf, k).cpu() for k in (
+        "seg_flops", "seg_wbytes", "seg_node", "valid", "n_segs", "lam",
+        "source", "active")}
+    cands = _tensors(probes, lambda x: x.cpu().numpy())
+    return decisions, np.array(lats), tables, cands
+
+
+def _assert_fleet_runs_agree(**kw):
+    d1, l1, t1, c1 = _fleet_run("cuda", **kw)
+    d2, l2, t2, c2 = _fleet_run("cuda", **kw)
+    dc, lc, tc, cc = _fleet_run("cpu", **kw)
+    assert d1 == d2 == dc
+    np.testing.assert_array_equal(l1, l2)
+    np.testing.assert_allclose(l1, lc, rtol=1e-9, atol=0)
+    _same(c1, c2, exact=True)
+    _same(c1, cc, exact=False)
+    for k in t1:
+        assert torch.equal(t1[k], t2[k]), k
+        assert torch.equal(t1[k], tc[k]), k
+    return d1
+
+
+def test_fleet_runs_are_bit_identical_on_the_card_and_match_the_cpu():
+    """Two card runs of one fleet give bit-identical resident tables,
+    decisions and candidates (no atomic float accumulation on the path);
+    both equal the CPU run, latencies and candidates to 1e-9 relative."""
+    _assert_fleet_runs_agree()
+
+
+def test_fleet_moves_commit_identically_on_the_card_and_the_cpu():
+    """The saturated fleets keep every session; at 8 sessions a home-MEC
+    spike makes migrations and re-splits commit, and the card's commits,
+    candidates and resident rows equal the CPU's."""
+    d = _assert_fleet_runs_agree(n_sessions=8, cycles=12, spike=True)
+    assert sum(c[1] + c[2] for c in d) > 0
