@@ -101,7 +101,28 @@ result line:
    latencies and candidates to 1e-9 relative); prints the step and
    ``eval_time_s`` p50/p90, the decision counts and one traced cycle's
    device-busy time and idle share beside the card's name and power limit;
-10. print the ``kernels`` line (K1/K2 launches from phase 3, K3's from
+10. fleet admission control and the crash journal
+   (``FleetAdmissionController.request/poll/preempt_overload``,
+   ``FleetOrchestrator.save/load``; no hand-written kernel: the launch
+   counts stay 0) on the §IV cluster with the five-arch catalog, fixed
+   point on, forecast H = S = 8 and heartbeats, one tick and one monitoring
+   cycle a second for 60 s, arrivals drawn up front from one seed, in the
+   simulator's tick order: ``admit 64`` (benchmarks/fleet_scaling.py
+   ``fleet_qos`` at cap 64, seed 0) and ``storm 32`` (``failure_storm``'s
+   handling arm, seed 11: MEC-1 and MEC-2 dead from 20 s for 25 s,
+   preemption patience 30 s; with ``chaos_ab``'s ``FlakyAgent`` transport
+   faults in [5, 10) and [30, 35) s and two controller crashes, at 15 and
+   38 s, each restored from the journal saved at the end of every tick).
+   Each arm runs twice on the card (verdicts, ``kpis()``, the defer queue,
+   every step's decisions and latencies and the final resident tables bit
+   for bit) and once on the CPU (identical, latencies to 1e-9); the storm
+   also without its crashes (identical at every tick, epochs and
+   broadcast stats aside), and the crashed controller's stale rollout must
+   be refused by every agent.  Prints request and step p50/p90, verdict
+   counts, ``kpis()``, preemptions by QoS class, the journal's size and
+   save/load times at the largest fleet, and one traced burst of 8
+   requests' device-busy time and idle share;
+11. print the ``kernels`` line (K1/K2 launches from phase 3, K3's from
    phase 4, K4's from the Mamba-2 serve, K5's from the Griffin serve; the
    rows of K1 and K3 at the new shapes with the launches of the deepseek,
    qwen3-moe and gemma2 serve and generation runs and of the hd-8 reduced
@@ -1808,6 +1829,379 @@ def phase_fleet(counters, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------- #
+# fleet admission control and the crash journal
+# --------------------------------------------------------------------------- #
+# benchmarks/fleet_scaling.py: fleet_qos at cap 64 and failure_storm's
+# handling arm at cap 32 with chaos_ab's transport faults and two controller
+# crashes, with FleetSimConfig's defaults; one tick (and one monitoring
+# cycle) a second instead of the simulator's 0.1-0.5 s, no load traces
+ADMISSION_ARMS = {  # name: (cap, initial sessions, arrivals/s, seed, storm)
+    "admit 64": (64, 2, 64 / 60.0 * 2.0, 0, False),
+    "storm 32": (32, 16, 32 / 60.0 * 2.0, 11, True),
+}
+ADMISSION_TICKS = 60             # seconds simulated, one tick each
+ADMISSION_LIFE_S = 30.0          # mean session lifetime (exponential)
+ADMISSION_QOS = (("interactive", 0.2), ("standard", 0.55), ("batch", 0.25))
+STORM_NODES, STORM_AT, STORM_MTTR = (1, 2), 20.0, 25.0
+CHAOS = dict(drop_p=0.2, dup_p=0.15, delay_p=0.1,
+             windows=((5.0, 10.0), (30.0, 35.0)))
+CHAOS_SEED = 9
+CRASH_AT = (15.0, 38.0)          # 0.25 and 0.625 of the run
+ADMISSION_BURST = 8              # requests in the traced burst
+
+
+def admission_stream(arm: str) -> tuple[list, list]:
+    """The arm's arrivals, drawn up front from one seed: (initial draws,
+    draws per tick); a draw is (arch index, tokens in, tokens out, λ,
+    ingress node, QoS name, lifetime), FleetSimConfig's ranges."""
+    cap, n0, rate, seed, _ = ADMISSION_ARMS[arm]
+    rng = np.random.default_rng(seed)
+    names = [q for q, _ in ADMISSION_QOS]
+    probs = np.array([p for _, p in ADMISSION_QOS])
+
+    def draw():
+        return (int(rng.integers(5)), int(rng.integers(16, 96, endpoint=True)),
+                int(rng.integers(4, 16, endpoint=True)),
+                float(rng.uniform(0.3, 2.0)), int(rng.integers(3)),
+                names[int(rng.choice(3, p=probs / probs.sum()))],
+                float(rng.exponential(ADMISSION_LIFE_S)))
+
+    initial = [draw() for _ in range(n0)]
+    ticks = [[draw() for _ in range(int(rng.poisson(rate)))]
+             for _ in range(ADMISSION_TICKS)]
+    return initial, ticks
+
+
+def storm_state(base, t: float):
+    """failures.py FailureInjector.apply: the blast's dead-node values."""
+    if not STORM_AT <= t < STORM_AT + STORM_MTTR:
+        return base
+    st = base.copy()
+    for n in STORM_NODES:
+        st.mem_bytes[n] = 0.0
+        st.background_util[n] = 0.99
+        st.link_bw[n, :] = 1.0
+        st.link_bw[:, n] = 1.0
+        st.link_bw[n, n] = np.inf
+    return st
+
+
+def admission_fleet(arm: str, device: str, agents):
+    """The fleet_scaling.py scenario's orchestrator and controller on
+    ``device`` over ``agents``: fixed point on, forecast H = S = 8,
+    heartbeats on every node.  A restart builds a fresh pair over the
+    surviving agents and loads the journal into it."""
+    from repro_torch.core import (CapacityForecaster, CapacityProfiler,
+                                  CostWeights, FleetAdmissionController,
+                                  FleetOrchestrator, ForecastConfig,
+                                  ReconfigurationBroadcast, RolloutPolicy,
+                                  Thresholds)
+    from repro_torch.distributed import HeartbeatRegistry
+    from repro_torch.edgesim import MECScenarioParams, base_system_state
+
+    cap, _, _, _, storm = ADMISSION_ARMS[arm]
+    state = base_system_state(MECScenarioParams())
+    orch = FleetOrchestrator(
+        profiler=CapacityProfiler(base_state=state),
+        broadcast=ReconfigurationBroadcast(list(agents),
+                                           policy=RolloutPolicy()),
+        thresholds=Thresholds(cooldown_s=10.0),
+        weights=CostWeights(alpha=1.0, beta=0.02, gamma=1000.0),
+        forecaster=CapacityForecaster(ForecastConfig(
+            horizon_steps=8, season_steps=8), device=device),
+        heartbeats=HeartbeatRegistry(list(range(state.num_nodes))),
+        use_fixed_point=True, device=device)
+    ctrl = FleetAdmissionController(
+        orch, max_sessions=cap, rho_ceiling=1.0, queue_cap=16,
+        preempt_patience_s=30.0 if storm else None)
+    return orch, ctrl
+
+
+def admission_fence(old_orch, t: float) -> int:
+    """One stale rollout from the crashed controller, after the restore:
+    rejected (fenced), and every agent refuses its config at prepare.
+    Delivered to the bare agents: the transport wrappers' attempt counters
+    are the live data plane's.  Returns the agents that refused it."""
+    from repro_torch.core.broadcast import _unwrap
+
+    bc = old_orch.broadcast
+    bc.agents = [_unwrap(a) for a in bc.agents]
+    sid = max(old_orch.sessions)
+    cfg = old_orch.sessions[sid].config
+    if bc.rollout(cfg.boundaries, cfg.assignment, reason="stale controller",
+                  now=t, session=sid) is not None:
+        raise AssertionError("admission: the crashed controller committed")
+    if bc.stats["fenced_rollouts"] != 1:
+        raise AssertionError("admission: the stale rollout was not fenced")
+    stale = bc.log[-1][1]
+    for a in bc.agents:
+        fenced = a.fenced
+        if a.prepare(stale) or a.fenced != fenced + 1:
+            raise AssertionError(f"admission: agent {a.node_id} accepted a "
+                                 "stale config")
+    return len(bc.agents)
+
+
+def admission_run(arm: str, device: str, crashes: bool = True) -> dict:
+    """One arm on one device, in the simulator's tick order; the journal is
+    saved at the end of every tick and, with ``crashes`` in the storm, the
+    controller is restored from it at ``CRASH_AT``.  Returns per tick the
+    verdicts, departures, the step's counts, decisions and latencies, the
+    preemptions, the defer queue and ``kpis()``; and the times."""
+    from repro_torch.core import (AdmissionKind, AdmissionRequest, FlakyAgent,
+                                  InProcessAgent, QOS_CLASSES, Workload)
+    from repro_torch.edgesim import fleet_model_catalog
+
+    cap, _, _, _, storm = ADMISSION_ARMS[arm]
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    catalog = fleet_model_catalog()
+    initial, ticks = admission_stream(arm)
+    agents = [InProcessAgent(i) for i in range(4)]
+    flaky = []
+    if storm:
+        agents = flaky = [FlakyAgent(a, seed=CHAOS_SEED * 1000 + a.node_id,
+                                     **CHAOS) for a in agents]
+    orch, ctrl = admission_fleet(arm, device, agents)
+    base = orch.profiler.base_state.copy()
+    jdir = ROOT / "build" / "admission"
+    jdir.mkdir(parents=True, exist_ok=True)
+    tag = f"{arm.replace(' ', '-')}-{device}-{int(crashes)}"
+    journal, largest = jdir / f"{tag}.npz", jdir / f"{tag}-largest.npz"
+    depart_at: dict[int, float] = {}
+    life: dict[float, float] = {}    # λ (unique per arrival) -> life left
+    out = dict(ticks=[], request_ms=[], step_ms=[], save=[], restores=[],
+               fenced_agents=0, verdicts={}, largest=(0, 0.0, 0))
+
+    def verdict(v, where: str) -> tuple:
+        out["verdicts"][v.kind.value] = out["verdicts"].get(v.kind.value, 0) + 1
+        return (where, v.kind.value, v.sid, v.reason, v.predicted_latency_s)
+
+    def submit(d, t: float) -> tuple:
+        a, t_in, t_out, lam, src, qos, life_s = d
+        arch, graph = catalog[a]
+        life[lam] = life_s
+        req = AdmissionRequest(graph, Workload(t_in, t_out, lam),
+                               source_node=src, arch=arch,
+                               qos=QOS_CLASSES[qos], t_submit=t)
+        sync()
+        t0 = time.perf_counter()
+        v = ctrl.request(req, now=t)
+        sync()
+        out["request_ms"].append((time.perf_counter() - t0) * 1e3)
+        if v.kind is AdmissionKind.ACCEPT:
+            depart_at[v.sid] = t + life.pop(lam)
+        elif v.kind is AdmissionKind.REJECT:
+            life.pop(lam)
+        return verdict(v, "request")
+
+    first = [submit(d, 0.0) for d in initial]
+    for tick in range(ADMISSION_TICKS):
+        t = float(tick)
+        rec = dict(verdicts=first if tick == 0 else [])
+        if storm and crashes and t in CRASH_AT:
+            old = orch
+            t0 = time.perf_counter()
+            orch, ctrl = admission_fleet(arm, device, old.broadcast.agents)
+            orch.load(journal, admission=ctrl, claim_epoch=True)
+            out["restores"].append((time.perf_counter() - t0) * 1e3)
+            if len(out["restores"]) == 1:
+                out["fenced_agents"] = admission_fence(old, t)
+            del old
+        for fa in flaky:
+            fa.now = t
+        state = storm_state(base, t) if storm else base.copy()
+        orch.profiler.base_state = state
+        down = storm and STORM_AT <= t < STORM_AT + STORM_MTTR
+        for node in orch.heartbeats.nodes:
+            if not (down and node in STORM_NODES):
+                orch.heartbeats.beat(node)
+        rec["departed"] = []
+        for sid, td in sorted(depart_at.items(), key=lambda x: (x[1], x[0])):
+            if td <= t:
+                del depart_at[sid]
+                if sid in orch.sessions:
+                    orch.depart(sid)
+                    rec["departed"].append(sid)
+        for req, v in ctrl.poll(t):
+            lam = req.workload.arrival_rate
+            if v.kind is AdmissionKind.ACCEPT:
+                depart_at[v.sid] = t + life.pop(lam, ADMISSION_LIFE_S)
+            else:
+                life.pop(lam, None)
+            rec["verdicts"].append(verdict(v, "poll"))
+        rec["verdicts"] += [submit(d, t) for d in ticks[tick]]
+        rec["step"], rec["preempted"] = None, []
+        if orch.sessions:
+            sync()
+            t0 = time.perf_counter()
+            fd = orch.step(now=t)
+            sync()
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["step"] = (
+                tuple(getattr(fd, k) for k in FLEET_COUNTS),
+                tuple((sid, d.kind.value, d.reasons, d.config.version,
+                       d.config.boundaries, d.config.assignment)
+                      for sid, d in fd.per_session.items()),
+                np.array([d.predicted_latency_s
+                          for d in fd.per_session.values()]))
+            if fd.infeasible_sids:
+                for sess, req in ctrl.preempt_overload(t, state=state):
+                    left = depart_at.pop(sess.sid, t) - t
+                    if req is not None and left > 0:
+                        life[req.workload.arrival_rate] = left
+                    rec["preempted"].append(
+                        (sess.sid, sess.qos.name, req is not None))
+        rec["queue"] = [(d, r.workload.arrival_rate, r.qos.name, r.t_submit,
+                         r.preempted) for d, r, _ in ctrl._queue]
+        rec["kpis"] = ctrl.kpis()
+        rec["sessions"] = {sid: (s.config.version, s.config.boundaries,
+                                 s.config.assignment)
+                           for sid, s in orch.sessions.items()}
+        t0 = time.perf_counter()
+        orch.save(journal, admission=ctrl)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        if len(orch.sessions) > out["largest"][0]:
+            shutil.copy(journal, largest)
+            out["largest"] = (len(orch.sessions), save_ms,
+                              journal.stat().st_size)
+        out["ticks"].append(rec)
+    out.update(orch=orch, ctrl=ctrl, largest_path=largest,
+               faults=sum(sum(fa.faults.values()) for fa in flaky),
+               tables={k: getattr(orch._resident(), k).cpu()
+                       for k in FLEET_TABLES},
+               row_of=dict(orch._buffers.row_of))
+    return out
+
+
+def admission_same(a: dict, b: dict, latency, tables: bool) -> str | None:
+    """The first field in which two runs differ, or None.  ``latency``
+    compares two latency arrays (or floats); ``tables`` also holds the final
+    resident tables bit for bit."""
+    for tick, (x, y) in enumerate(zip(a["ticks"], b["ticks"], strict=True)):
+        for key in ("departed", "preempted", "queue", "kpis", "sessions"):
+            if x[key] != y[key]:
+                return f"tick {tick}: {key}"
+        if len(x["verdicts"]) != len(y["verdicts"]):
+            return f"tick {tick}: verdict count"
+        for u, w in zip(x["verdicts"], y["verdicts"]):
+            if u[:4] != w[:4] or not latency(np.float64(u[4]),
+                                              np.float64(w[4])):
+                return f"tick {tick}: verdict {u[:3]} vs {w[:3]}"
+        if (x["step"] is None) != (y["step"] is None):
+            return f"tick {tick}: step"
+        if x["step"] is not None:
+            if x["step"][:2] != y["step"][:2]:
+                return f"tick {tick}: step decisions"
+            if not latency(x["step"][2], y["step"][2]):
+                return f"tick {tick}: step latencies"
+    if tables:
+        if a["row_of"] != b["row_of"]:
+            return "resident rows"
+        for k, t in a["tables"].items():
+            if not torch.equal(t, b["tables"][k]):
+                return f"resident table {k}"
+    return None
+
+
+def phase_admission(counters, card: str) -> None:
+    """Admission control and the crash journal on the card: each arm twice
+    on the card (bit-identical) and once on the CPU (identical verdicts and
+    decisions, latencies to 1e-9); the storm also without its crashes
+    (identical at every tick, epochs and broadcast stats aside)."""
+    from repro_torch.core import (AdmissionRequest, QOS_CLASSES, Workload)
+    from repro_torch.edgesim import fleet_model_catalog
+
+    exact = lambda x, y: np.array_equal(x, y, equal_nan=True)  # noqa: E731
+    close = lambda x, y: np.allclose(y, x, rtol=1e-9, atol=0,  # noqa: E731
+                                     equal_nan=True)
+    seen: dict[str, int] = {}
+    for arm, (cap, _, _, _, storm) in ADMISSION_ARMS.items():
+        reset(counters)
+        a = admission_run(arm, "cuda")
+        assert not any(counts_of(counters).values()), \
+            "the admission path launched a hand-written kernel"
+        b = admission_run(arm, "cuda")
+        cpu = admission_run(arm, "cpu")
+        for other, cmp, where in ((b, exact, "card vs card"),
+                                  (cpu, close, "card vs CPU")):
+            diff = admission_same(a, other, cmp, tables=cmp is exact)
+            if diff:
+                raise AssertionError(f"admission {arm}: {where} differs "
+                                     f"({diff})")
+        if storm:
+            nc = admission_run(arm, "cuda", crashes=False)
+            diff = admission_same(a, nc, exact, tables=False)
+            if diff:
+                raise AssertionError(f"admission {arm}: the restored run "
+                                     f"differs from the uncrashed one ({diff})")
+            if len(a["restores"]) != len(CRASH_AT) or \
+                    a["fenced_agents"] != 4:
+                raise AssertionError(f"admission {arm}: restores or fence")
+            print(f"admission {arm}: crashed at {list(CRASH_AT)} s and "
+                  f"restored ({', '.join(f'{m:.2f}' for m in a['restores'])}"
+                  f" ms) == uncrashed at every tick; stale controller fenced "
+                  f"by all {a['fenced_agents']} agents; transport faults "
+                  f"{a['faults']}; epoch {a['orch'].broadcast.epoch}")
+            if a["faults"] <= 0:
+                raise AssertionError(f"admission {arm}: no transport fault")
+            del nc
+        lat = np.array([v[4] for r in a["ticks"] for v in r["verdicts"]
+                        if v[1] == "accept"])
+        if not lat.size or not np.isfinite(lat).all():
+            raise AssertionError(f"admission {arm}: an accepted latency is "
+                                 "not finite")
+        k = a["ticks"][-1]["kpis"]
+        for key in ("accepted", "deferred", "rejected", "expired",
+                    "preempted"):
+            seen[key] = seen.get(key, 0) + int(k[key])
+        if storm and k["preempted"] <= 0:
+            raise AssertionError(f"admission {arm}: nothing preempted")
+        rq, st = np.array(a["request_ms"]), np.array(a["step_ms"])
+        n, save_ms, size = a["largest"]
+        # a load rebuilds the resident tables on the card, rows in place
+        orch, ctrl = admission_fleet(arm, "cuda", a["orch"].broadcast.agents)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orch.load(a["largest_path"], admission=ctrl, claim_epoch=False)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        del orch, ctrl
+        print(f"admission {arm}: cap {cap}, {ADMISSION_TICKS} ticks; request "
+              f"p50 {np.percentile(rq, 50):.3f} ms p90 "
+              f"{np.percentile(rq, 90):.3f} ms ({rq.size} calls); step p50 "
+              f"{np.percentile(st, 50):.3f} ms p90 {np.percentile(st, 90):.3f}"
+              f" ms; CPU request p50 {np.percentile(cpu['request_ms'], 50):.3f}"
+              f" ms, step p50 {np.percentile(cpu['step_ms'], 50):.3f} ms; "
+              f"card: {card}")
+        print(f"admission {arm}: verdicts {json.dumps(a['verdicts'])}; kpis "
+              + json.dumps({k2: round(v, 4) for k2, v in k.items()})
+              + "; preempted by class "
+              + json.dumps(a["ctrl"].preempted_by_class))
+        print(f"admission {arm}: journal at the largest fleet ({n} sessions) "
+              f"{size} bytes, save {save_ms:.3f} ms, load with the tables' "
+              f"rebuild {load_ms:.3f} ms; card == card bit for bit, card == "
+              "CPU (latencies 1e-9)")
+        catalog = fleet_model_catalog()
+        rng = np.random.default_rng(1)
+        burst = [AdmissionRequest(
+            catalog[i % 5][1], Workload(int(rng.integers(16, 97)),
+                                        int(rng.integers(4, 17)),
+                                        float(rng.uniform(0.3, 2.0))),
+            source_node=i % 3, arch=catalog[i % 5][0],
+            qos=QOS_CLASSES["batch"]) for i in range(ADMISSION_BURST)]
+        ctrl = a["ctrl"]
+        t_end = float(ADMISSION_TICKS)
+        breakdown(f"admission {arm} burst of {ADMISSION_BURST} requests",
+                  lambda: [ctrl.request(r, now=t_end) for r in burst])
+        del a, b, cpu
+        torch.cuda.empty_cache()
+    missing = [key for key, v in seen.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"admission: no {missing} over the arms")
+    print("admission: over the arms " + json.dumps(seen))
+
+
 def reset(counters) -> None:
     for fn in counters:
         fn.launches = 0
@@ -1972,7 +2366,10 @@ def main() -> int:
     # ---- phase 9: the fleet control plane ----
     phase_fleet(counters, card)
 
-    # ---- phase 10: result ----
+    # ---- phase 10: admission control and the crash journal ----
+    phase_admission(counters, card)
+
+    # ---- phase 11: result ----
     launches_from = {
         "decode_attention": gen_counts, "ssd": m_counts, "rglru": g_counts,
         "flash_attention@mla": zoo["deepseek-v2-lite-16b"][0],

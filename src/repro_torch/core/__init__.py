@@ -14,11 +14,21 @@
   fleet_eval   — batched fleet pricing / migration / repair, resident fleet
                  state and the fused monitoring-step programs
   fleet        — multi-session Fleet Orchestrator (admit / depart / step)
+                 and its crash journal (state_dict / save / load)
+  admission    — latency-priced admission control (accept / defer / reject,
+                 preemption under overload)
   broadcast    — Reconfiguration Broadcast (RB), 2-phase versioned rollout
   privacy      — trusted sets, Eq. (5)/(9)
 """
 
+from .admission import (
+    AdmissionKind,
+    AdmissionRequest,
+    AdmissionVerdict,
+    FleetAdmissionController,
+)
 from .broadcast import (
+    FlakyAgent,
     InProcessAgent,
     PartitionConfig,
     ReconfigurationBroadcast,
@@ -43,6 +53,7 @@ from .fleet import (
     FleetDecision,
     FleetOrchestrator,
     FleetSession,
+    JOURNAL_SCHEMA,
     TelemetryGuard,
     session_induced_loads,
 )
@@ -115,17 +126,19 @@ from .triggers import (
 )
 
 __all__ = [
-    "AdaptiveOrchestrator", "AdmissionRolloutError", "AnalyticCostModel",
+    "AdaptiveOrchestrator", "AdmissionKind", "AdmissionRequest",
+    "AdmissionRolloutError", "AdmissionVerdict", "AnalyticCostModel",
     "assert_privacy_ok", "BatchedJointSplitter", "BatchedMigrationSolver",
     "BatchedRepairPass", "breach_seconds", "brute_force_joint",
     "CalibratedCostModel", "CapacityForecaster", "CapacityProfiler",
     "chain_latency", "coalesce_same_node", "CostBreakdown", "CostModel",
     "CostWeights", "Decision", "decision_gate", "DecisionKind", "evaluate",
-    "EWMA", "fixed_point_reference", "FixedPointResult", "FleetCostEvaluator",
-    "FleetDecision", "FleetOrchestrator", "FleetSession", "FleetStateBuffers",
+    "EWMA", "fixed_point_reference", "FixedPointResult", "FlakyAgent",
+    "FleetAdmissionController", "FleetCostEvaluator", "FleetDecision",
+    "FleetOrchestrator", "FleetSession", "FleetStateBuffers",
     "forecast_reconfigure", "ForecastConfig", "GraphNode", "hysteresis_keep",
-    "InProcessAgent", "link_loads", "local_search", "make_transformer_graph",
-    "memory_violations", "memory_violations_packed", "ModelGraph",
+    "InProcessAgent", "JOURNAL_SCHEMA", "link_loads", "local_search",
+    "make_transformer_graph", "memory_violations", "memory_violations_packed", "ModelGraph",
     "ModelProfile", "NodeSample", "pack_problem", "pack_sessions",
     "packed_induced_loads", "PackedProblem", "PackedSessions",
     "PartitionConfig", "phi", "QOS_BATCH", "QOS_CLASSES", "QOS_INTERACTIVE",

@@ -24,8 +24,8 @@ from dataclasses import dataclass, field
 from typing import Protocol
 
 __all__ = [
-    "PartitionConfig", "NodeAgent", "InProcessAgent", "RolloutPolicy",
-    "ReconfigurationBroadcast",
+    "PartitionConfig", "NodeAgent", "InProcessAgent", "FlakyAgent",
+    "RolloutPolicy", "ReconfigurationBroadcast",
 ]
 
 _MASK64 = (1 << 64) - 1
@@ -211,6 +211,95 @@ class InProcessAgent:
         for scope in [s for s, c in self.staged_by.items()
                       if c.version == version]:
             del self.staged_by[scope]
+
+
+class FlakyAgent:
+    """Transport-fault wrapper: drops, delays, or duplicates deliveries.
+
+    Wraps any :class:`NodeAgent`; attribute access falls through to the
+    wrapped agent so orchestration code (rollback, scrape, invariant checks)
+    sees the real state.  Fault draws are a pure function of
+    ``(seed, node, op, version, attempt)`` — deterministic and independent
+    of call order — and only fire while ``now`` lies inside one of the
+    ``windows`` (``None`` → always armed).  The driver sets ``now`` every
+    tick; the per-(op, version) attempt counters live in the wrapper, which
+    survives a controller crash as the data plane does.
+
+    * drop  — the RPC is lost before the agent sees it (returns False)
+    * delay — delivered, but ``last_delay_s`` exceeds any sane timeout, so a
+      policy-driven caller treats it as failed and retries (exercising
+      agent-side dedup of the timeout-but-delivered ambiguity)
+    * dup   — delivered twice back-to-back (exercising idempotency)
+    """
+
+    _OPS = {"prepare": 1, "commit": 2}
+
+    def __init__(self, inner, *, seed: int = 0, drop_p: float = 0.0,
+                 dup_p: float = 0.0, delay_p: float = 0.0,
+                 delay_s: float = 10.0,
+                 windows: tuple[tuple[float, float], ...] | None = None):
+        self.inner = inner
+        self.seed = seed
+        self.drop_p = drop_p
+        self.dup_p = dup_p
+        self.delay_p = delay_p
+        self.delay_s = delay_s
+        self.windows = windows
+        self.now = 0.0
+        self.last_delay_s = 0.0
+        self.faults = {"drop": 0, "dup": 0, "delay": 0}
+        self._attempt: dict[tuple[int, int], int] = {}
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def _armed(self) -> bool:
+        if self.windows is None:
+            return True
+        return any(t0 <= self.now < t1 for t0, t1 in self.windows)
+
+    def _draw(self, op: str, version: int) -> str:
+        key = (self._OPS[op], version)
+        attempt = self._attempt.get(key, 0)
+        self._attempt[key] = attempt + 1
+        if not self._armed():
+            return "ok"
+        u = _unit(self.seed, self.inner.node_id, key[0], version, attempt)
+        if u < self.drop_p:
+            return "drop"
+        if u < self.drop_p + self.dup_p:
+            return "dup"
+        if u < self.drop_p + self.dup_p + self.delay_p:
+            return "delay"
+        return "ok"
+
+    def _call(self, op: str, version: int, fn):
+        self.last_delay_s = 0.0
+        mode = self._draw(op, version)
+        if mode == "drop":
+            self.faults["drop"] += 1
+            return False
+        if mode == "dup":
+            self.faults["dup"] += 1
+            fn()
+            return fn()
+        if mode == "delay":
+            self.faults["delay"] += 1
+            ok = fn()
+            self.last_delay_s = self.delay_s
+            return ok
+        return fn()
+
+    def prepare(self, cfg: PartitionConfig) -> bool:
+        return self._call("prepare", cfg.version,
+                          lambda: self.inner.prepare(cfg))
+
+    def commit(self, version: int) -> bool:
+        return self._call("commit", version,
+                          lambda: self.inner.commit(version))
+
+    def abort(self, version: int) -> None:
+        self.inner.abort(version)
 
 
 def _unwrap(agent):

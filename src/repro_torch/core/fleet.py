@@ -35,6 +35,11 @@ split against the current fleet load and deploys it through the shared
 Reconfiguration Broadcast; :meth:`depart` releases the session's capacity.
 Both apply row-level updates to the resident buffers; the orchestrator is
 the buffers' only writer (see :mod:`repro_torch.core.fleet_eval`).
+Admission *pricing* — accept/defer/reject against the residual capacity —
+lives in :mod:`repro_torch.core.admission`; :meth:`FleetOrchestrator.save`
+and :meth:`~FleetOrchestrator.load` journal the control plane (with the
+admission controller's queue) so a restarted controller continues where
+the crashed one stopped.
 
 Every tensor lives on ``FleetOrchestrator.device`` (default ``"cuda"``,
 which raises without a card); tests pass ``device="cpu"``.
@@ -42,6 +47,9 @@ which raises without a card); tests pass ``device="cpu"``.
 
 from __future__ import annotations
 
+import json
+import os
+import tempfile
 import time
 from dataclasses import dataclass, field
 
@@ -50,7 +58,7 @@ import torch
 
 from ..device import resolve_device
 from ..distributed.fault_tolerance import HeartbeatRegistry
-from .broadcast import PartitionConfig, ReconfigurationBroadcast
+from .broadcast import PartitionConfig, ReconfigurationBroadcast, _unwrap
 from .cost_model import (
     AnalyticCostModel,
     CostModel,
@@ -73,7 +81,7 @@ from .fleet_eval import (
     to_host,
 )
 from .forecast import CapacityForecaster
-from .graph import ModelGraph
+from .graph import GraphNode, ModelGraph
 from .orchestrator import Decision, DecisionKind
 from .placement import Solution, local_search
 from .profiling import CapacityProfiler
@@ -85,6 +93,7 @@ from .splitter import (
 )
 from .triggers import (
     EWMA,
+    QOS_CLASSES,
     QoSClass,
     SolveThrottle,
     Thresholds,
@@ -95,15 +104,20 @@ from .triggers import (
 )
 
 __all__ = ["FleetSession", "FleetDecision", "FleetOrchestrator",
-           "TelemetryGuard", "AdmissionRolloutError", "session_induced_loads"]
+           "TelemetryGuard", "AdmissionRolloutError", "session_induced_loads",
+           "JOURNAL_SCHEMA"]
+
+# the reference package writes the same schema: a journal saved by one loads
+# into the other
+JOURNAL_SCHEMA = "fleet-journal/v1"
 
 
 class AdmissionRolloutError(RuntimeError):
     """The two-phase deploy broadcast aborted during session admission.
 
-    Raised instead of silently dropping the session so a caller can retry
-    the request later (a transport fault is transient) rather than treat it
-    as a capacity rejection.
+    Raised instead of silently dropping the session so the admission
+    controller can DEFER the request (a transport fault is transient — the
+    defer queue retries it) rather than treat it as a capacity rejection.
     """
 
 
@@ -302,6 +316,120 @@ class TelemetryGuard:
         self._last_good = st.copy()
         return st
 
+    # -- snapshot ------------------------------------------------------- #
+    def state_dict(self) -> dict:
+        d: dict = {
+            "staleness_budget_s": self.staleness_budget_s,
+            "clamped_samples": self.clamped_samples,
+            "bad_since": {str(k): v for k, v in self._bad_since.items()},
+            "last_good": None,
+        }
+        if self._last_good is not None:
+            d["last_good"] = _state_to_dict(self._last_good)
+        return d
+
+    def load_state_dict(self, d: dict) -> None:
+        self.staleness_budget_s = float(d["staleness_budget_s"])
+        self.clamped_samples = int(d["clamped_samples"])
+        self._bad_since = {int(k): float(v)
+                           for k, v in d["bad_since"].items()}
+        self._last_good = (None if d["last_good"] is None
+                           else _state_from_dict(d["last_good"]))
+
+
+# --------------------------------------------------------------------- #
+# journal (de)serialization helpers — plain-data codecs for the snapshot
+# --------------------------------------------------------------------- #
+def _graph_to_dict(g: ModelGraph) -> dict:
+    return {"name": g.name, "nodes": [
+        [n.name, float(n.flops), float(n.weight_bytes),
+         float(n.act_out_bytes), bool(n.privacy_critical)] for n in g.nodes
+    ]}
+
+
+def _graph_from_dict(d: dict) -> ModelGraph:
+    return ModelGraph(d["name"], [
+        GraphNode(nm, fl, wb, ab, bool(pv)) for nm, fl, wb, ab, pv in d["nodes"]
+    ])
+
+
+def _state_to_dict(st: SystemState) -> dict:
+    return {
+        "flops_per_s": np.asarray(st.flops_per_s, dtype=np.float64).tolist(),
+        "mem_bytes": np.asarray(st.mem_bytes, dtype=np.float64).tolist(),
+        "background_util": np.asarray(st.background_util,
+                                      dtype=np.float64).tolist(),
+        "trusted": np.asarray(st.trusted, dtype=bool).tolist(),
+        "link_bw": np.asarray(st.link_bw, dtype=np.float64).tolist(),
+        "link_lat": np.asarray(st.link_lat, dtype=np.float64).tolist(),
+        "mem_bw": np.asarray(st.mem_bw, dtype=np.float64).tolist(),
+        "names": list(st.names),
+    }
+
+
+def _state_from_dict(d: dict) -> SystemState:
+    return SystemState(
+        flops_per_s=np.asarray(d["flops_per_s"], dtype=np.float64),
+        mem_bytes=np.asarray(d["mem_bytes"], dtype=np.float64),
+        background_util=np.asarray(d["background_util"], dtype=np.float64),
+        trusted=np.asarray(d["trusted"], dtype=bool),
+        link_bw=np.asarray(d["link_bw"], dtype=np.float64),
+        link_lat=np.asarray(d["link_lat"], dtype=np.float64),
+        mem_bw=np.asarray(d["mem_bw"], dtype=np.float64),
+        names=tuple(d["names"]),
+    )
+
+
+def _qos_to_dict(q: QoSClass | None) -> dict | None:
+    if q is None:
+        return None
+    return {"name": q.name, "latency_slo_s": q.latency_slo_s,
+            "defer_timeout_s": q.defer_timeout_s}
+
+
+def _qos_from_dict(d: dict | None) -> QoSClass | None:
+    """The canonical ``QOS_CLASSES`` instance when name and numbers match
+    (class identity feeds preemption order and the per-class KPIs)."""
+    if d is None:
+        return None
+    q = QOS_CLASSES.get(d["name"])
+    if (q is not None and q.latency_slo_s == d["latency_slo_s"]
+            and q.defer_timeout_s == d["defer_timeout_s"]):
+        return q
+    return QoSClass(**d)
+
+
+def _config_to_dict(c: PartitionConfig | None) -> dict | None:
+    if c is None:
+        return None
+    return {"version": c.version, "boundaries": list(c.boundaries),
+            "assignment": list(c.assignment), "reason": c.reason,
+            "issued_at": c.issued_at, "session": c.session, "epoch": c.epoch}
+
+
+def _config_from_dict(d: dict | None) -> PartitionConfig | None:
+    if d is None:
+        return None
+    return PartitionConfig(
+        version=int(d["version"]), boundaries=tuple(d["boundaries"]),
+        assignment=tuple(d["assignment"]), reason=d["reason"],
+        issued_at=float(d["issued_at"]), session=d["session"],
+        epoch=int(d.get("epoch", 0)),
+    )
+
+
+def _workload_to_dict(w: Workload) -> dict:
+    return {"tokens_in": w.tokens_in, "tokens_out": w.tokens_out,
+            "arrival_rate": w.arrival_rate}
+
+
+def _ewma_to_list(e: EWMA) -> list:
+    return [e.alpha, e.value]
+
+
+def _ewma_from_list(v: list) -> EWMA:
+    return EWMA(float(v[0]), None if v[1] is None else float(v[1]))
+
 
 @dataclass
 class FleetOrchestrator:
@@ -482,8 +610,9 @@ class FleetOrchestrator:
     # ------------------------------------------------------------------ #
     # device-resident fleet state
     # ------------------------------------------------------------------ #
-    def _resident(self) -> FleetStateBuffers:
-        """The live buffers, cold-rebuilt only if they ever desync."""
+    def _resident(self, layout: dict | None = None) -> FleetStateBuffers:
+        """The live buffers, cold-rebuilt only if they ever desync (rows
+        placed by ``layout``, a :meth:`FleetStateBuffers.layout`, if given)."""
         buf = self._buffers
         if buf is None or set(buf.row_of) != set(self.sessions):
             stats = None if buf is None else buf.stats
@@ -491,7 +620,7 @@ class FleetOrchestrator:
                 (sid, (s.graph, s.config.boundaries, s.config.assignment,
                        s.workload, s.source_node, s.input_bytes_per_token))
                 for sid, s in self.sessions.items()
-            ], device=self.device)
+            ], device=self.device, layout=layout)
             if stats is not None:  # carry counters across the rebuild
                 for k, v in stats.items():
                     buf.stats[k] += v
@@ -502,8 +631,8 @@ class FleetOrchestrator:
     def invalidate_resident_state(self) -> None:
         """Drop the resident buffers; the next cycle cold-repacks the fleet.
 
-        Exists for the equivalence tests and the benchmark's repack-per-cycle
-        A/B mode — production code should never need it.
+        A journal restore does this (its layout places the rows); otherwise
+        it exists for the equivalence tests and a repack-per-cycle A/B mode.
         """
         self._buffers = None
 
@@ -1564,3 +1693,234 @@ class FleetOrchestrator:
         per_session[sid] = Decision(kind, cfg, reasons, chosen_lat, 0.0)
         self._upsert_row(sess)
         return "committed"
+
+    # ------------------------------------------------------------------ #
+    # crash-recoverable control plane
+    # ------------------------------------------------------------------ #
+    # ``state_dict``/``save``/``load`` snapshot all control-plane state that
+    # affects future decisions.  The device-resident buffers are not
+    # serialized: a cold ``_resident()`` rebuild gives the same rows as the
+    # incremental updates.  Their placement is: after churn, the incremental
+    # rows sit where freed slots were reused, and row order decides the
+    # fixed point's red/black colours and the order the fleet totals sum in.
+    # So the journal carries ``FleetStateBuffers.layout()`` (host integers)
+    # beside the reference's format, as extra ``resident__*`` arrays that
+    # the reference ignores; a journal without them (the reference's)
+    # rebuilds densely in session order, as the reference does.  Forecast
+    # rings leave the device through the forecaster's own ``state_dict``
+    # (host numpy) and return to THIS orchestrator's device through its
+    # ``load_state_dict``, so a journal written on the card loads on the
+    # CPU and the other way round.
+
+    def state_dict(self, *, admission=None) -> dict:
+        """Plain-data snapshot: ``{"meta": json-able, "forecast": arrays,
+        "resident": arrays}`` (``meta`` and ``forecast`` as the reference's).
+
+        ``admission`` (a :class:`~repro_torch.core.admission.
+        FleetAdmissionController`) folds the defer queue and counters into
+        the same snapshot, so a restart while requests wait loses none.
+        """
+        sessions = []
+        for sid, s in self.sessions.items():
+            sessions.append({
+                "sid": sid,
+                "graph": _graph_to_dict(s.graph),
+                "workload": _workload_to_dict(s.workload),
+                "source_node": s.source_node,
+                "arch": s.arch,
+                "input_bytes_per_token": s.input_bytes_per_token,
+                "qos": _qos_to_dict(s.qos),
+                "config": _config_to_dict(s.config),
+                "ewma": _ewma_to_list(s.ewma_latency),
+                "t_admitted": s.t_admitted,
+                "t_last_reconfig": s.t_last_reconfig,
+                "throttle": {
+                    "backoff_s": s.throttle.backoff_s,
+                    "tol_frac": s.throttle.tol_frac,
+                    "t_last": s.throttle.t_last,
+                    "kinds": list(s.throttle.kinds),
+                    "ewma": s.throttle.ewma,
+                },
+            })
+        p = self.profiler
+        meta: dict = {
+            "schema": JOURNAL_SCHEMA,
+            "next_sid": self._next_sid,
+            "degraded_cycles": self.degraded_cycles,
+            "sessions": sessions,
+            "broadcast": {"version": self.broadcast._version,
+                          "epoch": self.broadcast.epoch},
+            "profiler": {
+                "ewma_alpha": p.ewma_alpha,
+                "base_state": _state_to_dict(p.base_state),
+                "util": {str(n): _ewma_to_list(e)
+                         for n, e in p._util.items()},
+                "util_total": {str(n): _ewma_to_list(e)
+                               for n, e in p._util_total.items()},
+                "lat": _ewma_to_list(p._lat),
+                "link_bw": (None if p._link_bw is None
+                            else np.asarray(p._link_bw,
+                                            dtype=np.float64).tolist()),
+            },
+            "heartbeats": None,
+            "guard": (None if self.telemetry_guard is None
+                      else self.telemetry_guard.state_dict()),
+            "admission": None if admission is None else admission.state_dict(),
+        }
+        hb = self.heartbeats
+        if hb is not None:
+            meta["heartbeats"] = {
+                "nodes": list(hb.nodes),
+                "miss_limit": hb.miss_limit,
+                "last_beat": {str(n): t for n, t in hb._last_beat.items()},
+                "dead": sorted(hb._dead),
+                "revived": list(hb._revived),
+                "tick": hb._tick,
+            }
+        fc = self.forecaster.state_dict() if self.forecaster is not None else {}
+        buf = self._buffers
+        resident = (buf.layout() if buf is not None
+                    and set(buf.row_of) == set(self.sessions) else {})
+        return {"meta": meta, "forecast": fc, "resident": resident}
+
+    def load_state_dict(self, sd: dict, *, admission=None,
+                        claim_epoch: bool = True,
+                        reseed_agents: bool = False) -> None:
+        """Restore a :meth:`state_dict` snapshot into this orchestrator.
+
+        Call on a freshly constructed orchestrator wired to the surviving
+        data plane (the broadcast agents keep their committed configs across
+        a *controller* crash).  ``claim_epoch`` fences the pre-crash zombie:
+        the restored controller bumps every agent's epoch, so any in-flight
+        rollout from the dead controller is rejected at prepare.
+        ``reseed_agents`` also re-stamps each session's active config onto
+        its agents — for drills where the data plane restarted too.
+        """
+        meta = sd["meta"]
+        if meta.get("schema") != JOURNAL_SCHEMA:
+            raise ValueError(f"unknown journal schema {meta.get('schema')!r}")
+        self.sessions.clear()
+        for e in meta["sessions"]:
+            thr = e["throttle"]
+            sess = FleetSession(
+                sid=int(e["sid"]),
+                graph=_graph_from_dict(e["graph"]),
+                workload=Workload(**e["workload"]),
+                source_node=int(e["source_node"]),
+                arch=e["arch"],
+                input_bytes_per_token=float(e["input_bytes_per_token"]),
+                qos=_qos_from_dict(e["qos"]),
+                config=_config_from_dict(e["config"]),
+                ewma_latency=_ewma_from_list(e["ewma"]),
+                t_admitted=float(e["t_admitted"]),
+                t_last_reconfig=float(e["t_last_reconfig"]),
+                throttle=SolveThrottle(
+                    backoff_s=float(thr["backoff_s"]),
+                    tol_frac=float(thr["tol_frac"]),
+                    t_last=float(thr["t_last"]),
+                    kinds=tuple(thr["kinds"]),
+                    ewma=float(thr["ewma"]),
+                ),
+            )
+            self.sessions[sess.sid] = sess
+        self._next_sid = int(meta["next_sid"])
+        self.degraded_cycles = int(meta["degraded_cycles"])
+        self.broadcast._version = int(meta["broadcast"]["version"])
+        self.broadcast.epoch = int(meta["broadcast"]["epoch"])
+        # profiler EWMAs feed every future C(t): restore in place
+        pm = meta["profiler"]
+        p = self.profiler
+        p.ewma_alpha = float(pm["ewma_alpha"])
+        p.base_state = _state_from_dict(pm["base_state"])
+        p._util = {int(n): _ewma_from_list(v) for n, v in pm["util"].items()}
+        p._util_total = {int(n): _ewma_from_list(v)
+                         for n, v in pm["util_total"].items()}
+        p._lat = _ewma_from_list(pm["lat"])
+        p._link_bw = (None if pm["link_bw"] is None
+                      else np.asarray(pm["link_bw"], dtype=np.float64))
+        if meta["heartbeats"] is not None:
+            hm = meta["heartbeats"]
+            hb = HeartbeatRegistry(nodes=list(hm["nodes"]),
+                                   miss_limit=int(hm["miss_limit"]))
+            hb._last_beat = {int(n): int(t)
+                             for n, t in hm["last_beat"].items()}
+            hb._dead = set(hm["dead"])
+            hb._revived = list(hm["revived"])
+            hb._tick = int(hm["tick"])
+            self.heartbeats = hb
+        else:
+            self.heartbeats = None
+        if meta["guard"] is not None:
+            if self.telemetry_guard is None:
+                self.telemetry_guard = TelemetryGuard()
+            self.telemetry_guard.load_state_dict(meta["guard"])
+        else:
+            self.telemetry_guard = None
+        fc = sd.get("forecast") or {}
+        if fc:
+            if self.forecaster is None:
+                raise ValueError(
+                    "journal carries forecast state but this orchestrator "
+                    "has no forecaster — construct it with the same "
+                    "ForecastConfig before loading")
+            self.forecaster.load_state_dict(fc)
+        if admission is not None and meta["admission"] is not None:
+            admission.load_state_dict(meta["admission"])
+        if reseed_agents:
+            for sid, sess in self.sessions.items():
+                if sess.config is None:
+                    continue
+                hosting = set(sess.config.assignment)
+                for a in self.broadcast.agents:
+                    inner = _unwrap(a)
+                    if inner.node_id in hosting:
+                        inner.active_by[sid] = sess.config
+        if claim_epoch:
+            self.broadcast.claim_epoch()
+        self.decisions.clear()
+        self.invalidate_resident_state()
+        if sd.get("resident"):
+            # rows back where the journal placed them, before any churn
+            self._resident(layout=sd["resident"])
+
+    def save(self, path, *, admission=None) -> None:
+        """Atomically persist :meth:`state_dict` as one ``.npz`` journal.
+
+        Written to a temporary file in the destination directory, then
+        ``os.replace``d: a crash mid-save leaves the previous journal intact,
+        never a torn one.
+        """
+        sd = self.state_dict(admission=admission)
+        blob = json.dumps(sd["meta"]).encode("utf-8")
+        arrays: dict[str, np.ndarray] = {
+            "meta": np.frombuffer(blob, dtype=np.uint8)
+        }
+        for k, v in sd["forecast"].items():
+            arrays[f"fc__{k}"] = np.asarray(v)
+        for k, v in sd["resident"].items():
+            arrays[f"resident__{k}"] = np.asarray(v)
+        path = os.fspath(path)
+        fd, tmp = tempfile.mkstemp(
+            dir=os.path.dirname(path) or ".", suffix=".journal.tmp")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                np.savez(f, **arrays)
+            os.replace(tmp, path)
+        except BaseException:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise
+
+    def load(self, path, *, admission=None, claim_epoch: bool = True,
+             reseed_agents: bool = False) -> None:
+        """Restore a :meth:`save` journal (see :meth:`load_state_dict`)."""
+        with np.load(os.fspath(path), allow_pickle=False) as z:
+            meta = json.loads(bytes(z["meta"].tobytes()).decode("utf-8"))
+            fc = {k[4:]: np.array(z[k]) for k in z.files
+                  if k.startswith("fc__")}
+            resident = {k[10:]: np.array(z[k]) for k in z.files
+                        if k.startswith("resident__")}
+        self.load_state_dict({"meta": meta, "forecast": fc,
+                              "resident": resident},
+                             admission=admission, claim_epoch=claim_epoch,
+                             reseed_agents=reseed_agents)

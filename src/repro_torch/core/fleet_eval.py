@@ -949,28 +949,62 @@ class FleetStateBuffers:
         min_rows: int = 8,
         min_segs: int = 4,
         device: str | torch.device = "cuda",
+        layout: dict | None = None,
     ) -> "FleetStateBuffers":
         """Cold full repack: ``items`` is [(sid, pack_sessions item), ...].
 
         Rows land densely in ``items`` order and are bit-identical to a
         :func:`pack_sessions` call over the same items — this IS the
         reference the incremental path is equivalence-tested against.
+        ``layout`` (a :meth:`layout` of buffers holding the same sessions)
+        puts every row where those buffers had it instead, with their
+        free-row stack and segment width.
         """
         t0 = time.perf_counter()
         n = len(items)
+        if layout is None:
+            row_of = {sid: i for i, (sid, _) in enumerate(items)}
+            rows, segs = max(min_rows, n), min_segs
+        else:
+            row_of = {int(sid): r for r, sid in enumerate(layout["row_sid"])
+                      if sid >= 0}
+            if set(row_of) != {sid for sid, _ in items}:
+                raise ValueError("layout holds other sessions than items")
+            rows = len(layout["row_sid"])
+            segs = max(min_segs, int(layout["max_segs"]))
         if n == 0:
-            return cls(rows=min_rows, segs=min_segs, device=device)
-        packed = pack_sessions([it for _, it in items], pad_pow2=True,
-                               min_k=min_segs)
-        buf = cls(rows=max(min_rows, n), segs=packed.max_segs, device=device)
-        buf._write(slice(0, n), packed)
-        buf.row_of = {sid: i for i, (sid, _) in enumerate(items)}
-        buf._free = list(range(buf.n_rows - 1, n - 1, -1))
-        for i, b in enumerate(packed.boundaries):
-            buf._boundaries[i] = b
+            buf = cls(rows=rows, segs=segs, device=device)
+        else:
+            packed = pack_sessions([it for _, it in items], pad_pow2=True,
+                                   min_k=segs)
+            buf = cls(rows=rows, segs=packed.max_segs, device=device)
+            where = [row_of[sid] for sid, _ in items]
+            buf._write(where, packed)
+            buf.row_of = {sid: row_of[sid] for sid, _ in items}
+            buf._free = list(range(buf.n_rows - 1, n - 1, -1))
+            for r, b in zip(where, packed.boundaries):
+                buf._boundaries[r] = b
+        if layout is not None:
+            buf._free = [int(r) for r in layout["free"]]
         buf.stats["rebuilds"] += 1
         buf.stats["pack_time_s"] += time.perf_counter() - t0
         return buf
+
+    def layout(self) -> dict[str, np.ndarray]:
+        """Where each session's row lies, as host integers: the session of
+        every row (-1: free), the free-row stack and the segment width.
+
+        The fixed point colours rows by index parity and the fleet totals
+        reduce over rows in row order, so a rebuild that has to continue
+        bit-identically (a journal restore after churn) needs the placement
+        as well as the rows' contents.
+        """
+        row_sid = np.full(self.n_rows, -1, dtype=np.int64)
+        for sid, r in self.row_of.items():
+            row_sid[r] = sid
+        return {"row_sid": row_sid,
+                "free": np.asarray(self._free, dtype=np.int64),
+                "max_segs": np.asarray(self.max_segs, dtype=np.int64)}
 
     # -- host views ----------------------------------------------------- #
     def rows_packed(self, sids: Sequence[int]) -> PackedSessions:

@@ -674,3 +674,117 @@ def test_fleet_moves_commit_identically_on_the_card_and_the_cpu():
     candidates and resident rows equal the CPU's."""
     d = _assert_fleet_runs_agree(n_sessions=8, cycles=12, spike=True)
     assert sum(c[1] + c[2] for c in d) > 0
+
+
+def _admission_run(device, journal, ticks=20, crash_at=8.0):
+    """A 16-session admission stream on the §IV cluster on ``device``:
+    heartbeats, forecast on, MEC-1 down from tick 10 to 15, transport faults
+    in ticks 3-6, and one controller crash at ``crash_at`` restored from the
+    journal saved at the end of every tick.  Returns every verdict (kind,
+    sid, reason, latency), each step's decisions and latencies, the
+    preemptions, the defer queue and the final kpis."""
+    from repro_torch.core import (AdmissionRequest, CapacityForecaster,
+                                  CapacityProfiler, FlakyAgent,
+                                  FleetAdmissionController, FleetOrchestrator,
+                                  ForecastConfig, InProcessAgent, QOS_CLASSES,
+                                  ReconfigurationBroadcast, Thresholds,
+                                  Workload)
+    from repro_torch.distributed import HeartbeatRegistry
+    from repro_torch.edgesim import (MECScenarioParams, base_system_state,
+                                     fleet_model_catalog)
+
+    base = base_system_state(MECScenarioParams())
+    agents = [FlakyAgent(InProcessAgent(i), seed=9000 + i, drop_p=0.2,
+                         dup_p=0.15, delay_p=0.1, windows=((3.0, 7.0),))
+              for i in range(base.num_nodes)]
+
+    def fresh():
+        orch = FleetOrchestrator(
+            profiler=CapacityProfiler(base_state=base.copy()),
+            broadcast=ReconfigurationBroadcast(list(agents)),
+            thresholds=Thresholds(cooldown_s=2.0),
+            forecaster=CapacityForecaster(ForecastConfig(
+                horizon_steps=8, season_steps=8), device=device),
+            heartbeats=HeartbeatRegistry(list(range(base.num_nodes))),
+            device=device)
+        return orch, FleetAdmissionController(
+            orch, max_sessions=16, queue_cap=8, preempt_patience_s=20.0)
+
+    orch, ctrl = fresh()
+    rng = np.random.default_rng(4)
+    catalog = fleet_model_catalog()
+    log = []
+    for tick in range(ticks):
+        t = float(tick)
+        if t == crash_at:
+            orch, ctrl = fresh()
+            orch.load(journal, admission=ctrl, claim_epoch=True)
+        for a in agents:
+            a.now = t
+        state = base.copy()
+        down = 10.0 <= t < 15.0
+        if down:
+            state.mem_bytes[1] = 0.0
+            state.background_util[1] = 0.99
+            state.link_bw[1, :] = state.link_bw[:, 1] = 1.0
+            state.link_bw[1, 1] = np.inf
+        orch.profiler.base_state = state
+        for node in range(base.num_nodes):
+            if not (down and node == 1):
+                orch.heartbeats.beat(node)
+        if tick % 7 == 6 and orch.sessions:
+            orch.depart(min(orch.sessions))
+        for _, v in ctrl.poll(t):
+            log.append((v.kind.value, v.sid, v.reason, v.predicted_latency_s))
+        for _ in range(int(rng.poisson(8.0 if tick == 0 else 2.0))):
+            arch, graph = catalog[int(rng.integers(len(catalog)))]
+            req = AdmissionRequest(
+                graph, Workload(int(rng.integers(16, 97)),
+                                int(rng.integers(4, 17)),
+                                float(rng.uniform(0.3, 2.0))),
+                source_node=int(rng.integers(3)), arch=arch,
+                qos=QOS_CLASSES[("interactive", "standard", "batch")[
+                    int(rng.integers(3))]], t_submit=t)
+            v = ctrl.request(req, now=t)
+            log.append((v.kind.value, v.sid, v.reason, v.predicted_latency_s))
+        if orch.sessions:
+            fd = orch.step(now=t)
+            log.append(tuple((sid, d.kind.value, d.reasons, d.config.version,
+                              d.config.assignment, d.predicted_latency_s)
+                             for sid, d in fd.per_session.items()))
+            if fd.infeasible_sids:
+                log.append(tuple(s.sid for s, _ in
+                                 ctrl.preempt_overload(t, state=state)))
+        log.append(tuple((d, r.workload.arrival_rate, r.preempted)
+                         for d, r, _ in ctrl._queue))
+        orch.save(journal, admission=ctrl)
+    log.append(ctrl.kpis())
+    return log
+
+
+def _floats_close(a, b, rtol):
+    """Nested equality, floats to ``rtol`` relative (0: bit for bit)."""
+    if isinstance(a, float) and isinstance(b, float):
+        return a == b or abs(a - b) <= rtol * max(abs(a), abs(b))
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(
+            _floats_close(x, y, rtol) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(
+            _floats_close(a[k], b[k], rtol) for k in a)
+    return a == b
+
+
+def test_admission_stream_with_a_crash_is_bit_identical_and_matches_the_cpu(
+        tmp_path):
+    """Two card runs of an admission stream with one crash and restore are
+    bit-identical; the run equals the CPU run (verdicts exact, latencies
+    1e-9 relative)."""
+    a = _admission_run("cuda", tmp_path / "a.npz")
+    b = _admission_run("cuda", tmp_path / "b.npz")
+    cpu = _admission_run("cpu", tmp_path / "c.npz")
+    assert _floats_close(a, b, 0.0)
+    assert _floats_close(a, cpu, 1e-9)
+    kinds = {x[0] for x in a if isinstance(x, tuple) and x
+             and x[0] in ("accept", "defer", "reject")}
+    assert kinds == {"accept", "defer", "reject"}
