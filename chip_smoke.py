@@ -122,7 +122,29 @@ result line:
    counts, ``kpis()``, preemptions by QoS class, the journal's size and
    save/load times at the largest fleet, and one traced burst of 8
    requests' device-busy time and idle share;
-11. print the ``kernels`` line (K1/K2 launches from phase 3, K3's from
+11. the region-sharded fleet (``ShardedFleetOrchestrator.step``: one
+   cross-shard screen, ``_price`` under ``torch.func.vmap``, the steps of
+   the shards whose triggers fire, the cross-region pass;
+   ``ShardedFleetAdmissionController``; no hand-written kernel: the launch
+   counts stay 0): benchmarks/fleet_scaling.py ``shard_scaling`` at 8, 32
+   and 80 regions of 128 sessions (``_fill_sharded``, seed 0; 10,240 at
+   80), the first 2 regions hot (forecaster H 4, S 8, 1 s; ``diurnal``
+   trace seed 1 on their MEC nodes), 3 warm and 12 timed cycles, which
+   must step exactly the 2 hot shards and screen once a cycle; its
+   regions=1 row (``_saturated_fleet(128, 0)`` in a one-region wrapper,
+   bit-identical to the bare orchestrator); the cross-region drill of
+   tests/test_sharded_fleet.py (region 1 saturated until a session moves
+   out with its sid); and the 1,024-session storm of tests/test_system.py
+   (8 x 127 bulk sessions, 8 routed ACCEPTs, region 0's node 0 dead under
+   a per-region heartbeat registry, recovery, the session set conserved;
+   the reference's ``InvariantChecker`` comes with the simulator and is
+   left out).  Each twice on the card (decisions, every screen's outputs,
+   resident tables, sids by region and cross moves bit for bit) and once
+   on the CPU (identical, floats to 1e-9); prints cycle and screen
+   p50/p90, shards stepped, kernel calls and screens a cycle, cross moves
+   and one traced cycle at 80 regions (device busy, idle share, top five
+   kernels) beside the card's name and power limit;
+12. print the ``kernels`` line (K1/K2 launches from phase 3, K3's from
    phase 4, K4's from the Mamba-2 serve, K5's from the Griffin serve; the
    rows of K1 and K3 at the new shapes with the launches of the deepseek,
    qwen3-moe and gemma2 serve and generation runs and of the hd-8 reduced
@@ -962,8 +984,9 @@ def phase_rglru_kernel(k5) -> dict:
     return row
 
 
-def breakdown(label: str, fn) -> dict:
-    """One traced call of ``fn``: device time by kernel family, idle share."""
+def breakdown(label: str, fn, top: int = 0) -> dict:
+    """One traced call of ``fn``: device time by kernel family, idle share;
+    with ``top``, also the ``top`` kernels that took the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -981,6 +1004,16 @@ def breakdown(label: str, fn) -> dict:
     print(f"{label} trace: wall {wall_ms:.3f} ms (profiler on), device busy "
           f"{busy:.3f} ms, idle share {1.0 - busy / wall_ms:.3f}; by family (ms): "
           + json.dumps({k: round(v, 4) for k, v in sorted(split.items())}))
+    if top:
+        ops: dict[str, list] = {}
+        for e in device_events(prof):
+            op = ops.setdefault(e.name[:80], [0.0, 0])
+            op[0] += e.time_range.elapsed_us() / 1e3
+            op[1] += 1
+        print(f"{label} trace: {sum(n for _, n in ops.values())} kernels; top "
+              f"{top} by device time (ms, launches): " + json.dumps(
+                  {k: [round(v[0], 4), v[1]] for k, v in sorted(
+                      ops.items(), key=lambda kv: -kv[1][0])[:top]}))
     return split
 
 
@@ -2202,6 +2235,490 @@ def phase_admission(counters, card: str) -> None:
     print("admission: over the arms " + json.dumps(seen))
 
 
+# --------------------------------------------------------------------------- #
+# the region-sharded fleet
+# --------------------------------------------------------------------------- #
+# benchmarks/fleet_scaling.py::shard_scaling: 128 resident sessions a region
+# (_fill_sharded, seed 0), the first 2 regions hot (a forecaster, H 4, S 8,
+# 1 s, and a diurnal trace on their MEC nodes), 3 warm cycles and 12 timed;
+# regions=1 wraps _saturated_fleet(128, 0) in a one-region wrapper
+SHARD_SESSIONS, SHARD_HOT = 128, 2
+SHARD_REGIONS = (8, 32, 80)
+SHARD_WARM, SHARD_CYCLES = 3, 12
+SHARD_SINGLE_WARM = 5            # monitoring_cost's warm-up, as the reference
+SHARD_TRACE = dict(seed=1, base=0.45, amp=0.15, period_s=24.0,
+                   spike_rate_per_period=1.0, spike_amp=0.15,
+                   spike_width_s=2.0, horizon_s=120.0)
+# tests/test_system.py::test_sharded_fleet_smoke_1024_sessions: 8 regions x
+# 127 bulk sessions + one routed arrival each; region 0's node 0 dies
+STORM_REGIONS, STORM_BULK = 8, 127
+
+
+def shard_graph(layers: int, name: str, wbytes: float, edge_bytes: float):
+    from repro_torch.core import make_transformer_graph
+
+    return make_transformer_graph(
+        name=name, num_layers=layers, d_model=256, flops_per_layer_token=4e9,
+        weight_bytes_per_layer=wbytes, embed_weight_bytes=edge_bytes,
+        head_weight_bytes=edge_bytes, head_flops_token=2e8)
+
+
+def shard_catalog() -> list:
+    """fleet_scaling.py::_shard_catalog: 128 sessions fit one region."""
+    return [(f"shard-{c}", shard_graph(n, f"shard-{c}", 5e7, 5e7))
+            for c, n in (("a", 6), ("b", 8))]
+
+
+def fill_sharded(w, n: int, seed: int, workload=None, qos=None) -> list:
+    """fleet_scaling.py::_fill_sharded: one batched DP for region 0's
+    session set, its solutions admitted verbatim into every region (the
+    replicas are identical at t = 0).  Returns the sids."""
+    from repro_torch.core import SessionProblem, Workload, coalesce_same_node
+
+    catalog = shard_catalog()
+    rng = np.random.default_rng(seed)
+    metas, probs = [], []
+    for i in range(n):
+        arch, graph = catalog[i % len(catalog)]
+        wl = workload if workload is not None else Workload(
+            tokens_in=int(rng.integers(16, 48)),
+            tokens_out=int(rng.integers(4, 8)), arrival_rate=0.05)
+        metas.append((arch, graph, wl, i % 3))       # MEC ingress only
+        probs.append(SessionProblem(graph, wl, source_node=i % 3))
+    inner0 = w.inners[0]
+    sols = inner0.splitter.solve_batch(
+        probs, inner0.profiler.system_state(), max_units=inner0.max_units)
+    sols = [coalesce_same_node(s) for s in sols]
+    return [inner.admit(graph, wl, source_node=src, arch=arch, now=0.0,
+                        qos=qos, solution=sol)
+            for inner in w.inners
+            for (arch, graph, wl, src), sol in zip(metas, sols)]
+
+
+def shard_decision(fd) -> tuple:
+    """A merged FleetDecision without its floats: (counts, per session)."""
+    return (tuple(getattr(fd, k) for k in FLEET_COUNTS), tuple(
+        (sid, d.kind.value, d.reasons) + (
+            () if d.config is None else (d.config.version,
+                                         d.config.boundaries,
+                                         d.config.assignment))
+        for sid, d in fd.per_session.items()))
+
+
+def shard_probe(w, sync) -> dict:
+    """Wrap the wrapper's screen: keep every ShardScreen, and time the call
+    with a synchronised host clock."""
+    sh = w._shstate
+    log: dict = {"screens": [], "screen_ms": []}
+    screen = sh.screen
+
+    def timed(states, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = screen(states, **kw)
+        sync()
+        log["screen_ms"].append((time.perf_counter() - t0) * 1e3)
+        log["screens"].append(out)
+        return out
+
+    sh.screen = timed
+    return log
+
+
+def shard_tables(orchs) -> list:
+    """Each orchestrator's resident tables, on the host."""
+    return [{k: getattr(o._buffers, k).cpu() for k in FLEET_TABLES}
+            for o in orchs]
+
+
+def shard_run(n_regions: int, device: str) -> dict:
+    """One sweep point on one device: fill, 3 warm and 12 timed cycles.
+    Returns per timed cycle the decisions, latencies, cycle and screen
+    times, shards stepped, kernel and screen calls; every screen's outputs;
+    the final resident tables, sids by region and cross moves."""
+    from repro_torch.core import CapacityForecaster, ForecastConfig
+    from repro_torch.edgesim import (MECScenarioParams,
+                                     build_regional_orchestrator, diurnal)
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    w = build_regional_orchestrator(MECScenarioParams(), n_regions,
+                                    device=device)
+    fill_sharded(w, SHARD_SESSIONS, 0)
+    admit_s = time.perf_counter() - t0
+    for r in range(SHARD_HOT):
+        w.inners[r].forecaster = CapacityForecaster(ForecastConfig(
+            horizon_steps=4, season_steps=8, sample_interval_s=1.0),
+            device=device)
+    trace = diurnal(**SHARD_TRACE)
+
+    def drive(t: float) -> None:
+        for r in range(SHARD_HOT):
+            w.inners[r].profiler.base_state.background_util[:3] = trace(t)
+
+    probe = shard_probe(w, sync)
+    out = dict(w=w, drive=drive, admit_s=admit_s, decisions=[], lat=[],
+               cycle_ms=[], stepped=[], dispatches=[], screens=[])
+    t = 1.0
+    for c in range(SHARD_WARM + SHARD_CYCLES):
+        drive(t)
+        d0 = sum(o.kernel.dispatches for o in w.inners)
+        s0, sc0 = w.shards_stepped, w._shstate.screen_dispatches
+        sync()
+        t0 = time.perf_counter()
+        fd = w.step(t)
+        sync()
+        if c >= SHARD_WARM:
+            out["cycle_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["decisions"].append(shard_decision(fd))
+            out["lat"].append(np.array([d.predicted_latency_s
+                                        for d in fd.per_session.values()]))
+            out["stepped"].append(w.shards_stepped - s0)
+            out["dispatches"].append(
+                sum(o.kernel.dispatches for o in w.inners) - d0)
+            out["screens"].append(w._shstate.screen_dispatches - sc0)
+        t += 1.0
+    out["t"] = t
+    out["screen_out"] = probe["screens"]
+    out["screen_ms"] = probe["screen_ms"][SHARD_WARM:]
+    out["tables"] = shard_tables(w.inners)
+    out["sids"] = [sorted(o.sessions) for o in w.inners]
+    out["cross"] = (w.cross_migrations, w.cross_rejected)
+    return out
+
+
+def shard_single(device: str, wrap: bool) -> dict:
+    """The regions=1 row: _saturated_fleet(128, 0), bare or wrapped in a
+    one-region ShardedFleetOrchestrator (which delegates verbatim)."""
+    from repro_torch.core import ShardedFleetOrchestrator
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    orch = saturated_fleet(SHARD_SESSIONS, 0, device)
+    w = ShardedFleetOrchestrator([orch], region_of=np.zeros(
+        orch.profiler.base_state.num_nodes, dtype=np.int64)) if wrap else orch
+    out = dict(decisions=[], lat=[], cycle_ms=[])
+    for c in range(SHARD_SINGLE_WARM + SHARD_CYCLES):
+        sync()
+        t0 = time.perf_counter()
+        fd = w.step(float(c))
+        sync()
+        if c >= SHARD_SINGLE_WARM:
+            out["cycle_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["decisions"].append(shard_decision(fd))
+        out["lat"].append(np.array([d.predicted_latency_s
+                                    for d in fd.per_session.values()]))
+    out["tables"] = shard_tables([orch])
+    out["screened"] = getattr(w, "screen_cycles", 0)
+    return out
+
+
+def shard_drill(device: str) -> dict:
+    """tests/test_sharded_fleet.py's cross-region drill: 3 regions, 3
+    interactive sessions each (48/8 tokens, 0.8/s), then region 1's MEC
+    nodes at 0.97 util until a cross-region move commits."""
+    from repro_torch.core import QOS_INTERACTIVE, Workload
+    from repro_torch.edgesim import (MECScenarioParams,
+                                     build_regional_orchestrator)
+
+    w = build_regional_orchestrator(MECScenarioParams(), 3, device=device)
+    g = shard_graph(8, "tiny-a", 3e8, 1e8)
+    alive = [w.admit(g, Workload(48, 8, 0.8), source_node=4 * r + i,
+                     now=0.0, qos=QOS_INTERACTIVE)
+             for r in (0, 1, 2) for i in range(3)]
+    decisions, lat = [], []
+
+    def step(t: float) -> None:
+        fd = w.step(t)
+        decisions.append(shard_decision(fd))
+        lat.append(np.array([d.predicted_latency_s
+                             for d in fd.per_session.values()]))
+
+    step(1.0)
+    before = {sid: w.region_of_sid(sid) for sid in alive}
+    w.inners[1].profiler.base_state.background_util[:3] = 0.97
+    for t in range(2, 30):
+        step(float(t))
+        if w.cross_migrations:
+            break
+    moved = {sid: w.region_of_sid(sid) for sid in alive
+             if w.region_of_sid(sid) != before[sid]}
+    if not moved or any(before[s] != 1 or r == 1 or s not in w.sessions
+                        for s, r in moved.items()):
+        raise AssertionError(f"shards drill ({device}): no session left "
+                             f"region 1 with its sid ({moved})")
+    return dict(decisions=decisions, lat=lat, moved=moved, t=t,
+                cross=(w.cross_migrations, w.cross_rejected),
+                tables=shard_tables(w.inners),
+                sids=[sorted(o.sessions) for o in w.inners])
+
+
+def shard_storm(device: str) -> dict:
+    """tests/test_system.py's 1,024-session smoke: 8 regions x 127 bulk
+    sessions, 8 routed ACCEPTs by global ingress, two quiet cycles, region
+    0's node 0 dead under a per-region HeartbeatRegistry for three cycles,
+    recovery; the session set is conserved."""
+    from repro_torch.core import (AdmissionKind, AdmissionRequest, QOS_BATCH,
+                                  QOS_STANDARD, ShardedFleetAdmissionController,
+                                  Workload)
+    from repro_torch.distributed import HeartbeatRegistry
+    from repro_torch.edgesim import (MECScenarioParams,
+                                     build_regional_orchestrator)
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    w = build_regional_orchestrator(MECScenarioParams(), STORM_REGIONS,
+                                    device=device)
+    alive = set(fill_sharded(w, STORM_BULK, 0, workload=Workload(24, 4, 0.05),
+                             qos=QOS_BATCH))
+    adm = ShardedFleetAdmissionController(w, max_sessions=1024, queue_cap=16)
+    verdicts, request_ms = [], []
+    for r in range(STORM_REGIONS):
+        sync()
+        t0 = time.perf_counter()
+        v = adm.request(AdmissionRequest(
+            graph=shard_catalog()[0][1], workload=Workload(24, 4, 0.05),
+            source_node=4 * r + 1, arch="shard-a", qos=QOS_STANDARD),
+            now=0.5)
+        sync()
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        if v.kind is not AdmissionKind.ACCEPT:
+            raise AssertionError(f"shards storm ({device}): region {r} "
+                                 f"arrival not accepted ({v.reason})")
+        verdicts.append((v.kind.value, v.sid, v.reason,
+                         v.predicted_latency_s))
+        alive.add(v.sid)
+    if len(alive) != STORM_REGIONS * (STORM_BULK + 1) or \
+            len(w.sessions) != len(alive):
+        raise AssertionError(f"shards storm ({device}): {len(alive)} sessions")
+    decisions, lat, step_ms = [], [], []
+
+    def step(t: float):
+        sync()
+        t0 = time.perf_counter()
+        fd = w.step(t)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        decisions.append(shard_decision(fd))
+        lat.append(np.array([d.predicted_latency_s
+                             for d in fd.per_session.values()]))
+        return fd
+
+    step(1.0)
+    step(2.0)
+    hb = HeartbeatRegistry(nodes=[0, 1, 2, 3], miss_limit=2)
+    w.inners[0].heartbeats = hb            # node ids are region-local
+    base0 = w.inners[0].profiler.base_state
+    saved = (float(base0.mem_bytes[0]), float(base0.background_util[0]),
+             base0.link_bw.copy())
+    base0.mem_bytes[0] = 0.0
+    base0.background_util[0] = 0.99
+    base0.link_bw[0, 1:] = 1.0
+    base0.link_bw[1:, 0] = 1.0
+    dead_seen = False
+    for t in (3.0, 4.0, 5.0):
+        for node in (1, 2, 3):
+            hb.beat(node)
+        dead_seen = dead_seen or 0 in step(t).dead_nodes
+    if not dead_seen:
+        raise AssertionError(f"shards storm ({device}): dead node not seen")
+    on_dead = [s.sid for s in w.inners[0].sessions.values()
+               if 0 in s.config.assignment]
+    if on_dead:
+        raise AssertionError(f"shards storm ({device}): {len(on_dead)} "
+                             "region-0 sessions still on the dead node")
+    base0.mem_bytes[0], base0.background_util[0] = saved[:2]
+    base0.link_bw[:, :] = saved[2]
+    for node in (0, 1, 2, 3):
+        hb.beat(node)
+    step(6.0)
+    seen: dict = {}
+    for r, inner in enumerate(w.inners):
+        for sid in inner.sessions:
+            if sid in seen:
+                raise AssertionError(f"shards storm ({device}): sid {sid} "
+                                     f"in regions {seen[sid]} and {r}")
+            seen[sid] = r
+        if set(inner._buffers.row_of) != set(inner.sessions):
+            raise AssertionError(f"shards storm ({device}): region {r} rows")
+    if set(seen) != alive:
+        raise AssertionError(f"shards storm ({device}): sessions lost")
+    return dict(verdicts=verdicts, decisions=decisions, lat=lat,
+                request_ms=request_ms, step_ms=step_ms, kpis=adm.kpis(),
+                tables=shard_tables(w.inners),
+                sids=[sorted(o.sessions) for o in w.inners],
+                cross=(w.cross_migrations, w.cross_rejected))
+
+
+def screen_vs_price(w) -> float:
+    """One screen of every shard against each shard's own ``price`` on its
+    regional C(t): the largest relative gap over lat, max_util, min_bw,
+    tot_node and tot_w (the contract: 1e-12)."""
+    sh = w._sharded()
+    states = [o.profiler.system_state() for o in w.inners]
+    scr = sh.screen(states, weights=w.inners[0].weights,
+                    bw_floor=w.inners[0].bw_floor_frac)
+    worst = 0.0
+    for s, o in enumerate(w.inners):
+        p = o.kernel.price(o._buffers, states[s], weights=o.weights,
+                           bw_floor=o.bw_floor_frac)
+        for f in ("lat", "max_util", "min_bw", "tot_node", "tot_w"):
+            x, y = getattr(scr, f)[s], getattr(p, f).cpu().numpy()
+            same = (x == y) | (np.isnan(x) & np.isnan(y))
+            with np.errstate(invalid="ignore", divide="ignore"):
+                gap = np.abs(x - y) / np.maximum(np.abs(x), np.abs(y))
+            worst = max(worst, float(np.where(same, 0.0, gap).max()))
+    return worst
+
+
+def shard_same(a: dict, b: dict, exact: bool, what: str) -> None:
+    """Two runs of one arm agree: decisions, sids, cross moves and integer
+    tables exactly; latencies, screen outputs and float tables bit for bit
+    (``exact``) or to 1e-9 relative."""
+    def close(x, y) -> bool:
+        x, y = np.asarray(x), np.asarray(y)
+        if x.shape != y.shape:
+            return False
+        if exact or x.dtype.kind != "f":
+            return np.array_equal(x, y, equal_nan=x.dtype.kind == "f")
+        return np.allclose(y, x, rtol=1e-9, atol=0, equal_nan=True)
+
+    where = "card vs card" if exact else "card vs CPU"
+    for key in ("decisions", "sids", "cross"):
+        if a.get(key) != b.get(key):
+            raise AssertionError(f"{what}: {where} {key} differ")
+    if "verdicts" in a and (
+            [v[:3] for v in a["verdicts"]] != [v[:3] for v in b["verdicts"]]
+            or not close([v[3] for v in a["verdicts"]],
+                         [v[3] for v in b["verdicts"]])):
+        raise AssertionError(f"{what}: {where} verdicts differ")
+    if not all(close(x, y) for x, y in zip(a["lat"], b["lat"])):
+        raise AssertionError(f"{what}: {where} latencies differ")
+    for sa, sb in zip(a.get("screen_out", ()), b.get("screen_out", ())):
+        for f in dataclasses.fields(sa):
+            if not close(getattr(sa, f.name), getattr(sb, f.name)):
+                raise AssertionError(f"{what}: {where} screen {f.name} "
+                                     "differs")
+    for ta, tb in zip(a["tables"], b["tables"]):
+        for k, x in ta.items():
+            y = tb[k]
+            ok = (torch.equal(x, y) if exact or not x.is_floating_point()
+                  else torch.allclose(x, y, rtol=1e-12, atol=0))
+            if not ok:
+                raise AssertionError(f"{what}: {where} resident table {k} "
+                                     "differs")
+
+
+def phase_shards(counters, card: str) -> None:
+    """The region-sharded fleet on the card: the shard_scaling sweep at 8,
+    32 and 80 regions, the regions=1 row, the cross-region drill and the
+    1,024-session routed storm; each twice on the card (bit for bit) and
+    once on the CPU (identical decisions, floats to 1e-9); no hand-written
+    kernel is launched."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    print(f"shards: card {smi.stdout.strip().splitlines()[0]}")
+    t_phase = time.perf_counter()
+    pct = lambda x, q: float(np.percentile(np.asarray(x), q))  # noqa: E731
+    for n in SHARD_REGIONS:
+        reset(counters)
+        a = shard_run(n, "cuda")
+        if any(counts_of(counters).values()):
+            raise AssertionError("the sharded fleet launched a "
+                                 "hand-written kernel")
+        b = shard_run(n, "cuda")
+        cpu = shard_run(n, "cpu")
+        shard_same(a, b, True, f"shards {n}")
+        shard_same(a, cpu, False, f"shards {n}")
+        gap = screen_vs_price(a["w"])
+        if not gap <= 1e-12:
+            raise AssertionError(f"shards {n}: the screen differs from the "
+                                 f"per-shard price by {gap:.3e}")
+        if a["stepped"] != [SHARD_HOT] * SHARD_CYCLES or \
+                a["screens"] != [1] * SHARD_CYCLES:
+            raise AssertionError(f"shards {n}: stepped {a['stepped']}, "
+                                 f"screens {a['screens']} a cycle")
+        lat = np.concatenate(a["lat"])
+        if not np.isfinite(lat).all() or \
+                sum(map(len, a["sids"])) != n * SHARD_SESSIONS:
+            raise AssertionError(f"shards {n}: latencies not finite or "
+                                 "sessions missing")
+        print(f"shards {n} regions: {n * SHARD_SESSIONS} sessions; admit "
+              f"{a['admit_s']:.2f} s (card) {cpu['admit_s']:.2f} s (CPU); "
+              f"cycle p50 {pct(a['cycle_ms'], 50):.3f} ms p90 "
+              f"{pct(a['cycle_ms'], 90):.3f} ms [run 2: p50 "
+              f"{pct(b['cycle_ms'], 50):.3f}]; screen p50 "
+              f"{pct(a['screen_ms'], 50):.3f} ms p90 "
+              f"{pct(a['screen_ms'], 90):.3f} ms; CPU cycle p50 "
+              f"{pct(cpu['cycle_ms'], 50):.3f} ms, screen p50 "
+              f"{pct(cpu['screen_ms'], 50):.3f} ms; card: {card}")
+        print(f"shards {n} regions: per cycle shards stepped "
+              f"{np.mean(a['stepped']):.2f}, kernel calls "
+              f"{np.mean(a['dispatches']):.2f}, screens "
+              f"{np.mean(a['screens']):.2f}; cross migrations "
+              f"{a['cross'][0]} (rejected {a['cross'][1]}); screen vs "
+              f"per-shard price on the card: max rel gap {gap:.3e} (limit "
+              "1e-12); card == card bit for bit, card == CPU (latencies, "
+              "screens 1e-9)")
+        if n == SHARD_REGIONS[-1]:
+            w, t = a["w"], a["t"]
+            a["drive"](t)
+            breakdown(f"shards {n} regions cycle", lambda: w.step(t), top=5)
+        del a, b, cpu
+        torch.cuda.empty_cache()
+
+    # the regions=1 row: the wrapper delegates verbatim
+    reset(counters)
+    a = shard_single("cuda", wrap=True)
+    b = shard_single("cuda", wrap=True)
+    bare = shard_single("cuda", wrap=False)
+    cpu = shard_single("cpu", wrap=True)
+    shard_same(a, b, True, "shards 1")
+    shard_same(a, bare, True, "shards 1 (wrapped vs bare)")
+    shard_same(a, cpu, False, "shards 1")
+    if a["screened"]:
+        raise AssertionError("shards 1: the one-region wrapper screened")
+    print(f"shards 1 region (saturated {SHARD_SESSIONS}): cycle p50 "
+          f"{pct(a['cycle_ms'], 50):.3f} ms p90 {pct(a['cycle_ms'], 90):.3f}"
+          f" ms, bare orchestrator p50 {pct(bare['cycle_ms'], 50):.3f} ms, "
+          f"CPU p50 {pct(cpu['cycle_ms'], 50):.3f} ms; wrapped == bare bit for"
+          f" bit; card: {card}")
+
+    # the cross-region drill
+    a = shard_drill("cuda")
+    b = shard_drill("cuda")
+    cpu = shard_drill("cpu")
+    for other, exact in ((b, True), (cpu, False)):
+        shard_same(a, other, exact, "shards drill")
+        if other["moved"] != a["moved"] or other["t"] != a["t"]:
+            raise AssertionError("shards drill: moves differ")
+    print(f"shards drill: region 1 saturated at 2 s; cross-region moves "
+          f"{a['cross'][0]} (rejected {a['cross'][1]}) by {a['t']} s: "
+          + json.dumps({str(k): v for k, v in a["moved"].items()})
+          + " (sid -> region); card == card, card == CPU")
+
+    # the routed 1,024-session storm
+    a = shard_storm("cuda")
+    if any(counts_of(counters).values()):
+        raise AssertionError("the sharded fleet launched a hand-written "
+                             "kernel")
+    b = shard_storm("cuda")
+    cpu = shard_storm("cpu")
+    shard_same(a, b, True, "shards storm")
+    shard_same(a, cpu, False, "shards storm")
+    if a["kpis"] != b["kpis"] or a["kpis"] != cpu["kpis"]:
+        raise AssertionError("shards storm: kpis differ")
+    tot = [sum(d[0][i] for d in a["decisions"])
+           for i in range(len(FLEET_COUNTS) - 2)]
+    print(f"shards storm: {STORM_REGIONS} regions, "
+          f"{sum(map(len, a['sids']))} sessions conserved; routed request "
+          f"p50 {pct(a['request_ms'], 50):.3f} ms; step ms "
+          + ", ".join(f"{x:.1f}" for x in a["step_ms"])
+          + f"; decisions {json.dumps(dict(zip(FLEET_COUNTS, tot)))}; node "
+          f"0 seen dead, region 0 off it; card == card, card == CPU; card: "
+          f"{card}")
+    print(f"shards: phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def reset(counters) -> None:
     for fn in counters:
         fn.launches = 0
@@ -2369,7 +2886,10 @@ def main() -> int:
     # ---- phase 10: admission control and the crash journal ----
     phase_admission(counters, card)
 
-    # ---- phase 11: result ----
+    # ---- phase 11: the region-sharded fleet ----
+    phase_shards(counters, card)
+
+    # ---- phase 12: result ----
     launches_from = {
         "decode_attention": gen_counts, "ssd": m_counts, "rglru": g_counts,
         "flash_attention@mla": zoo["deepseek-v2-lite-16b"][0],

@@ -13,8 +13,9 @@
   forecast     — short-horizon capacity forecaster (device rings)
   fleet_eval   — batched fleet pricing / migration / repair, resident fleet
                  state and the fused monitoring-step programs
-  fleet        — multi-session Fleet Orchestrator (admit / depart / step)
-                 and its crash journal (state_dict / save / load)
+  fleet        — multi-session Fleet Orchestrator (admit / depart / step),
+                 its crash journal (state_dict / save / load) and the
+                 region-sharded orchestrator over one per MEC region
   admission    — latency-priced admission control (accept / defer / reject,
                  preemption under overload)
   broadcast    — Reconfiguration Broadcast (RB), 2-phase versioned rollout
@@ -26,6 +27,7 @@ from .admission import (
     AdmissionRequest,
     AdmissionVerdict,
     FleetAdmissionController,
+    ShardedFleetAdmissionController,
 )
 from .broadcast import (
     FlakyAgent,
@@ -47,6 +49,7 @@ from .cost_model import (
     memory_violations,
     memory_violations_packed,
     phi,
+    region_slice,
 )
 from .fleet import (
     AdmissionRolloutError,
@@ -54,6 +57,7 @@ from .fleet import (
     FleetOrchestrator,
     FleetSession,
     JOURNAL_SCHEMA,
+    ShardedFleetOrchestrator,
     TelemetryGuard,
     session_induced_loads,
 )
@@ -66,6 +70,8 @@ from .fleet_eval import (
     PackedSessions,
     ResidentFleetKernel,
     ResidentPrice,
+    ShardScreen,
+    ShardedFleetState,
     pack_sessions,
     packed_induced_loads,
 )
@@ -146,6 +152,8 @@ __all__ = [
     "ResidentFleetKernel", "ResidentPrice", "restrict_state", "RolloutPolicy",
     "seasonal_forecast", "seasonal_update", "SegmentProfile",
     "SegmentProfileEntry", "select_candidate_nodes", "session_induced_loads",
+    "ShardScreen", "ShardedFleetAdmissionController",
+    "ShardedFleetOrchestrator", "ShardedFleetState", "region_slice",
     "SessionProblem", "should_reconfigure", "Solution", "solve_joint_dp",
     "solve_placement_chain_dp", "SolveThrottle", "SplitRevision",
     "SplitScheme", "surrogate_cost", "SystemState", "TelemetryGuard",

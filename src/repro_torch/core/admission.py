@@ -22,17 +22,21 @@ The controller owns no tensors: it packs on ``orchestrator.splitter`` and
 prices on the orchestrator, so every verdict runs on the orchestrator's
 device.  KPIs (accept/reject/defer/expire/preempt counts) are surfaced
 through :attr:`FleetAdmissionController.counters` and :meth:`kpis`.
+:class:`ShardedFleetAdmissionController` routes each request by its global
+ingress node to one such controller per MEC region of a
+:class:`~repro_torch.core.fleet.ShardedFleetOrchestrator`.
 """
 
 from __future__ import annotations
 
 import enum
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace as _dc_replace
 
 import numpy as np
 
-from .cost_model import CostModel, Workload, memory_violations, node_loads
+from .cost_model import (CostModel, Workload, memory_violations, node_loads,
+                         region_slice)
 from .fleet import (
     AdmissionRolloutError,
     FleetOrchestrator,
@@ -54,6 +58,7 @@ __all__ = [
     "AdmissionRequest",
     "AdmissionVerdict",
     "FleetAdmissionController",
+    "ShardedFleetAdmissionController",
 ]
 
 
@@ -497,3 +502,111 @@ class FleetAdmissionController:
             for r in [e["request"]]
         )
         self._table_key, self._table_cache = (), None
+
+
+class ShardedFleetAdmissionController:
+    """Region-routed admission over a :class:`ShardedFleetOrchestrator`.
+
+    One :class:`FleetAdmissionController` per region, each pricing arrivals
+    against ITS region's residual capacity only (exact under the
+    block-diagonal sharding — a session never consumes another region's
+    nodes).  A request's GLOBAL ingress node picks the region; the request
+    is re-addressed into region-local coordinates before pricing, so the
+    per-region controllers are completely unaware they are shards.  The
+    defer queues stay per-region (a deferred tenant retries where it
+    arrived — MEC ingress is geographic, not fungible), and the KPI surface
+    aggregates across regions.
+    """
+
+    def __init__(self, orchestrator, *, max_sessions: int = 64,
+                 rho_ceiling: float = 1.0, queue_cap: int = 16,
+                 cost_model: CostModel | None = None,
+                 use_forecast: bool = True,
+                 preempt_patience_s: float | None = None) -> None:
+        self.orchestrator = orchestrator
+        S = orchestrator.n_regions
+        per_cap = max(1, max_sessions // S)
+        per_queue = max(1, queue_cap // S) if S > 1 else queue_cap
+        self.max_sessions = max_sessions
+        self.queue_cap = queue_cap
+        self.regional = [
+            FleetAdmissionController(
+                inner, max_sessions=per_cap if S > 1 else max_sessions,
+                rho_ceiling=rho_ceiling, queue_cap=per_queue,
+                cost_model=cost_model, use_forecast=use_forecast,
+                preempt_patience_s=preempt_patience_s,
+            )
+            for inner in orchestrator.inners
+        ]
+
+    # -- routing ------------------------------------------------------- #
+    def _route(self, req: AdmissionRequest) -> tuple[int, AdmissionRequest]:
+        if self.orchestrator.n_regions == 1:
+            return 0, req
+        r, local = self.orchestrator.locate_node(req.source_node)
+        return r, _dc_replace(req, source_node=local)
+
+    def request(self, req: AdmissionRequest, *,
+                now: float = 0.0) -> AdmissionVerdict:
+        r, req = self._route(req)
+        return self.regional[r].request(req, now=now)
+
+    def poll(self, now: float):
+        out = []
+        for c in self.regional:
+            out.extend(c.poll(now))
+        return out
+
+    def preempt_overload(self, now: float, *, state=None):
+        """Per-region revocation; a supplied global state is sliced."""
+        out = []
+        for r, c in enumerate(self.regional):
+            local = None
+            if state is not None and self.orchestrator.n_regions > 1:
+                local = region_slice(state, self.orchestrator.node_ix[r])
+            elif state is not None:
+                local = state
+            out.extend(c.preempt_overload(now, state=local))
+        return out
+
+    # -- aggregated KPI surface ---------------------------------------- #
+    @property
+    def preempt_patience_s(self):
+        return self.regional[0].preempt_patience_s
+
+    @preempt_patience_s.setter
+    def preempt_patience_s(self, v) -> None:
+        for c in self.regional:
+            c.preempt_patience_s = v
+
+    @property
+    def queued(self) -> int:
+        return sum(c.queued for c in self.regional)
+
+    @property
+    def counters(self) -> dict[str, int]:
+        out: dict[str, int] = {}
+        for c in self.regional:
+            for k, v in c.counters.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    @property
+    def preempted_by_class(self) -> dict[str, int]:
+        out: dict[str, int] = {}
+        for c in self.regional:
+            for k, v in c.preempted_by_class.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    def kpis(self) -> dict[str, float]:
+        c = self.counters
+        denom = max(1, c["requests"])
+        return {
+            **{k: float(v) for k, v in c.items()},
+            "accept_frac": c["accepted"] / denom,
+            "reject_frac": (c["rejected"] + c["expired"]) / denom,
+            "queued_now": float(self.queued),
+            **{f"preempted_{name}": float(v)
+               for name, v in sorted(self.preempted_by_class.items())},
+        }

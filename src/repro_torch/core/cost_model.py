@@ -25,6 +25,7 @@ from .graph import ModelGraph
 __all__ = [
     "Workload",
     "SystemState",
+    "region_slice",
     "CostWeights",
     "CostBreakdown",
     "CostModel",
@@ -87,6 +88,13 @@ class SystemState:
     link_lat: np.ndarray           # (n, n) seconds
     mem_bw: np.ndarray | None = None  # (n,) HBM bytes/s (default: flops/150)
     names: tuple[str, ...] = field(default_factory=tuple)
+    # MEC-region membership: ``region_of[i]`` is node i's region id,
+    # contiguous 0..R-1.  Host-side metadata only — the pricing programs
+    # never see it; the region-sharded control plane slices C(t) into
+    # per-region states with it (:func:`region_slice`).  ``None`` means the
+    # whole state is one region.
+    region_of: np.ndarray | None = None
+
     def __post_init__(self) -> None:
         n = self.num_nodes
         if self.mem_bw is None:
@@ -100,6 +108,14 @@ class SystemState:
         ]:
             if np.asarray(arr).shape != shape:
                 raise ValueError(f"state array shape {np.asarray(arr).shape} != {shape}")
+        if self.region_of is not None:
+            self.region_of = np.asarray(self.region_of, dtype=np.int64)
+            if self.region_of.shape != (n,):
+                raise ValueError(
+                    f"region_of shape {self.region_of.shape} != ({n},)")
+            r = np.unique(self.region_of)
+            if r.min() != 0 or not np.array_equal(r, np.arange(len(r))):
+                raise ValueError("region ids must be contiguous 0..R-1")
         if not self.names:
             self.names = tuple(f"node{i}" for i in range(n))
 
@@ -107,13 +123,43 @@ class SystemState:
     def num_nodes(self) -> int:
         return int(np.asarray(self.flops_per_s).shape[0])
 
+    @property
+    def num_regions(self) -> int:
+        return (1 if self.region_of is None
+                else int(self.region_of.max()) + 1)
+
     def copy(self) -> "SystemState":
         return SystemState(
             self.flops_per_s.copy(), self.mem_bytes.copy(),
             self.background_util.copy(), self.trusted.copy(),
             self.link_bw.copy(), self.link_lat.copy(),
             None if self.mem_bw is None else self.mem_bw.copy(), self.names,
+            None if self.region_of is None else self.region_of.copy(),
         )
+
+
+def region_slice(state: SystemState, nodes: np.ndarray) -> SystemState:
+    """C(t) restricted to one region's node subset.
+
+    ``nodes`` are GLOBAL node indices (ascending); the returned state is
+    the block-diagonal slice in LOCAL coordinates — the region-sharded
+    control plane places every session on its own region's nodes only, so
+    the inter-region rows/columns it drops carry no session traffic and
+    the slice is an exact view, not an approximation.  ``region_of`` is
+    dropped (a single region IS the whole sliced state).
+    """
+    ix = np.asarray(nodes, dtype=np.int64)
+    return SystemState(
+        np.asarray(state.flops_per_s, dtype=np.float64)[ix].copy(),
+        np.asarray(state.mem_bytes, dtype=np.float64)[ix].copy(),
+        np.asarray(state.background_util, dtype=np.float64)[ix].copy(),
+        np.asarray(state.trusted)[ix].copy(),
+        np.asarray(state.link_bw, dtype=np.float64)[np.ix_(ix, ix)].copy(),
+        np.asarray(state.link_lat, dtype=np.float64)[np.ix_(ix, ix)].copy(),
+        None if state.mem_bw is None
+        else np.asarray(state.mem_bw, dtype=np.float64)[ix].copy(),
+        tuple(state.names[int(i)] for i in ix) if state.names else (),
+    )
 
 
 @dataclass(frozen=True)

@@ -41,6 +41,12 @@ and :meth:`~FleetOrchestrator.load` journal the control plane (with the
 admission controller's queue) so a restarted controller continues where
 the crashed one stopped.
 
+An operator with many MEC regions runs :class:`ShardedFleetOrchestrator`:
+one :class:`FleetOrchestrator` per region over its region-local C(t), one
+cross-shard screen a cycle that prices every region at once, full steps only
+for the regions whose triggers fire, and a host aggregator that moves the
+worst-breaching sessions into the region with the most headroom.
+
 Every tensor lives on ``FleetOrchestrator.device`` (default ``"cuda"``,
 which raises without a card); tests pass ``device="cpu"``.
 """
@@ -51,7 +57,7 @@ import json
 import os
 import tempfile
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace as _dc_replace
 
 import numpy as np
 import torch
@@ -68,6 +74,7 @@ from .cost_model import (
     link_loads,
     memory_violations,
     memory_violations_packed,
+    region_slice,
     segment_service_time,
 )
 from .fleet_eval import (
@@ -75,6 +82,7 @@ from .fleet_eval import (
     FleetCostEvaluator,
     FleetStateBuffers,
     ResidentFleetKernel,
+    ShardedFleetState,
     gather_rows,
     pack_sessions,
     packed_induced_loads,
@@ -104,8 +112,8 @@ from .triggers import (
 )
 
 __all__ = ["FleetSession", "FleetDecision", "FleetOrchestrator",
-           "TelemetryGuard", "AdmissionRolloutError", "session_induced_loads",
-           "JOURNAL_SCHEMA"]
+           "ShardedFleetOrchestrator", "TelemetryGuard",
+           "AdmissionRolloutError", "session_induced_loads", "JOURNAL_SCHEMA"]
 
 # the reference package writes the same schema: a journal saved by one loads
 # into the other
@@ -1924,3 +1932,591 @@ class FleetOrchestrator:
                               "resident": resident},
                              admission=admission, claim_epoch=claim_epoch,
                              reseed_agents=reseed_agents)
+
+
+# --------------------------------------------------------------------------- #
+# region-sharded fleet orchestration
+# --------------------------------------------------------------------------- #
+# sid namespace stride per region: sids stay globally unique without any
+# cross-region coordination, and a migrated session KEEPS its sid (the
+# target region admits it with _next_sid temporarily pinned to the old id)
+_REGION_SID_BASE = 1 << 24
+
+
+class _ShardedProfiler:
+    """Profiler facade over one :class:`CapacityProfiler` per region.
+
+    The fleet simulator talks to ONE profiler (``base_state`` per tick,
+    ``observe_*`` streams); the sharded control plane needs each region's
+    orchestrator to see only its own 4-node slice.  This facade keeps the
+    global C(t) and routes every write to the owning region in local
+    coordinates, so the per-region orchestrators/admission controllers are
+    completely unaware they are shards.
+    """
+
+    def __init__(self, wrapper: "ShardedFleetOrchestrator") -> None:
+        self._w = wrapper
+
+    @property
+    def ewma_alpha(self) -> float:
+        return self._w.inners[0].profiler.ewma_alpha
+
+    @property
+    def base_state(self) -> SystemState:
+        return self._w._global_base
+
+    @base_state.setter
+    def base_state(self, st: SystemState) -> None:
+        self._w._global_base = st
+        for r, o in enumerate(self._w.inners):
+            o.profiler.base_state = region_slice(st, self._w.node_ix[r])
+
+    def observe_node(self, s) -> None:
+        r, local = self._w.locate_node(s.node)
+        self._w.inners[r].profiler.observe_node(_dc_replace(s, node=local))
+
+    def observe_links(self, bw_matrix_bps: np.ndarray) -> None:
+        for r, o in enumerate(self._w.inners):
+            ix = self._w.node_ix[r]
+            o.profiler.observe_links(bw_matrix_bps[np.ix_(ix, ix)])
+
+    def observe_latency(self, e2e_latency_s: float) -> None:
+        for o in self._w.inners:
+            o.profiler.observe_latency(e2e_latency_s)
+
+    def system_state(self) -> SystemState:
+        """Global C(t) re-assembled from the per-region profiler views."""
+        st = self._w._global_base.copy()
+        for r, o in enumerate(self._w.inners):
+            ix = self._w.node_ix[r]
+            local = o.profiler.system_state()
+            st.background_util[ix] = local.background_util
+            st.link_bw[np.ix_(ix, ix)] = local.link_bw
+        return st
+
+
+class ShardedFleetOrchestrator:
+    """Region-sharded Adaptive Split Orchestration.
+
+    One :class:`FleetOrchestrator` per MEC region, each owning its own
+    resident :class:`~repro_torch.core.fleet_eval.FleetStateBuffers` + kernel over
+    the region-local C(t).  Sessions are placed on their own region's nodes
+    only, so the fleet decomposes block-diagonally: per-region pricing and
+    the per-region fixed point are *exact*, and the cross-region
+    coupling reduces to a cheap host-side aggregator that nominates top-k
+    breach-seconds rows for migration into the region with the most
+    residual headroom (priced through the target's existing B=1
+    solve/repair path — no new device machinery).
+
+    A monitoring cycle is: ONE vmapped cross-shard screen call
+    (:meth:`~repro_torch.core.fleet_eval.ShardedFleetState.screen`) pricing every
+    shard against its regional C(t), a vectorized host-side trigger check
+    per shard, full :meth:`FleetOrchestrator.step` cycles ONLY for shards
+    showing trigger activity (quiet shards advance their sessions' EWMAs
+    vectorized and KEEP everything — the screen predicate mirrors
+    ``triggers.should_reconfigure`` exactly, and cooldown/throttle gates
+    only ever *suppress* solves, so skipping a quiet shard's step changes
+    nothing it would have done), then the cross-region aggregator.  Cycle
+    cost therefore grows ~O(triggered set), not O(fleet).
+
+    ``n_regions == 1`` delegates EVERY operation verbatim to the single
+    inner orchestrator — bit-identical to the unsharded path by
+    construction (test-enforced).
+
+    Quiet-shard bookkeeping note: a skipped shard's per-session
+    ``FleetSession.ewma_latency`` objects are allowed to go stale — the
+    wrapper's per-row EWMA arrays are authoritative and are written back
+    into the session objects immediately before that shard's next real
+    ``step`` (and merged decisions count those sessions as KEEPs without
+    materializing per-session ``Decision`` objects).
+    """
+
+    def __init__(self, inners, *, region_of: np.ndarray,
+                 cross_top_k: int = 4,
+                 cross_margin: float = 0.05) -> None:
+        self.inners = list(inners)
+        S = len(self.inners)
+        region_of = np.asarray(region_of, dtype=np.int64)
+        if region_of.max() + 1 != S:
+            raise ValueError(
+                f"region_of names {int(region_of.max()) + 1} regions "
+                f"for {S} inner orchestrators")
+        self.region_of_node = region_of
+        # global node ids per region + inverse map (global -> (r, local))
+        self.node_ix = [np.where(region_of == r)[0] for r in range(S)]
+        self._local_of = {
+            int(g): (r, i)
+            for r in range(S)
+            for i, g in enumerate(self.node_ix[r])
+        }
+        for r, o in enumerate(self.inners):
+            n_local = o.profiler.base_state.num_nodes
+            if n_local != len(self.node_ix[r]):
+                raise ValueError(
+                    f"region {r}: orchestrator has {n_local} nodes, "
+                    f"region_of assigns {len(self.node_ix[r])}")
+            if S > 1:
+                o._next_sid = r * _REGION_SID_BASE
+        # how many breach rows the aggregator prices per cycle, and the
+        # minimum headroom advantage (in peak node rho) a target region must
+        # hold over the source before a cross-region move is even priced
+        self.cross_top_k = int(cross_top_k)
+        self.cross_margin = float(cross_margin)
+        self.cross_migrations = 0
+        self.cross_rejected = 0
+        # placeholder buffers on the inners' device: every cycle swaps in
+        # the live ones (_sharded)
+        self._shstate = ShardedFleetState(
+            [FleetStateBuffers(rows=1, segs=1, device=o.device)
+             for o in self.inners],
+            [o.kernel for o in self.inners],
+        ) if S > 1 else None
+        # per-shard row-indexed tracking (rebuilt on buffer signature change):
+        # EWMA latency (NaN = uninitialized), per-row SLO, row -> sid
+        self._ewma = [np.zeros(0) for _ in range(S)]
+        self._slo = [np.zeros(0) for _ in range(S)]
+        self._sid_at = [np.zeros(0, dtype=np.int64) for _ in range(S)]
+        self._track_sig = [None] * S
+        self._decisions: list[FleetDecision] = []
+        self._global_base = None
+        self.profiler = (self.inners[0].profiler if S == 1
+                         else _ShardedProfiler(self))
+        self.screen_cycles = 0       # cycles resolved through the screen
+        self.shards_stepped = 0      # cumulative full per-shard step() calls
+
+    # ------------------------------------------------------------------ #
+    @property
+    def n_regions(self) -> int:
+        return len(self.inners)
+
+    @property
+    def sessions(self) -> dict[int, FleetSession]:
+        """Merged live-session view (read-only by convention)."""
+        if self.n_regions == 1:
+            return self.inners[0].sessions
+        out: dict[int, FleetSession] = {}
+        for o in self.inners:
+            out.update(o.sessions)
+        return out
+
+    @property
+    def thresholds(self) -> Thresholds:
+        return self.inners[0].thresholds
+
+    @property
+    def decisions(self) -> list[FleetDecision]:
+        return (self.inners[0].decisions if self.n_regions == 1
+                else self._decisions)
+
+    @property
+    def forecaster(self):
+        return self.inners[0].forecaster
+
+    @forecaster.setter
+    def forecaster(self, fc) -> None:
+        """One forecaster instance per region (per-region capacity history
+        has region-local shapes); the assigned instance seeds region 0 and
+        the rest get fresh clones of its config, on its device."""
+        if self.n_regions == 1 or fc is None:
+            for o in self.inners:
+                o.forecaster = fc
+            return
+        self.inners[0].forecaster = fc
+        for o in self.inners[1:]:
+            o.forecaster = CapacityForecaster(fc.cfg, device=fc.device)
+
+    @property
+    def cost_model(self):
+        return self.inners[0].cost_model
+
+    @property
+    def heartbeats(self):
+        return self.inners[0].heartbeats
+
+    @heartbeats.setter
+    def heartbeats(self, hb) -> None:
+        """A single global registry only makes sense unsharded; sharded
+        storms attach per-region registries to the inners directly."""
+        if self.n_regions > 1 and hb is not None:
+            raise ValueError(
+                "attach per-region HeartbeatRegistry instances to "
+                "wrapper.inners[r].heartbeats (node ids are region-local)")
+        self.inners[0].heartbeats = hb
+
+    def locate_node(self, node: int) -> tuple[int, int]:
+        """Global node id -> (region, region-local node id)."""
+        return self._local_of[int(node)]
+
+    def region_of_sid(self, sid: int) -> int:
+        """The region currently hosting ``sid`` (membership IS the truth —
+        no side table that could desync across cross-region migrations)."""
+        for r, o in enumerate(self.inners):
+            if sid in o.sessions:
+                return r
+        raise KeyError(sid)
+
+    # ------------------------------------------------------------------ #
+    # churn: route by ingress region
+    # ------------------------------------------------------------------ #
+    def admit(self, graph, workload, *, source_node: int = 0, arch: str = "",
+              now: float = 0.0, qos=None, solution=None,
+              prepacked=None) -> int:
+        if self.n_regions == 1:
+            return self.inners[0].admit(
+                graph, workload, source_node=source_node, arch=arch,
+                now=now, qos=qos, solution=solution, prepacked=prepacked)
+        r, local = self.locate_node(source_node)
+        return self.inners[r].admit(
+            graph, workload, source_node=local, arch=arch, now=now,
+            qos=qos, solution=solution, prepacked=prepacked)
+
+    def depart(self, sid: int) -> FleetSession:
+        if self.n_regions == 1:
+            return self.inners[0].depart(sid)
+        return self.inners[self.region_of_sid(sid)].depart(sid)
+
+    # ------------------------------------------------------------------ #
+    # fused per-tick pricing
+    # ------------------------------------------------------------------ #
+    def price_fleet(self, state: SystemState | None = None, *,
+                    now: float | None = None):
+        """(sids, latencies, GLOBAL node-rho) — one pricing call per shard.
+
+        A global ``state`` is sliced per region; each region prices its own
+        sessions against its own C(t) and the per-region rho vectors scatter
+        back into global node coordinates.
+        """
+        if self.n_regions == 1:
+            return self.inners[0].price_fleet(state, now=now)
+        n = (state.num_nodes if state is not None
+             else len(self.region_of_node))
+        sids: list[int] = []
+        lat_parts: list[np.ndarray] = []
+        rho = np.zeros(n)
+        for r, o in enumerate(self.inners):
+            local = (None if state is None
+                     else region_slice(state, self.node_ix[r]))
+            s, lat, rho_r = o.price_fleet(local, now=now)
+            sids.extend(s)
+            lat_parts.append(np.asarray(lat))
+            rho[self.node_ix[r]] = rho_r
+        lat = (np.concatenate(lat_parts) if lat_parts else np.zeros(0))
+        return sids, lat, rho
+
+    # ------------------------------------------------------------------ #
+    # screen bookkeeping
+    # ------------------------------------------------------------------ #
+    def _sharded(self):
+        """Refresh the stacked screen state in place (the stacked row block
+        is keyed on buffer stamps, so swapping the buffer objects each cycle
+        is free)."""
+        sh = self._shstate
+        sh.shards = [o._resident() for o in self.inners]
+        sh.kernels = [o.kernel for o in self.inners]
+        return sh
+
+    def _refresh_tracking(self, r: int) -> None:
+        """(Re)build shard ``r``'s row-indexed EWMA/SLO/sid arrays iff the
+        underlying buffer changed (admit/depart/growth); surviving rows are
+        remapped BY SID from the old arrays so quiet-cycle EWMA updates are
+        never lost to a rebuild."""
+        o = self.inners[r]
+        buf = o._buffers
+        sig = (id(buf), buf.n_rows, len(buf.row_of),
+               buf.stats["row_writes"])
+        if self._track_sig[r] == sig:
+            return
+        th = o.thresholds
+        B = buf.n_rows
+        old_ew = {
+            int(s): float(self._ewma[r][row])
+            for row, s in enumerate(self._sid_at[r])
+            if s >= 0 and row < len(self._ewma[r])
+        }
+        ew = np.full(B, np.nan)
+        slo = np.full(B, th.latency_max_s)
+        sid_at = np.full(B, -1, dtype=np.int64)
+        for sid, row in buf.row_of.items():
+            sess = o.sessions.get(sid)
+            if sess is None:
+                continue
+            prev = old_ew.get(sid)
+            if prev is None or np.isnan(prev):
+                v = sess.ewma_latency.value
+                prev = np.nan if v is None else float(v)
+            ew[row] = prev
+            if sess.qos is not None:
+                slo[row] = sess.qos.latency_slo_s
+            sid_at[row] = sid
+        self._ewma[r], self._slo[r], self._sid_at[r] = ew, slo, sid_at
+        self._track_sig[r] = sig
+
+    def _sync_sessions_from_rows(self, r: int) -> None:
+        """Push the (authoritative) wrapper EWMAs into shard ``r``'s session
+        objects — required immediately before a real ``step`` so its
+        trigger checks see the quiet-cycle history."""
+        o = self.inners[r]
+        ew = self._ewma[r]
+        for sid, row in o._buffers.row_of.items():
+            if row < len(ew) and np.isfinite(ew[row]):
+                sess = o.sessions.get(sid)
+                if sess is not None:
+                    sess.ewma_latency.value = float(ew[row])
+
+    def _sync_rows_from_sessions(self, r: int) -> None:
+        """Pull post-step session EWMAs back into the wrapper arrays."""
+        o = self.inners[r]
+        ew = self._ewma[r]
+        for sid, row in o._buffers.row_of.items():
+            sess = o.sessions.get(sid)
+            if sess is None or row >= len(ew):
+                continue
+            v = sess.ewma_latency.value
+            ew[row] = np.nan if v is None else float(v)
+
+    # ------------------------------------------------------------------ #
+    # one sharded monitoring cycle
+    # ------------------------------------------------------------------ #
+    def step(self, now: float) -> FleetDecision:
+        if self.n_regions == 1:
+            return self.inners[0].step(now)
+        t0 = time.perf_counter()
+        inners = self.inners
+        S = len(inners)
+        n_sessions = sum(len(o.sessions) for o in inners)
+        if n_sessions == 0 and all(
+            o.heartbeats is None and o.forecaster is None for o in inners
+        ):
+            d = FleetDecision(t=now, per_session={}, solver_time_s=0.0,
+                              n_keep=0, n_migrate=0, n_resplit=0,
+                              n_cooldown=0)
+            self._decisions.append(d)
+            return d
+
+        # -- 1. one vmapped screen call over all shards ------------------ #
+        sh = self._sharded()
+        states = [o.profiler.system_state() for o in inners]
+        t_ev = time.perf_counter()
+        scr = sh.screen(states, weights=inners[0].weights,
+                        bw_floor=inners[0].bw_floor_frac)
+        eval_time = time.perf_counter() - t_ev
+        self.screen_cycles += 1
+        for r in range(S):
+            self._refresh_tracking(r)
+
+        # -- 2. per-shard activation predicate (vectorized, host) -------- #
+        th = self.thresholds
+        a = th.ewma_alpha
+        sub = []      # merged per-shard decisions
+        quiet_keeps = 0
+        for r, o in enumerate(inners):
+            guard_q = (o.telemetry_guard is not None
+                       and o.telemetry_guard.quarantined)
+            must = (o.forecaster is not None or o.heartbeats is not None
+                    or bool(guard_q))
+            if not o.sessions:
+                if must:
+                    sub.append(o.step(now))
+                    self.shards_stepped += 1
+                continue
+            # row-active mask straight from the tracking arrays (a sid is
+            # tracked iff its row is allocated AND the session is live) —
+            # no per-shard device fetch on the quiet path: the screen's
+            # outputs came to the host in one transfer
+            act = self._sid_at[r] >= 0
+            lat = scr.lat[r][: len(act)]
+            util = scr.max_util[r][: len(act)]
+            bw = scr.min_bw[r][: len(act)]
+            ew = self._ewma[r]
+            # EWMA.update semantics, vectorized: first sample seeds, a
+            # non-finite sample holds the last value
+            cand = np.where(np.isnan(ew), lat, a * lat + (1.0 - a) * ew)
+            cand = np.where(np.isfinite(lat), cand, ew)
+            # NaN (not inf) marks corrupt pricing — a single-node row's
+            # min_bw is legitimately +inf, and an inf latency HOLDS the EWMA
+            # exactly like EWMA.update does on the monolithic path
+            bad = np.isnan(lat) | np.isnan(util) | np.isnan(bw)
+            with np.errstate(invalid="ignore"):
+                fire = ((cand > self._slo[r]) | (util > th.util_max)
+                        | (bw < th.bandwidth_min_bps) | bad)
+            fire &= act
+            if must or bool(fire.any()):
+                # real cycle: session EWMAs must be current first, and the
+                # inner step's own EWMA update supersedes the screen's
+                self._sync_sessions_from_rows(r)
+                sub.append(o.step(now))
+                self.shards_stepped += 1
+                self._refresh_tracking(r)
+                self._sync_rows_from_sessions(r)
+            else:
+                # quiet shard: commit the screen-advanced EWMAs, KEEP all
+                ew[act] = cand[act]
+                quiet_keeps += len(o.sessions)
+
+        # -- 3. cross-region migration aggregator ------------------------ #
+        n_cross = self._cross_region_pass(now, scr, states)
+
+        # -- 4. merged decision ------------------------------------------ #
+        per: dict[int, Decision] = {}
+        for d in sub:
+            per.update(d.per_session)
+        d = FleetDecision(
+            t=now,
+            per_session=per,
+            solver_time_s=time.perf_counter() - t0,
+            n_keep=sum(x.n_keep for x in sub) + quiet_keeps,
+            n_migrate=sum(x.n_migrate for x in sub) + n_cross,
+            n_resplit=sum(x.n_resplit for x in sub),
+            n_cooldown=sum(x.n_cooldown for x in sub),
+            eval_time_s=eval_time + sum(x.eval_time_s for x in sub),
+            pack_time_s=sum(x.pack_time_s for x in sub),
+            n_preempt=sum(x.n_preempt for x in sub),
+            n_node_fail=sum(x.n_node_fail for x in sub),
+            dead_nodes=tuple(sorted(self._globalize_dead(sub))),
+            infeasible_sids=tuple(
+                s for x in sub for s in x.infeasible_sids),
+            n_conflict_keep=sum(x.n_conflict_keep for x in sub),
+            n_nogain_keep=sum(x.n_nogain_keep for x in sub),
+            fixed_point_sweeps=max(
+                (x.fixed_point_sweeps for x in sub), default=0),
+            fixed_point_aborts=sum(x.fixed_point_aborts for x in sub),
+        )
+        self._decisions.append(d)
+        return d
+
+    def _globalize_dead(self, sub: list[FleetDecision]) -> set[int]:
+        """Stepped shards report dead nodes in local ids; map them back to
+        global ids via each inner's CURRENT heartbeat registry (the inner
+        decision does not carry its region, so read the live registries —
+        the authoritative dead set — instead)."""
+        out: set[int] = set()
+        if not any(x.dead_nodes for x in sub):
+            return out
+        for r, o in enumerate(self.inners):
+            if o.heartbeats is None:
+                continue
+            for local in o.heartbeats.dead():
+                out.add(int(self.node_ix[r][int(local)]))
+        return out
+
+    # ------------------------------------------------------------------ #
+    def _cross_region_pass(self, now: float, scr, states) -> int:
+        """Top-k breach-seconds rows vs other regions' residual headroom.
+
+        Host-side candidate nomination is O(fleet rows) numpy; only the
+        nominated handful are priced, each through the TARGET region's
+        existing B=1 admission-grade solve/repair path.  A move commits as
+        depart(source) + admit(target, solution=...) with the sid pinned,
+        so every fleet invariant (row ownership, broadcast journaling,
+        weight-byte conservation) holds per region by construction.
+        """
+        if self.cross_top_k <= 0:
+            return 0
+        S = len(self.inners)
+        # per-region peak rho under current load (screen totals are induced
+        # node rho; add the regional background)
+        rho = np.array([
+            float(np.max(np.asarray(states[r].background_util)
+                         + scr.tot_node[r]))
+            for r in range(S)
+        ])
+        cands: list[tuple[float, int, int]] = []   # (breach, region, row)
+        for r in range(S):
+            ew = self._ewma[r]
+            if not len(ew):
+                continue
+            ok = (self._sid_at[r] >= 0) & np.isfinite(ew)
+            breach = np.where(ok, ew - self._slo[r], 0.0)
+            for row in np.nonzero(breach > 0.0)[0]:
+                cands.append((float(breach[row]), r, int(row)))
+        if not cands:
+            return 0
+        cands.sort(reverse=True)
+        moved = 0
+        for breach, rs, row in cands[: self.cross_top_k]:
+            sid = int(self._sid_at[rs][row])
+            src = self.inners[rs]
+            sess = src.sessions.get(sid)
+            if sess is None:
+                continue
+            # a just-reconfigured session (including one this aggregator
+            # moved) sits out its cooldown before being nominated again —
+            # the same anti-thrash gate the per-region cycles apply
+            if now - sess.t_last_reconfig < src.thresholds.cooldown_s:
+                continue
+            rt = int(np.argmin(np.where(np.arange(S) == rs, np.inf, rho)))
+            if rho[rt] + self.cross_margin >= rho[rs]:
+                self.cross_rejected += 1
+                continue
+            if self._try_cross_migrate(sess, rs, rt, states[rt], now):
+                moved += 1
+                # keep later candidates honest about the load just moved
+                lam_rho = float(np.max(scr.tot_node[rs]) /
+                                max(1, len(src.sessions) + 1))
+                rho[rt] += lam_rho
+            else:
+                self.cross_rejected += 1
+        return moved
+
+    def _try_cross_migrate(self, sess: FleetSession, rs: int, rt: int,
+                           state_t: SystemState, now: float) -> bool:
+        """Price ``sess`` into region ``rt``; commit only on a QoS win."""
+        tgt = self.inners[rt]
+        src = self.inners[rs]
+        slo = (sess.qos.latency_slo_s if sess.qos is not None
+               else tgt.thresholds.latency_max_s)
+        cur = self._ewma[rs][src._buffers.row_of[sess.sid]]
+        # mirror ingress: regions are homogeneous cluster replicas, so the
+        # session's region-local source index carries over (clamped)
+        local_src = min(int(sess.source_node), state_t.num_nodes - 1)
+        eff = tgt.effective_state(
+            state_t, _table=tgt.resident_table(state_t))
+        try:
+            [sol] = tgt.splitter.solve_batch(
+                [SessionProblem(
+                    sess.graph, sess.workload, source_node=local_src,
+                    input_bytes_per_token=sess.input_bytes_per_token,
+                    prepacked=sess.prepacked)],
+                eff, max_units=tgt.max_units,
+            )
+        except Exception:
+            return False
+        sol = coalesce_same_node(sol)
+        sol = tgt.repair_solution(
+            sess.graph, sol, eff, sess.workload, source_node=local_src,
+            input_bytes_per_token=sess.input_bytes_per_token)
+        if memory_violations(
+            sess.graph, sol.boundaries, sol.assignment, eff
+        ).any():
+            return False
+        lat_new = tgt.cost_model.chain_latency(
+            sess.graph, sol.boundaries, sol.assignment, eff, sess.workload)
+        gain_ok = (lat_new <= slo or
+                   (np.isfinite(cur) and
+                    lat_new < cur * (1.0 - src.min_improvement_frac)))
+        if not gain_ok:
+            return False
+        # commit: depart source, admit target with the sid pinned
+        sess = src.depart(sess.sid)
+        saved = tgt._next_sid
+        tgt._next_sid = sess.sid
+        try:
+            tgt.admit(
+                sess.graph, sess.workload, source_node=local_src,
+                arch=sess.arch, now=now, qos=sess.qos, solution=sol,
+                prepacked=sess.prepacked,
+            )
+        except AdmissionRolloutError:
+            # rollout aborted: the session never left — restore it in the
+            # source region exactly as it was
+            src.sessions[sess.sid] = sess
+            src._upsert_row(sess)
+            return False
+        finally:
+            tgt._next_sid = max(saved, tgt._next_sid)
+        new = tgt.sessions[sess.sid]
+        new.ewma_latency = sess.ewma_latency
+        new.t_admitted = sess.t_admitted
+        new.input_bytes_per_token = sess.input_bytes_per_token
+        self.cross_migrations += 1
+        return True

@@ -26,6 +26,10 @@ batches re-splits:
   per-session trigger env, with the seasonal forecast update riding along),
   ``migrate`` (DP + device backtrack + repair + candidate pricing) and
   ``migrate_fixed_point`` (the red/black joint reconfiguration).
+* :class:`ShardedFleetState` — one (buffers, kernel) pair per MEC region and
+  the cross-shard screen: ``price`` applied over a leading shard axis
+  (``torch.func.vmap``), every shard against its own regional C(t), in one
+  call per cycle.
 
 Every program is plain float64 / int64 / bool tensor code on one device.
 Loops over the padded segment count K replace the reference's scans, and the
@@ -46,6 +50,8 @@ incremental rows.
 
 from __future__ import annotations
 
+import functools
+import itertools
 import time
 from dataclasses import dataclass
 from typing import Sequence
@@ -71,6 +77,8 @@ __all__ = [
     "FixedPointResult",
     "ResidentFleetKernel",
     "ResidentPrice",
+    "ShardScreen",
+    "ShardedFleetState",
     "gather_rows",
     "to_host",
 ]
@@ -78,6 +86,9 @@ __all__ = [
 _BIG = 1e30
 
 _F64 = torch.float64
+
+# process-wide mutation stamps for FleetStateBuffers (see .version)
+_BUF_VERSIONS = itertools.count(1)
 
 
 def _pow2(x: int) -> int:
@@ -740,8 +751,13 @@ class BatchedRepairPass(_OnDevice):
     repair_capacity` remains the pinned reference path.
     """
 
+    def __init__(self, *, device: str | torch.device = "cuda") -> None:
+        super().__init__(device=device)
+        self.dispatches = 0
+
     def _run(self, packed: PackedSessions, bg, link_bw, mem, state,
              price: bool, weights: CostWeights, mem_penalty: float):
+        self.dispatches += 1
         B = packed.batch
         Bp = _pow2(B)
 
@@ -852,6 +868,11 @@ class FleetStateBuffers:
         self._boundaries: list[tuple[int, ...] | None] = [None] * rows
         self.stats = {"row_writes": 0, "rebuilds": 0, "grow_rows": 0,
                       "grow_segs": 0, "pack_time_s": 0.0}
+        # globally-unique mutation stamp: every write assigns a fresh value
+        # from one process-wide counter, so (even across buffer objects that
+        # reuse a freed id) equal stamps imply bit-identical row tensors —
+        # the sharded screen keys its stacked-block cache on it
+        self.version = next(_BUF_VERSIONS)
 
     # -- capacity ------------------------------------------------------- #
     @property
@@ -875,6 +896,7 @@ class FleetStateBuffers:
         self._free.extend(range(new - 1, old - 1, -1))
         self._boundaries.extend([None] * (new - old))
         self.stats["grow_rows"] += 1
+        self.version = next(_BUF_VERSIONS)
 
     def _grow_segs(self, need: int) -> None:
         old = self.max_segs
@@ -886,6 +908,7 @@ class FleetStateBuffers:
             pad = a.new_zeros((a.shape[0], new - old))
             setattr(self, name, torch.cat([a, pad], dim=1))
         self.stats["grow_segs"] += 1
+        self.version = next(_BUF_VERSIONS)
 
     def _write(self, rows, packed: PackedSessions) -> None:
         """Copy ``packed``'s rows into buffer rows ``rows`` (one upload)."""
@@ -902,6 +925,7 @@ class FleetStateBuffers:
                 (-1, *a.shape[1:])).to(a.dtype)
             off += w
         self.active[rows] = True
+        self.version = next(_BUF_VERSIONS)
 
     # -- row updates ---------------------------------------------------- #
     def upsert(
@@ -940,6 +964,7 @@ class FleetStateBuffers:
             getattr(self, name)[row] = 0
         self._boundaries[row] = None
         self._free.append(row)
+        self.version = next(_BUF_VERSIONS)
 
     @classmethod
     def from_sessions(
@@ -1354,6 +1379,32 @@ class FixedPointResult:
     tot_w: torch.Tensor      # (n,)   fleet-total resident bytes at `assign`
 
 
+def _state_upload(dev: _OnDevice, states: Sequence[SystemState]) -> tuple:
+    """The C(t) program arguments of S same-size states, stacked on a leading
+    state axis: ``(bg0 (S, n), link_bw (S, n, n), link_lat (S, n, n),
+    flops_per_s, mem_bw, trusted, mem_bytes (S, n))`` in ONE host→device
+    copy, whatever S is (infinite links become ``_BIG``)."""
+    S, n = len(states), states[0].num_nodes
+
+    def stack(get, inf=False):
+        a = np.stack([np.asarray(get(st), dtype=np.float64) for st in states])
+        return np.nan_to_num(a, posinf=_BIG) if inf else a
+
+    parts = [stack(lambda st: st.background_util),
+             stack(lambda st: st.link_bw, inf=True),
+             stack(lambda st: st.link_lat, inf=True),
+             stack(lambda st: st.flops_per_s),
+             stack(lambda st: st.mem_bw),
+             stack(lambda st: np.asarray(st.trusted, dtype=bool)),
+             stack(lambda st: st.mem_bytes)]
+    flat = dev.t(np.concatenate([p.reshape(-1) for p in parts]))
+    bg0, lbw, llat, fps, mbw, tr, mem = torch.split(
+        flat, [S * n, S * n * n, S * n * n, S * n, S * n, S * n, S * n])
+    return (bg0.reshape(S, n), lbw.reshape(S, n, n), llat.reshape(S, n, n),
+            fps.reshape(S, n), mbw.reshape(S, n), tr.reshape(S, n) != 0.0,
+            mem.reshape(S, n))
+
+
 class ResidentFleetKernel(_OnDevice):
     """The fused monitoring-step programs over :class:`FleetStateBuffers`.
 
@@ -1369,6 +1420,10 @@ class ResidentFleetKernel(_OnDevice):
     def __init__(self, cost_model: CostModel | None = None, *,
                  device: str | torch.device = "cuda") -> None:
         super().__init__(device=device)
+        # fused-program calls (price + migrate + fixed point), mirroring
+        # BatchedRepairPass.dispatches: the sharded equivalence tests assert
+        # steady-state cycles cost exactly one call per shard
+        self.dispatches = 0
         self.cost_model = cost_model if cost_model is not None \
             else AnalyticCostModel()
 
@@ -1376,21 +1431,7 @@ class ResidentFleetKernel(_OnDevice):
         """C(t) vectors uploaded once per cycle (one host→device copy);
         ``price`` and ``migrate`` share the same upload when the caller
         passes it through."""
-        n = state.num_nodes
-        parts = [np.asarray(state.background_util, dtype=np.float64),
-                 np.nan_to_num(np.asarray(state.link_bw, dtype=np.float64),
-                               posinf=_BIG),
-                 np.nan_to_num(np.asarray(state.link_lat, dtype=np.float64),
-                               posinf=_BIG),
-                 np.asarray(state.flops_per_s, dtype=np.float64),
-                 np.asarray(state.mem_bw, dtype=np.float64),
-                 np.asarray(state.trusted, dtype=bool).astype(np.float64),
-                 np.asarray(state.mem_bytes, dtype=np.float64)]
-        flat = self.t(np.concatenate([p.reshape(-1) for p in parts]))
-        bg0, lbw, llat, fps, mbw, tr, mem = torch.split(
-            flat, [n, n * n, n * n, n, n, n, n])
-        return (bg0, lbw.reshape(n, n), llat.reshape(n, n), fps, mbw,
-                tr != 0.0, mem)
+        return tuple(a[0] for a in _state_upload(self, [state]))
 
     @staticmethod
     def _rows(buf: FleetStateBuffers):
@@ -1419,6 +1460,7 @@ class ResidentFleetKernel(_OnDevice):
             state_args = self.state_args(state)
         kw = dict(weights=weights, mem_penalty=float(mem_penalty),
                   bw_floor=float(bw_floor))
+        self.dispatches += 1
         if forecaster is None:
             return ResidentPrice(*_price(*self._rows(buf), *state_args, **kw))
         cfg = forecaster.cfg
@@ -1456,6 +1498,7 @@ class ResidentFleetKernel(_OnDevice):
         bg, lbw = price.bg, price.link_bw
         if use_forecast and price.has_forecast:
             bg, lbw = price.bg_fc, price.lbw_fc
+        self.dispatches += 1
         assign, cost = _migrate_rows(
             buf.seg_flops, buf.seg_wbytes, buf.seg_priv, buf.valid,
             buf.xfer_bytes_tok, buf.n_segs, buf.t_in, buf.t_out, buf.lam,
@@ -1504,6 +1547,7 @@ class ResidentFleetKernel(_OnDevice):
             np.asarray(base_bg, dtype=np.float64))
         bl = link_bw if base_lbw is None else self.t(np.nan_to_num(
             np.asarray(base_lbw, dtype=np.float64), posinf=_BIG))
+        self.dispatches += 1
         out = _fixed_point(
             buf.seg_flops, buf.seg_wbytes, buf.seg_priv, buf.seg_node,
             buf.valid, buf.xfer_bytes_tok, buf.n_segs, buf.t_in,
@@ -1517,3 +1561,139 @@ class ResidentFleetKernel(_OnDevice):
             max_sweeps=int(max_sweeps),
         )
         return FixedPointResult(*out)
+
+
+# --------------------------------------------------------------------------- #
+# region-sharded resident fleet state
+# --------------------------------------------------------------------------- #
+_SCREEN_ROW_ARGS = ("seg_flops", "seg_wbytes", "seg_priv", "seg_node",
+                    "valid", "xfer_bytes_tok", "t_in", "t_out", "lam",
+                    "source", "active")
+
+
+def _screen_one(*args, weights: CostWeights, mem_penalty: float,
+                bw_floor: float):
+    """One shard of the cross-shard screen: :func:`_price` against the
+    shard's own C(t), reduced to what the screen returns — the trigger-env
+    scalars and the per-shard totals (the (B, n, n) effective states never
+    leave the call)."""
+    lat, max_util, min_bw, _, _, _, tot_node, _, tot_w = _price(
+        *args, weights=weights, mem_penalty=mem_penalty, bw_floor=bw_floor)
+    return lat, max_util, min_bw, tot_node, tot_w
+
+
+@dataclass(frozen=True)
+class ShardScreen:
+    """Host-side outputs of one cross-shard screen call.
+
+    Row ``[s, b]`` is shard ``s``'s buffer row ``b`` (inactive rows carry
+    zero loads and garbage trigger scalars — mask with each shard's
+    ``active``).  The per-shard totals are what the cross-region aggregator
+    ranks residual headroom with.
+    """
+
+    lat: np.ndarray       # (S, B) current-config latency per row
+    max_util: np.ndarray  # (S, B) trigger env: max node util per row
+    min_bw: np.ndarray    # (S, B) trigger env: min cross-hop bandwidth
+    tot_node: np.ndarray  # (S, n) per-shard induced node rho totals
+    tot_w: np.ndarray     # (S, n) per-shard resident weight-byte totals
+
+
+class ShardedFleetState:
+    """One (:class:`FleetStateBuffers`, :class:`ResidentFleetKernel`) pair
+    per MEC region, plus the stacked screen across them.
+
+    Shards are fully load-disjoint by construction: every session is placed
+    on its own region's nodes only, so per-shard pricing against the
+    region-local C(t) is *exact*, not an approximation — the block-diagonal
+    fleet decomposes.  The screen stacks all shards' row tensors (shapes
+    synchronized to the max shard first) and prices them in one call —
+    :func:`_price` mapped over the shard axis with ``torch.func.vmap``, so
+    the folds stay the per-slot, atomic-free ones of the per-shard price —
+    and the per-region fixed point / migrate / re-split machinery then runs
+    only on shards whose screen shows trigger activity.
+    """
+
+    def __init__(self, shards: Sequence[FleetStateBuffers],
+                 kernels: Sequence["ResidentFleetKernel"]) -> None:
+        if len(shards) != len(kernels):
+            raise ValueError("one kernel per shard required")
+        self.shards = list(shards)
+        self.kernels = list(kernels)
+        self.screen_dispatches = 0
+        # stacked (S, B, K) row block, kept on the device across cycles and
+        # refreshed per shard by buffer mutation stamp: a quiet cycle
+        # re-uploads NOTHING, so the screen's host cost is O(dirty shards)
+        self._stack: tuple | None = None
+        self._stack_key: tuple | None = None
+        self._stack_vers: list[int] = []
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    def sync_shapes(self) -> tuple[int, int]:
+        """Grow every shard to the fleet-max (rows, segs) so the stacked
+        screen sees one uniform (S, B, K) block.  Both axes only ever grow
+        (pow2), so this settles immediately in steady state; growth keeps
+        every row where it was."""
+        rows = max(b.n_rows for b in self.shards)
+        segs = max(b.max_segs for b in self.shards)
+        for b in self.shards:
+            if b.max_segs < segs:
+                b._grow_segs(segs)
+            if b.n_rows < rows:
+                b._grow_rows(rows)
+        return rows, segs
+
+    def screen(self, states: Sequence[SystemState], *,
+               weights: CostWeights = CostWeights(),
+               mem_penalty: float = 1e3,
+               bw_floor: float = 0.05) -> ShardScreen:
+        """Price every shard against its regional C(t) in ONE call; the
+        (S, B) trigger scalars and (S, n) totals come to the host in one
+        transfer."""
+        S = self.n_shards
+        if len(states) != S:
+            raise ValueError(f"{len(states)} states for {S} shards")
+        n = states[0].num_nodes
+        if any(st.num_nodes != n for st in states):
+            raise ValueError("regional states must share a node count")
+        rows, segs = self.sync_shapes()
+        row_args = self._stacked_rows(S, rows, segs)
+        # one host stack + one upload for every shard's C(t)
+        state_args = _state_upload(self.kernels[0], states)
+        fn = torch.func.vmap(functools.partial(
+            _screen_one, weights=weights, mem_penalty=float(mem_penalty),
+            bw_floor=float(bw_floor)))
+        out = fn(*row_args, *state_args)
+        self.screen_dispatches += 1
+        return ShardScreen(*to_host(*out))
+
+    def _stacked_rows(self, S: int, rows: int, segs: int) -> tuple:
+        """The (S, B, K) stacked row block, rewritten only where buffers
+        actually changed since the last screen.  Shards report mutations
+        through ``FleetStateBuffers.version`` (globally-unique stamps), so
+        a steady-state cycle reuses the device block verbatim; a cycle that
+        admitted/migrated in d shards copies d slices in place.  When more
+        than a quarter of the fleet is dirty (cold start, growth resync) a
+        full restack is cheaper than per-slice copies."""
+        vers = [b.version for b in self.shards]
+        skey = (S, rows, segs)
+        dirty = ([r for r, v in enumerate(vers)
+                  if v != self._stack_vers[r]]
+                 if self._stack is not None and self._stack_key == skey
+                 else None)
+        if dirty is None or len(dirty) > max(1, S // 4):
+            self._stack = tuple(
+                torch.stack([getattr(b, f) for b in self.shards])
+                for f in _SCREEN_ROW_ARGS
+            )
+        else:
+            for r in dirty:
+                b = self.shards[r]
+                for f, a in zip(_SCREEN_ROW_ARGS, self._stack):
+                    a[r].copy_(getattr(b, f))
+        self._stack_key = skey
+        self._stack_vers = vers
+        return self._stack

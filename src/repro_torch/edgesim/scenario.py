@@ -8,7 +8,9 @@ Topology (paper §IV-a):
     node 3  cloud      (multi-GPU pool, UNtrusted; reached over the backhaul)
 
 :func:`fleet_model_catalog` lists the heterogeneous model configs the
-multi-session fleet draws its sessions from.
+multi-session fleet draws its sessions from; :func:`regional_system_state`
+and :func:`build_regional_orchestrator` replicate the cluster as R MEC
+regions under one region-sharded control plane.
 """
 
 from __future__ import annotations
@@ -16,11 +18,17 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-from ..core.cost_model import SystemState
+from ..core.broadcast import InProcessAgent, ReconfigurationBroadcast
+from ..core.cost_model import CostWeights, SystemState
+from ..core.fleet import FleetOrchestrator, ShardedFleetOrchestrator
+from ..core.profiling import CapacityProfiler
+from ..core.triggers import Thresholds
 
 __all__ = ["MBPS", "MECScenarioParams", "base_system_state",
-           "fleet_model_catalog"]
+           "build_regional_orchestrator", "fleet_model_catalog",
+           "regional_system_state"]
 
 MBPS = 1e6 / 8.0  # bytes/s per Mb/s
 
@@ -95,3 +103,80 @@ def base_system_state(p: MECScenarioParams) -> SystemState:
         mem_bw=np.array([p.mec_membw] * 3 + [p.cloud_membw]),
         names=("home-mec", "mec-2", "mec-3", "cloud"),
     )
+
+
+# --------------------------------------------------------------------------- #
+# regional (sharded) topology
+# --------------------------------------------------------------------------- #
+def regional_system_state(
+    p: MECScenarioParams, n_regions: int, *,
+    inter_region_mbps: float = 200.0,
+) -> SystemState:
+    """R replicas of the §IV cluster as one global C(t) with ``region_of``.
+
+    Each region is the paper's 4-node cluster (3 trusted MEC + untrusted
+    cloud); regions connect over metro backhaul links that the SHARDED
+    control plane never places sessions across (they only exist so the
+    global state is a valid SystemState — the block-diagonal slices are
+    what the per-region orchestrators price against).
+    """
+    base = base_system_state(p)
+    k = base.num_nodes
+    n = k * n_regions
+    bw = np.full((n, n), inter_region_mbps * MBPS)
+    lat = np.full((n, n), 8 * p.base_latency_s)
+    names: list[str] = []
+    for r in range(n_regions):
+        sl = slice(r * k, (r + 1) * k)
+        bw[sl, sl] = base.link_bw
+        lat[sl, sl] = base.link_lat
+        names.extend(f"r{r}:{nm}" for nm in base.names)
+    return SystemState(
+        flops_per_s=np.tile(base.flops_per_s, n_regions),
+        mem_bytes=np.tile(base.mem_bytes, n_regions),
+        background_util=np.tile(base.background_util, n_regions),
+        trusted=np.tile(base.trusted, n_regions),
+        link_bw=bw,
+        link_lat=lat,
+        mem_bw=np.tile(base.mem_bw, n_regions),
+        names=tuple(names),
+        region_of=np.repeat(np.arange(n_regions), k),
+    )
+
+
+def build_regional_orchestrator(
+    p: MECScenarioParams, n_regions: int, *,
+    thresholds: Thresholds | None = None,
+    use_fixed_point: bool = True,
+    fixed_point_sweeps: int = 8,
+    cost_model=None,
+    device: str | torch.device = "cuda",
+) -> ShardedFleetOrchestrator:
+    """One :class:`FleetOrchestrator` per §IV cluster replica, wrapped.
+
+    Every region gets its own broadcast agents, profiler (over the
+    region-local slice of :func:`regional_system_state`), and resident
+    kernel, all on ``device``; ``n_regions == 1`` produces a wrapper that
+    delegates verbatim (bit-identical to an unsharded
+    :class:`FleetOrchestrator`)."""
+    gstate = regional_system_state(p, n_regions)
+    th = thresholds if thresholds is not None else Thresholds(cooldown_s=10.0)
+    inners = []
+    for r in range(n_regions):
+        local = base_system_state(p)
+        inners.append(FleetOrchestrator(
+            profiler=CapacityProfiler(base_state=local),
+            broadcast=ReconfigurationBroadcast(
+                [InProcessAgent(i) for i in range(local.num_nodes)]
+            ),
+            thresholds=th,
+            weights=CostWeights(alpha=1.0, beta=0.02, gamma=1000.0),
+            use_fixed_point=use_fixed_point,
+            fixed_point_sweeps=fixed_point_sweeps,
+            cost_model=cost_model,
+            device=device,
+        ))
+    wrapper = ShardedFleetOrchestrator(
+        inners, region_of=gstate.region_of)
+    wrapper.profiler.base_state = gstate
+    return wrapper

@@ -788,3 +788,81 @@ def test_admission_stream_with_a_crash_is_bit_identical_and_matches_the_cpu(
     kinds = {x[0] for x in a if isinstance(x, tuple) and x
              and x[0] in ("accept", "defer", "reject")}
     assert kinds == {"accept", "defer", "reject"}
+
+
+def _sharded_run(device):
+    """A 3-region sharded fleet on ``device``: 4 sessions a region, region
+    1's MEC nodes saturated from the second cycle until sessions move to
+    other regions.  Returns every cycle's decisions and latencies, every
+    screen's outputs, the final resident tables, the sids by region, the
+    cross moves and the orchestrator."""
+    from repro_torch.core import (QOS_INTERACTIVE, Workload,
+                                  make_transformer_graph)
+    from repro_torch.edgesim import (MECScenarioParams,
+                                     build_regional_orchestrator)
+
+    w = build_regional_orchestrator(MECScenarioParams(), 3, device=device)
+    g = make_transformer_graph(
+        name="tiny", num_layers=8, d_model=256, flops_per_layer_token=4e9,
+        weight_bytes_per_layer=3e8, embed_weight_bytes=1e8,
+        head_weight_bytes=1e8, head_flops_token=2e8)
+    for r in range(3):
+        for i in range(4):
+            w.admit(g, Workload(48, 8, 0.8), source_node=4 * r + i % 3,
+                    now=0.0, qos=QOS_INTERACTIVE)
+    screens = []
+    screen = w._shstate.screen
+
+    def probe(states, **kw):
+        out = screen(states, **kw)
+        screens.append(dataclasses.astuple(out))
+        return out
+
+    w._shstate.screen = probe
+    log = []
+    for t in range(1, 24):
+        if t == 2:
+            w.inners[1].profiler.base_state.background_util[:3] = 0.97
+        fd = w.step(float(t))
+        log.append((fd.n_keep, fd.n_migrate, fd.n_resplit, fd.n_cooldown,
+                    tuple((sid, d.kind.value, d.config.assignment,
+                           d.predicted_latency_s)
+                          for sid, d in fd.per_session.items())))
+    tables = [{k: getattr(o._buffers, k).cpu() for k in (
+        "seg_flops", "seg_wbytes", "seg_node", "valid", "n_segs", "lam",
+        "source", "active")} for o in w.inners]
+    return (log, screens, tables, [sorted(o.sessions) for o in w.inners],
+            w.cross_migrations, w)
+
+
+def test_sharded_fleet_is_bit_identical_on_the_card_and_matches_the_cpu():
+    """Two card runs of a 3-region sharded fleet give bit-identical
+    decisions, screens and resident tables, and equal the CPU run (floats
+    to 1e-9 relative); sessions leave the saturated region; a screen
+    equals each shard's own price on the card to 1e-12."""
+    a = _sharded_run("cuda")
+    b = _sharded_run("cuda")
+    cpu = _sharded_run("cpu")
+    assert _floats_close(a[0], b[0], 0.0) and _floats_close(a[0], cpu[0],
+                                                              1e-9)
+    assert a[3] == b[3] == cpu[3] and a[4] == b[4] == cpu[4] > 0
+    for sa, sb, sc in zip(a[1], b[1], cpu[1]):
+        for x, y, z in zip(sa, sb, sc):
+            np.testing.assert_array_equal(x, y)
+            np.testing.assert_allclose(z, x, rtol=1e-9, atol=0)
+    for ta, tb, tc in zip(a[2], b[2], cpu[2]):
+        for k in ta:
+            assert torch.equal(ta[k], tb[k]) and torch.equal(ta[k], tc[k]), k
+    # the screen's row block s is shard s's own price on the card (1e-12)
+    w = a[5]
+    sh = w._sharded()
+    states = [o.profiler.system_state() for o in w.inners]
+    scr = sh.screen(states, weights=w.inners[0].weights,
+                    bw_floor=w.inners[0].bw_floor_frac)
+    for s, o in enumerate(w.inners):
+        p = o.kernel.price(o._buffers, states[s], weights=o.weights,
+                           bw_floor=o.bw_floor_frac)
+        for f in ("lat", "max_util", "min_bw", "tot_node", "tot_w"):
+            np.testing.assert_allclose(getattr(scr, f)[s],
+                                       getattr(p, f).cpu().numpy(),
+                                       rtol=1e-12, atol=0, err_msg=f)
