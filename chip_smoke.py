@@ -136,15 +136,36 @@ result line:
    tests/test_sharded_fleet.py (region 1 saturated until a session moves
    out with its sid); and the 1,024-session storm of tests/test_system.py
    (8 x 127 bulk sessions, 8 routed ACCEPTs, region 0's node 0 dead under
-   a per-region heartbeat registry, recovery, the session set conserved;
-   the reference's ``InvariantChecker`` comes with the simulator and is
-   left out).  Each twice on the card (decisions, every screen's outputs,
+   a per-region heartbeat registry, recovery, the session set conserved,
+   every region clean under the ``InvariantChecker``).  Each twice on the
+   card (decisions, every screen's outputs,
    resident tables, sids by region and cross moves bit for bit) and once
    on the CPU (identical, floats to 1e-9); prints cycle and screen
    p50/p90, shards stepped, kernel calls and screens a cycle, cross moves
    and one traced cycle at 80 regions (device busy, idle share, top five
    kernels) beside the card's name and power limit;
-12. print the ``kernels`` line (K1/K2 launches from phase 3, K3's from
+12. the edge simulator (``EdgeSimulator``, ``FleetSimulator``; no
+   hand-written kernel: the launch counts stay 0): Table II, the §IV
+   scenario (``build_mec_scenario``) static and adaptive at 20, 50, 100 and
+   200 Mb/s, 60 s at a 0.1 s tick, KPIs over [20, 60) s, gated as
+   tests/test_edgesim_paper.py does (adaptive below static with a
+   reconfiguration at every bandwidth, the gain at 20 Mb/s above 0.45 and
+   above the gain at 200), the re-split DP on the card; then
+   benchmarks/fleet_scaling.py's ``failure_storm`` (cap 32, 60 s, 0.5 s
+   tick, MEC-1 and MEC-2 blasted at 20 s for 25 s) and ``chaos_ab`` (cap
+   32, 120 s, 0.25 s tick, 0.5 s cycles, crashes at 30 and 75 s plus the
+   drawn ones, transport faults, NaN telemetry, the ``InvariantChecker``
+   after every cycle), both arms, gated by
+   benchmarks/check_regression.py's ``check_storm`` / ``check_chaos``
+   limits.  Each adaptive and fleet arm runs twice on the card (session
+   log, ticks, decisions, chaos stats and violations, floats bit for bit)
+   and once on the CPU (identical, floats to 1e-9).  Prints Table II
+   beside the paper's static column, the monitoring + decision time
+   against the paper's 10 ms, and per fleet arm the wall time, ticks a
+   second, ``price_fleet`` and ``step`` p50 (synchronised host clock),
+   recovery, violation and breach minutes, restarts, the zombie's fate,
+   invariant violations and the slowest restore;
+13. print the ``kernels`` line (K1/K2 launches from phase 3, K3's from
    phase 4, K4's from the Mamba-2 serve, K5's from the Griffin serve; the
    rows of K1 and K3 at the new shapes with the launches of the deepseek,
    qwen3-moe and gemma2 serve and generation runs and of the hd-8 reduced
@@ -2461,7 +2482,7 @@ def shard_storm(device: str) -> dict:
                                   QOS_STANDARD, ShardedFleetAdmissionController,
                                   Workload)
     from repro_torch.distributed import HeartbeatRegistry
-    from repro_torch.edgesim import (MECScenarioParams,
+    from repro_torch.edgesim import (InvariantChecker, MECScenarioParams,
                                      build_regional_orchestrator)
 
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
@@ -2530,6 +2551,15 @@ def shard_storm(device: str) -> dict:
     for node in (0, 1, 2, 3):
         hb.beat(node)
     step(6.0)
+    # every region passes the chaos invariant checker clean, as
+    # tests/test_system.py's storm asserts
+    for r, inner in enumerate(w.inners):
+        errs = InvariantChecker().check(
+            t=6.0, orch=inner, agents=inner.broadcast.agents,
+            admission=adm.regional[r])
+        if errs:
+            raise AssertionError(f"shards storm ({device}): region {r} "
+                                 f"invariants: {errs[:3]}")
     seen: dict = {}
     for r, inner in enumerate(w.inners):
         for sid in inner.sessions:
@@ -2714,9 +2744,293 @@ def phase_shards(counters, card: str) -> None:
           f"p50 {pct(a['request_ms'], 50):.3f} ms; step ms "
           + ", ".join(f"{x:.1f}" for x in a["step_ms"])
           + f"; decisions {json.dumps(dict(zip(FLEET_COUNTS, tot)))}; node "
-          f"0 seen dead, region 0 off it; card == card, card == CPU; card: "
-          f"{card}")
+          f"0 seen dead, region 0 off it; every region's invariants clean; "
+          f"card == card, card == CPU; card: {card}")
     print(f"shards: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# --------------------------------------------------------------------------- #
+# the edge simulator (EdgeSimulator, FleetSimulator with churn, admission,
+# failure injection and control-plane chaos)
+# --------------------------------------------------------------------------- #
+# Table II: the §IV scenario over the backhaul sweep, 60 s at a 0.1 s tick,
+# KPIs over [20, 60) s as tests/test_edgesim_paper.py takes them, beside the
+# paper's static column
+SIM_BANDWIDTHS = (20.0, 50.0, 100.0, 200.0)
+PAPER_STATIC_MS = (500, 320, 230, 180)
+SIM_WINDOW = (20.0, 60.0)
+SIM_SOLVER_SKIP = 5               # the first cycles, as test_edgesim_paper.py
+SIM_COUNTS = ("t", "n_sessions", "admitted", "departed", "rejected",
+              "deferred", "n_migrate", "n_resplit", "n_preempt",
+              "n_dead_nodes", "preempted", "recovered", "n_conflict_keep",
+              "fp_sweeps")
+SIM_BLAST_AT = 20.0               # failure_storm's blast onset
+
+
+def mec_run(bw: float, adaptive: bool, device: str) -> dict:
+    """One §IV run (benchmarks/paper_tables.py's Table II cell): ticks,
+    decisions, per-tick floats and the window's KPIs."""
+    from repro_torch.edgesim import MECScenarioParams, build_mec_scenario
+
+    sim = build_mec_scenario(MECScenarioParams(backhaul_mbps=bw,
+                                               duration_s=60.0),
+                             adaptive=adaptive, device=device)
+    if adaptive and torch.device(sim.orch.splitter.device).type != device:
+        raise AssertionError(f"sim {bw} Mb/s: the DP is not on {device}")
+    t0 = time.perf_counter()
+    res = sim.run()
+    wall = time.perf_counter() - t0
+    decisions = sim.orch.decisions if adaptive else []
+    return dict(
+        ticks=[(m.t, m.arrivals, m.decision) for m in res.ticks],
+        events=res.reconfig_events,
+        decisions=[(d.kind.value, d.config.boundaries, d.config.assignment,
+                    d.config.version, d.reasons) for d in decisions],
+        floats=[np.array([m.latency_s, m.completed, m.min_link_bw,
+                          *m.node_rho]) for m in res.ticks]
+        + [np.array([d.predicted_latency_s for d in decisions])],
+        solver_ms=[1e3 * d.solver_time_s for d in decisions],
+        kpis=res.kpis(*SIM_WINDOW), wall=wall)
+
+
+def sim_fleet_params(arm: str, handling: bool, device: str):
+    """benchmarks/fleet_scaling.py's ``failure_storm`` and ``chaos_ab`` at
+    their defaults (cap 32), one arm."""
+    from repro_torch.edgesim import (ChaosSpec, FailureSpec,
+                                     FleetScenarioParams, FleetSimConfig)
+
+    cap = 32
+    if arm == "storm":
+        return FleetScenarioParams(sim=FleetSimConfig(
+            duration_s=60.0, tick_s=0.5, monitor_interval_s=1.0,
+            max_sessions=cap, initial_sessions=cap // 2,
+            session_arrival_per_s=max(0.2, cap / 60.0 * 2.0),
+            mean_lifetime_s=30.0, seed=11, admission=True,
+            failures=FailureSpec(seed=5, blast_at_s=SIM_BLAST_AT,
+                                 blast_nodes=(1, 2), blast_mttr_s=25.0),
+            failure_handling=handling, preempt_patience_s=30.0))
+    dur = 120.0
+    spec = ChaosSpec(
+        seed=9, crash_rate_per_s=0.01, min_crash_spacing_s=20.0,
+        crash_times=(0.25 * dur, 0.625 * dur),
+        rpc_fault_rate_per_s=0.05, rpc_fault_duration_s=6.0,
+        rpc_drop_p=0.2, rpc_dup_p=0.15, rpc_delay_p=0.1,
+        telemetry_rate_per_s=0.04, telemetry_duration_s=4.0)
+    journal = ROOT / "build" / "sim" / f"journal-{device}.npz"
+    journal.parent.mkdir(parents=True, exist_ok=True)
+    return FleetScenarioParams(sim=FleetSimConfig(
+        duration_s=dur, tick_s=0.25, monitor_interval_s=0.5,
+        max_sessions=cap, initial_sessions=cap // 4,
+        session_arrival_per_s=max(0.2, cap / 90.0), mean_lifetime_s=40.0,
+        seed=13, admission=True, chaos=spec, chaos_handling=handling,
+        journal_path=str(journal)))
+
+
+SIM_PROBES = ("price_fleet", "step", "request", "poll")
+
+
+@contextlib.contextmanager
+def sim_probes(device: str):
+    """Host clock around every synchronised ``FleetOrchestrator.price_fleet``
+    and ``step`` and ``FleetAdmissionController.request`` and ``poll``
+    while a simulation runs (a crash restart builds a new orchestrator and
+    controller, so the classes are wrapped, not the instances)."""
+    from repro_torch.core import FleetAdmissionController, FleetOrchestrator
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    times: dict[str, list[float]] = {name: [] for name in SIM_PROBES}
+    owner = {"price_fleet": FleetOrchestrator, "step": FleetOrchestrator,
+             "request": FleetAdmissionController,
+             "poll": FleetAdmissionController}
+    saved = {name: getattr(owner[name], name) for name in times}
+
+    def probe(name, fn):
+        def timed(self, *args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            sync()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    for name, fn in saved.items():
+        setattr(owner[name], name, probe(name, fn))
+    try:
+        yield times
+    finally:
+        for name, fn in saved.items():
+            setattr(owner[name], name, fn)
+
+
+def sim_fleet_run(arm: str, handling: bool, device: str,
+                  probe: bool) -> dict:
+    """One arm through ``FleetSimulator.run``: the session log, every tick's
+    counts and floats, the chaos stats and the invariant violations."""
+    from repro_torch.edgesim import build_fleet_scenario
+
+    sim = build_fleet_scenario(
+        sim_fleet_params(arm, handling, device), device=device)
+    if sim.device.type != device or sim.orch.device.type != device:
+        raise AssertionError(f"sim {arm}: not on {device}")
+    probes = sim_probes(device) if probe else contextlib.nullcontext(
+        {name: [] for name in SIM_PROBES})
+    with probes as times:
+        t0 = time.perf_counter()
+        res = sim.run()
+        wall = time.perf_counter() - t0
+    if sim.orch.device.type != device:
+        raise AssertionError(f"sim {arm}: the restarted controller left "
+                             f"{device}")
+    k = res.kpis(0.0, sim.cfg.duration_s)
+    return dict(
+        log=res.session_log,
+        counts=[tuple(getattr(m, f) for f in SIM_COUNTS) for m in res.ticks],
+        floats=[np.concatenate([m.latencies, m.node_rho,
+                                [m.qos_violation_frac,
+                                 m.mem_violation_bytes]])
+                for m in res.ticks],
+        chaos={key: v for key, v in sim.chaos_stats.items()
+               if key != "max_restore_wall_s"},
+        violations=([e for _, e in sim.invariants.violations]
+                    if sim.invariants is not None else []),
+        restore_ms=1e3 * sim.chaos_stats["max_restore_wall_s"],
+        recovery=res.recovery_time_s(SIM_BLAST_AT) if arm == "storm" else None,
+        mem_min=k["mem_violation_minutes"], slo_min=k["slo_breach_minutes"],
+        preempted=dict(sim.admission.preempted_by_class),
+        wall=wall, ticks=len(res.ticks), times=times)
+
+
+def sim_same(a: dict, b: dict, exact: bool, what: str,
+             discrete=("log", "counts", "chaos", "violations")) -> None:
+    """Discrete outputs identical; floats bit for bit (``exact``) or to
+    1e-9 relative, NaN where NaN."""
+    for key in discrete:
+        if a[key] != b[key]:
+            first = next((i for i, (x, y) in enumerate(zip(a[key], b[key]))
+                          if x != y), None) if isinstance(a[key], list) \
+                else None
+            raise AssertionError(f"{what}: {key} differ (first at {first})")
+    if len(a["floats"]) != len(b["floats"]):
+        raise AssertionError(f"{what}: tick counts differ")
+    for i, (x, y) in enumerate(zip(a["floats"], b["floats"])):
+        ok = (x.shape == y.shape and (
+            np.array_equal(x, y, equal_nan=True) if exact
+            else np.allclose(x, y, rtol=1e-9, atol=0, equal_nan=True)))
+        if not ok:
+            raise AssertionError(f"{what}: floats differ at tick {i}")
+
+
+def phase_simulator(counters, card: str) -> None:
+    """The edge simulator on the card: Table II (static and adaptive at 20,
+    50, 100 and 200 Mb/s), ``failure_storm`` and ``chaos_ab`` (both arms,
+    the InvariantChecker after every cycle); adaptive and fleet arms twice
+    on the card (bit for bit) and once on the CPU (floats to 1e-9); no
+    hand-written kernel is launched."""
+    t_phase = time.perf_counter()
+    pct = lambda x, q: float(np.percentile(np.asarray(x), q))  # noqa: E731
+    reset(counters)
+
+    # ---- Table II ----
+    solver = []
+    gain = {}
+    for bw, paper in zip(SIM_BANDWIDTHS, PAPER_STATIC_MS):
+        st = mec_run(bw, False, "cuda")
+        a = mec_run(bw, True, "cuda")
+        b = mec_run(bw, True, "cuda")
+        cpu = mec_run(bw, True, "cpu")
+        disc = ("ticks", "events", "decisions")
+        sim_same(a, b, True, f"sim {bw:.0f} Mb/s", disc)
+        sim_same(a, cpu, False, f"sim {bw:.0f} Mb/s", disc)
+        s_ms = 1e3 * st["kpis"]["mean_latency_s"]
+        a_ms = 1e3 * a["kpis"]["mean_latency_s"]
+        n_re = len(a["events"])
+        if not (a_ms < s_ms and n_re >= 1):
+            raise AssertionError(f"sim {bw:.0f} Mb/s: adaptive {a_ms:.1f} ms "
+                                 f"vs static {s_ms:.1f} ms, {n_re} "
+                                 "reconfigurations")
+        gain[bw] = 1.0 - a_ms / s_ms
+        warm = a["solver_ms"][SIM_SOLVER_SKIP:]
+        solver += warm
+        print(f"table II {bw:.0f} Mb/s: static {s_ms:.1f} ms (paper {paper} "
+              f"ms), adaptive {a_ms:.1f} ms, gain {gain[bw]:.3f}, "
+              f"reconfigurations {n_re} at "
+              + ", ".join(f"{t:.1f} s {k}" for t, k, _ in a["events"])
+              + f"; solver p50 {pct(warm, 50):.3f} ms mean "
+              f"{np.mean(warm):.3f} ms over {len(warm)} cycles; run "
+              f"{a['wall']:.2f} s [run 2 {b['wall']:.2f} s, CPU "
+              f"{cpu['wall']:.2f} s, static {st['wall']:.2f} s]; card == "
+              f"card, card == CPU; card: {card}")
+    if not (gain[20.0] > gain[200.0] and gain[20.0] > 0.45):
+        raise AssertionError(f"sim: gain at 20 Mb/s {gain[20.0]:.3f}, at "
+                             f"200 Mb/s {gain[200.0]:.3f}")
+    print(f"table II: monitoring + decision on the card, p50 "
+          f"{pct(solver, 50):.3f} ms, mean {np.mean(solver):.3f} ms, p90 "
+          f"{pct(solver, 90):.3f} ms over {len(solver)} warm cycles (the "
+          f"paper: <= 10 ms a cycle; not gated); card: {card}")
+
+    # ---- failure storm and control-plane chaos ----
+    arms = {}
+    for arm in ("storm", "chaos"):
+        for handling in (False, True):
+            name = f"{arm} {'on' if handling else 'off'}"
+            a = sim_fleet_run(arm, handling, "cuda", probe=True)
+            b = sim_fleet_run(arm, handling, "cuda", probe=False)
+            cpu = sim_fleet_run(arm, handling, "cpu", probe=True)
+            sim_same(a, b, True, f"sim {name}")
+            sim_same(a, cpu, False, f"sim {name}")
+            arms[name] = a
+            rec = a["recovery"]
+            print(f"sim {name}: {a['ticks']} ticks in {a['wall']:.2f} s "
+                  f"({a['ticks'] / a['wall']:.1f} ticks/s, probed) [run 2 "
+                  f"{b['wall']:.2f} s, {b['ticks'] / b['wall']:.1f} ticks/s; "
+                  f"CPU {cpu['wall']:.2f} s for {cpu['ticks']} ticks]; "
+                  f"price_fleet p50 {pct(a['times']['price_fleet'], 50):.3f} "
+                  f"ms over {len(a['times']['price_fleet'])}, step p50 "
+                  f"{pct(a['times']['step'], 50):.3f} ms over "
+                  f"{len(a['times']['step'])} [CPU "
+                  f"{pct(cpu['times']['price_fleet'], 50):.3f} / "
+                  f"{pct(cpu['times']['step'], 50):.3f} ms]; run 1 spent "
+                  + ", ".join(f"{k} {sum(v) / 1e3:.2f} s ({len(v)})"
+                              for k, v in a["times"].items())
+                  + " [CPU "
+                  + ", ".join(f"{sum(v) / 1e3:.2f}"
+                              for v in cpu["times"].values())
+                  + " s]; recovery "
+                  f"{'none' if rec is None else f'{rec:.1f} s'}; memory "
+                  f"violation {a['mem_min']:.4f} min; SLO breach "
+                  f"{a['slo_min']:.4f} min; preempted "
+                  f"{json.dumps(a['preempted'])}; restarts "
+                  f"{a['chaos']['controller_restarts']}, zombie fenced "
+                  f"{a['chaos']['zombie_fenced']} committed "
+                  f"{a['chaos']['zombie_committed']}; invariant violations "
+                  f"{len(a['violations'])}; max restore "
+                  f"{a['restore_ms']:.2f} ms; card == card, card == CPU; "
+                  f"card: {card}")
+    if any(counts_of(counters).values()):
+        raise AssertionError("the edge simulator launched a hand-written "
+                             "kernel")
+
+    # check_regression.py's check_storm and check_chaos limits
+    on, off = arms["storm on"], arms["storm off"]
+    if on["recovery"] is None or on["recovery"] > 20.0:
+        raise AssertionError(f"sim storm: recovery {on['recovery']}")
+    if not on["mem_min"] < off["mem_min"]:
+        raise AssertionError(f"sim storm: memory violation {on['mem_min']} "
+                             f"min, not under {off['mem_min']}")
+    if on["preempted"].get("interactive", 0):
+        raise AssertionError("sim storm: an interactive session preempted")
+    on, off = arms["chaos on"], arms["chaos off"]
+    if on["chaos"]["controller_restarts"] < 1 or on["violations"] or \
+            on["chaos"]["zombie_committed"] or on["restore_ms"] > 1000.0:
+        raise AssertionError(f"sim chaos: {on['chaos']}, "
+                             f"{len(on['violations'])} violations, restore "
+                             f"{on['restore_ms']:.1f} ms")
+    if not on["slo_min"] < off["slo_min"]:
+        raise AssertionError(f"sim chaos: SLO breach {on['slo_min']} min, "
+                             f"not under {off['slo_min']}")
+    print(f"sim: storm and chaos gates of benchmarks/check_regression.py "
+          f"hold; phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def reset(counters) -> None:
@@ -2889,7 +3203,10 @@ def main() -> int:
     # ---- phase 11: the region-sharded fleet ----
     phase_shards(counters, card)
 
-    # ---- phase 12: result ----
+    # ---- phase 12: the edge simulator ----
+    phase_simulator(counters, card)
+
+    # ---- phase 13: result ----
     launches_from = {
         "decode_attention": gen_counts, "ssd": m_counts, "rglru": g_counts,
         "flash_attention@mla": zoo["deepseek-v2-lite-16b"][0],

@@ -36,7 +36,7 @@ import torch
 
 from ..device import resolve_device
 from .cost_model import (AnalyticCostModel, CostModel, SystemState, Workload,
-                         memory_violations)
+                         evaluate, memory_violations)
 from .graph import ModelGraph
 from .placement import (Solution, local_search, repair_capacity,
                         restrict_state, select_candidate_nodes, surrogate_cost)
@@ -505,10 +505,13 @@ def coalesce_same_node(sol: Solution, cost: float | None = None) -> Solution:
 class SplitRevision:
     """Paper's SR module: the device DP, then full-Φ refinement.
 
+    ``strategy`` is ``"dp+local"`` (the DP, then the Φ local search) or
+    ``"dp"`` (the DP's answer, re-priced by Φ, no local search).
     ``device`` is where the DP runs; it defaults to ``"cuda"`` and raises
     when no card is present unless ``"cpu"`` is asked for.
     """
 
+    strategy: str = "dp+local"          # "dp" or "dp+local"
     max_units: int | None = 96          # DP coarsening cap for huge graphs
     max_nodes: int = 16                 # candidate-node pruning cap
     local_rounds: int = 12              # Φ local-search budget per revision
@@ -566,7 +569,13 @@ class SplitRevision:
             graph, sub, wl, source_node=sub_source, max_units=self.max_units
         )
         sol = coalesce_same_node(sol)
-        sol = local_search(graph, sol, sub, wl, max_rounds=self.local_rounds)
+        if self.strategy == "dp":
+            sol = Solution(
+                sol.boundaries, sol.assignment,
+                evaluate(graph, sol.boundaries, sol.assignment, sub, wl),
+            )
+        else:
+            sol = local_search(graph, sol, sub, wl, max_rounds=self.local_rounds)
         # Eq. 4 repair only when actually violated
         if memory_violations(graph, sol.boundaries, sol.assignment, sub).any():
             sol = repair_capacity(graph, sol, sub, wl)

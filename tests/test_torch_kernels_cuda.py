@@ -866,3 +866,43 @@ def test_sharded_fleet_is_bit_identical_on_the_card_and_matches_the_cpu():
             np.testing.assert_allclose(getattr(scr, f)[s],
                                        getattr(p, f).cpu().numpy(),
                                        rtol=1e-12, atol=0, err_msg=f)
+
+
+def _storm_sim_run(device):
+    """tests/test_fault_tolerance.py's 30 s cap-8 storm through the port's
+    FleetSimulator: MEC-1 and MEC-2 dead from 8 s for 14 s."""
+    from repro_torch.edgesim import (FailureSpec, FleetScenarioParams,
+                                     FleetSimConfig, build_fleet_scenario)
+
+    p = FleetScenarioParams(sim=FleetSimConfig(
+        duration_s=30.0, tick_s=0.5, monitor_interval_s=2.0, max_sessions=8,
+        initial_sessions=4, session_arrival_per_s=0.3, mean_lifetime_s=40.0,
+        seed=7, failures=FailureSpec(seed=3, blast_at_s=8.0,
+                                     blast_nodes=(1, 2), blast_mttr_s=14.0),
+        preempt_patience_s=20.0))
+    sim = build_fleet_scenario(p, device=device)
+    assert sim.device.type == device
+    res = sim.run()
+    ticks = [(m.t, m.n_sessions, m.admitted, m.departed, m.rejected,
+              m.deferred, m.n_migrate, m.n_resplit, m.n_dead_nodes,
+              m.preempted, m.recovered, m.mem_violation_bytes)
+             for m in res.ticks]
+    floats = [(m.latencies, m.node_rho) for m in res.ticks]
+    return res.session_log, ticks, floats
+
+
+def test_storm_simulation_is_bit_identical_on_the_card_and_matches_the_cpu():
+    """Two card runs of the cap-8 storm give the same session log, tick
+    counts, latencies and node rho bit for bit; the CPU run gives the same
+    log and counts, floats to 1e-9 relative."""
+    a = _storm_sim_run("cuda")
+    b = _storm_sim_run("cuda")
+    cpu = _storm_sim_run("cpu")
+    assert a[0] == b[0] == cpu[0]
+    assert a[1] == b[1] == cpu[1]
+    assert any(t[8] == 2 for t in a[1])            # the blast was seen
+    for (la, ra), (lb, rb), (lc, rc) in zip(a[2], b[2], cpu[2]):
+        np.testing.assert_array_equal(la, lb)
+        np.testing.assert_array_equal(ra, rb)
+        np.testing.assert_allclose(lc, la, rtol=1e-9, atol=0)
+        np.testing.assert_allclose(rc, ra, rtol=1e-9, atol=0)
