@@ -165,12 +165,31 @@ result line:
    second, ``price_fleet`` and ``step`` p50 (synchronised host clock),
    recovery, violation and breach minutes, restarts, the zombie's fate,
    invariant violations and the slowest restore;
-13. print the ``kernels`` line (K1/K2 launches from phase 3, K3's from
+13. training (``make_train_step``, ``launch/train.main``; float32): K1's
+   backward kernel against ``flash_attention_bwd_plain`` at five shapes
+   (Llama-3-8B's B=2, S=512, H=32, KV=8, hd 128; the quickstart's B=8,
+   S=256, H=8, hd 64; reduced gemma2's hd 32 with soft-cap 50, window 16 and
+   ``attn_scale``; hd 8 at G=7; a ragged S), max |diff| <= 1e-4 of the
+   largest reference gradient, each repeated bit for bit and timed beside
+   its bound, the plain version and SDPA's backward; reduced
+   llama3-8b, 3 steps with int8 gradients off and on, twice on the card (bit
+   for bit) and once on the CPU (step-0 gradients 1e-4 of each leaf's max,
+   loss and grad norm 1e-4, params within 3 lr with a mean gap under 0.05
+   lr: ``TRAIN_GRAD_TOL``, ``TRAIN_MEAN_LR``); the recipe of
+   examples/train_quickstart.py (llama-100m, 300 steps), whose loss must
+   fall as sound runs fall (the mean of the first 25 losses less the last
+   25's within ``QUICKSTART_FALL``; the example's own 0.4, unmet by the
+   reference too, printed); full-width Llama-3-8B cut to 4 layers, B=2, S=512,
+   int8 gradients, 5 steps (step times, peak memory, launches per step:
+   K1 forward 8, backward 4, K2a/K2b one per leaf) and one traced step; and
+   ``launch/train.main``'s kill-at-step-10 drill resumed to 20, whose state
+   must equal the uninterrupted run's bit for bit;
+14. print the ``kernels`` line (K1/K2 launches from phase 3, K3's from
    phase 4, K4's from the Mamba-2 serve, K5's from the Griffin serve; the
    rows of K1 and K3 at the new shapes with the launches of the deepseek,
    qwen3-moe and gemma2 serve and generation runs and of the hd-8 reduced
-   runs) and,
-   last, ``{"ok": true, "device": {...}}``.
+   runs; K1's backward with the launches of the full-width training steps)
+   and, last, ``{"ok": true, "device": {...}}``.
 
 Every phase that drives a path sets the launch counts to 0 just before it
 and checks them just after.
@@ -1174,6 +1193,7 @@ def phase_profile(bundle, params, counters) -> None:
                                  f"transport counted {want}")
     n = bundle.cfg.n_layers
     if counts != {"flash_attention": n * (1 + warmup + reps),
+                  "flash_attention_bwd": 0,
                   "quantize_int8": cuts, "dequantize_int8": cuts,
                   "decode_attention": 0, "ssd": 0, "rglru": 0}:
         raise AssertionError(f"profile launches {counts}")
@@ -3033,6 +3053,395 @@ def phase_simulator(counters, card: str) -> None:
           f"hold; phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- phase 13: training ----
+# K1's backward against its plain version: (label, b, s, h, kv, hd, window,
+# cap, scale); the first is the full-width training shape, timed
+TRAIN_BWD = [
+    ("llama3-8b", 2, 512, 32, 8, 128, 0, 0.0, None),
+    ("quickstart", 8, 256, 8, 8, 64, 0, 0.0, None),
+    ("gemma2 reduced", 2, 256, 4, 2, 32, 16, 50.0, 16.0 ** -0.5),
+    ("hd 8, G=7", 2, 256, 7, 1, 8, 0, 0.0, None),
+    ("ragged S", 2, 333, 32, 8, 128, 0, 0.0, None),
+]
+# max |kernel - plain| / max |plain| of each of dq, dk, dv: float32 FMAs
+# against float32 matmuls summed in another order
+BWD_TOL = 1e-4
+# card vs CPU on reduced llama3-8b: step-0 gradients within 5e-4 of each
+# leaf's max.  Its init (wq/wk fan-in 4) puts the attention scores at a
+# standard deviation of ~16, so the softmax saturates and its gradients
+# cancel: on the CPU the port and the reference already differ by up to
+# 7e-5 of a leaf's max (float32 in another order).  After 3 steps at lr
+# 1e-3 every param within 3 lr and the mean gap under 0.05 lr; the loss
+# within 1e-4, the grad norm 1e-4 at step 0 and 1e-2 after (a step-1
+# update is lr sign(g): an element whose gradient is near 0 on both
+# devices may step either way, 2 lr apart, which the next gradient feels).
+# Adam's ratio m / sqrt(v) carries the float32 noise of a gradient element
+# that is tiny next to its leaf's maximum into an lr-sized step, and with
+# int8 gradients an element whose g + r sits at a rounding tie takes the
+# other code (1/127 of its row's maximum), which error feedback carries on;
+# a wrong update would move every element by the order of lr
+TRAIN_GRAD_TOL = 5e-4
+TRAIN_MEAN_LR = 0.05
+TRAIN_GN_LATER = 1e-2
+# examples/train_quickstart.py: llama-100m, B=8, S=256, 300 steps.  The
+# gate is the fall of the loss, the mean of the first 25 losses less the
+# last 25's, within QUICKSTART_FALL.  train_curve.py measured it on the
+# card: 0.2246-0.2430 in sound runs from 12 seeds, 0.3299-0.3393 with K1's
+# gradient zeroed (the model learns the first-order Markov stream faster
+# without attention), 0.2169-0.2424 with dq and dk negated (which this
+# curve cannot tell from a sound run: K1's backward is held against its
+# plain version above); the reference's own recipe misses the example's
+# assertion, last < first - 0.4, which is printed beside the gate
+QUICKSTART = dict(name="llama-100m", d_model=512, n_layers=8, n_heads=8,
+                  n_kv=8, head_dim=64, d_ff=2048, vocab=32_000)
+QUICKSTART_RUN = dict(steps=300, batch=8, seq=256, lr=3e-3, warmup=20)
+QUICKSTART_FALL = (0.20, 0.28)
+# full-width llama3-8b cut to 4 layers: float32 AdamW state of 32 layers
+# (~128 GB) does not fit one card
+FULL_TRAIN = dict(n_layers=4, steps=5, batch=2, seq=512)
+
+
+def train_run(bundle, params, device: str, *, steps: int, batch: int, seq: int,
+              lr: float, warmup: int, compression: bool, total: int | None = None):
+    """``steps`` train steps of ``make_train_step`` from ``params`` (updated
+    in place) on ``device``; returns the state, losses, grad norms, the
+    host-clock step times (ms, each step synchronised) and the step
+    function."""
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.training import AdamWConfig, TrainStepConfig, make_train_step
+
+    step_fn, init_state = make_train_step(bundle, TrainStepConfig(
+        opt=AdamWConfig(lr=lr, warmup_steps=warmup, total_steps=total or steps),
+        grad_compression=compression), device)
+    state = init_state(params=params)
+    data = SyntheticTokens(DataConfig(vocab=bundle.cfg.vocab, batch=batch,
+                                      seq_len=seq))
+    losses, gnorms, times = [], [], []
+    for step in range(steps):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, data.batch_at(step))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return state, losses, gnorms, times, step_fn
+
+
+@contextlib.contextmanager
+def plain_attention(k1):
+    """Within the block the models' attention runs K1's plain version, on
+    the card too (a witness for the kernels, never the model path)."""
+    from repro_torch.kernels import ops
+
+    kernel = ops.flash_attention
+    ops.flash_attention = k1.flash_attention_plain
+    try:
+        yield
+    finally:
+        ops.flash_attention = kernel
+
+
+def loss_grads(bundle, params, batch: dict, device: str) -> list:
+    """Gradients of ``bundle.loss`` at ``params`` (leaves in tree order)."""
+    from repro_torch.models.common import tree_flatten, tree_unflatten
+
+    leaves, structure = tree_flatten(params)
+    ws = [p.detach().clone().requires_grad_(True) for p in leaves]
+    loss = bundle.loss(tree_unflatten(structure, ws),
+                       {k: torch.as_tensor(v, device=device) for k, v in batch.items()})
+    return [g.detach() for g in torch.autograd.grad(loss, ws)]
+
+
+def phase_train_kernel(k1) -> dict:
+    """Phase 13: K1's backward against ``flash_attention_bwd_plain`` on the
+    card at the five training shapes (each repeated bit for bit), each
+    timed beside its bound, the plain version and SDPA's backward (the port
+    never calls it; it has no soft-cap, so at gemma2's shape it computes
+    the function without one).  Returns the row of the first, full-width
+    shape."""
+    import torch.nn.functional as F
+
+    row = None
+    for label, b, s, h, kv, hd, window, cap, scale in TRAIN_BWD:
+        q = normal((b, s, h, hd), torch.float32, 21)
+        k = normal((b, s, kv, hd), torch.float32, 22)
+        v = normal((b, s, kv, hd), torch.float32, 23)
+        do = normal((b, s, h, hd), torch.float32, 24)
+        kw = dict(causal=True, window=window, logit_cap=cap, scale=scale)
+        o, lse = k1.flash_attention_lse(q, k, v, **kw)
+        got = k1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = k1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        want = k1.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        rel = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+        abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
+        print(f"K1 bwd {label}: q {tuple(q.shape)} kv {kv} window={window} "
+              f"cap={cap} scale={scale}: max |d| / max |ref| dq {rel[0]:.2e} dk "
+              f"{rel[1]:.2e} dv {rel[2]:.2e} (tol {BWD_TOL}), max_abs_err "
+              f"{abs_err:.3e}; repeat bit-identical {same}")
+        if max(rel) > BWD_TOL or not same:
+            raise AssertionError(f"K1 backward at {label}: {rel}, repeat {same}")
+        ms = timed("K1 bwd kernel", lambda: k1.flash_attention_bwd(
+            q, k, v, o, lse, do, **kw), 20, "flash_bwd")
+        split = kernel_split(lambda: k1.flash_attention_bwd(q, k, v, o, lse, do,
+                                                            **kw), 20)
+        print("  K1 bwd device time by kernel (us): " + json.dumps(
+            {name: round(us, 2) for name, us in split.items()}))
+        plain_ms = timed("K1 bwd plain", lambda: k1.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, **kw), 5)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        dot = do.transpose(1, 2)
+        mask = None
+        if window:
+            pos = torch.arange(s, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None, scale=scale,
+                enable_gqa=True)
+
+        # SDPA's backward alone: forward + backward replayed from one CUDA
+        # graph, less the forward's replay (the profiler has lost events)
+        lib_ms = graph_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot),
+                          10) - graph_ms(sdpa, 10)
+        print(f"  K1 bwd sdpa backward{' (no soft-cap)' if cap else ''}: graph "
+              f"{lib_ms:.5f} ms/call (forward and backward less forward)")
+        # q, k, v, o, dO and lse read once; dq, dk and dv written once
+        n_bytes = 4.0 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel() + lse.numel())
+        n_flops = 10.0 * hd * b * h * attention_pairs(s, True, window)
+        b_ms, b_by = bound(n_bytes, n_flops, FP32_FLOPS)
+        print(f"K1 bwd {label} time {ms:.4f} ms ({n_flops / ms / 1e9:.1f} TFLOP/s "
+              f"achieved, {ms / b_ms:.2f}x the bound); plain {plain_ms:.4f} ms; "
+              f"sdpa backward {lib_ms:.4f} ms ({ms / lib_ms:.2f}x); bound "
+              f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, "
+              f"{n_flops / 1e9:.3f} GFLOP float32)")
+        if row is None:
+            row = dict(name="flash_attention_bwd", route="cuda",
+                       source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                       replaces="src/repro/kernels/flash_attention.py:88",
+                       max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    return row
+
+
+def train_card_vs_cpu(k1) -> None:
+    """Phase 13: reduced llama3-8b's step-0 gradients on the card (with K1,
+    and with the plain attention as a witness) against the CPU, then 3
+    steps with int8 gradients off and on, twice on the card (bit for bit)
+    and once on the CPU (``TRAIN_GRAD_TOL``, ``TRAIN_MEAN_LR``,
+    ``TRAIN_GN_LATER``)."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models.common import tree_flatten, tree_map
+
+    small = get_bundle("llama3-8b", reduced=True)
+    cpu_params = small.init(torch.Generator().manual_seed(0), "cpu", torch.float32)
+    batch0 = SyntheticTokens(DataConfig(vocab=small.cfg.vocab, batch=2,
+                                        seq_len=64)).batch_at(0)
+    gpu_params = tree_map(lambda a: a.to("cuda"), cpu_params)
+    g_card = loss_grads(small, gpu_params, batch0, "cuda")
+    g_cpu = loss_grads(small, cpu_params, batch0, "cpu")
+    with plain_attention(k1):              # the witness: no K1 on the card
+        g_plain = loss_grads(small, gpu_params, batch0, "cuda")
+
+    def grad_gap(xs, ys):
+        return max(float((x.cpu() - y.cpu()).abs().max()
+                         / y.abs().max().clamp_min(1e-30)) for x, y in zip(xs, ys))
+
+    g_rel, g_kern = grad_gap(g_card, g_cpu), grad_gap(g_card, g_plain)
+    print(f"train reduced llama3-8b, step-0 gradients over {len(g_cpu)} leaves, "
+          f"max |d| / max |ref|: card vs CPU {g_rel:.2e}, card K1 vs card plain "
+          f"attention {g_kern:.2e}, card plain attention vs CPU "
+          f"{grad_gap(g_plain, g_cpu):.2e} (tol {TRAIN_GRAD_TOL})")
+    if max(g_rel, g_kern) > TRAIN_GRAD_TOL:
+        raise AssertionError("card and CPU gradients disagree")
+    lr = 1e-3
+    for compression in (False, True):
+        runs = {}
+        for name, dev in (("card", "cuda"), ("card 2", "cuda"), ("cpu", "cpu")):
+            params = tree_map(lambda a: a.clone().to(dev), cpu_params)
+            st, losses, gnorms, _, _ = train_run(small, params, dev, steps=3, batch=2,
+                                              seq=64, lr=lr, warmup=2, total=20,
+                                              compression=compression)
+            runs[name] = ([a.cpu() for a in tree_flatten(st)[0]], losses, gnorms,
+                          [a.cpu() for a in tree_flatten(st["params"])[0]])
+        (a, la, ga, pa), (b, lb, gb, _), (c, lc, gc, pc) = runs.values()
+        if not (la == lb and ga == gb and
+                all(torch.equal(x, y) for x, y in zip(a, b))):
+            raise AssertionError("two card runs of the reduced steps differ")
+        d = torch.cat([(x - y).abs().flatten() for x, y in zip(pa, pc)]) / lr
+        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(la, lc))
+        gn_rel = [abs(x - y) / abs(y) for x, y in zip(ga, gc)]
+        q = [float(x) for x in torch.quantile(d[:2**24], torch.tensor(
+            [0.5, 0.9, 0.99, 0.999]))]
+        print(f"train reduced llama3-8b, 3 steps, int8 gradients {compression}: "
+              f"losses card {la} cpu {lc} (max rel {loss_rel:.2e}); grad norms "
+              f"card {ga} cpu {gc} (rel {[f'{x:.2e}' for x in gn_rel]}; tol 1e-4 "
+              f"at step 0, {TRAIN_GN_LATER} later); state "
+              f"card == card bit for bit; params card vs CPU in units of lr: "
+              f"max {float(d.max()):.3e} (tol 3), mean {float(d.mean()):.3e} "
+              f"(tol {TRAIN_MEAN_LR}), p50/p90/p99/p99.9 "
+              + "/".join(f"{x:.2e}" for x in q)
+              + f", {int((d * lr > 1e-5).sum())} of {d.numel()} beyond 1e-5")
+        if loss_rel > 1e-4 or gn_rel[0] > 1e-4 or max(gn_rel) > TRAIN_GN_LATER \
+                or float(d.max()) > 3 or \
+                float(d.mean()) > TRAIN_MEAN_LR:
+            raise AssertionError("card and CPU disagree on the reduced steps")
+
+
+def quickstart_bundle():
+    """The port's bundle of examples/train_quickstart.py's llama-100m."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.models.api import bundle_for
+
+    return bundle_for(QUICKSTART["name"], dataclasses.replace(
+        get_bundle("llama3-8b", reduced=True).cfg, **QUICKSTART))
+
+
+def train_quickstart(card: str) -> None:
+    """Phase 13: the recipe of examples/train_quickstart.py on the card (300
+    steps of llama-100m), its loss curve, step times and one traced step."""
+    from repro_torch.data import DataConfig, SyntheticTokens
+
+    quick = quickstart_bundle()
+    qcfg = quick.cfg
+    r = QUICKSTART_RUN
+    params = quick.init(torch.Generator(device="cuda").manual_seed(0), "cuda",
+                        torch.float32)
+    state, losses, _, times, step_fn = train_run(
+        quick, params, "cuda", steps=r["steps"], batch=r["batch"], seq=r["seq"],
+        lr=r["lr"], warmup=r["warmup"], compression=False)
+    warm = times[3:]
+    p50 = float(np.median(warm))
+    print(f"train quickstart ({quick.num_params() / 1e6:.1f}M params, B="
+          f"{r['batch']}, S={r['seq']}, {r['steps']} steps): loss {losses[0]:.3f} "
+          f"-> {losses[-1]:.3f} (by 25: "
+          + ", ".join(f"{x:.3f}" for x in losses[::25])
+          + f"); step p50 {p50:.3f} ms, p90 "
+          f"{float(np.percentile(warm, 90)):.3f} ms, first {times[0]:.1f} ms; "
+          f"{r['batch'] * r['seq'] / p50 * 1e3:.0f} tokens/s; card: {card}")
+    batch = SyntheticTokens(DataConfig(vocab=qcfg.vocab, batch=r["batch"],
+                                       seq_len=r["seq"])).batch_at(r["steps"])
+    breakdown("train quickstart step", lambda: step_fn(state, batch), top=8)
+    fall = float(np.mean(losses[:25]) - np.mean(losses[-25:]))
+    lo, hi = QUICKSTART_FALL
+    print(f"train quickstart: mean loss of the first 25 steps - the last 25 "
+          f"{fall:.4f} (gate {lo} to {hi}); the example's assertion, "
+          f"last < first - 0.4: {losses[-1] < losses[0] - 0.4}")
+    if not lo < fall < hi:
+        raise AssertionError(f"the quickstart recipe's loss fell by {fall}, "
+                             f"outside {QUICKSTART_FALL}")
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def train_full_width(counters, card: str) -> dict:
+    """Phase 13: full-width Llama-3-8B cut to 4 layers, 5 steps with int8
+    gradients: step times, peak memory, launches per step (returned: the
+    training row's), one traced step."""
+    from repro_torch.configs import get
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models.api import bundle_for
+    from repro_torch.models.common import tree_flatten
+
+    f = FULL_TRAIN
+    big = bundle_for("llama3-8b", dataclasses.replace(get("llama3-8b"),
+                                                       n_layers=f["n_layers"]))
+    torch.cuda.reset_peak_memory_stats()
+    params = big.init(torch.Generator(device="cuda").manual_seed(0), "cuda",
+                      torch.float32)
+    n_leaves = len(tree_flatten(params)[0])
+    reset(counters)
+    state, losses, gnorms, times, step_fn = train_run(
+        big, params, "cuda", steps=f["steps"], batch=f["batch"], seq=f["seq"],
+        lr=3e-4, warmup=2, compression=True)
+    counts = counts_of(counters)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step = {k: v / f["steps"] for k, v in counts.items()}
+    want = {"flash_attention": 2 * f["n_layers"], "flash_attention_bwd": f["n_layers"],
+            "quantize_int8": n_leaves, "dequantize_int8": n_leaves,
+            "decode_attention": 0, "ssd": 0, "rglru": 0}
+    print(f"train llama3-8b full width, {f['n_layers']} layers "
+          f"({big.num_params() / 1e9:.3f} B params, {n_leaves} leaves), B="
+          f"{f['batch']}, S={f['seq']}, int8 gradients: losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; grad norms {[round(g, 3) for g in gnorms]}; step times "
+          f"{[round(t, 2) for t in times]} ms, p50 of steps 2-{f['steps']} "
+          f"{float(np.median(times[1:])):.3f} ms; peak memory {peak:.2f} GiB; "
+          f"launches per step {per_step} (the forward twice: checkpointed "
+          f"blocks); card: {card}")
+    if per_step != want or not all(np.isfinite(losses)):
+        raise AssertionError(f"full-width steps: launches per step {per_step}, "
+                             f"want {want}; losses {losses}")
+    batch = SyntheticTokens(DataConfig(vocab=big.cfg.vocab, batch=f["batch"],
+                                       seq_len=f["seq"])).batch_at(f["steps"])
+    breakdown("train llama3-8b full width step", lambda: step_fn(state, batch),
+              top=8)
+    del state, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_drill() -> None:
+    """Phase 13: ``launch/train.main`` on the card, killed at step 10 (exit
+    42) and resumed to 20: the state equals the uninterrupted run's bit for
+    bit."""
+    from repro_torch.launch import train
+
+    root = ROOT / "build" / "train_drill"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--device", "cuda", "--steps", "20", "--ckpt-every", "10",
+            "--grad-compression", "--log-every", "100"]
+    full = train.main(argv + ["--ckpt-dir", str(root / "full")])
+    try:
+        train.main(argv + ["--ckpt-dir", str(root / "drill"), "--kill-at-step", "10"])
+    except SystemExit as exc:
+        if exc.code != 42:
+            raise
+    else:
+        raise AssertionError("the drill did not exit at step 10")
+    resumed = train.main(argv + ["--ckpt-dir", str(root / "drill")])
+    same = []
+    for sub in ("full", "drill"):
+        with np.load(root / sub / "step_000000020" / "arrays.npz") as data:
+            same.append({k: data[k] for k in data.files})
+    diff = [k for k in same[0] if not np.array_equal(same[0][k], same[1][k])]
+    print(f"train drill (reduced llama3-8b, B=8, S=128, int8 gradients): "
+          f"uninterrupted {full}, resumed after exit 42 at step 10 {resumed}; "
+          f"{len(same[0])} state arrays at step 20, {len(diff)} differ")
+    if diff or sorted(same[0]) != sorted(same[1]) or \
+            resumed["last_loss"] != full["last_loss"]:
+        raise AssertionError(f"kill-and-resume differs: {diff[:5]}")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_train(k1, counters, card: str) -> tuple[dict, dict]:
+    """Phase 13, training through ``make_train_step`` and
+    ``launch/train.main``: K1's backward against its plain version; reduced
+    llama3-8b card == card and card == CPU; the quickstart recipe's loss
+    drop; full-width llama3-8b at 4 layers (the launches of its steps are
+    the training row's); the kill-and-resume drill, bit for bit."""
+    t_phase = time.perf_counter()
+    reset(counters)
+    row = phase_train_kernel(k1)
+    train_card_vs_cpu(k1)
+    train_quickstart(card)
+    counts = train_full_width(counters, card)
+    train_drill()
+    phase = counts_of(counters)
+    if not all(phase[k] for k in ("flash_attention", "flash_attention_bwd",
+                                  "quantize_int8", "dequantize_int8")) or \
+            any(phase[k] for k in ("decode_attention", "ssd", "rglru")):
+        raise AssertionError(f"training launches {phase}")
+    print(f"train: phase {time.perf_counter() - t_phase:.1f} s")
+    return row, counts
+
+
 def reset(counters) -> None:
     for fn in counters:
         fn.launches = 0
@@ -3056,8 +3465,8 @@ def main() -> int:
     from repro_torch.kernels import ssd_chunk as k4
     from repro_torch.launch import serve
 
-    counters = (k1.flash_attention, k2.quantize_int8, k2.dequantize_int8,
-                k3.decode_attention, k4.ssd, k5.rglru)
+    counters = (k1.flash_attention, k1.flash_attention_bwd, k2.quantize_int8,
+                k2.dequantize_int8, k3.decode_attention, k4.ssd, k5.rglru)
     t_start = time.perf_counter()
     # the float32 plain versions are references: full float32 products
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3206,7 +3615,11 @@ def main() -> int:
     # ---- phase 12: the edge simulator ----
     phase_simulator(counters, card)
 
-    # ---- phase 13: result ----
+    # ---- phase 13: training ----
+    train_row, train_counts = phase_train(k1, counters, card)
+    rows.append(train_row)
+
+    # ---- phase 14: result ----
     launches_from = {
         "decode_attention": gen_counts, "ssd": m_counts, "rglru": g_counts,
         "flash_attention@mla": zoo["deepseek-v2-lite-16b"][0],
@@ -3214,7 +3627,8 @@ def main() -> int:
         "decode_attention@qwen3": zoo["qwen3-moe-30b-a3b"][1],
         "flash_attention@gemma2": zoo["gemma2-9b"][0],
         "decode_attention@gemma2": zoo["gemma2-9b"][1],
-        "flash_attention@hd8": hd8, "decode_attention@hd8": hd8}
+        "flash_attention@hd8": hd8, "decode_attention@hd8": hd8,
+        "flash_attention_bwd": train_counts}
     for row in rows:
         row["launches"] = launches_from.get(row["name"], serve_counts)[
             row["name"].split("@")[0]]

@@ -1,5 +1,6 @@
-"""Distributed-systems support of the port: node liveness for the fleet."""
+"""Distributed-systems support of the port: node liveness for the fleet,
+straggler detection for training."""
 
-from .fault_tolerance import HeartbeatRegistry
+from .fault_tolerance import HeartbeatRegistry, StragglerDetector
 
-__all__ = ["HeartbeatRegistry"]
+__all__ = ["HeartbeatRegistry", "StragglerDetector"]

@@ -1,16 +1,21 @@
-"""Fault tolerance: node liveness from heartbeats.
+"""Fault tolerance: node liveness from heartbeats, training stragglers.
 
 The fleet control plane's ``node-fail`` trigger class reads a
 :class:`HeartbeatRegistry`: a node that misses ``miss_limit`` beats is
 declared dead, and every session whose chain touches it is forced into the
-monitoring cycle's solve set.
+monitoring cycle's solve set.  The training driver feeds step times to a
+:class:`StragglerDetector`, the paper's latency trigger transplanted to
+training.  (The reference's ``plan_elastic_mesh`` waits for the port's
+mesh.)
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-__all__ = ["HeartbeatRegistry"]
+import numpy as np
+
+__all__ = ["HeartbeatRegistry", "StragglerDetector"]
 
 
 @dataclass
@@ -67,3 +72,30 @@ class HeartbeatRegistry:
         """Nodes that came back since the last drain (each reported once)."""
         out, self._revived = self._revived, []
         return out
+
+
+@dataclass
+class StragglerDetector:
+    """Per-worker step-time EWMA; flags workers slower than median × ratio.
+
+    This is the paper's U_max trigger transplanted to training: the
+    detector's output feeds the same decision path (migrate -> re-split),
+    there realized as stage rebalancing or a hot-spare swap.
+    """
+
+    ratio: float = 1.5
+    alpha: float = 0.3
+    _ewma: dict = field(default_factory=dict)     # worker -> core.triggers.EWMA
+
+    def observe(self, worker: int, step_time_s: float) -> None:
+        # imported here: repro_torch.core imports this module (HeartbeatRegistry)
+        from ..core.triggers import EWMA
+
+        self._ewma.setdefault(worker, EWMA(self.alpha)).update(step_time_s)
+
+    def stragglers(self) -> list[int]:
+        if len(self._ewma) < 2:
+            return []
+        vals = {w: e.get() for w, e in self._ewma.items()}
+        med = float(np.median(list(vals.values())))
+        return [w for w, v in vals.items() if v > self.ratio * med]

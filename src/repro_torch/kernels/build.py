@@ -39,7 +39,8 @@ _FLOAT = ctypes.c_float
 _LONG = ctypes.c_longlong
 # entry point -> argtypes; every pointer and the stream are c_void_p
 _SIGNATURES = {
-    "flash_attention_fwd": [_VOID] * 4 + [_INT] * 9 + [_FLOAT, _FLOAT, _VOID],
+    "flash_attention_fwd": [_VOID] * 5 + [_INT] * 9 + [_FLOAT, _FLOAT, _VOID],
+    "flash_attention_bwd": [_VOID] * 10 + [_INT] * 7 + [_FLOAT, _FLOAT, _VOID],
     "quantize_int8_fwd": [_VOID] * 3 + [_INT] * 3 + [_VOID],
     "dequantize_int8_fwd": [_VOID] * 3 + [_INT] * 3 + [_VOID],
     "decode_attention_fwd": [_VOID] * 4 + [_INT] + [_VOID] * 4 + [_INT] * 10

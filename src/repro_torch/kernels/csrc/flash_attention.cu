@@ -58,6 +58,10 @@
 // that the 16 key columns of a half-warp fall in 16 different banks.  Shared
 // memory is 4 (64 (DQK+1) + 64 (DQK+1) + 64 DV + 64 * 65) bytes: 213,760 at
 // 256, 148,224 at (192, 128), under the 232,448 a Hopper block may opt into.
+// Given an lse pointer (training: the backward in flash_attention_bwd.cu
+// recomputes the probabilities from it), the float32 instance also writes
+// each row's log-sum-exp m + log(l) [B, H, S]; serving passes none, and o
+// does not depend on it.
 
 #include <stdint.h>
 
@@ -350,9 +354,9 @@ constexpr size_t smem_bytes() {
 template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int S,
-                     int H, int KV, int causal, int window, float logit_cap,
-                     float scale) {
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int S, int H, int KV, int causal,
+                     int window, float logit_cap, float scale) {
   constexpr int QS = DQK + 1;    // row stride of the Q and K tiles
   constexpr int PS = BK + 1;     // row stride of the P tile
   constexpr int DJ = (DV + 15) / 16;  // output columns per thread (at most)
@@ -499,13 +503,17 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int jj = 0; jj < DJ; ++jj)
         ob[s * o_row + tx + 16 * jj] = acc[i][jj] / denom;
     }
+    // m and l are the same in the 16 threads of the row
+    if (lse != nullptr && s < S && tx == 0)
+      lse[((size_t)b * H + h) * S + s] = m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
 template <int DQK, int DV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int B, int S, int H, int KV, int causal, int window,
-                       float logit_cap, float scale, cudaStream_t stream) {
+                       void* lse, int B, int S, int H, int KV, int causal,
+                       int window, float logit_cap, float scale,
+                       cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DQK, DV>();
   static_assert(smem <= 232448, "over the shared memory a block may use");
   cudaError_t err = cudaFuncSetAttribute(
@@ -515,22 +523,22 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   flash_fwd_f32_kernel<DQK, DV><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, causal,
-      window, logit_cap, scale);
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), S, H, KV, causal, window, logit_cap, scale);
   return cudaGetLastError();
 }
 
 // the (DQK, DV) pairs built: the wrapper's _HEAD_DIMS and _QK_V_PAIRS
 template <bool BF16>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int B, int S, int H, int KV, int DQK, int DV, int causal,
-                     int window, float logit_cap, float scale,
+                     void* lse, int B, int S, int H, int KV, int DQK, int DV,
+                     int causal, int window, float logit_cap, float scale,
                      cudaStream_t stream) {
 #define REPRO_FLASH_PAIR(dqk, dv)                                             \
   if (DQK == dqk && DV == dv)                                                 \
     return BF16 ? launch_wgmma<dqk, dv>(q, k, v, o, B, S, H, KV, causal,      \
                                         window, logit_cap, scale, stream)     \
-                : launch_f32<dqk, dv>(q, k, v, o, B, S, H, KV, causal,        \
+                : launch_f32<dqk, dv>(q, k, v, o, lse, B, S, H, KV, causal,   \
                                       window, logit_cap, scale, stream);
   REPRO_FLASH_PAIR(8, 8)
   REPRO_FLASH_PAIR(16, 16)
@@ -548,18 +556,21 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 
 // Returns the cudaError_t of the launch (0 on success).  is_bf16 selects the
 // storage type of q, k, v and o: 1 bfloat16 (tensor-core kernel), 0 float32.
-// HD is the head dim of q and k, HDV that of v and o.
+// HD is the head dim of q and k, HDV that of v and o.  lse (float32
+// [B, H, S]) is written when it is not null; only the float32 instance takes
+// one.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int is_bf16, int B, int S, int H,
-                                   int KV, int HD, int HDV, int causal,
-                                   int window, float logit_cap, float scale,
-                                   void* stream) {
+                                   void* o, void* lse, int is_bf16, int B,
+                                   int S, int H, int KV, int HD, int HDV,
+                                   int causal, int window, float logit_cap,
+                                   float scale, void* stream) {
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
+  if (is_bf16 && lse != nullptr) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch<true>(q, k, v, o, B, S, H, KV, HD, HDV, causal, window,
-                          logit_cap, scale, st);
-  return dispatch<false>(q, k, v, o, B, S, H, KV, HD, HDV, causal, window,
+    return dispatch<true>(q, k, v, o, nullptr, B, S, H, KV, HD, HDV, causal,
+                          window, logit_cap, scale, st);
+  return dispatch<false>(q, k, v, o, lse, B, S, H, KV, HD, HDV, causal, window,
                          logit_cap, scale, st);
 }
 

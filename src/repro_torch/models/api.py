@@ -1,10 +1,12 @@
 """Unified model API: one ModelBundle per architecture family.
 
-Downstream code (serving engine, orchestrator graph extraction) goes through
-this interface.  The port's bundle carries what serving needs: the config,
-a param initializer, prefill and decode over the family's cache (KV cache,
-SSM state, or LRU state plus a ring of the attention window), and the
-computational graph the orchestrator partitions.
+Downstream code (training step, serving engine, orchestrator graph
+extraction) goes through this interface.  The port's bundle carries the
+config, a param initializer, the training loss (the transformer family;
+Mamba-2 and Griffin train once their scans have backward kernels), prefill
+and decode over the family's cache (KV cache, SSM state, or LRU state plus a
+ring of the attention window), and the computational graph the orchestrator
+partitions.
 """
 
 from __future__ import annotations
@@ -15,12 +17,15 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core.graph import GraphNode, ModelGraph
 from . import griffin, mamba2, transformer, transformer_serve
 from .common import apply_norm, layer
 
-__all__ = ["ModelBundle", "bundle_for", "SHAPES", "ShapeSpec"]
+__all__ = ["ModelBundle", "bundle_for", "softmax_xent", "chunked_softmax_xent",
+           "SHAPES", "ShapeSpec"]
 
 
 @dataclass(frozen=True)
@@ -41,6 +46,64 @@ SHAPES: dict[str, ShapeSpec] = {
 }
 
 
+# --------------------------------------------------------------------------- #
+# losses
+# --------------------------------------------------------------------------- #
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean masked token xent; labels < 0 are ignored. logits [B,S,V]."""
+    mask = labels >= 0
+    safe = labels.clamp_min(0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, safe[..., None])[..., 0]
+    per_tok = (lse - ll) * mask
+    return per_tok.sum() / mask.sum().clamp_min(1)
+
+
+def _xent_chunk(hx, w_head, lx, final_softcap):
+    """(summed xent, token count) of one sequence chunk: logits [B,c,V] in
+    float32, soft-capped, labels < 0 masked."""
+    logits = (hx @ w_head.to(hx.dtype)).float()
+    if final_softcap:
+        logits = final_softcap * torch.tanh(logits / final_softcap)
+    mask = lx >= 0
+    safe = lx.clamp_min(0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, safe[..., None])[..., 0]
+    return ((lse - ll) * mask).sum(), mask.sum(dtype=torch.int32)
+
+
+def chunked_softmax_xent(h: torch.Tensor, w_head: torch.Tensor,
+                         labels: torch.Tensor, *, chunk: int = 512,
+                         final_softcap: float = 0.0) -> torch.Tensor:
+    """Sequence-chunked xent: logits never materialize beyond [B,chunk,V].
+
+    S is padded to a multiple of the chunk with labels -1; the chunks' sums
+    and counts add in order, as the reference's scan does.  Under grad mode
+    each chunk is checkpointed, so its logits are recomputed in the backward
+    instead of kept.
+    """
+    b, s, d = h.shape
+    c = min(chunk, s)
+    pad = (-s) % c
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.int32, device=h.device)
+    for i in range(0, h.shape[1], c):
+        hx, lx = h[:, i:i + c], labels[:, i:i + c]
+        if torch.is_grad_enabled():
+            part, n = checkpoint(_xent_chunk, hx, w_head, lx, final_softcap,
+                                 use_reentrant=False, preserve_rng_state=False)
+        else:
+            part, n = _xent_chunk(hx, w_head, lx, final_softcap)
+        tot, cnt = tot + part, cnt + n
+    return tot / cnt.clamp_min(1)
+
+
+# --------------------------------------------------------------------------- #
+# bundle
+# --------------------------------------------------------------------------- #
 @dataclass
 class ModelBundle:
     arch: str
@@ -51,9 +114,18 @@ class ModelBundle:
     decode: Callable[..., tuple]              # (params, cache, tokens, pos)
     cache_spec: Callable[..., Any]            # (batch, max_len) -> meta-tensor tree
     model_graph: Callable[[], ModelGraph]
+    loss: Callable[..., torch.Tensor] | None = None   # (params, batch) -> scalar
+
+    def param_specs(self, dtype=torch.float32) -> Any:
+        """The param tree as ``meta`` tensors (shapes and dtypes, no data)."""
+        return self.init(torch.Generator(), "meta", dtype)
 
     def num_params(self) -> int:
         return self.cfg.num_params()
+
+    def num_active_params(self) -> int:
+        fn = getattr(self.cfg, "num_active_params", None)
+        return fn() if fn else self.cfg.num_params()
 
     def input_specs(self, shape: ShapeSpec) -> dict[str, Any]:
         """The inputs of one step at ``shape`` as ``meta`` tensors, as the
@@ -92,6 +164,21 @@ def _graph_from_blocks(name: str, n_layers: int, d_model: int,
 
 
 def _transformer_bundle(arch: str, cfg: transformer.TransformerConfig) -> ModelBundle:
+    def loss(params, batch):
+        """Mean next-token xent of ``batch`` ({"tokens" [B,S-P], "labels"
+        [B,S], optional "prefix_embeds" [B,P,prefix_dim]}), activations in
+        float32 (the reference's are bf16; bf16 training waits for a bf16
+        backward of K1)."""
+        x = transformer.embed_tokens(params, cfg, batch["tokens"],
+                                     compute_dtype=torch.float32)
+        prefix = batch.get("prefix_embeds")
+        if prefix is not None:
+            x = transformer.embed_prefix(params, prefix, x)
+        h = transformer.forward_hidden(params, cfg, x)
+        w = params["embed"].T if cfg.tie_embeddings else params["head"]
+        return chunked_softmax_xent(h, w, batch["labels"],
+                                    final_softcap=cfg.final_softcap)
+
     def prefill(params, batch, max_len=None):
         return transformer_serve.prefill(
             params, cfg, batch["tokens"],
@@ -107,6 +194,7 @@ def _transformer_bundle(arch: str, cfg: transformer.TransformerConfig) -> ModelB
         init=partial(transformer.init_params, cfg),
         prefill=prefill, decode=decode,
         cache_spec=partial(transformer_serve.cache_spec, cfg),
+        loss=loss,
         model_graph=lambda: _graph_from_blocks(
             arch, cfg.n_layers, cfg.d_model,
             2.0 * cfg.active_params_per_block, 2.0 * cfg.params_per_block,

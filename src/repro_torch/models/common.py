@@ -142,9 +142,63 @@ def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
     return fn(tree)
 
 
+def tree_flatten(tree: Any) -> tuple[list, Any]:
+    """The leaves of a nested dict/list tree in JAX's order (dict keys
+    sorted, lists in order), and its structure for :func:`tree_unflatten`."""
+    leaves: list = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return [walk(v) for v in t]
+        leaves.append(t)
+        return None
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(structure: Any, leaves) -> Any:
+    """The tree of ``structure`` (from :func:`tree_flatten`) with ``leaves``."""
+    it = iter(leaves)
+
+    def build(s):
+        if isinstance(s, dict):
+            return {k: build(v) for k, v in s.items()}
+        if isinstance(s, list):
+            return [build(v) for v in s]
+        return next(it)
+
+    return build(structure)
+
+
+def count_params(params: Params) -> int:
+    return sum(int(np.prod(x.shape)) for x in tree_flatten(params)[0])
+
+
+def cast_tree(params: Params, dtype) -> Params:
+    """Floating leaves cast to ``dtype``; integer leaves as they are."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    params)
+
+
 def layer(blocks: Params, i: int) -> Params:
     """The i-th layer of a stacked block tree (views, no copies)."""
     return tree_map(lambda a: a[i], blocks)
+
+
+def unstack_layers(blocks: Params) -> list[Params]:
+    """Every layer of a stacked block tree, as views.
+
+    Each leaf is unbound once, so under autograd its gradient is one stack
+    of the layers' gradients; slicing layer by layer (:func:`layer`) would
+    give each slice's backward a zero [L, ...] tensor of its own.
+    """
+    if isinstance(blocks, dict):
+        per_key = {k: unstack_layers(v) for k, v in blocks.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(blocks.unbind(0))
 
 
 def _tree_set(dst: Any, i: int, src: Any) -> None:

@@ -23,6 +23,8 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import chunked_attention
@@ -37,6 +39,7 @@ from .common import (
     norm_params,
     softcap,
     stack_layers,
+    unstack_layers,
 )
 
 # --------------------------------------------------------------------------- #
@@ -462,9 +465,12 @@ def embed_tokens(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
     """Token ids [B,S] -> activations [B,S,d] in ``compute_dtype``.
 
     Activations are ``compute_dtype`` (bf16) whatever the parameter dtype;
-    the boundary byte counts depend on that.
+    the boundary byte counts depend on that.  The lookup is
+    ``F.embedding``, whose gradient sums each row's tokens in a fixed order
+    (an indexing gradient accumulates in parallel on the CPU, in no fixed
+    order).
     """
-    x = params["embed"][tokens].to(compute_dtype)
+    x = F.embedding(tokens, params["embed"]).to(compute_dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=compute_dtype)
     return x
@@ -481,10 +487,27 @@ def embed_prefix(params: Params, prefix_embeds: torch.Tensor,
 def forward_hidden(params: Params, cfg: TransformerConfig,
                    x: torch.Tensor) -> torch.Tensor:
     """Run all blocks on embedded inputs x: [B,S,d] -> [B,S,d] (pre-head):
-    the lead blocks first, then the stacked ones."""
-    for i in range(cfg.n_layers):
-        lp, lcfg, window, _, _ = layer_at(params, cfg, i)
-        x = block_forward(x, lp, lcfg, window=window)
+    the lead blocks first, then the stacked ones.
+
+    Under grad mode each stacked block is checkpointed
+    (``torch.utils.checkpoint``, non-reentrant): its activations are
+    recomputed in the backward, as the reference's
+    ``jax.checkpoint(nothing_saveable)`` over its scanned blocks; the lead
+    blocks are not, as in the reference.  The stacked leaves are unbound
+    once (``unstack_layers``).
+    """
+    nl = n_lead(cfg)
+    for i in range(nl):
+        x = block_forward(x, params["lead_blocks"][i], lead_config(cfg), window=0)
+    remat = torch.is_grad_enabled()
+    windows = cfg.windows()
+    for j, lp in enumerate(unstack_layers(params["blocks"])):
+        w = int(windows[nl + j])
+        if remat:
+            x = checkpoint(block_forward, x, lp, cfg, window=w,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = block_forward(x, lp, cfg, window=w)
     return apply_norm(x, params["final_norm"], cfg.norm)
 
 

@@ -32,3 +32,11 @@ def test_no_jax_or_reference_import(path):
 
 def test_scan_covers_the_package():
     assert len(FILES) > 20 and (ROOT / "chip_smoke.py").exists()
+
+
+@pytest.mark.parametrize("part", ["training", "data", "checkpoint",
+                                  "launch/train.py", "distributed"])
+def test_scan_covers_the_training_slice(part):
+    path = ROOT / "src" / "repro_torch" / part
+    found = [f for f in FILES if f == path or path in f.parents]
+    assert found, part

@@ -7,7 +7,8 @@ it runs on a machine with the card:
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
 Tolerances are those of tests/test_kernels.py: attention 2e-5 float32, 2e-2
-bfloat16 (K1 also at MLA's qk 192 / v 128 and 24 / 16 and at hd 8, K3 at hd
+bfloat16 (K1's backward: 1e-4 of the largest reference gradient, with window,
+soft-cap, GQA and ragged S at every head dim 8 to 128) (K1 also at MLA's qk 192 / v 128 and 24 / 16 and at hd 8, K3 at hd
 8 and 256); SSD (K4) 1e-4 float32 for y and the float32 state (also in bf16),
 2e-2 for bf16 outputs; RG-LRU (K5) 1e-5 float32, 2e-2 bf16; int8 is held bit
 for bit, bf16 quantize over every finite input.
@@ -25,8 +26,10 @@ from repro_torch.kernels import flash_attention as k1
 from repro_torch.kernels import int8_transfer as k2
 from repro_torch.kernels import rglru as k5
 from repro_torch.kernels import ssd_chunk as k4
-from repro_torch.models.common import tree_map
+from repro_torch.data import DataConfig, SyntheticTokens
+from repro_torch.models.common import tree_flatten, tree_map, tree_unflatten
 from repro_torch.serving import Request, WaveBatcher
+from repro_torch.training import AdamWConfig, TrainStepConfig, make_train_step
 
 
 @pytest.fixture
@@ -906,3 +909,166 @@ def test_storm_simulation_is_bit_identical_on_the_card_and_matches_the_cpu():
         np.testing.assert_array_equal(ra, rb)
         np.testing.assert_allclose(lc, la, rtol=1e-9, atol=0)
         np.testing.assert_allclose(rc, ra, rtol=1e-9, atol=0)
+
+
+# --------------------------------------------------------------------------- #
+# K1's backward (training)
+# --------------------------------------------------------------------------- #
+def _max_rel(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window,cap,scale", [
+    (2, 512, 32, 8, 128, True, 0, 0.0, None),     # llama3-8b's training shape
+    (8, 256, 8, 8, 64, True, 0, 0.0, None),       # the quickstart recipe
+    (2, 100, 4, 2, 32, True, 16, 50.0, 16.0 ** -0.5),  # reduced gemma2
+    (2, 77, 7, 1, 8, True, 0, 0.0, None),         # hd 8, G = 7, ragged S
+    (1, 130, 4, 2, 16, True, 48, 0.0, None),      # hd 16, window, ragged S
+    (2, 96, 4, 4, 64, False, 0, 30.0, None),      # non-causal, soft-cap
+    (1, 200, 8, 2, 128, True, 64, 20.0, None),    # hd 128: window and cap
+    (1, 65, 2, 1, 32, False, 24, 0.0, None),      # non-causal window, 2 tiles
+])
+def test_flash_bwd_kernel_matches_plain(b, s, h, kv, hd, causal, window, cap,
+                                        scale):
+    """dQ, dK, dV of the backward kernel against ``flash_attention_bwd_plain``
+    on the same o and lse: max |diff| <= 1e-4 of the largest reference
+    gradient (float32 FMAs against float32 matmuls in another order)."""
+    q = _normal((b, s, h, hd), torch.float32, 1)
+    k = _normal((b, s, kv, hd), torch.float32, 2)
+    v = _normal((b, s, kv, hd), torch.float32, 3)
+    do = _normal((b, s, h, hd), torch.float32, 4)
+    kw = dict(causal=causal, window=window, logit_cap=cap, scale=scale)
+    o, lse = k1.flash_attention_lse(q, k, v, **kw)
+    before = k1.flash_attention_bwd.launches
+    got = k1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert k1.flash_attention_bwd.launches == before + 1
+    want = k1.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape
+        assert _max_rel(g, w) <= 1e-4, name
+    again = k1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for g, a in zip(got, again):                       # no float atomics
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("hd", [8, 16, 32, 64, 128])
+def test_flash_fwd_lse_equals_forward_and_plain(hd):
+    """The float32 forward with lse writes the same o, bit for bit, as
+    without; lse equals the plain log-sum-exp to 1e-5."""
+    q = _normal((2, 150, 4, hd), torch.float32, 5)
+    k = _normal((2, 150, 2, hd), torch.float32, 6)
+    v = _normal((2, 150, 2, hd), torch.float32, 7)
+    for kw in (dict(), dict(window=40, logit_cap=30.0), dict(causal=False)):
+        o0 = k1.flash_attention(q, k, v, **kw)
+        o1, lse = k1.flash_attention_lse(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(o0, o1)
+        sim, _, _ = k1._scores_plain(q, k, kw.get("causal", True),
+                                     kw.get("window", 0), kw.get("logit_cap", 0.0),
+                                     None)
+        torch.testing.assert_close(lse, torch.logsumexp(sim, -1), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_flash_autograd_launches_forward_and_backward_kernels():
+    q = _normal((2, 64, 4, 32), torch.float32, 8).requires_grad_()
+    k = _normal((2, 64, 2, 32), torch.float32, 9).requires_grad_()
+    v = _normal((2, 64, 2, 32), torch.float32, 10).requires_grad_()
+    f0, b0 = k1.flash_attention.launches, k1.flash_attention_bwd.launches
+    o = k1.flash_attention(q, k, v, window=20)
+    do = _normal(tuple(o.shape), torch.float32, 11)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert k1.flash_attention.launches == f0 + 1
+    assert k1.flash_attention_bwd.launches == b0 + 1
+    want = torch.autograd.grad(
+        k1.flash_attention_plain(q, k, v, window=20), (q, k, v), do)
+    for g, w in zip(got, want):
+        assert _max_rel(g, w) <= 1e-4
+    with torch.no_grad():                                 # serving: no lse
+        k1.flash_attention(q, k, v)
+    assert k1.flash_attention_bwd.launches == b0 + 1
+
+
+@pytest.mark.parametrize("dtype,hd,hd_v", [(torch.bfloat16, 64, 64),
+                                           (torch.float32, 256, 256),
+                                           (torch.float32, 192, 128),
+                                           (torch.float32, 24, 16)])
+def test_flash_autograd_rejects_unsupported(dtype, hd, hd_v):
+    q = _normal((1, 64, 2, hd), dtype, 1).requires_grad_()
+    k = _normal((1, 64, 2, hd), dtype, 2)
+    v = _normal((1, 64, 2, hd_v), dtype, 3)
+    with pytest.raises(ValueError, match="backward"):
+        k1.flash_attention(q, k, v)
+
+
+def _reduced_train_run(device, steps=3, compression=True):
+    bundle = get_bundle("llama3-8b", reduced=True)
+    params = bundle.init(torch.Generator().manual_seed(0), "cpu", torch.float32)
+    params = tree_map(lambda t: t.to(device), params)
+    step_fn, init_state = make_train_step(
+        bundle, TrainStepConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=2),
+                                grad_compression=compression), device)
+    state = init_state(params=params)
+    data = SyntheticTokens(DataConfig(vocab=bundle.cfg.vocab, batch=2, seq_len=64))
+    losses = []
+    for step in range(steps):
+        state, m = step_fn(state, data.batch_at(step))
+        losses.append(float(m["loss"]))
+    return losses, tree_map(lambda t: t.cpu(), state["params"])
+
+
+@pytest.mark.parametrize("compression", [False, True])
+def test_reduced_train_steps_on_the_card_repeat_and_match_the_cpu(compression):
+    """Three steps: two card runs bit for bit; the CPU run (plain versions)
+    within 1e-4 on the loss; every param within 3 lr and the mean gap under
+    0.05 lr (chip_smoke.py's TRAIN_MEAN_LR: Adam's ratio m / sqrt(v) carries
+    the float32 noise of a gradient element that is tiny next to its leaf's
+    maximum into an lr-sized step, and an int8 code at a rounding tie flips;
+    a wrong update would move every element by the order of lr)."""
+    f0, b0 = k1.flash_attention.launches, k1.flash_attention_bwd.launches
+    q0 = k2.quantize_int8.launches
+    la, pa = _reduced_train_run("cuda", compression=compression)
+    assert k1.flash_attention_bwd.launches - b0 == 3 * 2       # 2 layers
+    assert k1.flash_attention.launches - f0 == 3 * 2 * 2       # + recompute
+    assert (k2.quantize_int8.launches - q0 > 0) == compression
+    lb, pb = _reduced_train_run("cuda", compression=compression)
+    lc, pc = _reduced_train_run("cpu", compression=compression)
+    assert la == lb
+    np.testing.assert_allclose(la, lc, rtol=1e-4)
+    lr = 1e-3
+    gaps = []
+    for a, b, c in zip(*(tree_flatten(x)[0] for x in (pa, pb, pc))):
+        assert torch.equal(a, b)
+        gaps.append((a.float() - c.float()).abs().flatten() / lr)
+    gaps = torch.cat(gaps)
+    assert float(gaps.max()) <= 3 and float(gaps.mean()) <= 0.05
+
+
+@pytest.mark.parametrize("arch,tol", [("llama3-8b", 5e-4),
+                                      ("qwen3-moe-30b-a3b", 1e-4)])
+def test_reduced_gradients_on_the_card_match_the_cpu(arch, tol):
+    """Step-0 gradients, card vs CPU, within ``tol`` of each leaf's max
+    (float32 in other orders; reduced llama3-8b's init saturates its
+    softmax, whose gradients cancel: chip_smoke.py's TRAIN_GRAD_TOL); K1's
+    backward runs once a layer."""
+    bundle = get_bundle(arch, reduced=True)
+    params = bundle.init(torch.Generator().manual_seed(0), "cpu",
+                         torch.float32)
+    batch = SyntheticTokens(DataConfig(vocab=bundle.cfg.vocab, batch=2,
+                                       seq_len=64)).batch_at(0)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        leaves, structure = tree_flatten(tree_map(lambda a: a.to(dev), params))
+        ws = [p.clone().requires_grad_(True) for p in leaves]
+        b0 = k1.flash_attention_bwd.launches
+        loss = bundle.loss(tree_unflatten(structure, ws),
+                           {k: torch.as_tensor(v, device=dev)
+                            for k, v in batch.items()})
+        grads.append([g.cpu() for g in torch.autograd.grad(loss, ws)])
+        if dev == "cuda":
+            assert k1.flash_attention_bwd.launches - b0 == bundle.cfg.n_layers
+    for a, c in zip(*grads):
+        assert float((a - c).abs().max()) <= tol * float(c.abs().max())
