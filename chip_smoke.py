@@ -171,7 +171,9 @@ result line:
    S=256, H=8, hd 64; reduced gemma2's hd 32 with soft-cap 50, window 16 and
    ``attn_scale``; hd 8 at G=7; a ragged S), max |diff| <= 1e-4 of the
    largest reference gradient, each repeated bit for bit and timed beside
-   its bound, the plain version and SDPA's backward; reduced
+   its two bounds (float32 products on the CUDA cores; 3xTF32 on the tensor
+   cores, as the kernel runs them), the plain version and SDPA's backward;
+   the float32 forward with lse at Llama's shape beside SDPA's; reduced
    llama3-8b, 3 steps with int8 gradients off and on, twice on the card (bit
    for bit) and once on the CPU (step-0 gradients 1e-4 of each leaf's max,
    loss and grad norm 1e-4, params within 3 lr with a mean gap under 0.05
@@ -219,6 +221,7 @@ import torch  # noqa: E402
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 
 PATH = dict(b=1, s=512, h=32, kv=8, hd=128)      # llama3-8b prefill, 512 tokens
 ROWS = (512, 4096)                                # one boundary at that shape
@@ -228,11 +231,13 @@ DECODE = dict(b=8, s=640, h=32, kv=8, hd=128)     # a generation wave's decode
 DECODE_CUR = 576                                  # cache entries in use
 K1_BF16 = "flash_fwd_wgmma_kernel"     # the tensor-core instance (bf16)
 K1_F32 = "flash_fwd_f32_kernel"       # the CUDA-core instance (float32)
+K1_BWD = "flash_bwd_"                 # the backward's kernels (float32, 3xTF32)
+K1_BWD_MMA = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")  # tensor cores
 K3_KERNEL = "decode_attention_kernel"
 K4_BF16 = ("ssd_chunk_state_kernel", "ssd_chunk_scan_kernel")  # tensor cores
 K4_F32 = ("ssd_cb_kernel", "ssd_scan_kernel")                  # CUDA cores
 K2A = ("quantize_rows_vec", "quantize_rows")   # fast and general instances
-FAMILIES = {K1_BF16: "K1", K1_F32: "K1", "quantize_rows": "K2",
+FAMILIES = {K1_BF16: "K1", K1_F32: "K1", K1_BWD: "K1 bwd", "quantize_rows": "K2",
             K3_KERNEL: "K3", **dict.fromkeys(K4_BF16 + K4_F32, "K4"),
             "rglru_": "K5",
             "gemm": "matmul", "nvjet": "matmul", "xmma": "matmul",
@@ -335,7 +340,7 @@ def kernel_split(fn, iters: int) -> dict[str, float]:
 
 def kernel_instance(mangled: str) -> str:
     """``decode_attention_kernel<bf16, 128, 4>`` from a mangled name."""
-    names = (K1_BF16, K1_F32, K3_KERNEL) + K4_BF16 + K2A
+    names = (K1_BF16, K1_F32, K3_KERNEL) + K4_BF16 + K2A + K1_BWD_MMA
     m = re.search(f"(?<![A-Za-z])({'|'.join(names)})I(.*)", mangled)
     if not m:
         return next((k for k in K4_F32 if k in mangled), mangled)
@@ -366,11 +371,13 @@ def k2a_census(lines: list[str]) -> dict[str, int]:
 
 
 def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
-    """SASS instruction counts of the K1, K2a, K3 and K4 kernels in the
-    built library (``cuobjdump --dump-sass``), and the designs they show:
-    for K1's and K4's bf16 instances "wgmma" (HGMMA in every bf16 kernel of
-    the family), "mma.sync" (HMMA) or "neither"; for K2a's bf16 fast
-    instances "ldg.128" (a 128-bit global load in each) or "scalar"."""
+    """SASS instruction counts of the K1, K1 backward, K2a, K3 and K4
+    kernels in the built library (``cuobjdump --dump-sass``), and the
+    designs they show: for K1's and K4's bf16 instances and the backward's
+    dK/dV and dQ kernels (float32 as 3xTF32) "wgmma" (HGMMA in every such
+    kernel of the family), "mma.sync" (HMMA) or "neither"; for K2a's bf16
+    fast instances "ldg.128" (a 128-bit global load in each) or
+    "scalar"."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         sass = subprocess.run([cuobjdump, "--dump-sass", str(lib_path)],
@@ -378,7 +385,8 @@ def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
                               timeout=300).stdout
     except (OSError, subprocess.SubprocessError) as exc:
         print(f"SASS census: cuobjdump not available ({exc})")
-        return {"K1": "not measured", "K2a": "not measured", "K4": "not measured"}
+        return {"K1": "not measured", "K2a": "not measured", "K4": "not measured",
+                "K1 bwd": "not measured"}
     ops = ("HGMMA", "HMMA", "FFMA", "LDGSTS", "MUFU.EX2")
     census: dict[str, dict[str, int]] = {}
     lines: dict[str, list[str]] = {}
@@ -394,7 +402,7 @@ def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
             for op in ops:
                 if f" {op}" in line:
                     census[func][op] += 1
-    bf16 = {"K1": (K1_BF16,), "K4": K4_BF16}
+    bf16 = {"K1": (K1_BF16,), "K4": K4_BF16, "K1 bwd": K1_BWD_MMA}
     found: dict[str, list[str]] = {fam: [] for fam in bf16}
     k2a: list[str] = []
     for func, counts in sorted(census.items()):
@@ -405,7 +413,8 @@ def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
                 k2a.append("ldg.128" if mem["LDG.128"] else "scalar")
             print(f"  SASS {name}: {mem}")
             continue
-        if not name.startswith((K1_BF16, K1_F32, K3_KERNEL) + K4_BF16 + K4_F32):
+        if not name.startswith((K1_BF16, K1_F32, K3_KERNEL) + K4_BF16 + K4_F32
+                               + K1_BWD_MMA):
             continue
         for fam, names in bf16.items():
             if name.startswith(names):
@@ -415,6 +424,8 @@ def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
             continue                      # K3: the head dim of the path only
         if name.startswith(K4_BF16) and not name.endswith("<2>"):
             continue                      # K4: N = 128 (the path) only
+        if name.startswith(K1_BWD_MMA) and not name.endswith("<128>"):
+            continue                      # K1 bwd: hd 128 (Llama) only
         print(f"  SASS {name}: {counts}")
     # a family's design is the weakest of its bf16 kernels'
     order = ["neither", "mma.sync", "wgmma"]
@@ -3063,8 +3074,8 @@ TRAIN_BWD = [
     ("hd 8, G=7", 2, 256, 7, 1, 8, 0, 0.0, None),
     ("ragged S", 2, 333, 32, 8, 128, 0, 0.0, None),
 ]
-# max |kernel - plain| / max |plain| of each of dq, dk, dv: float32 FMAs
-# against float32 matmuls summed in another order
+# max |kernel - plain| / max |plain| of each of dq, dk, dv: 3xTF32 products
+# on the tensor cores against float32 matmuls summed in another order
 BWD_TOL = 1e-4
 # card vs CPU on reduced llama3-8b: step-0 gradients within 5e-4 of each
 # leaf's max.  Its init (wq/wk fan-in 4) puts the attention scores at a
@@ -3155,13 +3166,45 @@ def loss_grads(bundle, params, batch: dict, device: str) -> list:
     return [g.detach() for g in torch.autograd.grad(loss, ws)]
 
 
+def train_forward_f32(k1) -> None:
+    """Phase 13: the float32 forward with lse (``flash_attention_lse``, run
+    twice a layer by a training step: the forward and the checkpointed
+    block's recompute) at Llama-3-8B's training shape, timed beside its
+    bound and SDPA's float32 forward (the port never calls it)."""
+    import torch.nn.functional as F
+
+    _, b, s, h, kv, hd, _, _, _ = TRAIN_BWD[0]
+    q = normal((b, s, h, hd), torch.float32, 21)
+    k = normal((b, s, kv, hd), torch.float32, 22)
+    v = normal((b, s, kv, hd), torch.float32, 23)
+    ms = timed("K1 float32 forward with lse", lambda: k1.flash_attention_lse(q, k, v),
+               20, K1_F32)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = timed("K1 float32 forward sdpa", lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    # q, k, v read once; o and lse written once; two products of the causal pairs
+    n_bytes = 4.0 * (2 * q.numel() + k.numel() + v.numel() + b * h * s)
+    n_flops = 4.0 * hd * b * h * attention_pairs(s, True, 0)
+    b_ms, b_by = bound(n_bytes, n_flops, FP32_FLOPS)
+    tf_ms, _ = bound(n_bytes, 3 * n_flops, TF32_FLOPS)
+    print(f"K1 float32 forward llama3-8b training shape time {ms:.4f} ms "
+          f"({n_flops / ms / 1e9:.1f} TFLOP/s achieved, {ms / b_ms:.2f}x the "
+          f"CUDA-core bound); sdpa float32 forward {lib_ms:.4f} ms "
+          f"({ms / lib_ms:.2f}x); bound {b_ms:.5f} ms ({b_by}: "
+          f"{n_bytes / 1e6:.2f} MB, {n_flops / 1e9:.3f} GFLOP float32 on the "
+          f"CUDA cores), {tf_ms:.5f} ms as 3xTF32 on the tensor cores")
+
+
 def phase_train_kernel(k1) -> dict:
     """Phase 13: K1's backward against ``flash_attention_bwd_plain`` on the
     card at the five training shapes (each repeated bit for bit), each
-    timed beside its bound, the plain version and SDPA's backward (the port
-    never calls it; it has no soft-cap, so at gemma2's shape it computes
-    the function without one).  Returns the row of the first, full-width
-    shape."""
+    timed beside its two bounds (float32 products on the CUDA cores, and as
+    3xTF32 on the tensor cores, as the kernel runs them), the plain version
+    and SDPA's backward (the port never calls it; it has no soft-cap, so at
+    gemma2's shape it computes the function without one); then the float32
+    forward at the first shape.  Returns the row of the first, full-width
+    shape, whose bound is the 3xTF32 one (the least time the card can take
+    for float32-accurate products)."""
     import torch.nn.functional as F
 
     row = None
@@ -3186,7 +3229,7 @@ def phase_train_kernel(k1) -> dict:
         if max(rel) > BWD_TOL or not same:
             raise AssertionError(f"K1 backward at {label}: {rel}, repeat {same}")
         ms = timed("K1 bwd kernel", lambda: k1.flash_attention_bwd(
-            q, k, v, o, lse, do, **kw), 20, "flash_bwd")
+            q, k, v, o, lse, do, **kw), 20, K1_BWD)
         split = kernel_split(lambda: k1.flash_attention_bwd(q, k, v, o, lse, do,
                                                             **kw), 20)
         print("  K1 bwd device time by kernel (us): " + json.dumps(
@@ -3214,18 +3257,22 @@ def phase_train_kernel(k1) -> dict:
         # q, k, v, o, dO and lse read once; dq, dk and dv written once
         n_bytes = 4.0 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel() + lse.numel())
         n_flops = 10.0 * hd * b * h * attention_pairs(s, True, window)
-        b_ms, b_by = bound(n_bytes, n_flops, FP32_FLOPS)
+        core_ms, core_by = bound(n_bytes, n_flops, FP32_FLOPS)
+        b_ms, b_by = bound(n_bytes, 3 * n_flops, TF32_FLOPS)
         print(f"K1 bwd {label} time {ms:.4f} ms ({n_flops / ms / 1e9:.1f} TFLOP/s "
-              f"achieved, {ms / b_ms:.2f}x the bound); plain {plain_ms:.4f} ms; "
-              f"sdpa backward {lib_ms:.4f} ms ({ms / lib_ms:.2f}x); bound "
-              f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, "
-              f"{n_flops / 1e9:.3f} GFLOP float32)")
+              f"achieved, {ms / b_ms:.2f}x the 3xTF32 bound, {ms / core_ms:.2f}x "
+              f"the CUDA-core bound); plain {plain_ms:.4f} ms; sdpa backward "
+              f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x); bounds: 3xTF32 on the "
+              f"tensor cores {b_ms:.5f} ms ({b_by}), float32 on the CUDA cores "
+              f"{core_ms:.5f} ms ({core_by}) ({n_bytes / 1e6:.2f} MB, "
+              f"{n_flops / 1e9:.3f} GFLOP float32-accurate)")
         if row is None:
             row = dict(name="flash_attention_bwd", route="cuda",
                        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                        replaces="src/repro/kernels/flash_attention.py:88",
                        max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    train_forward_f32(k1)
     return row
 
 
@@ -3488,11 +3535,12 @@ def main() -> int:
                 or line.startswith("=="):
             print(f"  {line.strip()}")
     designs = sass_census(res.path)
-    print(f"K1, K2a and K4 designs (bf16 instances, from their SASS): {designs}")
+    print(f"K1, K2a and K4 designs (bf16 instances) and K1 bwd's (float32 "
+          f"as 3xTF32), from their SASS: {designs}")
     for fam, design in designs.items():
         if design not in ("wgmma", "mma.sync", "ldg.128", "not measured"):
-            raise AssertionError(f"a bf16 kernel of {fam} runs no tensor-core "
-                                 "instruction" if fam != "K2a" else
+            raise AssertionError(f"a tensor-core kernel of {fam} runs no "
+                                 "tensor-core instruction" if fam != "K2a" else
                                  "a bf16 fast K2a kernel has no 128-bit load")
 
     # ---- phase 2: kernels against their plain versions ----

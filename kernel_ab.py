@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""K1, K2, K3 and K4 of two checkouts of this repository, timed on one card in turns.
+"""K1, K1's backward, K2, K3 and K4 of two checkouts, timed on one card in turns.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100, with a
 second checkout (for example the parent commit, unpacked by ``git archive``
@@ -14,7 +14,9 @@ readings of one checkout.  Every measurement prints the device time per call
 of K1 (flash prefill attention) at Llama-3-8B's prefill shape and at
 Griffin's hd 256 shape, of K3 (decode attention) at the generation path's
 decode shape, and of K4 (the SSD chunk scan, bf16, final state returned) at
-Mamba-2's prefill shape, from a CUDA-graph replay (``chip_smoke.graph_ms``),
+Mamba-2's prefill shape, of K1's backward (float32) at Llama-3-8B's
+training shape and at hd 8 with G=7 (``chip_smoke.TRAIN_BWD``), from a
+CUDA-graph replay (``chip_smoke.graph_ms``),
 beside the device time of each kernel the call launches, by name
 (``chip_smoke.kernel_split``: a two-kernel K3 shows its split and its
 combine; K4 its kernels), and K3 again at fewer valid cache entries (time
@@ -109,6 +111,23 @@ def measure(root: pathlib.Path, sweep: bool) -> list[dict]:
         torch.cuda.synchronize()
         rows.append(dict(kernel="K1", shape=label, us=1e3 * cs.graph_ms(call, 50),
                          by_name=cs.kernel_split(call, 20)))
+
+    for label, b, s, h, kv, hd, window, cap, scale in cs.TRAIN_BWD:
+        if label not in ("llama3-8b", "hd 8, G=7"):
+            continue
+        q, k, v, do = (cs.normal(shape, torch.float32, seed) for shape, seed in (
+            ((b, s, h, hd), 21), ((b, s, kv, hd), 22), ((b, s, kv, hd), 23),
+            ((b, s, h, hd), 24)))
+        kw = dict(causal=True, window=window, logit_cap=cap, scale=scale)
+        o, lse = k1.flash_attention_lse(q, k, v, **kw)
+
+        def bwd(q=q, k=k, v=v, o=o, lse=lse, do=do, kw=kw):
+            return k1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+
+        bwd()
+        torch.cuda.synchronize()
+        rows.append(dict(kernel="K1 bwd", shape=label, us=1e3 * cs.graph_ms(bwd, 20),
+                         by_name=cs.kernel_split(bwd, 20)))
 
     b, s, h, kv, hd = cs.DECODE.values()
     q = cs.normal((b, h, hd), torch.bfloat16, 5)

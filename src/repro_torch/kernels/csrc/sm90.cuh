@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks of the port's tensor-core kernels: 16-byte
-// cp.async copies, the 128-byte-swizzled shared-memory tile layout that the
+// Hopper (sm_90a) building blocks of the port's tensor-core kernels: 16- and
+// 4-byte cp.async copies, the 128-byte-swizzled shared-memory tile layout that the
 // wgmma descriptors read, and the warpgroup matrix-multiply instructions.
 //
 // Tile layout ("sw128"): a tile of R rows of bf16 is stored as panels of 64
@@ -33,6 +33,15 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously (through L1); with valid false the
+// 4 bytes are zero-filled and nothing is read.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 

@@ -15,19 +15,32 @@ those bytes.  Its bfloat16 instance (the model path) computes both products
 on the tensor cores with ``wgmma`` (Q K^T from shared memory, P V with P in
 registers, float32 accumulation) and streams K/V tiles through a 2-stage
 ``cp.async`` ring; its float32 instance keeps float32 FMAs from shared
-memory (TF32 tensor cores could not meet the float32 tolerance).  Griffin's
-local attention runs it at hd=256 (B=1, S=512, H=16, KV=1, window 2048),
-Gemma-2 at hd=256 (H=16, KV=8, soft-cap 50, windows 4,096 and 0), MLA
-(DeepSeek-V2) with a qk head dim of 192 against a v head dim of 128.
+memory (one TF32 product misses the float32 tolerance; the backward's
+3xTF32 split, below, would meet it, and the forward does not use it yet).
+Griffin's local attention runs it at hd=256 (B=1, S=512, H=16, KV=1, window
+2048), Gemma-2 at hd=256 (H=16, KV=8, soft-cap 50, windows 4,096 and 0),
+MLA (DeepSeek-V2) with a qk head dim of 192 against a v head dim of 128.
 
 Training differentiates it: for CUDA tensors that need a gradient the
 wrapper runs the float32 instance through an autograd function whose
 forward also writes the rows' log-sum-exp and whose backward is a kernel of
-its own (``csrc/flash_attention_bwd.cu``, head dims 8 to 128, hd = hd_v).
-What bounds the backward: at Llama-3-8B's training shape (B=2, S=512,
-H=32, KV=8, hd=128) its five products of the causal pairs are 10.8 GFLOP,
-161 us at the float32 CUDA-core rate, against 84 MB moved (q, k, v, o, dO
-and lse read once, dq, dk and dv written once; 25 us).
+its own (``csrc/flash_attention_bwd.cu``, head dims 8 to 128, hd = hd_v),
+which replaces no TPU kernel (the reference differentiates its XLA
+attention).  What bounds the backward: at Llama-3-8B's training shape
+(B=2, S=512, H=32, KV=8, hd=128) its five products of the causal pairs are
+10.76 GFLOP of float32-accurate products, 161 us at the float32 CUDA-core
+rate or 65 us as 3xTF32 on the tensor cores (3 TF32 products each, at 495
+TFLOP/s), against 84.0 MB moved (q, k, v, o, dO and lse read once, dq, dk
+and dv written once; 25 us).  It runs every product with ``mma.sync``
+TF32 fragments in a 3xTF32 split (``csrc/tf32x3.cuh``: one TF32 product
+misses the float32 tolerance, the split keeps float32 accuracy at 2.5x the
+CUDA-core rate; ``wgmma`` would take TF32 operands only K-major from shared
+memory, and the products read q, k, dO, P and dS in both orientations).
+Its dK/dV kernel walks the work items of :func:`bwd_work_table`, one per
+(batch, query head, 64-key tile), longest first; the G query heads of a KV
+head write partials to a scratch that a second pass sums in the order
+g = 0 .. G - 1, so the result is the same bit for bit from run to run, with
+no float atomics.
 
 The wrapper takes the plain version only for tensors on the CPU (where
 autograd differentiates it); for a CUDA tensor it launches the kernels or
@@ -36,13 +49,15 @@ raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import build
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse",
-           "flash_attention_bwd", "flash_attention_bwd_plain", "supported",
-           "supported_bwd"]
+           "flash_attention_bwd", "flash_attention_bwd_plain", "bwd_work_table",
+           "supported", "supported_bwd"]
 
 NEG_INF = -2.0e38
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -54,6 +69,8 @@ _HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 _QK_V_PAIRS = ((192, 128), (24, 16))
 # the backward's instances: float32, hd = hd_v
 _BWD_HEAD_DIMS = (8, 16, 32, 64, 128)
+_BWD_TILE = 64                      # keys and query rows per tile of the backward
+_BWD_TABLES: dict = {}              # (device, b, s, h, kv, causal, window) -> work table
 
 
 def supported(hd: int, hd_v: int) -> bool:
@@ -158,6 +175,41 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0,
             heads_to_kv(dv).to(v.dtype))
 
 
+@functools.lru_cache(maxsize=None)
+def bwd_work_table(b: int, s: int, h: int, kv: int, causal: bool,
+                   window: int) -> torch.Tensor:
+    """The backward's dK/dV work items: int32 [n, 5] on the CPU, one row
+    (b, query head h, key tile, first query tile, end query tile) per (b, h,
+    64-key tile).  The query tiles [first, end) are those that hold a
+    (query, key) pair the mask keeps with a key of the tile, none other.
+    Rows come longest first (a stable sort: equal lengths in (key tile, b,
+    h) order, so the G query heads of a KV head run side by side)."""
+    if b <= 0 or s <= 0 or h <= 0 or kv <= 0 or h % kv:
+        raise ValueError(f"no work table for b={b}, s={s}, h={h}, kv={kv}")
+    kt = torch.arange(-(-s // _BWD_TILE))
+    first = kt * _BWD_TILE                                 # the tile's first key
+    last = torch.clamp(first + _BWD_TILE - 1, max=s - 1)   # and its last
+    # the queries a key k can see: [k (causal) or 0, k + window - 1 or S - 1]
+    lo = first if causal else torch.zeros_like(first)
+    hi = torch.clamp(last + window - 1, max=s - 1) if window > 0 else \
+        torch.full_like(first, s - 1)
+    q_begin, q_end = lo // _BWD_TILE, hi // _BWD_TILE + 1
+    kt = kt[torch.argsort(q_begin - q_end, stable=True)]
+    bb, hh, tt = torch.meshgrid(torch.arange(b), torch.arange(h), kt, indexing="ij")
+    bb, hh, tt = (x.permute(2, 0, 1).reshape(-1) for x in (bb, hh, tt))
+    return torch.stack([bb, hh, tt, q_begin[tt], q_end[tt]], 1).to(torch.int32)
+
+
+def _bwd_table_on(device, b, s, h, kv, causal, window) -> torch.Tensor:
+    """:func:`bwd_work_table` on ``device``, copied there once."""
+    key = (device, b, s, h, kv, bool(causal), int(window))
+    table = _BWD_TABLES.get(key)
+    if table is None:
+        table = bwd_work_table(b, s, h, kv, bool(causal), int(window)).to(device)
+        _BWD_TABLES[key] = table
+    return table
+
+
 def _launch_fwd(q, k, v, causal, window, logit_cap, scale, with_lse: bool):
     """The forward kernel on CUDA tensors: o, and lse [B,H,S] (float32
     instance only) when ``with_lse``."""
@@ -214,9 +266,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
     """(dq, dk, dv) of K1's function from the forward's o and lse.
 
     CPU tensors take :func:`flash_attention_bwd_plain`; CUDA tensors launch
-    the backward kernel (contiguous float32, hd = hd_v in 8..128) or raise.
-    ``flash_attention_bwd.launches`` counts its launches (one a call: the
-    D, dK/dV and dQ kernels).
+    the backward kernel (contiguous float32, q, k, v and do 16-byte
+    aligned, hd = hd_v in 8..128) or raise.  ``flash_attention_bwd.launches``
+    counts its launches (one a call: the D, dK/dV, partial-sum (G > 1) and
+    dQ kernels).
     """
     _check(q, k, v)
     b, s, h, hd = q.shape
@@ -238,14 +291,23 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if not all(t.is_contiguous() for t in (q, k, v, o, lse, do)):
         raise ValueError("the backward kernel takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("the backward kernel takes 16-byte aligned q, k, v, do")
+    kv = k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    items = _bwd_table_on(q.device, b, s, h, kv, causal, window)
+    # the G partials of dK and dV (G = 1 writes dk, dv directly)
+    scratch = torch.empty((2, h // kv, b, s, kv, hd), dtype=torch.float32,
+                          device=q.device) if h > kv else None
     lib = build.load()
     err = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, s, h, k.shape[2], hd, int(causal), int(window),
-        float(logit_cap), float(sc), torch.cuda.current_stream(q.device).cuda_stream)
+        dv.data_ptr(), items.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), b, s, h, kv, hd,
+        int(causal), int(window), items.shape[0], float(logit_cap), float(sc),
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

@@ -8,7 +8,8 @@ it runs on a machine with the card:
 
 Tolerances are those of tests/test_kernels.py: attention 2e-5 float32, 2e-2
 bfloat16 (K1's backward: 1e-4 of the largest reference gradient, with window,
-soft-cap, GQA and ragged S at every head dim 8 to 128) (K1 also at MLA's qk 192 / v 128 and 24 / 16 and at hd 8, K3 at hd
+soft-cap, GQA and ragged S at every head dim 8 to 128; its 3xTF32 products
+are emulated on the CPU in tests/test_torch_flash_bwd_plan.py) (K1 also at MLA's qk 192 / v 128 and 24 / 16 and at hd 8, K3 at hd
 8 and 256); SSD (K4) 1e-4 float32 for y and the float32 state (also in bf16),
 2e-2 for bf16 outputs; RG-LRU (K5) 1e-5 float32, 2e-2 bf16; int8 is held bit
 for bit, bf16 quantize over every finite input.
@@ -928,12 +929,17 @@ def _max_rel(got, want):
     (2, 96, 4, 4, 64, False, 0, 30.0, None),      # non-causal, soft-cap
     (1, 200, 8, 2, 128, True, 64, 20.0, None),    # hd 128: window and cap
     (1, 65, 2, 1, 32, False, 24, 0.0, None),      # non-causal window, 2 tiles
+    (1, 512, 8, 2, 64, True, 0, 0.0, None),       # G = 4: partials, fixed-order sum
+    (2, 192, 4, 4, 128, True, 0, 0.0, None),      # G = 1: no scratch
+    (2, 40, 6, 2, 32, True, 0, 0.0, None),        # S < 64: one tile
+    (4, 384, 16, 4, 64, True, 0, 0.0, None),      # 384 work items, > 132 SMs
 ])
 def test_flash_bwd_kernel_matches_plain(b, s, h, kv, hd, causal, window, cap,
                                         scale):
     """dQ, dK, dV of the backward kernel against ``flash_attention_bwd_plain``
     on the same o and lse: max |diff| <= 1e-4 of the largest reference
-    gradient (float32 FMAs against float32 matmuls in another order)."""
+    gradient (3xTF32 products on the tensor cores against float32 matmuls in
+    another order)."""
     q = _normal((b, s, h, hd), torch.float32, 1)
     k = _normal((b, s, kv, hd), torch.float32, 2)
     v = _normal((b, s, kv, hd), torch.float32, 3)
@@ -951,6 +957,30 @@ def test_flash_bwd_kernel_matches_plain(b, s, h, kv, hd, causal, window, cap,
     again = k1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     for g, a in zip(got, again):                       # no float atomics
         assert torch.equal(g, a)
+
+
+def test_flash_bwd_kernel_two_shapes_alternately():
+    """Two shapes called in turns (G = 4 then G = 7 at another S): each call
+    equals the first call of its shape bit for bit and the plain version, so
+    no work table is taken from the other shape's cache entry and no scratch
+    state carries over."""
+    runs = []
+    for b, s, h, kv, hd in ((1, 320, 8, 2, 64), (2, 77, 7, 1, 64)):
+        q = _normal((b, s, h, hd), torch.float32, 12)
+        k = _normal((b, s, kv, hd), torch.float32, 13)
+        v = _normal((b, s, kv, hd), torch.float32, 14)
+        do = _normal((b, s, h, hd), torch.float32, 15)
+        o, lse = k1.flash_attention_lse(q, k, v)
+        runs.append(((q, k, v, o, lse, do),
+                     k1.flash_attention_bwd_plain(q, k, v, o, lse, do)))
+    first = [k1.flash_attention_bwd(*args) for args, _ in runs]
+    for _ in range(2):
+        for (args, want), ref in zip(runs, first):
+            got = k1.flash_attention_bwd(*args)
+            torch.cuda.synchronize()
+            for g, r, w in zip(got, ref, want):
+                assert torch.equal(g, r)
+                assert _max_rel(g, w) <= 1e-4
 
 
 @pytest.mark.parametrize("hd", [8, 16, 32, 64, 128])
