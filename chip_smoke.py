@@ -173,25 +173,40 @@ result line:
    largest reference gradient, each repeated bit for bit and timed beside
    its two bounds (float32 products on the CUDA cores; 3xTF32 on the tensor
    cores, as the kernel runs them), the plain version and SDPA's backward;
-   the float32 forward with lse at Llama's shape beside SDPA's; reduced
+   the float32 forward with lse at Llama's shape beside SDPA's; K4's
+   backward kernel against ``ssd_bwd_plain`` at Mamba-2's training shape
+   (B=2, S=512, H=64, P=64, N=128, chunk 256), a ragged S with state_in and
+   a final-state cotangent, G=2 and S=2,048 over 8 chunks, also with dt
+   scaled by 0.01 so the carried states weigh in (1e-4 of each output's
+   largest plain value), K5's against ``rglru_bwd_plain`` at Griffin's (2,
+   512, 4096) with and without h0, a ragged W and a in (0.99, 1) (1e-5), each
+   repeated bit for bit and timed beside its bound and plain version, and
+   K4's and K5's float32 forwards at those training shapes; reduced
    llama3-8b, 3 steps with int8 gradients off and on, twice on the card (bit
    for bit) and once on the CPU (step-0 gradients 1e-4 of each leaf's max,
    loss and grad norm 1e-4, params within 3 lr with a mean gap under 0.05
-   lr: ``TRAIN_GRAD_TOL``, ``TRAIN_MEAN_LR``); the recipe of
+   lr: ``TRAIN_GRAD_TOL``, ``TRAIN_MEAN_LR``); reduced mamba2-1.3b and
+   recurrentgemma-9b: step-0 gradients card vs CPU within
+   ``TRAIN_GRAD_TOL`` at the launches of checkpointed blocks, 3 steps
+   twice on the card bit for bit; the recipe of
    examples/train_quickstart.py (llama-100m, 300 steps), whose loss must
    fall as sound runs fall (the mean of the first 25 losses less the last
    25's within ``QUICKSTART_FALL``; the example's own 0.4, unmet by the
-   reference too, printed); full-width Llama-3-8B cut to 4 layers, B=2, S=512,
-   int8 gradients, 5 steps (step times, peak memory, launches per step:
-   K1 forward 8, backward 4, K2a/K2b one per leaf) and one traced step; and
-   ``launch/train.main``'s kill-at-step-10 drill resumed to 20, whose state
-   must equal the uninterrupted run's bit for bit;
+   reference too, printed); B=2, S=512, int8 gradients, 5 steps (step times,
+   peak memory, launches per step, one traced step) of full-width
+   Llama-3-8B cut to 4 layers (K1 forward 8, backward 4), mamba2-1.3b at
+   all 48 layers (K4 forward 96, backward 48) and recurrentgemma-9b cut to
+   its 2 leading, recurrent layers (K5 forward 2, backward 2), K2a/K2b one
+   per leaf and every other kernel 0; and ``launch/train.main``'s
+   kill-at-step-10 drill resumed to 20 on reduced llama3-8b and
+   mamba2-1.3b, whose state must equal the uninterrupted run's bit for bit;
 14. print the ``kernels`` line (K1/K2 launches from phase 3, K3's from
    phase 4, K4's from the Mamba-2 serve, K5's from the Griffin serve; the
    rows of K1 and K3 at the new shapes with the launches of the deepseek,
    qwen3-moe and gemma2 serve and generation runs and of the hd-8 reduced
-   runs; K1's backward with the launches of the full-width training steps)
-   and, last, ``{"ok": true, "device": {...}}``.
+   runs; K1's, K4's and K5's backward with the launches of the full-width
+   Llama-3-8B, Mamba-2 and Griffin training steps) and, last, ``{"ok":
+   true, "device": {...}}``.
 
 Every phase that drives a path sets the launch counts to 0 just before it
 and checks them just after.
@@ -237,9 +252,11 @@ K3_KERNEL = "decode_attention_kernel"
 K4_BF16 = ("ssd_chunk_state_kernel", "ssd_chunk_scan_kernel")  # tensor cores
 K4_F32 = ("ssd_cb_kernel", "ssd_scan_kernel")                  # CUDA cores
 K2A = ("quantize_rows_vec", "quantize_rows")   # fast and general instances
+K4_BWD = "ssd_bwd_"                   # K4's backward kernels (float32)
+K5_BWD = "rglru_bwd_"                 # K5's backward kernels (float32)
 FAMILIES = {K1_BF16: "K1", K1_F32: "K1", K1_BWD: "K1 bwd", "quantize_rows": "K2",
             K3_KERNEL: "K3", **dict.fromkeys(K4_BF16 + K4_F32, "K4"),
-            "rglru_": "K5",
+            K4_BWD: "K4 bwd", K5_BWD: "K5 bwd", "rglru_": "K5",
             "gemm": "matmul", "nvjet": "matmul", "xmma": "matmul",
             "cutlass": "matmul"}
 SERVE_ARGV = ["--full", "--param-dtype", "bfloat16", "--compress",
@@ -1206,7 +1223,8 @@ def phase_profile(bundle, params, counters) -> None:
     if counts != {"flash_attention": n * (1 + warmup + reps),
                   "flash_attention_bwd": 0,
                   "quantize_int8": cuts, "dequantize_int8": cuts,
-                  "decode_attention": 0, "ssd": 0, "rglru": 0}:
+                  "decode_attention": 0, "ssd": 0, "rglru": 0, "ssd_bwd": 0,
+                  "rglru_bwd": 0}:
         raise AssertionError(f"profile launches {counts}")
 
 
@@ -3110,6 +3128,39 @@ QUICKSTART_FALL = (0.20, 0.28)
 # full-width llama3-8b cut to 4 layers: float32 AdamW state of 32 layers
 # (~128 GB) does not fit one card
 FULL_TRAIN = dict(n_layers=4, steps=5, batch=2, seq=512)
+# the recurrent families at full width, with FULL_TRAIN's steps, B and S:
+# mamba2-1.3b at all 48 layers (~20 bytes a parameter: params, gradients,
+# AdamW's two moments and the int8 residual, ~27 GB for 1.35 B); and
+# recurrentgemma-9b cut to its 2 leading layers, both recurrent: its third
+# layer is local attention at hd 256, whose backward K1 does not build yet
+FULL_RECURRENT = {"mamba2-1.3b": None, "recurrentgemma-9b": 2}
+# K4's backward against its plain version: (label, b, s, h, g, n, p, chunk,
+# state_in and a final-state cotangent, dt scale); the first is Mamba-2's
+# training shape, whose row the kernels line reports.  At dt scale 1 (the
+# model's own range) e^{cums} decays within a few steps, so the last case
+# scales dt by 0.01: the carried states and far pairs then weigh in
+SSD_BWD = [
+    ("mamba2-1.3b training", 2, 512, 64, 1, 128, 64, 256, False, 1.0),
+    ("ragged S + state", 2, 333, 64, 1, 128, 64, 256, True, 1.0),
+    ("G=2", 2, 200, 4, 2, 32, 64, 64, True, 1.0),
+    ("8 chunks", 1, 2048, 64, 1, 128, 64, 256, True, 1.0),
+    ("8 chunks, slow decay", 1, 2048, 64, 1, 128, 64, 256, True, 0.01),
+]
+# K5's backward: (label, shape, h0, least a); the first is Griffin's
+# training shape with no h0, as training calls it (state=None), whose row
+# the kernels line reports.  With a in (0, 1) the carry across a 64-step
+# chunk vanishes; the last case puts a in (0.99, 1)
+LRU_BWD = [
+    ("recurrentgemma-9b training", (2, 512, 4096), False, 0.0),
+    ("with h0", (2, 512, 4096), True, 0.0),
+    ("ragged W", (2, 200, 4000), True, 0.0),
+    ("a near 1", (2, 512, 4096), True, 0.99),
+]
+# max |kernel - plain| / max |plain| per output: K4's float32 sums run in
+# other orders (its dA sums B S terms); K5's reverse scan is the plain
+# version's recurrence, reassociated only at the carry into a chunk
+SSD_BWD_TOL = 1e-4
+LRU_BWD_TOL = 1e-5
 
 
 def train_run(bundle, params, device: str, *, steps: int, batch: int, seq: int,
@@ -3276,6 +3327,153 @@ def phase_train_kernel(k1) -> dict:
     return row
 
 
+def ssd_bwd_flops(b, s, h, g, n, p, chunk) -> float:
+    """Float32 operations K4's VJP needs at this input: per chunk the lower
+    triangles of C B^T (once per group), dy xbar^T, W^T dy, Z^T C and Z B,
+    and five [q, N] x [N, P] products per head (S_in and the reverse carry,
+    which the function recomputes from its inputs, the dS_out terms of
+    dxbar and dB, the S_in term of dC)."""
+    ops = 0.0
+    for c0 in range(0, s, min(chunk, s)):
+        q = min(chunk, s - c0)
+        tri = q * (q + 1) / 2
+        ops += 2 * b * (g * tri * n + h * (tri * (2 * p + 2 * n) + 5 * q * n * p))
+    return ops
+
+
+def phase_recurrent_bwd(k4, k5) -> list[dict]:
+    """Phase 13: K4's and K5's backward kernels against ``ssd_bwd_plain``
+    and ``rglru_bwd_plain`` on the card at ``SSD_BWD`` / ``LRU_BWD``, each
+    output within its tolerance of the largest plain value, each repeated
+    bit for bit; K4's backward timed at each of its shapes and K5's at the
+    training shape, beside the bound (K4: as 3xTF32 on the tensor cores,
+    the least time for float32-accurate products, with the CUDA-core bound
+    printed beside it) and the plain version (no PyTorch call computes
+    either function); then K4's and K5's float32 forwards at the training
+    shapes.  Returns the rows of the training shapes."""
+    rows = []
+    names = ("dx", "ddt", "dA", "dB", "dC", "dstate_in")
+    timed_shapes = set()
+    for label, b, s, h, g, n, p, chunk, with_state, dt_scale in SSD_BWD:
+        x, dtv, a, bm, cm, st = ssd_inputs(b, s, h, g, n, p, torch.float32, 41)
+        dtv = dtv * dt_scale
+        st = st if with_state else None
+        dy = normal((b, s, h, p), torch.float32, 46)
+        ds = normal((b, h, n, p), torch.float32, 47) if with_state else None
+        kw = dict(chunk=chunk, state_in=st, dstate=ds)
+        got = k4.ssd_bwd(x, dtv, a, bm, cm, dy, **kw)
+        again = k4.ssd_bwd(x, dtv, a, bm, cm, dy, **kw)
+        torch.cuda.synchronize()
+        want = k4.ssd_bwd_plain(x, dtv, a, bm, cm, dy, **kw)
+        pairs = [(nm, u, w) for nm, u, w in zip(names, got, want) if w is not None]
+        rel = {nm: float((u - w).abs().max() / w.abs().max()) for nm, u, w in pairs}
+        abs_err = max(float((u - w).abs().max()) for _, u, w in pairs)
+        same = all(torch.equal(u, v) for u, v in zip(got, again) if u is not None)
+        print(f"K4 bwd {label}: x {(b, s, h, p)} B/C {(b, s, g, n)} chunk {chunk} "
+              f"state_in and dS_final {with_state}, dt x {dt_scale}: max |d| / "
+              f"max |plain| "
+              + ", ".join(f"{nm} {r:.2e}" for nm, r in rel.items())
+              + f" (tol {SSD_BWD_TOL}), max_abs_err {abs_err:.3e}; repeat "
+              f"bit-identical {same}")
+        if max(rel.values()) > SSD_BWD_TOL or not same:
+            raise AssertionError(f"K4 backward at {label}: {rel}, repeat {same}")
+        shape = (b, s, h, g, n, p, chunk, with_state)
+        if shape in timed_shapes:      # the work does not depend on dt's values
+            continue
+        timed_shapes.add(shape)
+        ms = timed("K4 bwd kernel", lambda: k4.ssd_bwd(x, dtv, a, bm, cm, dy, **kw),
+                   10, K4_BWD)
+        if not rows:
+            split = kernel_split(lambda: k4.ssd_bwd(x, dtv, a, bm, cm, dy, **kw), 5)
+            print("  K4 bwd device time by kernel (us): " + json.dumps(
+                {nm: round(us, 2) for nm, us in split.items()}))
+        plain_ms = timed("K4 bwd plain", lambda: k4.ssd_bwd_plain(
+            x, dtv, a, bm, cm, dy, **kw), 3)
+        n_bytes = sum(t.numel() * 4 for t in (x, dtv, a, bm, cm, st, dy, ds, *got)
+                      if t is not None)
+        n_ops = ssd_bwd_flops(b, s, h, g, n, p, chunk)
+        # the least time for float32-accurate products is as 3xTF32 on the
+        # tensor cores (K1 bwd's rule); the CUDA-core bound is printed beside
+        b_ms, b_by = bound(n_bytes, 3 * n_ops, TF32_FLOPS)
+        core_ms, core_by = bound(n_bytes, n_ops, FP32_FLOPS)
+        print(f"K4 bwd {label} time {ms:.4f} ms ({n_ops / ms / 1e9:.1f} TFLOP/s "
+              f"achieved, {ms / b_ms:.2f}x the 3xTF32 bound, {ms / core_ms:.2f}x "
+              f"the CUDA-core bound); plain {plain_ms:.4f} ms; no library call "
+              f"computes the SSD's VJP; bounds: 3xTF32 on the tensor cores "
+              f"{b_ms:.5f} ms ({b_by}), float32 on the CUDA cores {core_ms:.5f} "
+              f"ms ({core_by}) ({n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.3f} GFLOP "
+              f"float32-accurate)")
+        if not rows:
+            rows.append(dict(name="ssd_bwd", route="cuda",
+                             source="src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+                             replaces="src/repro/models/mamba2.py:132 ssd_chunked (VJP)",
+                             max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None))
+            # K4's float32 forward at the same shape, as training calls it
+            fwd_ms = timed("K4 float32 forward", lambda: k4.ssd(
+                x, dtv, a, bm, cm, chunk=chunk), 20, "ssd_")
+            need, _ = ssd_flops(b, s, h, g, n, p, chunk)
+            f_bytes = sum(t.numel() * 4 for t in (x, dtv, a, bm, cm, dy))
+            f_ms, f_by = bound(f_bytes, 3 * need, TF32_FLOPS)
+            fc_ms, fc_by = bound(f_bytes, need, FP32_FLOPS)
+            print(f"K4 float32 forward {label} time {fwd_ms:.4f} ms "
+                  f"({fwd_ms / f_ms:.2f}x the 3xTF32 bound, {fwd_ms / fc_ms:.2f}x "
+                  f"the CUDA-core bound); bounds: 3xTF32 on the tensor cores "
+                  f"{f_ms:.5f} ms ({f_by}), float32 on the CUDA cores "
+                  f"{fc_ms:.5f} ms ({fc_by}) ({f_bytes / 1e6:.2f} MB, "
+                  f"{need / 1e9:.3f} GFLOP float32-accurate)")
+    for label, shape, with_h0, a_lo in LRU_BWD:
+        a = a_lo + (1.0 - a_lo) * torch.sigmoid(normal(shape, torch.float32, 51))
+        x = normal(shape, torch.float32, 52)
+        h0 = normal((shape[0], shape[2]), torch.float32, 53) if with_h0 else None
+        hs = k5.rglru(a, x, h0)
+        dy = normal(shape, torch.float32, 54)
+        got = k5.rglru_bwd(a, hs, dy, h0)
+        again = k5.rglru_bwd(a, hs, dy, h0)
+        torch.cuda.synchronize()
+        want = k5.rglru_bwd_plain(a, hs, dy, h0)
+        pairs = [(nm, u, w) for nm, u, w in zip(("da", "dx", "dh0"), got, want)
+                 if w is not None]
+        rel = {nm: float((u - w).abs().max() / w.abs().max()) for nm, u, w in pairs}
+        abs_err = max(float((u - w).abs().max()) for _, u, w in pairs)
+        same = all(torch.equal(u, v) for u, v in zip(got, again) if u is not None)
+        print(f"K5 bwd {label}: {shape} h0={with_h0}, a > {a_lo}: max |d| / "
+              f"max |plain| "
+              + ", ".join(f"{nm} {r:.2e}" for nm, r in rel.items())
+              + f" (tol {LRU_BWD_TOL}), max_abs_err {abs_err:.3e}; repeat "
+              f"bit-identical {same}")
+        if max(rel.values()) > LRU_BWD_TOL or not same:
+            raise AssertionError(f"K5 backward at {label}: {rel}, repeat {same}")
+        if len(rows) > 1:
+            continue
+        ms = timed("K5 bwd kernel", lambda: k5.rglru_bwd(a, hs, dy, h0), 50, K5_BWD)
+        plain_ms = timed("K5 bwd plain", lambda: k5.rglru_bwd_plain(a, hs, dy, h0), 2)
+        n_bytes = sum(t.numel() * 4 for t in (a, hs, dy, h0, *got) if t is not None)
+        b_ms, b_by = bound(n_bytes, 3.0 * a.numel(), FP32_FLOPS)
+        print(f"K5 bwd {label} time {ms:.4f} ms ({n_bytes / ms / 1e9:.3f} TB/s, "
+              f"{ms / b_ms:.2f}x the bound); plain {plain_ms:.4f} ms; no library "
+              f"call computes a linear recurrence's VJP; bound {b_ms:.5f} ms "
+              f"({b_by}: {n_bytes / 1e6:.2f} MB)")
+        rows.append(dict(name="rglru_bwd", route="cuda",
+                         source="src/repro_torch/kernels/csrc/rglru.cu",
+                         replaces="src/repro/models/griffin.py:209 rglru (VJP)",
+                         max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        # K5's float32 forward at the same shape, as training calls it (no h0)
+        fwd_ms = timed("K5 float32 forward", lambda: k5.rglru(a, x), 50, "rglru_")
+        f_bytes = 3 * a.numel() * 4
+        f_ms, f_by = bound(f_bytes, 2.0 * a.numel(), FP32_FLOPS)
+        print(f"K5 float32 forward {label} time {fwd_ms:.4f} ms; bound "
+              f"{f_ms:.5f} ms ({f_by}: {f_bytes / 1e6:.2f} MB)")
+    return rows
+
+
+def grad_gap(xs, ys) -> float:
+    """The largest max |x - y| / max |y| over paired gradient leaves."""
+    return max(float((x.cpu() - y.cpu()).abs().max()
+                     / y.abs().max().clamp_min(1e-30)) for x, y in zip(xs, ys))
+
+
 def train_card_vs_cpu(k1) -> None:
     """Phase 13: reduced llama3-8b's step-0 gradients on the card (with K1,
     and with the plain attention as a witness) against the CPU, then 3
@@ -3295,11 +3493,6 @@ def train_card_vs_cpu(k1) -> None:
     g_cpu = loss_grads(small, cpu_params, batch0, "cpu")
     with plain_attention(k1):              # the witness: no K1 on the card
         g_plain = loss_grads(small, gpu_params, batch0, "cuda")
-
-    def grad_gap(xs, ys):
-        return max(float((x.cpu() - y.cpu()).abs().max()
-                         / y.abs().max().clamp_min(1e-30)) for x, y in zip(xs, ys))
-
     g_rel, g_kern = grad_gap(g_card, g_cpu), grad_gap(g_card, g_plain)
     print(f"train reduced llama3-8b, step-0 gradients over {len(g_cpu)} leaves, "
           f"max |d| / max |ref|: card vs CPU {g_rel:.2e}, card K1 vs card plain "
@@ -3387,18 +3580,74 @@ def train_quickstart(card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def train_full_width(counters, card: str) -> dict:
-    """Phase 13: full-width Llama-3-8B cut to 4 layers, 5 steps with int8
-    gradients: step times, peak memory, launches per step (returned: the
-    training row's), one traced step."""
-    from repro_torch.configs import get
+def scan_launches(cfg) -> dict:
+    """Launches of one training step's forward and backward on a Mamba-2
+    or Griffin config: checkpointed blocks (Mamba-2) or groups (Griffin)
+    run their forward kernels twice and their backward once; Griffin's tail
+    layers are not checkpointed."""
+    from repro_torch.models.mamba2 import Mamba2Config
+
+    if isinstance(cfg, Mamba2Config):
+        return {"ssd": 2 * cfg.n_layers, "ssd_bwd": cfg.n_layers}
+    grouped = cfg.n_groups * np.array([cfg.pattern.count(k) for k in ("rec", "attn")])
+    tail = np.array([cfg.tail_kinds().count(k) for k in ("rec", "attn")])
+    (rec2, attn2), (rec1, attn1) = 2 * grouped + tail, grouped + tail
+    return {"rglru": int(rec2), "rglru_bwd": int(rec1),
+            "flash_attention": int(attn2), "flash_attention_bwd": int(attn1)}
+
+
+def train_recurrent_card_vs_cpu(arch: str, counters) -> None:
+    """Phase 13: a reduced Mamba-2 or Griffin model's step-0 gradients on
+    the card (launches ``scan_launches``) against the CPU's, within
+    ``TRAIN_GRAD_TOL`` of each leaf's max; then 3 steps with int8
+    gradients, twice on the card (bit for bit) and once on the CPU (losses
+    printed)."""
+    from repro_torch.configs import get_bundle
     from repro_torch.data import DataConfig, SyntheticTokens
-    from repro_torch.models.api import bundle_for
+    from repro_torch.models.common import tree_flatten, tree_map
+
+    small = get_bundle(arch, reduced=True)
+    cpu_params = small.init(torch.Generator().manual_seed(0), "cpu", torch.float32)
+    batch0 = SyntheticTokens(DataConfig(vocab=small.cfg.vocab, batch=2,
+                                        seq_len=64)).batch_at(0)
+    gpu_params = tree_map(lambda a: a.to("cuda"), cpu_params)
+    before = counts_of(counters)
+    g_card = loss_grads(small, gpu_params, batch0, "cuda")
+    counts = {k: v - before[k] for k, v in counts_of(counters).items()}
+    want = {k: 0 for k in counts} | scan_launches(small.cfg)
+    g_cpu = loss_grads(small, cpu_params, batch0, "cpu")
+    gap = grad_gap(g_card, g_cpu)
+    print(f"train reduced {arch}, step-0 gradients over {len(g_cpu)} leaves, "
+          f"max |d| / max |ref| card vs CPU {gap:.2e} (tol {TRAIN_GRAD_TOL}); "
+          f"launches {counts}")
+    if gap > TRAIN_GRAD_TOL or counts != want:
+        raise AssertionError(f"reduced {arch}: card vs CPU {gap}, launches "
+                             f"{counts}, want {want}")
+    runs = {}
+    for name, dev in (("card", "cuda"), ("card 2", "cuda"), ("cpu", "cpu")):
+        params = tree_map(lambda a: a.clone().to(dev), cpu_params)
+        st, losses, gnorms, _, _ = train_run(small, params, dev, steps=3, batch=2,
+                                             seq=64, lr=1e-3, warmup=2, total=20,
+                                             compression=True)
+        runs[name] = ([a.cpu() for a in tree_flatten(st)[0]], losses, gnorms)
+    (a, la, ga), (b, lb, gb), (_, lc, gc) = runs.values()
+    same = la == lb and ga == gb and all(torch.equal(x, y) for x, y in zip(a, b))
+    print(f"train reduced {arch}, 3 steps, int8 gradients: losses card {la} cpu "
+          f"{lc}; grad norms card {ga} cpu {gc}; state card == card bit for bit "
+          f"{same}")
+    if not same:
+        raise AssertionError(f"two card runs of reduced {arch}'s steps differ")
+
+
+def train_full(label: str, big, counters, card: str, per_step_want: dict) -> dict:
+    """Phase 13: ``FULL_TRAIN``'s steps (B, S, int8 gradients) of a
+    full-width model: step times, peak memory, launches per step (exactly
+    ``per_step_want``, K2a and K2b once a leaf, every other kernel 0;
+    returned: the run's counts), one traced step."""
+    from repro_torch.data import DataConfig, SyntheticTokens
     from repro_torch.models.common import tree_flatten
 
     f = FULL_TRAIN
-    big = bundle_for("llama3-8b", dataclasses.replace(get("llama3-8b"),
-                                                       n_layers=f["n_layers"]))
     torch.cuda.reset_peak_memory_stats()
     params = big.init(torch.Generator(device="cuda").manual_seed(0), "cuda",
                       torch.float32)
@@ -3410,40 +3659,63 @@ def train_full_width(counters, card: str) -> dict:
     counts = counts_of(counters)
     peak = torch.cuda.max_memory_allocated() / 2**30
     per_step = {k: v / f["steps"] for k, v in counts.items()}
-    want = {"flash_attention": 2 * f["n_layers"], "flash_attention_bwd": f["n_layers"],
-            "quantize_int8": n_leaves, "dequantize_int8": n_leaves,
-            "decode_attention": 0, "ssd": 0, "rglru": 0}
-    print(f"train llama3-8b full width, {f['n_layers']} layers "
-          f"({big.num_params() / 1e9:.3f} B params, {n_leaves} leaves), B="
-          f"{f['batch']}, S={f['seq']}, int8 gradients: losses "
+    want = {k: 0 for k in counts} | per_step_want | {
+        "quantize_int8": n_leaves, "dequantize_int8": n_leaves}
+    print(f"train {label} ({big.num_params() / 1e9:.3f} B params, {n_leaves} "
+          f"leaves), B={f['batch']}, S={f['seq']}, int8 gradients: losses "
           + ", ".join(f"{x:.4f}" for x in losses)
           + f"; grad norms {[round(g, 3) for g in gnorms]}; step times "
           f"{[round(t, 2) for t in times]} ms, p50 of steps 2-{f['steps']} "
           f"{float(np.median(times[1:])):.3f} ms; peak memory {peak:.2f} GiB; "
-          f"launches per step {per_step} (the forward twice: checkpointed "
-          f"blocks); card: {card}")
+          f"launches per step {per_step} (checkpointed blocks run their "
+          f"forward twice); card: {card}")
     if per_step != want or not all(np.isfinite(losses)):
-        raise AssertionError(f"full-width steps: launches per step {per_step}, "
+        raise AssertionError(f"{label} steps: launches per step {per_step}, "
                              f"want {want}; losses {losses}")
     batch = SyntheticTokens(DataConfig(vocab=big.cfg.vocab, batch=f["batch"],
                                        seq_len=f["seq"])).batch_at(f["steps"])
-    breakdown("train llama3-8b full width step", lambda: step_fn(state, batch),
-              top=8)
+    breakdown(f"train {label} step", lambda: step_fn(state, batch), top=8)
     del state, params
     torch.cuda.empty_cache()
     return counts
 
 
-def train_drill() -> None:
-    """Phase 13: ``launch/train.main`` on the card, killed at step 10 (exit
-    42) and resumed to 20: the state equals the uninterrupted run's bit for
-    bit."""
+def train_full_width(counters, card: str) -> dict:
+    """Phase 13: full-width Llama-3-8B cut to 4 layers, 5 steps with int8
+    gradients (the launches of its steps are the K1 backward row's)."""
+    from repro_torch.configs import get
+    from repro_torch.models.api import bundle_for
+
+    nl = FULL_TRAIN["n_layers"]
+    big = bundle_for("llama3-8b", dataclasses.replace(get("llama3-8b"), n_layers=nl))
+    return train_full(f"llama3-8b full width, {nl} layers", big, counters, card,
+                      {"flash_attention": 2 * nl, "flash_attention_bwd": nl})
+
+
+def train_full_recurrent(arch: str, counters, card: str) -> dict:
+    """Phase 13: full-width ``arch`` at the depth ``FULL_RECURRENT`` gives,
+    5 steps with int8 gradients (the launches of its steps are the K4 or K5
+    backward row's)."""
+    from repro_torch.configs import get
+    from repro_torch.models.api import bundle_for
+
+    cfg = get(arch)
+    if FULL_RECURRENT[arch] is not None:
+        cfg = dataclasses.replace(cfg, n_layers=FULL_RECURRENT[arch])
+    return train_full(f"{arch} full width, {cfg.n_layers} layers",
+                      bundle_for(arch, cfg), counters, card, scan_launches(cfg))
+
+
+def train_drill(arch: str = "llama3-8b") -> None:
+    """Phase 13: ``launch/train.main`` on the card on reduced ``arch``,
+    killed at step 10 (exit 42) and resumed to 20: the state equals the
+    uninterrupted run's bit for bit."""
     from repro_torch.launch import train
 
     root = ROOT / "build" / "train_drill"
     shutil.rmtree(root, ignore_errors=True)
-    argv = ["--device", "cuda", "--steps", "20", "--ckpt-every", "10",
-            "--grad-compression", "--log-every", "100"]
+    argv = ["--arch", arch, "--device", "cuda", "--steps", "20", "--ckpt-every",
+            "10", "--grad-compression", "--log-every", "100"]
     full = train.main(argv + ["--ckpt-dir", str(root / "full")])
     try:
         train.main(argv + ["--ckpt-dir", str(root / "drill"), "--kill-at-step", "10"])
@@ -3458,7 +3730,7 @@ def train_drill() -> None:
         with np.load(root / sub / "step_000000020" / "arrays.npz") as data:
             same.append({k: data[k] for k in data.files})
     diff = [k for k in same[0] if not np.array_equal(same[0][k], same[1][k])]
-    print(f"train drill (reduced llama3-8b, B=8, S=128, int8 gradients): "
+    print(f"train drill (reduced {arch}, B=8, S=128, int8 gradients): "
           f"uninterrupted {full}, resumed after exit 42 at step 10 {resumed}; "
           f"{len(same[0])} state arrays at step 20, {len(diff)} differ")
     if diff or sorted(same[0]) != sorted(same[1]) or \
@@ -3467,26 +3739,71 @@ def train_drill() -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_train(k1, counters, card: str) -> tuple[dict, dict]:
+def phase_train(k1, k4, k5, counters, card: str) -> tuple[list, dict]:
     """Phase 13, training through ``make_train_step`` and
-    ``launch/train.main``: K1's backward against its plain version; reduced
-    llama3-8b card == card and card == CPU; the quickstart recipe's loss
-    drop; full-width llama3-8b at 4 layers (the launches of its steps are
-    the training row's); the kill-and-resume drill, bit for bit."""
+    ``launch/train.main``: K1's, K4's and K5's backward kernels against
+    their plain versions; reduced llama3-8b card == card and card == CPU,
+    reduced mamba2-1.3b and recurrentgemma-9b likewise; the quickstart
+    recipe's loss drop; full-width llama3-8b at 4 layers, mamba2-1.3b at 48
+    and recurrentgemma-9b at 2 (the launches of their steps are the
+    backward rows'); the kill-and-resume drill on llama3-8b and mamba2-1.3b,
+    bit for bit.  Returns the three backward rows and, by row name, the
+    launch counts of the run each row reports."""
     t_phase = time.perf_counter()
+    total = dict.fromkeys(counts_of(counters), 0)
+
+    def tally():
+        for k, v in counts_of(counters).items():
+            total[k] += v
+        reset(counters)
+
+    lap = Clock("train clock:").lap
     reset(counters)
-    row = phase_train_kernel(k1)
+    rows = [phase_train_kernel(k1)]
+    lap("K1 bwd")
+    rows += phase_recurrent_bwd(k4, k5)
+    lap("K4 bwd and K5 bwd")
+    tally()
     train_card_vs_cpu(k1)
+    lap("reduced llama3-8b card vs CPU")
+    for arch in FULL_RECURRENT:
+        train_recurrent_card_vs_cpu(arch, counters)
+        lap(f"reduced {arch} card vs CPU")
     train_quickstart(card)
-    counts = train_full_width(counters, card)
-    train_drill()
-    phase = counts_of(counters)
-    if not all(phase[k] for k in ("flash_attention", "flash_attention_bwd",
-                                  "quantize_int8", "dequantize_int8")) or \
-            any(phase[k] for k in ("decode_attention", "ssd", "rglru")):
-        raise AssertionError(f"training launches {phase}")
-    print(f"train: phase {time.perf_counter() - t_phase:.1f} s")
-    return row, counts
+    lap("quickstart")
+    tally()
+    launches = {"flash_attention_bwd": train_full_width(counters, card)}
+    lap("llama3-8b full width")
+    tally()
+    for arch, name in zip(FULL_RECURRENT, ("ssd_bwd", "rglru_bwd")):
+        launches[name] = train_full_recurrent(arch, counters, card)
+        tally()
+        lap(f"{arch} full width")
+    for arch in ("llama3-8b", "mamba2-1.3b"):
+        train_drill(arch)
+        lap(f"{arch} drill")
+    tally()
+    if not all(total[k] for k in total if k != "decode_attention") or \
+            total["decode_attention"]:
+        raise AssertionError(f"training launches {total}")
+    print(f"train: launches in the phase {total}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return rows, launches
+
+
+class Clock:
+    """Prints the seconds between laps and since the start, so that a run's
+    time reads step by step."""
+
+    def __init__(self, prefix: str):
+        self.prefix = prefix
+        self.start = self.last = time.perf_counter()
+
+    def lap(self, label: str) -> None:
+        now = time.perf_counter()
+        print(f"{self.prefix} {label} {now - self.last:.1f} s (total "
+              f"{now - self.start:.1f} s)")
+        self.last = now
 
 
 def reset(counters) -> None:
@@ -3513,8 +3830,10 @@ def main() -> int:
     from repro_torch.launch import serve
 
     counters = (k1.flash_attention, k1.flash_attention_bwd, k2.quantize_int8,
-                k2.dequantize_int8, k3.decode_attention, k4.ssd, k5.rglru)
+                k2.dequantize_int8, k3.decode_attention, k4.ssd, k4.ssd_bwd,
+                k5.rglru, k5.rglru_bwd)
     t_start = time.perf_counter()
+    lap = Clock("clock:").lap
     # the float32 plain versions are references: full float32 products
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3543,6 +3862,8 @@ def main() -> int:
                                  "tensor-core instruction" if fam != "K2a" else
                                  "a bf16 fast K2a kernel has no 128-bit load")
 
+    lap("phase 1 (card, build)")
+
     # ---- phase 2: kernels against their plain versions ----
     rows = phase_kernels(k1, k2)
     rows.append(phase_decode_kernel(k3))
@@ -3550,6 +3871,8 @@ def main() -> int:
     rows.append(phase_rglru_kernel(k5))
     phase_flash_hd256(k1)
     rows += phase_new_shapes(k1, k3)
+
+    lap("phase 2 (kernels)")
 
     # ---- phase 3: serve (the main path) ----
     llama = {"flash_attention": 32}
@@ -3560,19 +3883,27 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
 
+    lap("phase 3 (serve)")
+
     # ---- phase 4: generation (WaveBatcher, K1 prefill + K3 decode) ----
     gen_counts = phase_family_generate(bundle, params, counters, llama,
                                        {"decode_attention": 32})
     torch.cuda.empty_cache()
+
+    lap("phase 4 (generation)")
 
     # ---- phase 5: prefill + decode == full forward ----
     phase_family_prefill_decode(bundle, params, counters, 2, 129, llama, 2e-2,
                                 conditioner=conditioned,
                                 per_decode={"decode_attention": 32})
 
+    lap("phase 5 (prefill + decode)")
+
     # ---- phase 6: segment profiler ----
     phase_profile(bundle, params, counters)
     torch.cuda.empty_cache()
+
+    lap("phase 6 (segment profiler)")
 
     # ---- phase 7: quickstart at full width ----
     graph = bundle.model_graph()
@@ -3596,6 +3927,8 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    lap("phase 7 (quickstart)")
+
     # ---- Mamba-2 at full width: serve (K4), generate, prefill+decode ----
     m_counts, engine = phase_family_serve(serve, "mamba2-1.3b", counters,
                                           {"ssd": 48, "flash_attention": 0,
@@ -3613,6 +3946,8 @@ def main() -> int:
     del bundle, params
     torch.cuda.empty_cache()
 
+    lap("Mamba-2 serving")
+
     # ---- Griffin at full width: serve (K5, K1 hd 256), generate, ring ----
     g_counts, engine = phase_family_serve(serve, "recurrentgemma-9b", counters,
                                           {"rglru": 26, "flash_attention": 12,
@@ -3629,8 +3964,12 @@ def main() -> int:
     del bundle, params
     torch.cuda.empty_cache()
 
+    lap("Griffin serving")
+
     # ---- the rest of the transformer zoo at full width ----
     zoo = {arch: phase_zoo(serve, arch, counters) for arch in ZOO}
+
+    lap("the zoo")
 
     # ---- phase 8: card vs CPU on each family's reduced model ----
     for arch, per_forward, cond in (
@@ -3651,21 +3990,33 @@ def main() -> int:
         if arch in HD8_ARCHS:
             hd8 = {name: hd8[name] + counts[name] for name in hd8}
 
+    lap("phase 8 (reduced models)")
+
     # ---- phase 9: the fleet control plane ----
     phase_fleet(counters, card)
+
+    lap("phase 9 (fleet)")
 
     # ---- phase 10: admission control and the crash journal ----
     phase_admission(counters, card)
 
+    lap("phase 10 (admission)")
+
     # ---- phase 11: the region-sharded fleet ----
     phase_shards(counters, card)
+
+    lap("phase 11 (shards)")
 
     # ---- phase 12: the edge simulator ----
     phase_simulator(counters, card)
 
+    lap("phase 12 (simulator)")
+
     # ---- phase 13: training ----
-    train_row, train_counts = phase_train(k1, counters, card)
-    rows.append(train_row)
+    train_rows, train_counts = phase_train(k1, k4, k5, counters, card)
+    rows += train_rows
+
+    lap("phase 13 (training)")
 
     # ---- phase 14: result ----
     launches_from = {
@@ -3675,8 +4026,7 @@ def main() -> int:
         "decode_attention@qwen3": zoo["qwen3-moe-30b-a3b"][1],
         "flash_attention@gemma2": zoo["gemma2-9b"][0],
         "decode_attention@gemma2": zoo["gemma2-9b"][1],
-        "flash_attention@hd8": hd8, "decode_attention@hd8": hd8,
-        "flash_attention_bwd": train_counts}
+        "flash_attention@hd8": hd8, "decode_attention@hd8": hd8, **train_counts}
     for row in rows:
         row["launches"] = launches_from.get(row["name"], serve_counts)[
             row["name"].split("@")[0]]

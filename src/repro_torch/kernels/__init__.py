@@ -12,8 +12,10 @@ the TPU kernels' layout.  Nothing is compiled at import time.
                                     (every layer of every decode step)
   K2  quantize_int8/dequantize_int8 boundary-activation compression
   K4  ssd                           Mamba-2 SSD chunk scan (every layer)
+      ssd_bwd                       its gradient (training; no TPU kernel)
   K5  rglru                         Griffin RG-LRU scan (every recurrent
                                     layer)
+      rglru_bwd                     its gradient (training; no TPU kernel)
 """
 
 from . import ops, ref

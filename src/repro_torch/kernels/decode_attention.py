@@ -154,7 +154,9 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, logit_cap=0.0,
     CPU tensors take :func:`decode_attention_plain`; CUDA tensors launch the
     Hopper kernel (contiguous float32 or bfloat16, hd in 8/16/32/64/128/256,
     ``cur_len`` an int or an integer tensor on q's card) or raise.
-    ``decode_attention.launches`` counts kernel launches.
+    ``decode_attention.launches`` counts kernel launches.  The kernel has
+    no backward: a CUDA call raises where grad mode is on and q or a cache
+    requires a gradient.
     """
     _check(q, k_cache, v_cache, cur_len)
     if q.device.type == "cpu":
@@ -163,6 +165,11 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, logit_cap=0.0,
                                       scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no decode attention kernel for device {q.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_cache, v_cache)):
+        raise ValueError("the decode attention kernel has no backward: call "
+                         "it on tensors that do not require a gradient, or "
+                         "under torch.no_grad()")
     b, h, hd = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
     if q.dtype not in _DTYPES or hd not in _HEAD_DIMS:

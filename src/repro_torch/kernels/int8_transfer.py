@@ -94,6 +94,15 @@ def bf16_domain_rows(absmax_bits=None, width: int = 4096, rows: int = 8192,
         yield (bits - ((bits >> 15) << 16)).to(torch.int16).view(torch.bfloat16)
 
 
+def _no_grad(*tensors) -> None:
+    """Raise where grad mode is on and an input requires a gradient: the
+    int8 kernels have no backward, and their result would be detached."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError("the int8 kernels have no backward: call them on "
+                         "tensors that do not require a gradient, or under "
+                         "torch.no_grad()")
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -101,7 +110,9 @@ def _stream(t: torch.Tensor) -> int:
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x [N, D] (float32 or bfloat16) -> (int8 [N, D], float32 scales [N, 1]).
 
-    ``quantize_int8.launches`` counts kernel launches.
+    ``quantize_int8.launches`` counts kernel launches.  The kernel has no
+    backward: a CUDA call raises where grad mode is on and x requires a
+    gradient.
     """
     if x.ndim != 2:
         raise ValueError(f"want x [N, D], got {tuple(x.shape)}")
@@ -109,6 +120,7 @@ def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return quantize_int8_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"no int8 kernel for device {x.device}")
+    _no_grad(x)
     if x.dtype not in _DTYPES or not x.is_contiguous() or x.numel() == 0:
         raise ValueError(f"kernel takes non-empty contiguous {_DTYPES}; "
                          f"got {x.dtype}, {tuple(x.shape)}")
@@ -127,7 +139,9 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,
                     dtype=torch.bfloat16) -> torch.Tensor:
     """int8 [N, D], float32 scales [N, 1] -> [N, D] in ``dtype``.
 
-    ``dequantize_int8.launches`` counts kernel launches.
+    ``dequantize_int8.launches`` counts kernel launches.  The kernel has
+    no backward: a CUDA call raises where grad mode is on and the scales
+    require a gradient.
     """
     if q.ndim != 2 or q.dtype != torch.int8 or scales.shape != (q.shape[0], 1) \
             or scales.dtype != torch.float32 or scales.device != q.device:
@@ -138,6 +152,7 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,
         return dequantize_int8_plain(q, scales, dtype)
     if q.device.type != "cuda":
         raise ValueError(f"no int8 kernel for device {q.device}")
+    _no_grad(q, scales)
     if dtype not in _DTYPES or not (q.is_contiguous() and scales.is_contiguous()) \
             or q.numel() == 0:
         raise ValueError(f"kernel writes {_DTYPES} from non-empty contiguous "

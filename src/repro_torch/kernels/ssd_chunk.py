@@ -28,6 +28,27 @@ instance keeps float32 FMAs (C Bᵀ once per group, then one block per
 (batch·head, 16 state columns) walking the chunks), as the TPU kernel
 computes in float32.
 
+Training differentiates it: for CUDA tensors that need a gradient the
+wrapper runs the float32 instance through an autograd function that saves
+its inputs (never y) and whose backward is a kernel of its own
+(``csrc/ssd_chunk_bwd.cu``), which replaces no TPU kernel (the reference
+differentiates ``models/mamba2.py::ssd_chunked``): the VJP of
+:func:`ssd_plain`, written out in :func:`ssd_bwd_plain`.  What bounds it:
+at Mamba-2's training shape (B=2, S=512, H=64, P=64, G=1, N=128, chunk 256)
+the function needs 11.9 GFLOP of float32 products (the lower triangles of
+C Bᵀ, dy xbarᵀ, Wᵀ dy, Zᵀ C and Z B; the carried states forward and back;
+the state terms), 0.18 ms at the 67 TFLOP/s float32 CUDA-core rate,
+against 53 MB moved (16 us).  Seven launches, float32 FMAs from
+shared memory: cums; the carried states S_in per chunk (one block per
+(batch·head, 16 state columns) walking the chunks, as the forward); the
+reverse carry dS_out per chunk, the same kernel walking backwards; a
+column pass and a row pass, one block per (batch·head, chunk, 64-row
+tile), each recomputing the tiles of C Bᵀ and dy xbarᵀ it needs; a
+finishing pass per (batch·head, chunk) (the reverse cumsum of dcums, ddt,
+each chunk's part of dA); and the sums over each group's heads (dB, dC)
+and over (batch, chunk) (dA) in a fixed order.  No atomics: two calls give
+the same bits.
+
 The carry's tickets count on one zeroed counter buffer per card that the
 kernel leaves at 0 (``build.counters``), so calls on one card must be
 ordered on one stream (as the model path is), and a CUDA graph captures a
@@ -43,7 +64,7 @@ import torch.nn.functional as F
 from . import build
 
 __all__ = ["ssd", "ssd_plain", "ssd_chunk_state_plain", "ssd_state_pass_plain",
-           "ssd_chunk_scan_plain", "ssd_stages"]
+           "ssd_chunk_scan_plain", "ssd_stages", "ssd_bwd", "ssd_bwd_plain"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_STATE = 256       # float32: 16 x 16 state rows a thread; bf16: 4 tiles of 64
@@ -177,6 +198,86 @@ def ssd_chunk_scan_plain(x, dt, Bm, Cm, cums, s_in, *, chunk: int):
     return y.reshape(b, -1, h, p)[:, :s].to(x.dtype)
 
 
+def ssd_bwd_plain(x, dt, A, Bm, Cm, dy, *, chunk: int, state_in=None,
+                  dstate=None):
+    """The VJP of :func:`ssd_plain` in explicit formulas, float32: the
+    cotangents ``dy`` [B,S,H,P] of y and ``dstate`` [B,H,N,P] (or None) of
+    the final state -> (dx, ddt, dA, dB, dC, dstate_in or None).
+
+    Per chunk (b and h dropped; cums_i = Σ_{k≤i} dt_k A, xbar_j = dt_j x_j,
+    W_ij = (C_i·B_j) e^{cums_i − cums_j} and G_ij = dy_i·xbar_j for j ≤ i,
+    S_in the carried state, dS_out the next chunk's dS_in or ``dstate``):
+    dxbar_j = Σ_{i≥j} W_ij dy_i + e^{last − cums_j} dS_outᵀ B_j;
+    dC_i = Σ_{j≤i} G_ij e^{cums_i − cums_j} B_j + e^{cums_i} S_in dy_i;
+    dB_j = Σ_{i≥j} G_ij e^{cums_i − cums_j} C_i + e^{last − cums_j} dS_out xbar_j;
+    dS_in = e^{last} dS_out + Σ_i e^{cums_i} C_i dy_iᵀ (the reverse carry);
+    dcums_i = Σ_j R_ij − Σ_j R_ji + e^{cums_i} C_i·(S_in dy_i) − v_i with
+    R = W∘G and v_j = e^{last − cums_j} B_j·(dS_out xbar_j), plus Σ_j v_j +
+    e^{last}⟨S_in, dS_out⟩ at the chunk's last row; d(dtA) is the reverse
+    cumsum of dcums, ddt = A d(dtA) + x·dxbar, dx = dt dxbar, dA = Σ dt
+    d(dtA).  dB and dC sum over each group's heads.
+    """
+    _check(x, dt, A, Bm, Cm, state_in)
+    if tuple(dy.shape) != tuple(x.shape):
+        raise ValueError(f"dy {tuple(dy.shape)} is not x's {tuple(x.shape)}")
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    q = min(chunk, s)
+    xc, dtc, Bc, Cc = _padded_chunks(x, dt, Bm, Cm, q)          # [B,nc,q,H,*]
+    nc = xc.shape[1]
+    dyc = F.pad(dy.float(), (0, 0, 0, 0, 0, nc * q - s)).reshape(b, nc, q, h, p)
+    A = A.float()
+    cums = torch.cumsum(dtc * A, dim=2)                          # [B,nc,q,H]
+    last = cums[:, :, -1]                                        # [B,nc,H]
+    xbar = xc * dtc[..., None]
+    e_in = torch.exp(cums)
+    e_out = torch.exp(last[:, :, None] - cums)
+    state = (torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+             if state_in is None else state_in.float())
+    s_in = []
+    for c in range(nc):
+        s_in.append(state)
+        state = state * torch.exp(last[:, c])[..., None, None] + torch.einsum(
+            "bjhn,bjhp->bhnp", Bc[:, c] * e_out[:, c, ..., None], xbar[:, c])
+    dS = (torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+          if dstate is None else dstate.float())
+    ds_out = [None] * nc
+    for c in reversed(range(nc)):
+        ds_out[c] = dS
+        dS = dS * torch.exp(last[:, c])[..., None, None] + torch.einsum(
+            "bihn,bihp->bhnp", Cc[:, c] * e_in[:, c, ..., None], dyc[:, c])
+    s_in, ds_out = torch.stack(s_in, 1), torch.stack(ds_out, 1)  # [B,nc,H,N,P]
+
+    keep = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    diff = cums[:, :, :, None, :] - cums[:, :, None, :, :]      # [B,nc,i,j,H]
+    E = torch.exp(diff.masked_fill(~keep[None, None, :, :, None], float("-inf")))
+    W = torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc) * E
+    Z = torch.einsum("bcihp,bcjhp->bcijh", dyc, xbar) * E       # G∘E
+    R = W * torch.einsum("bcihp,bcjhp->bcijh", dyc, xbar)
+    dxbar = torch.einsum("bcijh,bcihp->bcjhp", W, dyc) + e_out[..., None] * \
+        torch.einsum("bcjhn,bchnp->bcjhp", Bc, ds_out)
+    w_in = torch.einsum("bchnp,bcihp->bcihn", s_in, dyc)         # S_in dy_i
+    u_out = torch.einsum("bchnp,bcjhp->bcjhn", ds_out, xbar)     # dS_out xbar_j
+    dC = torch.einsum("bcijh,bcjhn->bcihn", Z, Bc) + e_in[..., None] * w_in
+    dB = torch.einsum("bcijh,bcihn->bcjhn", Z, Cc) + e_out[..., None] * u_out
+    v = e_out * (Bc * u_out).sum(-1)
+    dcums = R.sum(3) - R.sum(2) + e_in * (Cc * w_in).sum(-1) - v
+    dcums[:, :, -1] += v.sum(2) + torch.exp(last) * (s_in * ds_out).sum((-1, -2))
+    ddta = torch.flip(torch.cumsum(torch.flip(dcums, (2,)), 2), (2,))
+    dx = dtc[..., None] * dxbar
+    ddt = A * ddta + (xc * dxbar).sum(-1)
+    dA = (dtc * ddta).sum((0, 1, 2))
+    rep = h // g
+
+    def seq(t):
+        return t.reshape(b, nc * q, *t.shape[3:])[:, :s]
+
+    dB = dB.reshape(b, nc, q, g, rep, n).sum(4)
+    dC = dC.reshape(b, nc, q, g, rep, n).sum(4)
+    return (seq(dx), seq(ddt), dA, seq(dB), seq(dC),
+            None if state_in is None else dS)
+
+
 def _last_two_contiguous(t: torch.Tensor) -> bool:
     return t.stride(3) == 1 and t.stride(2) == t.shape[3]
 
@@ -189,8 +290,11 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256, state_in=None,
 
     CPU tensors take :func:`ssd_plain`; CUDA tensors launch the Hopper
     kernels (x, B, C float32 or bfloat16 with their last two dims
-    contiguous; N <= 256, chunk <= 1024) or raise.  ``ssd.launches`` counts
-    the calls that launched them (one a call).
+    contiguous; N <= 256, chunk <= 1024) or raise.  Where grad mode is on
+    and an input requires a gradient, a CUDA call runs the float32 kernels
+    through :class:`_SSD`, whose backward is :func:`ssd_bwd`, and raises
+    for bfloat16.  ``ssd.launches`` counts the forward calls that launched
+    the kernels (one a call).
     """
     _check(x, dt, A, Bm, Cm, state_in)
     if chunk <= 0:
@@ -201,12 +305,116 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256, state_in=None,
     if x.device.type != "cuda":
         raise ValueError(f"no SSD kernel for device {x.device}")
     q = _check_kernel_inputs(x, dt, A, Bm, Cm, state_in, chunk)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, state_in)):
+        if x.dtype != torch.float32:
+            raise ValueError(f"no SSD backward kernel for {x.dtype}: it takes "
+                             "float32")
+        out = _SSD.apply(x, dt, A, Bm, Cm, state_in, q, return_state)
+        return out if return_state else out[0]
     y, state_out, _ = _launch(x, dt, A, Bm, Cm, q, state_in, return_state)
     ssd.launches += 1
     return (y, state_out) if return_state else y
 
 
 ssd.launches = 0
+
+
+def ssd_bwd(x, dt, A, Bm, Cm, dy, *, chunk: int = 256, state_in=None,
+            dstate=None):
+    """(dx, ddt, dA, dB, dC, dstate_in or None) of the SSD from the
+    cotangents ``dy`` [B,S,H,P] of y and ``dstate`` [B,H,N,P] (or None) of
+    the final state, float32; the forward's inputs are given again (the
+    backward recomputes the carried states).
+
+    CPU tensors take :func:`ssd_bwd_plain`; CUDA tensors launch the
+    backward kernels (float32; x, B, C with their last two dims contiguous,
+    dt, A, dy and the states contiguous; N <= 256, chunk <= 1024) or raise.
+    ``ssd_bwd.launches`` counts its calls (seven launches each).
+    """
+    _check(x, dt, A, Bm, Cm, state_in)
+    if x.device.type == "cpu":
+        return ssd_bwd_plain(x, dt, A, Bm, Cm, dy, chunk=chunk,
+                             state_in=state_in, dstate=dstate)
+    if x.device.type != "cuda":
+        raise ValueError(f"no SSD kernel for device {x.device}")
+    q = _check_kernel_inputs(x, dt, A, Bm, Cm, state_in, chunk)
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    for name, t, shape in (("dy", dy, (b, s, h, p)), ("dstate", dstate, (b, h, n, p))):
+        if t is not None and (tuple(t.shape) != shape or t.dtype != torch.float32
+                              or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"{name}: want contiguous float32 {shape} on "
+                             f"{x.device}; got {t.dtype} {tuple(t.shape)}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"the backward kernels take float32; got {x.dtype}")
+    nc = -(-s // q)
+    pieces, nbytes = _bwd_workspace(b, s, h, n, p, q)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    dx = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
+    ddt = torch.empty((b, s, h), dtype=torch.float32, device=x.device)
+    dA = torch.empty((h,), dtype=torch.float32, device=x.device)
+    dB = torch.empty((b, s, g, n), dtype=torch.float32, device=x.device)
+    dC = torch.empty((b, s, g, n), dtype=torch.float32, device=x.device)
+    d_in = None if state_in is None else torch.empty_like(state_in)
+    lib = build.load()
+    err = lib.ssd_chunk_bwd(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        None if state_in is None else state_in.data_ptr(), dy.data_ptr(),
+        None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        None if d_in is None else d_in.data_ptr(),
+        *[ws.data_ptr() + off for off, _ in pieces], b, s, h, g, n, p, q, nc,
+        x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0),
+        Cm.stride(1), torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "ssd_bwd")
+    ssd_bwd.launches += 1
+    return dx, ddt, dA, dB, dC, d_in
+
+
+ssd_bwd.launches = 0
+
+
+def _bwd_workspace(b, s, h, n, p, q):
+    """The backward kernels' scratch, in the order of ``ssd_chunk_bwd``'s
+    ws0..ws9, as (byte offset, float32 count), each 256-byte aligned; and
+    the buffer's size: cums [BH, nc, q]; the carried states S_in and the
+    reverse carry dS_out per chunk [BH, nc, N, P]; per-head dB and dC [B,
+    S, H, N]; the chunk pass's row and column parts of dcums, v and x·dxbar
+    [BH, nc·q]; each (batch·head, chunk)'s part of dA [BH, nc]."""
+    nc = -(-s // q)
+    bh, sq = b * h, nc * q
+    counts = [bh * sq, bh * nc * n * p, bh * nc * n * p, b * s * h * n,
+              b * s * h * n, bh * sq, bh * sq, bh * sq, bh * sq, bh * nc]
+    out, off = [], 0
+    for c in counts:
+        out.append((off, c))
+        off += -(-c * 4 // 256) * 256
+    return out, off
+
+
+class _SSD(torch.autograd.Function):
+    """K4 with its gradient on CUDA tensors: the float32 forward saves its
+    inputs (never y); the backward is :func:`ssd_bwd`, with the final
+    state's cotangent when the state is returned and used."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, state_in, q, return_state):
+        y, state_out, _ = _launch(x, dt, A, Bm, Cm, q, state_in, return_state)
+        ssd.launches += 1
+        ctx.save_for_backward(x, dt, A, Bm, Cm, state_in)
+        ctx.q = q
+        ctx.set_materialize_grads(False)
+        return y, state_out
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, Bm, Cm, state_in = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dstate = None if dstate is None else dstate.contiguous()
+        dx, ddt, dA, dB, dC, d_in = ssd_bwd(x, dt, A, Bm, Cm, dy, chunk=ctx.q,
+                                            state_in=state_in, dstate=dstate)
+        return dx, ddt, dA, dB, dC, d_in, None, None
 
 
 def _check_kernel_inputs(x, dt, A, Bm, Cm, state_in, chunk: int) -> int:

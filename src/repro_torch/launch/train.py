@@ -1,8 +1,10 @@
 """Training driver: train steps + checkpoint/restart + straggler watch.
 
 Runs real training of the reduced model (``--reduced`` is always on, as in
-the reference) on one device: K1's forward and backward kernels in every
-attention layer, K2a/K2b on every gradient with ``--grad-compression``.
+the reference) of any family on one device: the forward and backward
+kernels of K1 in every attention layer, K4 in every Mamba-2 block and K5
+in every recurrent layer, K2a/K2b on every gradient with
+``--grad-compression``.
 Fault drill: ``--kill-at-step N`` exits with code 42 after step N;
 re-launching with the same ``--ckpt-dir`` resumes from the latest checkpoint
 and the data pipeline reproduces the exact batch stream (deterministic
@@ -12,6 +14,8 @@ seek).  The mesh waits for the port's distributed slice, so
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
       --steps 200 --batch 8 --seq 128 --ckpt-dir <dir>
+  (``--arch mamba2-1.3b`` or ``--arch recurrentgemma-9b`` trains the SSM or
+  the hybrid family)
   (``--device cpu`` runs on the CPU; the default is cuda)
 """
 

@@ -2,9 +2,9 @@
 
 Downstream code (training step, serving engine, orchestrator graph
 extraction) goes through this interface.  The port's bundle carries the
-config, a param initializer, the training loss (the transformer family;
-Mamba-2 and Griffin train once their scans have backward kernels), prefill
-and decode over the family's cache (KV cache, SSM state, or LRU state plus a
+config, a param initializer, the training loss (every family: K1's, K4's
+and K5's backward kernels carry the gradients on the card), prefill and
+decode over the family's cache (KV cache, SSM state, or LRU state plus a
 ring of the attention window), and the computational graph the orchestrator
 partitions.
 """
@@ -163,22 +163,25 @@ def _graph_from_blocks(name: str, n_layers: int, d_model: int,
     return ModelGraph(name, units)
 
 
-def _transformer_bundle(arch: str, cfg: transformer.TransformerConfig) -> ModelBundle:
-    def loss(params, batch):
-        """Mean next-token xent of ``batch`` ({"tokens" [B,S-P], "labels"
-        [B,S], optional "prefix_embeds" [B,P,prefix_dim]}), activations in
-        float32 (the reference's are bf16; bf16 training waits for a bf16
-        backward of K1)."""
-        x = transformer.embed_tokens(params, cfg, batch["tokens"],
-                                     compute_dtype=torch.float32)
-        prefix = batch.get("prefix_embeds")
-        if prefix is not None:
-            x = transformer.embed_prefix(params, prefix, x)
-        h = transformer.forward_hidden(params, cfg, x)
-        w = params["embed"].T if cfg.tie_embeddings else params["head"]
-        return chunked_softmax_xent(h, w, batch["labels"],
-                                    final_softcap=cfg.final_softcap)
+def _lm_loss(module, cfg: Any, params: dict, batch: dict) -> torch.Tensor:
+    """Mean next-token xent of ``batch`` ({"tokens" [B,S-P], "labels"
+    [B,S], and for a transformer an optional "prefix_embeds" [B,P,
+    prefix_dim]}) through ``module``'s embedding, its checkpointed
+    ``forward_hidden`` and the tied or untied head, with the family's final
+    soft-cap (0 for none).  Activations are float32 (the reference's are
+    bf16): the backward kernels of K1, K4 and K5 take float32."""
+    x = module.embed_tokens(params, cfg, batch["tokens"],
+                            compute_dtype=torch.float32)
+    prefix = batch.get("prefix_embeds")
+    if prefix is not None:
+        x = module.embed_prefix(params, prefix, x)
+    h = module.forward_hidden(params, cfg, x)
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return chunked_softmax_xent(h, w, batch["labels"],
+                                final_softcap=getattr(cfg, "final_softcap", 0.0))
 
+
+def _transformer_bundle(arch: str, cfg: transformer.TransformerConfig) -> ModelBundle:
     def prefill(params, batch, max_len=None):
         return transformer_serve.prefill(
             params, cfg, batch["tokens"],
@@ -194,7 +197,7 @@ def _transformer_bundle(arch: str, cfg: transformer.TransformerConfig) -> ModelB
         init=partial(transformer.init_params, cfg),
         prefill=prefill, decode=decode,
         cache_spec=partial(transformer_serve.cache_spec, cfg),
-        loss=loss,
+        loss=partial(_lm_loss, transformer, cfg),
         model_graph=lambda: _graph_from_blocks(
             arch, cfg.n_layers, cfg.d_model,
             2.0 * cfg.active_params_per_block, 2.0 * cfg.params_per_block,
@@ -228,6 +231,7 @@ def _mamba2_bundle(arch: str, cfg: mamba2.Mamba2Config) -> ModelBundle:
         init=partial(mamba2.init_params, cfg),
         prefill=prefill, decode=decode,
         cache_spec=partial(mamba2.cache_spec, cfg),
+        loss=partial(_lm_loss, mamba2, cfg),
         model_graph=lambda: _graph_from_blocks(
             arch, cfg.n_layers, cfg.d_model,
             2.0 * cfg.params_per_block, 2.0 * cfg.params_per_block,
@@ -280,6 +284,7 @@ def _griffin_bundle(arch: str, cfg: griffin.GriffinConfig) -> ModelBundle:
         init=partial(griffin.init_params, cfg),
         prefill=prefill, decode=decode,
         cache_spec=partial(griffin.cache_spec, cfg),
+        loss=partial(_lm_loss, griffin, cfg),
         model_graph=lambda: _graph_from_blocks(
             arch, cfg.n_layers, cfg.d_model, 2.0 * mean_block, 2.0 * mean_block,
             emb_b, 0.0 if cfg.tie_embeddings else emb_b,

@@ -142,34 +142,37 @@ def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
     return fn(tree)
 
 
+# The walks below are module functions that take their accumulator as an
+# argument: a recursive closure is a reference cycle (the function and its
+# own cell) that would keep the leaves it captured, a step's gradients
+# among them, alive until the garbage collector runs.
+def _flatten_into(t: Any, leaves: list) -> Any:
+    if isinstance(t, dict):
+        return {k: _flatten_into(t[k], leaves) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return [_flatten_into(v, leaves) for v in t]
+    leaves.append(t)
+    return None
+
+
+def _build_from(s: Any, it) -> Any:
+    if isinstance(s, dict):
+        return {k: _build_from(v, it) for k, v in s.items()}
+    if isinstance(s, list):
+        return [_build_from(v, it) for v in s]
+    return next(it)
+
+
 def tree_flatten(tree: Any) -> tuple[list, Any]:
     """The leaves of a nested dict/list tree in JAX's order (dict keys
     sorted, lists in order), and its structure for :func:`tree_unflatten`."""
     leaves: list = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return [walk(v) for v in t]
-        leaves.append(t)
-        return None
-
-    return leaves, walk(tree)
+    return leaves, _flatten_into(tree, leaves)
 
 
 def tree_unflatten(structure: Any, leaves) -> Any:
     """The tree of ``structure`` (from :func:`tree_flatten`) with ``leaves``."""
-    it = iter(leaves)
-
-    def build(s):
-        if isinstance(s, dict):
-            return {k: build(v) for k, v in s.items()}
-        if isinstance(s, list):
-            return [build(v) for v in s]
-        return next(it)
-
-    return build(structure)
+    return _build_from(structure, iter(leaves))
 
 
 def count_params(params: Params) -> int:

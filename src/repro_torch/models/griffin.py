@@ -22,6 +22,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels import ops as kops
@@ -38,6 +39,7 @@ from .common import (
     norm_params,
     softcap,
     stack_layers,
+    unstack_layers,
 )
 
 __all__ = ["GriffinConfig", "init_params", "forward_hidden", "decode_step",
@@ -298,16 +300,42 @@ def layer_forward(x, kind: str, tm: Params, mp: Params, cfg: GriffinConfig):
 # --------------------------------------------------------------------------- #
 def embed_tokens(params: Params, cfg: GriffinConfig, tokens: torch.Tensor,
                  compute_dtype=torch.bfloat16) -> torch.Tensor:
-    x = params["embed"][tokens].to(compute_dtype)
+    """Token ids [B,S] -> [B,S,d] in ``compute_dtype`` (scaled by sqrt(d)
+    where the config says so); ``F.embedding``, whose gradient sums each
+    row's tokens in a fixed order."""
+    x = F.embedding(tokens, params["embed"]).to(compute_dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=compute_dtype)
     return x
 
 
+def _group_forward(x, gp: Params, cfg: GriffinConfig):
+    """One group of the pattern: its layers in order, params ``t{i}`` and
+    ``m{i}`` of one group."""
+    for i, kind in enumerate(cfg.pattern):
+        x = layer_forward(x, kind, gp[f"t{i}"], gp[f"m{i}"], cfg)
+    return x
+
+
 def forward_hidden(params: Params, cfg: GriffinConfig,
                    x: torch.Tensor) -> torch.Tensor:
-    for li in range(cfg.n_layers):
-        x = layer_forward(x, *layer_params(params, cfg, li), cfg)
+    """Run all layers on embedded inputs x: [B,S,d] -> [B,S,d] (pre-head).
+
+    Under grad mode each group of the pattern is checkpointed
+    (``torch.utils.checkpoint``, non-reentrant) and the tail layers are
+    not, as the reference's ``jax.checkpoint(nothing_saveable)`` over its
+    scanned groups: a group's K5 and K1 forwards run twice, a tail layer's
+    once.  The groups' stacked leaves are unbound once.
+    """
+    remat = torch.is_grad_enabled()
+    for gp in (unstack_layers(params["groups"]) if cfg.n_groups else []):
+        if remat:
+            x = checkpoint(_group_forward, x, gp, cfg, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _group_forward(x, gp, cfg)
+    for layer_p, kind in zip(params["tail"], cfg.tail_kinds()):
+        x = layer_forward(x, kind, layer_p["t"], layer_p["m"], cfg)
     return apply_norm(x, params["final_norm"], cfg.norm)
 
 

@@ -16,6 +16,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels import ops as kops
@@ -30,6 +31,7 @@ from .common import (
     layer,
     norm_params,
     stack_layers,
+    unstack_layers,
 )
 
 __all__ = ["Mamba2Config", "init_params", "forward_hidden", "decode_step",
@@ -193,14 +195,28 @@ def block_forward(x, p, cfg: Mamba2Config, *, state_in=None, conv_in=None,
 
 def embed_tokens(params: Params, cfg: Mamba2Config, tokens: torch.Tensor,
                  compute_dtype=torch.bfloat16) -> torch.Tensor:
-    return params["embed"][tokens].to(compute_dtype)
+    """Token ids [B,S] -> [B,S,d] in ``compute_dtype``; ``F.embedding``,
+    whose gradient sums each row's tokens in a fixed order."""
+    return F.embedding(tokens, params["embed"]).to(compute_dtype)
 
 
 def forward_hidden(params: Params, cfg: Mamba2Config,
                    x: torch.Tensor) -> torch.Tensor:
-    """Run all blocks on embedded inputs x: [B,S,d] -> [B,S,d] (pre-head)."""
-    for i in range(cfg.n_layers):
-        x = block_forward(x, layer(params["blocks"], i), cfg)
+    """Run all blocks on embedded inputs x: [B,S,d] -> [B,S,d] (pre-head).
+
+    Under grad mode each block is checkpointed (``torch.utils.checkpoint``,
+    non-reentrant): its activations are recomputed in the backward, as the
+    reference's ``jax.checkpoint(nothing_saveable)`` over its scanned
+    blocks, so K4's forward runs twice a block and its backward once.  The
+    stacked leaves are unbound once.
+    """
+    remat = torch.is_grad_enabled()
+    for lp in unstack_layers(params["blocks"]):
+        if remat:
+            x = checkpoint(block_forward, x, lp, cfg, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = block_forward(x, lp, cfg)
     return apply_norm(x, params["final_norm"], cfg.norm)
 
 

@@ -3,8 +3,9 @@ int8 error-feedback compression -> AdamW.
 
 The reference's ``training/train_step.py`` without the mesh: one card, no
 sharding (``make_serve_fns`` and the sharded step wait for the distributed
-slice).  The gradients flow through K1's forward and backward kernels in
-every attention layer, and with compression on every gradient leaf crosses
+slice).  The gradients flow through the forward and backward kernels of K1
+in every attention layer, K4 in every Mamba-2 block and K5 in every
+recurrent layer, and with compression on every gradient leaf crosses
 K2a (quantize) and K2b (dequantize) once a step: the numerics of a
 compressed all-reduce, the residual carried to the next step.
 
@@ -62,15 +63,14 @@ def make_train_step(bundle, cfg: TrainStepConfig = TrainStepConfig(),
     """``(step_fn, init_state)``: ``step_fn(state, batch) -> (state,
     metrics)`` with metrics {"loss", "grad_norm", "lr"} (0-d tensors);
     ``init_state(seed=0, params=None)`` builds the state on ``device`` from
-    ``bundle.init`` with a seeded generator (float32 params: K1's backward
-    has no bf16 instance yet), or around given ``params``.
+    ``bundle.init`` with a seeded generator (float32 params: the backward
+    kernels have no bf16 instance yet), or around given ``params``.
 
     ``batch`` holds numpy arrays or tensors ({"tokens", "labels"}, and
     "prefix_embeds" for a modality prefix); they are moved to ``device``.
     """
     if bundle.loss is None:
-        raise ValueError(f"{bundle.arch} ({bundle.family}) has no training loss "
-                         "in the port yet: its scan kernels have no backward")
+        raise ValueError(f"{bundle.arch} ({bundle.family}) has no training loss")
     dev = resolve_device(device)
 
     def step_fn(state: dict, batch: dict):

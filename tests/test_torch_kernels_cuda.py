@@ -1102,3 +1102,204 @@ def test_reduced_gradients_on_the_card_match_the_cpu(arch, tol):
             assert k1.flash_attention_bwd.launches - b0 == bundle.cfg.n_layers
     for a, c in zip(*grads):
         assert float((a - c).abs().max()) <= tol * float(c.abs().max())
+
+
+# --------------------------------------------------------------------------- #
+# K4's and K5's backward (training)
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("dt_scale", [1.0, 0.01], ids=["fast", "slow-decay"])
+@pytest.mark.parametrize("b,s,h,g,n,p,chunk,with_state", [
+    (2, 512, 64, 1, 128, 64, 256, False),   # mamba2-1.3b's training shape
+    (2, 333, 64, 1, 128, 64, 256, True),    # ragged S, state_in, dS_final
+    (2, 200, 4, 2, 32, 64, 64, True),       # G = 2
+    (1, 2048, 64, 1, 128, 64, 256, True),   # 8 chunks
+    (2, 37, 4, 2, 16, 16, 16, True),        # small P and N, ragged chunk
+    (1, 100, 2, 1, 256, 32, 128, False),    # N = 256, S < chunk
+])
+def test_ssd_bwd_kernel_matches_plain(b, s, h, g, n, p, chunk, with_state,
+                                      dt_scale):
+    """Every output of the backward kernels within 1e-4 of the largest
+    plain value (float32 sums in other orders), bit for bit on repeat.
+    ``slow-decay`` scales dt so that e^{cums} stays near 1 over a chunk:
+    the carried states and the far off-diagonal pairs weigh in."""
+    x, dt, a, bm, cm, st = _ssd_inputs(b, s, h, g, n, p, torch.float32, 7)
+    dt = dt * dt_scale
+    st = st if with_state else None
+    dy = _normal((b, s, h, p), torch.float32, 8)
+    ds = _normal((b, h, n, p), torch.float32, 9) if with_state else None
+    before = k4.ssd_bwd.launches
+    got = k4.ssd_bwd(x, dt, a, bm, cm, dy, chunk=chunk, state_in=st, dstate=ds)
+    again = k4.ssd_bwd(x, dt, a, bm, cm, dy, chunk=chunk, state_in=st, dstate=ds)
+    torch.cuda.synchronize()
+    assert k4.ssd_bwd.launches == before + 2
+    want = k4.ssd_bwd_plain(x, dt, a, bm, cm, dy, chunk=chunk, state_in=st,
+                            dstate=ds)
+    assert (got[5] is None) == (not with_state)
+    for u, v, w in zip(got, again, want):
+        if w is not None:
+            assert _max_rel(u, w) <= 1e-4
+            assert torch.equal(u, v)
+
+
+def test_ssd_bwd_kernel_reads_strided_views():
+    """x, B and C as the model hands them: views of one conv output."""
+    b, s, h, g, n, p = 2, 130, 4, 1, 32, 16
+    conv = _normal((b, s, h * p + 2 * g * n), torch.float32, 3)
+    x = conv[..., :h * p].unflatten(-1, (h, p))
+    bm = conv[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+    cm = conv[..., h * p + g * n:].unflatten(-1, (g, n))
+    _, dt, a, _, _, _ = _ssd_inputs(b, s, h, g, n, p, torch.float32, 4)
+    dy = _normal((b, s, h, p), torch.float32, 5)
+    got = k4.ssd_bwd(x, dt, a, bm, cm, dy, chunk=64)
+    want = k4.ssd_bwd_plain(x.contiguous(), dt, a, bm.contiguous(),
+                            cm.contiguous(), dy, chunk=64)
+    for u, w in zip(got[:5], want[:5]):
+        assert _max_rel(u, w) <= 1e-4
+
+
+@pytest.mark.parametrize("a_lo", [0.0, 0.99], ids=["sigmoid", "near-one"])
+@pytest.mark.parametrize("b,s,w,with_h0", [
+    (2, 512, 4096, True), (2, 512, 4096, False), (2, 200, 4000, True),
+    (1, 64, 33, True), (3, 1, 128, True)])
+def test_rglru_bwd_kernel_matches_plain(b, s, w, with_h0, a_lo):
+    """da, dx, dh0 within 1e-5 of the largest plain value, bit for bit on
+    repeat.  ``near-one`` puts a in (0.99, 1): the carry handed back across
+    64-step chunks then weighs as much as a chunk's own sum."""
+    a = a_lo + (1.0 - a_lo) * torch.sigmoid(_normal((b, s, w), torch.float32, 1))
+    x = _normal((b, s, w), torch.float32, 2)
+    h0 = _normal((b, w), torch.float32, 3) if with_h0 else None
+    hs = k5.rglru(a, x, h0)
+    dy = _normal((b, s, w), torch.float32, 4)
+    before = k5.rglru_bwd.launches
+    got = k5.rglru_bwd(a, hs, dy, h0)
+    again = k5.rglru_bwd(a, hs, dy, h0)
+    torch.cuda.synchronize()
+    assert k5.rglru_bwd.launches == before + 2
+    want = k5.rglru_bwd_plain(a, hs, dy, h0)
+    assert (got[2] is None) == (not with_h0)
+    for u, v, wv in zip(got, again, want):
+        if wv is not None:
+            assert _max_rel(u, wv) <= 1e-5
+            assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("return_state", [False, True])
+def test_ssd_autograd_runs_the_backward_kernel(return_state):
+    """``ssd`` under grad mode: every input's gradient from the backward
+    kernel, within 1e-4 of autograd of the plain version; the forward
+    kernel once, the backward once; without grad nothing changes."""
+    b, s, h, g, n, p = 2, 100, 4, 2, 16, 16
+    ins = [t.requires_grad_() for t in _ssd_inputs(b, s, h, g, n, p,
+                                                   torch.float32, 11)]
+    cy = _normal((b, s, h, p), torch.float32, 12)
+    cs = _normal((b, h, n, p), torch.float32, 13)
+
+    def loss(fn):
+        out = fn(*ins[:5], chunk=32, state_in=ins[5], return_state=return_state)
+        if not return_state:
+            return (out * cy).sum()
+        return (out[0] * cy).sum() + (out[1] * cs).sum()
+
+    f0, b0 = k4.ssd.launches, k4.ssd_bwd.launches
+    got = torch.autograd.grad(loss(k4.ssd), ins)
+    torch.cuda.synchronize()
+    assert (k4.ssd.launches - f0, k4.ssd_bwd.launches - b0) == (1, 1)
+    want = torch.autograd.grad(loss(k4.ssd_plain), ins)
+    for u, w in zip(got, want):
+        assert _max_rel(u, w) <= 1e-4
+    with torch.no_grad():
+        k4.ssd(*ins[:5], chunk=32)
+    assert k4.ssd_bwd.launches - b0 == 1
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_autograd_runs_the_backward_kernel(with_h0):
+    a = torch.sigmoid(_normal((2, 150, 64), torch.float32, 1)).requires_grad_()
+    x = _normal((2, 150, 64), torch.float32, 2).requires_grad_()
+    h0 = _normal((2, 64), torch.float32, 3).requires_grad_() if with_h0 else None
+    ins = [t for t in (a, x, h0) if t is not None]
+    dy = _normal((2, 150, 64), torch.float32, 4)
+    f0, b0 = k5.rglru.launches, k5.rglru_bwd.launches
+    got = torch.autograd.grad(k5.rglru(a, x, h0), ins, dy)
+    torch.cuda.synchronize()
+    assert (k5.rglru.launches - f0, k5.rglru_bwd.launches - b0) == (1, 1)
+    want = torch.autograd.grad(k5.rglru_plain(a, x, h0), ins, dy)
+    for u, w in zip(got, want):
+        assert _max_rel(u, w) <= 1e-5
+
+
+def test_scan_autograd_rejects_bf16():
+    x, dt, a, bm, cm, _ = _ssd_inputs(1, 64, 2, 1, 16, 16, torch.bfloat16, 1)
+    with pytest.raises(ValueError, match="backward"):
+        k4.ssd(x.requires_grad_(), dt, a, bm, cm, chunk=32)
+    av = torch.sigmoid(_normal((1, 8, 16), torch.bfloat16, 2))
+    with pytest.raises(ValueError, match="backward"):
+        k5.rglru(av, _normal((1, 8, 16), torch.bfloat16, 3).requires_grad_())
+
+
+def test_int8_and_decode_kernels_refuse_inputs_that_need_a_gradient():
+    """K2a, K2b and K3 have no backward: under grad mode they raise rather
+    than return a detached result; without grad, or under no_grad, they
+    launch."""
+    x = _normal((4, 64), torch.float32, 1).requires_grad_()
+    with pytest.raises(ValueError, match="no backward"):
+        k2.quantize_int8(x)
+    q, scale = k2.quantize_int8(x.detach())
+    with pytest.raises(ValueError, match="no backward"):
+        k2.dequantize_int8(q, scale.requires_grad_(), torch.float32)
+    with torch.no_grad():
+        k2.dequantize_int8(q, scale, torch.float32)
+        k2.quantize_int8(x)
+    qd = _normal((2, 4, 64), torch.float32, 2).requires_grad_()
+    kc = _normal((2, 32, 2, 64), torch.float32, 3)
+    vc = _normal((2, 32, 2, 64), torch.float32, 4)
+    with pytest.raises(ValueError, match="no backward"):
+        k3.decode_attention(qd, kc, vc, 20)
+    with torch.no_grad():
+        k3.decode_attention(qd, kc, vc, 20)
+
+
+def _block_grads(fn, params, x, device):
+    """Gradients of sum(fn(x, params) * c) w.r.t. x and every param leaf."""
+    leaves, structure = tree_flatten(tree_map(lambda t: t.to(device), params))
+    ws = [t.clone().requires_grad_(True) for t in leaves]
+    xi = x.to(device).requires_grad_(True)
+    out = fn(xi, tree_unflatten(structure, ws))
+    c = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        tuple(out.shape), dtype=np.float32)).to(device)
+    return [g.cpu() for g in torch.autograd.grad((out * c).sum(), [xi] + ws)]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_scan_blocks_on_the_card_give_every_parameter_its_gradient(arch):
+    """A Mamba-2 block (K4) and a Griffin recurrent block (K5) of the reduced
+    models: the input's and every parameter's gradient on the card within
+    1e-4 of the largest CPU value (the plain versions' autograd).  Without
+    an autograd function around the kernels the scan's output would be
+    detached: the gradients through it (in_proj's B, C, dt columns, A_log,
+    dt_bias; gate_a, gate_x, lam, wx, conv) would be wrong or zero."""
+    from repro_torch.models import griffin, mamba2
+    from repro_torch.models.common import layer
+
+    bundle = get_bundle(arch, reduced=True)
+    cfg = bundle.cfg
+    params = bundle.init(torch.Generator().manual_seed(0), "cpu", torch.float32)
+    x = _normal((2, 40, cfg.d_model), torch.float32, 6).cpu()
+    if arch == "mamba2-1.3b":
+        lp = layer(params["blocks"], 0)
+
+        def fn(xi, p):
+            return mamba2.block_forward(xi, p, cfg)
+    else:
+        lp = layer(params["groups"]["t0"], 0)
+
+        def fn(xi, p):
+            return griffin.rec_forward(xi, p, cfg)
+    lp = tree_map(lambda t: t.clone(), lp)
+    counter = k4.ssd_bwd if arch == "mamba2-1.3b" else k5.rglru_bwd
+    before = counter.launches
+    card = _block_grads(fn, lp, x, "cuda")
+    assert counter.launches == before + 1
+    cpu = _block_grads(fn, lp, x, "cpu")
+    for u, w in zip(card, cpu):
+        assert _max_rel(u, w) <= 1e-4

@@ -31,6 +31,7 @@ fair part of lr (2-3e-5 at lr 1e-3, on a handful of elements); at lr 1e-4
 that stays under 1e-5, while a wrong update (of the order of lr) would not.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -41,6 +42,8 @@ import torch
 
 from repro.configs import get_bundle as jax_get_bundle
 from repro.models import api as jax_api
+from repro.models import griffin as jax_griffin
+from repro.models import mamba2 as jax_mamba2
 from repro.models import transformer as jax_transformer
 from repro.models.attention import chunked_attention as jax_chunked_attention
 from repro.training import AdamWConfig as JaxAdamWConfig
@@ -73,9 +76,11 @@ GRAD_TOL = {"gemma2-9b": 2e-4}           # of each leaf's max; 1e-4 elsewhere
 
 @pytest.fixture
 def _f32_reference(monkeypatch):
-    """The reference's bundle.loss with float32 activations."""
-    monkeypatch.setattr(jax_transformer, "embed_tokens", functools.partial(
-        jax_transformer.embed_tokens, compute_dtype=jnp.float32))
+    """The reference's bundle.loss with float32 activations (every family's
+    ``embed_tokens``)."""
+    for mod in (jax_transformer, jax_mamba2, jax_griffin):
+        monkeypatch.setattr(mod, "embed_tokens", functools.partial(
+            mod.embed_tokens, compute_dtype=jnp.float32))
 
 
 def _np(x):
@@ -239,7 +244,10 @@ def test_bundle_specs_and_counts():
         assert count_params(specs) == sum(
             int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(jspecs))
         assert tb.num_active_params() == jb.num_active_params()
-    assert get_bundle("mamba2-1.3b", reduced=True).loss is None
+    # every family has a training loss (Mamba-2 and Griffin through K4's
+    # and K5's backward kernels)
+    for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
+        assert get_bundle(arch, reduced=True).loss is not None
 
 
 # --------------------------------------------------------------------------- #
@@ -401,9 +409,10 @@ def test_loss_decreases_small_model():
 
 
 def test_training_needs_a_loss_and_a_device():
+    lossless = dataclasses.replace(get_bundle("recurrentgemma-9b", reduced=True),
+                                   loss=None)
     with pytest.raises(ValueError, match="no training loss"):
-        make_train_step(get_bundle("recurrentgemma-9b", reduced=True),
-                        TrainStepConfig(), "cpu")
+        make_train_step(lossless, TrainStepConfig(), "cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make_train_step(get_bundle("llama3-8b", reduced=True))
