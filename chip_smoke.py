@@ -12,9 +12,10 @@ result line:
    ``src/repro_torch/kernels/csrc`` and print the build time and ptxas'
    registers and spills, then the SASS instruction census of the K1, K2a,
    K3 and K4 kernels (``cuobjdump``) and the designs it shows (``wgmma``:
-   HGMMA in the bf16 kernels of K1 and K4; K2a's 128-bit loads, store
-   widths and divisions; the script fails if K1's bf16 kernel or any of
-   K4's bf16 kernels has no tensor-core instruction, or a bf16 fast K2a
+   HGMMA in the bf16 kernels of K1 and K4; ``mma.sync``: HMMA in K4's
+   float32 kernels and the product kernels of K1's and K4's backwards;
+   K2a's 128-bit loads, store widths and divisions; the script fails if
+   any of those kernels has no tensor-core instruction, or a bf16 fast K2a
    kernel no 128-bit global load);
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes and time kernel, plain version and, where one PyTorch
@@ -181,7 +182,8 @@ result line:
    largest plain value), K5's against ``rglru_bwd_plain`` at Griffin's (2,
    512, 4096) with and without h0, a ragged W and a in (0.99, 1) (1e-5), each
    repeated bit for bit and timed beside its bound and plain version, and
-   K4's and K5's float32 forwards at those training shapes; reduced
+   K4's and K5's float32 forwards at those training shapes (K4's also held
+   against ``ssd_plain`` at 1e-4 and repeated bit for bit); reduced
    llama3-8b, 3 steps with int8 gradients off and on, twice on the card (bit
    for bit) and once on the CPU (step-0 gradients 1e-4 of each leaf's max,
    loss and grad norm 1e-4, params within 3 lr with a mean gap under 0.05
@@ -250,9 +252,11 @@ K1_BWD = "flash_bwd_"                 # the backward's kernels (float32, 3xTF32)
 K1_BWD_MMA = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")  # tensor cores
 K3_KERNEL = "decode_attention_kernel"
 K4_BF16 = ("ssd_chunk_state_kernel", "ssd_chunk_scan_kernel")  # tensor cores
-K4_F32 = ("ssd_cb_kernel", "ssd_scan_kernel")                  # CUDA cores
+K4_F32 = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_y_kernel")  # 3xTF32 mma.sync
 K2A = ("quantize_rows_vec", "quantize_rows")   # fast and general instances
 K4_BWD = "ssd_bwd_"                   # K4's backward kernels (float32)
+K4_BWD_MMA = ("ssd_bwd_cb_kernel", "ssd_bwd_state_kernel", "ssd_bwd_col_kernel",
+              "ssd_bwd_row_kernel")   # the backward's products (3xTF32 mma.sync)
 K5_BWD = "rglru_bwd_"                 # K5's backward kernels (float32)
 FAMILIES = {K1_BF16: "K1", K1_F32: "K1", K1_BWD: "K1 bwd", "quantize_rows": "K2",
             K3_KERNEL: "K3", **dict.fromkeys(K4_BF16 + K4_F32, "K4"),
@@ -357,10 +361,10 @@ def kernel_split(fn, iters: int) -> dict[str, float]:
 
 def kernel_instance(mangled: str) -> str:
     """``decode_attention_kernel<bf16, 128, 4>`` from a mangled name."""
-    names = (K1_BF16, K1_F32, K3_KERNEL) + K4_BF16 + K2A + K1_BWD_MMA
+    names = (K1_BF16, K1_F32, K3_KERNEL) + K4_BF16 + K2A + K1_BWD_MMA + K4_F32 + K4_BWD_MMA
     m = re.search(f"(?<![A-Za-z])({'|'.join(names)})I(.*)", mangled)
     if not m:
-        return next((k for k in K4_F32 if k in mangled), mangled)
+        return next((k for k in K4_F32 + K4_BWD_MMA if k in mangled), mangled)
     base, rest = m.group(1), m.group(2).split("Ev")[0]
     dtype = ["bf16"] if "bfloat16" in rest else ["f32"] if rest.startswith("f") else []
     ints = re.findall(r"Li(\d+)E", rest)
@@ -388,13 +392,13 @@ def k2a_census(lines: list[str]) -> dict[str, int]:
 
 
 def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
-    """SASS instruction counts of the K1, K1 backward, K2a, K3 and K4
-    kernels in the built library (``cuobjdump --dump-sass``), and the
-    designs they show: for K1's and K4's bf16 instances and the backward's
-    dK/dV and dQ kernels (float32 as 3xTF32) "wgmma" (HGMMA in every such
-    kernel of the family), "mma.sync" (HMMA) or "neither"; for K2a's bf16
-    fast instances "ldg.128" (a 128-bit global load in each) or
-    "scalar"."""
+    """SASS instruction counts of the K1, K1 backward, K2a, K3, K4 and K4
+    backward kernels in the built library (``cuobjdump --dump-sass``), and
+    the designs they show: for K1's and K4's bf16 instances, K4's float32
+    instance and the product kernels of K1's and K4's backwards (float32 as
+    3xTF32) "wgmma" (HGMMA in every such kernel of the family), "mma.sync"
+    (HMMA) or "neither"; for K2a's bf16 fast instances "ldg.128" (a 128-bit
+    global load in each) or "scalar"."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         sass = subprocess.run([cuobjdump, "--dump-sass", str(lib_path)],
@@ -403,7 +407,8 @@ def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
     except (OSError, subprocess.SubprocessError) as exc:
         print(f"SASS census: cuobjdump not available ({exc})")
         return {"K1": "not measured", "K2a": "not measured", "K4": "not measured",
-                "K1 bwd": "not measured"}
+                "K4 f32": "not measured", "K1 bwd": "not measured",
+                "K4 bwd": "not measured"}
     ops = ("HGMMA", "HMMA", "FFMA", "LDGSTS", "MUFU.EX2")
     census: dict[str, dict[str, int]] = {}
     lines: dict[str, list[str]] = {}
@@ -419,7 +424,8 @@ def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
             for op in ops:
                 if f" {op}" in line:
                     census[func][op] += 1
-    bf16 = {"K1": (K1_BF16,), "K4": K4_BF16, "K1 bwd": K1_BWD_MMA}
+    bf16 = {"K1": (K1_BF16,), "K4": K4_BF16, "K4 f32": K4_F32, "K1 bwd": K1_BWD_MMA,
+            "K4 bwd": K4_BWD_MMA}
     found: dict[str, list[str]] = {fam: [] for fam in bf16}
     k2a: list[str] = []
     for func, counts in sorted(census.items()):
@@ -431,7 +437,7 @@ def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
             print(f"  SASS {name}: {mem}")
             continue
         if not name.startswith((K1_BF16, K1_F32, K3_KERNEL) + K4_BF16 + K4_F32
-                               + K1_BWD_MMA):
+                               + K1_BWD_MMA + K4_BWD_MMA):
             continue
         for fam, names in bf16.items():
             if name.startswith(names):
@@ -443,6 +449,9 @@ def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
             continue                      # K4: N = 128 (the path) only
         if name.startswith(K1_BWD_MMA) and not name.endswith("<128>"):
             continue                      # K1 bwd: hd 128 (Llama) only
+        if name.endswith(">") and name.startswith(K4_F32 + K4_BWD_MMA) and \
+                not name.endswith(("<1>", "<16>")):
+            continue                      # K4 float32 and bwd: N = 128 only
         print(f"  SASS {name}: {counts}")
     # a family's design is the weakest of its bf16 kernels'
     order = ["neither", "mma.sync", "wgmma"]
@@ -919,14 +928,20 @@ def ssd_inputs(b, s, h, g, n, p, dtype, seed):
     return x, dt, a, bm, cm, normal((b, h, n, p), torch.float32, seed + 4)
 
 
-def ssd_flops(b, s, h, g, n, p, chunk) -> tuple[float, float]:
-    """(products this input needs: lower triangles, C B^T once per group;
-    the TPU kernel's count: full Q x Q tiles, C B^T per head)."""
+def ssd_flops(b, s, h, g, n, p, chunk, with_state=False,
+              return_state=False) -> tuple[float, float]:
+    """(products this input needs: lower triangles, C B^T once per group,
+    the C S_in term only where S_in is live (after chunk 0, or from
+    state_in) and a chunk's own state only where it feeds a later chunk or
+    the returned final state; the TPU kernel's count: full Q x Q tiles,
+    C B^T per head, both state products in every chunk)."""
     need = tpu = 0.0
-    for c0 in range(0, s, chunk):
+    starts = range(0, s, min(chunk, s))
+    for c, c0 in enumerate(starts):
         q = min(chunk, s - c0)
         tri = q * (q + 1) / 2
-        need += 2 * b * (g * tri * n + h * (tri * p + 2 * q * n * p))
+        live = (c > 0 or with_state) + (c < len(starts) - 1 or return_state)
+        need += 2 * b * (g * tri * n + h * (tri * p + live * q * n * p))
         tpu += 2 * b * h * (q * q * n + q * q * p + 2 * q * n * p)
     return need, tpu
 
@@ -999,7 +1014,7 @@ def phase_ssd_kernel(k4) -> dict:
             x, dtv, a, bm, cm, chunk=chunk, return_state=True), 10)
         n_bytes = sum(t.numel() * t.element_size()
                       for t in (x, dtv, a, bm, cm, y, state))
-        need, tpu = ssd_flops(b, s, h, g, n, p, chunk)
+        need, tpu = ssd_flops(b, s, h, g, n, p, chunk, with_state, True)
         b_ms, b_by = bound(n_bytes, need, BF16_FLOPS)
         row = dict(name="ssd", route="cuda",
                    source="src/repro_torch/kernels/csrc/ssd_chunk.cu",
@@ -3327,17 +3342,28 @@ def phase_train_kernel(k1) -> dict:
     return row
 
 
-def ssd_bwd_flops(b, s, h, g, n, p, chunk) -> float:
+def ssd_bwd_flops(b, s, h, g, n, p, chunk, with_state=False,
+                  with_dstate=False) -> float:
     """Float32 operations K4's VJP needs at this input: per chunk the lower
     triangles of C B^T (once per group), dy xbar^T, W^T dy, Z^T C and Z B,
-    and five [q, N] x [N, P] products per head (S_in and the reverse carry,
-    which the function recomputes from its inputs, the dS_out terms of
-    dxbar and dB, the S_in term of dC)."""
+    and per head the [q, N] x [N, P] products whose operands are live: the
+    chunk's own state (recomputed for S_in) where a later chunk reads it,
+    its own dS^ where an earlier chunk's dS_out or d state_in (wanted only
+    with state_in) reads it, the S_in term of dC where S_in is live (after
+    chunk 0, or from state_in), and the dS_out terms of dxbar and dB where
+    dS_out is live (before the last chunk, or from dS_final)."""
     ops = 0.0
-    for c0 in range(0, s, min(chunk, s)):
+    starts = range(0, s, min(chunk, s))
+    nc = len(starts)
+    for c, c0 in enumerate(starts):
         q = min(chunk, s - c0)
         tri = q * (q + 1) / 2
-        ops += 2 * b * (g * tri * n + h * (tri * (2 * p + 2 * n) + 5 * q * n * p))
+        hat_live = c < nc - 1
+        s_in_live = c > 0 or with_state
+        dhat_live = c > 0 or with_state       # d state_in comes with state_in
+        ds_out_live = c < nc - 1 or with_dstate
+        live = hat_live + dhat_live + s_in_live + 2 * ds_out_live
+        ops += 2 * b * (g * tri * n + h * (tri * (2 * p + 2 * n) + live * q * n * p))
     return ops
 
 
@@ -3383,15 +3409,11 @@ def phase_recurrent_bwd(k4, k5) -> list[dict]:
         timed_shapes.add(shape)
         ms = timed("K4 bwd kernel", lambda: k4.ssd_bwd(x, dtv, a, bm, cm, dy, **kw),
                    10, K4_BWD)
-        if not rows:
-            split = kernel_split(lambda: k4.ssd_bwd(x, dtv, a, bm, cm, dy, **kw), 5)
-            print("  K4 bwd device time by kernel (us): " + json.dumps(
-                {nm: round(us, 2) for nm, us in split.items()}))
         plain_ms = timed("K4 bwd plain", lambda: k4.ssd_bwd_plain(
             x, dtv, a, bm, cm, dy, **kw), 3)
         n_bytes = sum(t.numel() * 4 for t in (x, dtv, a, bm, cm, st, dy, ds, *got)
                       if t is not None)
-        n_ops = ssd_bwd_flops(b, s, h, g, n, p, chunk)
+        n_ops = ssd_bwd_flops(b, s, h, g, n, p, chunk, with_state, with_state)
         # the least time for float32-accurate products is as 3xTF32 on the
         # tensor cores (K1 bwd's rule); the CUDA-core bound is printed beside
         b_ms, b_by = bound(n_bytes, 3 * n_ops, TF32_FLOPS)
@@ -3409,18 +3431,33 @@ def phase_recurrent_bwd(k4, k5) -> list[dict]:
                              replaces="src/repro/models/mamba2.py:132 ssd_chunked (VJP)",
                              max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=None))
-            # K4's float32 forward at the same shape, as training calls it
+            # K4's float32 forward at the same shape, as training calls it:
+            # held against its plain version, repeated bit for bit, timed
+            y = k4.ssd(x, dtv, a, bm, cm, chunk=chunk)
+            y2 = k4.ssd(x, dtv, a, bm, cm, chunk=chunk)
+            torch.cuda.synchronize()
+            wy = k4.ssd_plain(x, dtv, a, bm, cm, chunk=chunk)
+            f_err = float((y - wy).abs().max())
+            f_same = torch.equal(y, y2)
+            print(f"K4 float32 forward {label}: max_abs_err y {f_err:.3e} (max |y| "
+                  f"{float(wy.abs().max()):.3e}; atol=rtol=1e-4); repeat "
+                  f"bit-identical {f_same}")
+            torch.testing.assert_close(y, wy, atol=1e-4, rtol=1e-4)
+            if not f_same:
+                raise AssertionError(f"K4 float32 forward at {label}: repeat differs")
             fwd_ms = timed("K4 float32 forward", lambda: k4.ssd(
                 x, dtv, a, bm, cm, chunk=chunk), 20, "ssd_")
-            need, _ = ssd_flops(b, s, h, g, n, p, chunk)
-            f_bytes = sum(t.numel() * 4 for t in (x, dtv, a, bm, cm, dy))
+            fwd_plain_ms = timed("K4 float32 forward plain", lambda: k4.ssd_plain(
+                x, dtv, a, bm, cm, chunk=chunk), 3)
+            need, _ = ssd_flops(b, s, h, g, n, p, chunk, with_state)
+            f_bytes = sum(t.numel() * 4 for t in (x, dtv, a, bm, cm, y))
             f_ms, f_by = bound(f_bytes, 3 * need, TF32_FLOPS)
             fc_ms, fc_by = bound(f_bytes, need, FP32_FLOPS)
             print(f"K4 float32 forward {label} time {fwd_ms:.4f} ms "
                   f"({fwd_ms / f_ms:.2f}x the 3xTF32 bound, {fwd_ms / fc_ms:.2f}x "
-                  f"the CUDA-core bound); bounds: 3xTF32 on the tensor cores "
-                  f"{f_ms:.5f} ms ({f_by}), float32 on the CUDA cores "
-                  f"{fc_ms:.5f} ms ({fc_by}) ({f_bytes / 1e6:.2f} MB, "
+                  f"the CUDA-core bound); plain {fwd_plain_ms:.4f} ms; bounds: "
+                  f"3xTF32 on the tensor cores {f_ms:.5f} ms ({f_by}), float32 on "
+                  f"the CUDA cores {fc_ms:.5f} ms ({fc_by}) ({f_bytes / 1e6:.2f} MB, "
                   f"{need / 1e9:.3f} GFLOP float32-accurate)")
     for label, shape, with_h0, a_lo in LRU_BWD:
         a = a_lo + (1.0 - a_lo) * torch.sigmoid(normal(shape, torch.float32, 51))
@@ -3854,8 +3891,9 @@ def main() -> int:
                 or line.startswith("=="):
             print(f"  {line.strip()}")
     designs = sass_census(res.path)
-    print(f"K1, K2a and K4 designs (bf16 instances) and K1 bwd's (float32 "
-          f"as 3xTF32), from their SASS: {designs}")
+    print(f"K1, K2a and K4 designs (bf16 instances), K4's float32 instance's "
+          f"and K1 bwd's and K4 bwd's (float32 as 3xTF32), from their SASS: "
+          f"{designs}")
     for fam, design in designs.items():
         if design not in ("wgmma", "mma.sync", "ldg.128", "not measured"):
             raise AssertionError(f"a tensor-core kernel of {fam} runs no "

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""K1, K1's backward, K2, K3 and K4 of two checkouts, timed on one card in turns.
+"""K1, K1's backward, K2, K3, K4 and K4's backward of two checkouts, timed on one card in turns.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100, with a
 second checkout (for example the parent commit, unpacked by ``git archive``
@@ -15,8 +15,10 @@ of K1 (flash prefill attention) at Llama-3-8B's prefill shape and at
 Griffin's hd 256 shape, of K3 (decode attention) at the generation path's
 decode shape, and of K4 (the SSD chunk scan, bf16, final state returned) at
 Mamba-2's prefill shape, of K1's backward (float32) at Llama-3-8B's
-training shape and at hd 8 with G=7 (``chip_smoke.TRAIN_BWD``), from a
-CUDA-graph replay (``chip_smoke.graph_ms``),
+training shape and at hd 8 with G=7 (``chip_smoke.TRAIN_BWD``), of K4's
+float32 forward and K4's backward at each shape of ``chip_smoke.SSD_BWD``
+(Mamba-2's training shape first), from a CUDA-graph replay
+(``chip_smoke.graph_ms``),
 beside the device time of each kernel the call launches, by name
 (``chip_smoke.kernel_split``: a two-kernel K3 shows its split and its
 combine; K4 its kernels), and K3 again at fewer valid cache entries (time
@@ -78,6 +80,35 @@ def measure_k2(cs, k2) -> list[dict]:
     return rows
 
 
+def measure_k4_f32(cs, k4) -> list[dict]:
+    """K4's float32 forward (as training calls it: the final state only
+    with a state_in) and K4's backward at each shape of ``cs.SSD_BWD``."""
+    import torch
+
+    rows, seen = [], set()
+    for label, b, s, h, g, n, p, chunk, with_state, _ in cs.SSD_BWD:
+        if (b, s, h, g, n, p, chunk, with_state) in seen:
+            continue                    # the work does not depend on dt's values
+        seen.add((b, s, h, g, n, p, chunk, with_state))
+        x, dt, a, bm, cm, st = cs.ssd_inputs(b, s, h, g, n, p, torch.float32, 41)
+        st = st if with_state else None
+        dy = cs.normal((b, s, h, p), torch.float32, 46)
+        ds = cs.normal((b, h, n, p), torch.float32, 47) if with_state else None
+
+        def fwd(x=x, dt=dt, a=a, bm=bm, cm=cm, st=st, chunk=chunk, ret=with_state):
+            return k4.ssd(x, dt, a, bm, cm, chunk=chunk, state_in=st, return_state=ret)
+
+        def bwd(x=x, dt=dt, a=a, bm=bm, cm=cm, dy=dy, st=st, ds=ds, chunk=chunk):
+            return k4.ssd_bwd(x, dt, a, bm, cm, dy, chunk=chunk, state_in=st, dstate=ds)
+
+        for kernel, fn, iters in (("K4 f32", fwd, 20), ("K4 bwd", bwd, 10)):
+            fn()
+            torch.cuda.synchronize()
+            rows.append(dict(kernel=kernel, shape=label, us=1e3 * cs.graph_ms(fn, iters),
+                             by_name=cs.kernel_split(fn, iters)))
+    return rows
+
+
 def measure(root: pathlib.Path, sweep: bool) -> list[dict]:
     import chip_smoke as cs  # this checkout's timing helpers
     sys.path.insert(0, str(root / "src"))
@@ -128,6 +159,8 @@ def measure(root: pathlib.Path, sweep: bool) -> list[dict]:
         torch.cuda.synchronize()
         rows.append(dict(kernel="K1 bwd", shape=label, us=1e3 * cs.graph_ms(bwd, 20),
                          by_name=cs.kernel_split(bwd, 20)))
+
+    rows += measure_k4_f32(cs, k4)
 
     b, s, h, kv, hd = cs.DECODE.values()
     q = cs.normal((b, h, hd), torch.bfloat16, 5)

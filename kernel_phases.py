@@ -162,8 +162,8 @@ def patched_source() -> str:
 def patched_library() -> ctypes.CDLL:
     src = patched_source()
     OUT.mkdir(parents=True, exist_ok=True)
-    for name in ("sm90.cuh", "common.cuh"):
-        (OUT / name).write_text((build.CSRC / name).read_text())
+    for header in build.CSRC.glob("*.cuh"):
+        (OUT / header.name).write_text(header.read_text())
     (OUT / "ssd_chunk.cu").write_text(src)
     lib = nvcc_shared(OUT / "ssd_chunk.cu", OUT / "libphases.so")
     lib.ssd_chunk_fwd.argtypes = build._SIGNATURES["ssd_chunk_fwd"]

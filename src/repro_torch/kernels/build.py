@@ -46,7 +46,7 @@ _SIGNATURES = {
     "decode_attention_fwd": [_VOID] * 4 + [_INT] + [_VOID] * 4 + [_INT] * 10
     + [_FLOAT, _FLOAT, _VOID],
     "ssd_chunk_fwd": [_VOID] * 14 + [_INT] * 8 + [_LONG] * 6 + [_VOID],
-    "ssd_chunk_bwd": [_VOID] * 24 + [_INT] * 8 + [_LONG] * 6 + [_VOID],
+    "ssd_chunk_bwd": [_VOID] * 27 + [_INT] * 8 + [_LONG] * 6 + [_VOID],
     "rglru_fwd": [_VOID] * 5 + [_INT] * 4 + [_VOID],
     "rglru_bwd": [_VOID] * 8 + [_INT] * 3 + [_VOID],
     "rglru_chunk_steps": [],

@@ -62,310 +62,525 @@
 //     has ended before they read cums and S_in.
 // No atomics in any sum: two calls give the same bits.
 //
-// float32: two kernels of float32 FMAs from shared memory, as the Pallas
-// kernel computes in float32 (TF32 tensor cores cannot meet the 1e-4
-// tolerance):
-//  1. ssd_cb_kernel: C B^T for every chunk, once per (batch, group), in
-//     64 x 64 tiles on and below the diagonal (tiles above it are never
-//     read).  B and C are per group, so all H / G heads of a group share
-//     it; only L is per head.
-//  2. ssd_scan_kernel: one block per (batch * head, 16 columns of P).  The
-//     columns of the state are independent (y[:, p] needs only S[:, p] and
-//     (dt x)[:, p]), so a head's state splits across P / 16 blocks.  Each
-//     block walks its chunks in order with its [N, 16] slice of S in shared
-//     memory, building 64 x 64 tiles of (C B^T) o L from the tiles of
-//     ssd_cb_kernel and skipping those above the diagonal.
+// float32 (training calls it, and the checks): every product 3xTF32 on the
+// tensor cores (mma.sync.m16n8k8 fragments split into big + small TF32 parts
+// by tf32x3.cuh: float32 accuracy at a third of the TF32 rate; one TF32
+// product misses the 1e-4 tolerance, tests/test_torch_ssd_plan.py), in
+// three launches:
+//  1. ssd_cb_kernel: C B^T once per (batch, group, chunk), in 64 x 64 tiles
+//     on and below the diagonal, into scratch (1 MB at the training shape,
+//     so it stays in L2); no block recomputes it for a head;
+//  2. ssd_state_kernel (forward): the chunk-parallel state pass of
+//     ssd_f32.cuh: per (batch * head, chunk, 64 columns of P) cums by a
+//     block scan and the chunk's own state S^_c = (B o w)^T (dt x), then the
+//     carry S_in(c + 1) = S_in(c) e^last_c + S^_c in float32 by the last
+//     block of each (batch * head, P tile) to finish (the bf16 instance's
+//     ticket, on the same counters), writing S_in per chunk over the chunk
+//     states, and the final state if asked (without it the last chunk's own
+//     state is dead, and its block skips the product);
+//  3. ssd_y_kernel, one block per (batch * head * P tile, chunk, 64-row tile
+//     I), the tiles with the most pairs first: y_I = e^cums_I (C_I S_in) +
+//     sum over J <= I of ((C B^T)_IJ o L_IJ)(dt x)_J, the masked scores
+//     going from registers into the A fragments of the product with x (L's
+//     exponentials once per (head, tile pair), masked before exp).
+// The fragments read shared tiles laid out for the orientation they read
+// them in (ssd_f32.cuh), fed by 16-byte cp.async where every view is
+// 16-byte aligned, else element by element.  What bounds it at Mamba-2's
+// training shape (B=2, S=512, H=64, P=64, G=1, N=128, chunk 256, no
+// state_in, no final state): 2.19 GFLOP of float32-accurate products
+// (13.2 us as 3xTF32 at 495 TFLOP/s; chunk 0's C S_in and the last chunk's
+// own state are not needed) against 34.9 MB moved.  mma.sync runs far
+// below that rate: each product costs three HMMA and the splits of its
+// fragments.
 
 #include <stdint.h>
 
-#include "common.cuh"
 #include "sm90.cuh"
+#include "ssd_f32.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
-using repro_torch::to_f32;
 namespace sm90 = repro_torch::sm90;
 using bf16 = __nv_bfloat16;
 
+// every kernel asks for the largest shared-memory carveout, so consecutive
+// launches do not reconfigure the SMs
+template <typename K>
+cudaError_t set_smem(K* kernel, int bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess || bytes <= 48 * 1024) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 // ===========================================================================
-// float32: CUDA cores
+// float32: 3xTF32 on the tensor cores (mma.sync)
 // ===========================================================================
 
-constexpr int THREADS = 256;
-constexpr int TILE = 64;   // rows of a C / B tile, and the side of a score tile
-constexpr int PT = 16;     // state columns (of P) per scan block
-constexpr int KC = 32;     // N slab of ssd_cb_kernel
-constexpr int MAXK = 16;   // state rows per thread: N <= 16 * MAXK = 256
+namespace f32 = repro_torch::ssd_f32;
+using f32::H2;
+using f32::ld4;
+using f32::ld8;
+using f32::round_up;
+using repro_torch::tf32x3::acc_as_a;
+using repro_torch::tf32x3::mma3;
+using repro_torch::tf32x3::Split;
+
+constexpr int F_THREADS = 128;   // cb and y: four warps, 16 rows of a tile each
 
 // ---------------------------------------------------------------------------
-// ssd_cb_kernel: cb[bg][c][i][j] = sum_n C[b, c Q + i, g, n] * B[b, c Q + j, g, n]
-// grid (tile pairs it >= jt, chunks, B * G); a thread owns a 4 x 4 block of
-// the 64 x 64 tile: rows ty + 16 r, columns tx + 16 c.
+// ssd_cb_kernel: cb[bg][c][i][j] = C_i . B_j (rows c Q + i, c Q + j; 0 past
+// len) on the tile pairs it >= jt, in 64 x 64 tiles of a [QP, QP] block per
+// (batch * group, chunk); the 8 x 8 blocks above the diagonal are written as
+// 0, tiles above it never.  B and C are per group, so the H / G heads of a
+// group share it.  grid (tile pairs, nc, B * G); the block loads its rows
+// of C and B whole, in one batch of copies.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-ssd_cb_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
-              float* __restrict__ cb, int S, int G, int N, int Q, int nc,
-              long long b_sb, long long b_ss, long long c_sb, long long c_ss) {
-  __shared__ float Cs[TILE][KC + 1];
-  __shared__ float Bs[TILE][KC + 1];
+__device__ __forceinline__ void cb_tiles(const float* __restrict__ bm,
+                                         const float* __restrict__ cm,
+                                         float* __restrict__ cb, int S, int G, int N,
+                                         int Q, int QP, int nc, long long b_sb,
+                                         long long b_ss, long long c_sb,
+                                         long long c_ss, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int nk = round_up(N, 8), ldk = ld4(nk);
+  float* Cs = smem;                           // C_I [64][ldk]
+  float* Bs = smem + f32::T * ldk;            // B_J [64][ldk]
   int t = blockIdx.x, it = 0;
   while ((it + 1) * (it + 2) / 2 <= t) ++it;
   const int jt = t - it * (it + 1) / 2;
-  const int c = blockIdx.y;
-  const int bg = blockIdx.z;
-  const int b = bg / G, g = bg % G;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int i0 = it * TILE, j0 = jt * TILE, c0 = c * Q;
-  const float* cbase = cm + b * c_sb + (long long)g * N;
-  const float* bbase = bm + b * b_sb + (long long)g * N;
-
-  float acc[4][4];
+  const int c = blockIdx.y, bg = blockIdx.z, b = bg / G, g = bg % G;
+  const int c0 = c * Q, len = min(Q, S - c0);
+  const int i0 = it * f32::T, j0 = jt * f32::T;
+  if (i0 >= len) return;                      // past the ragged edge: never read
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, r0 = 16 * w;
+  f32::load_tile(Cs, ldk, cm + b * c_sb + (long long)(c0 + i0) * c_ss + (long long)g * N,
+                 c_ss, f32::T, nk, len - i0, N, vec, tid, F_THREADS);
+  f32::load_tile(Bs, ldk, bm + b * b_sb + (long long)(c0 + j0) * b_ss + (long long)g * N,
+                 b_ss, f32::T, nk, len - j0, N, vec, tid, F_THREADS);
+  sm90::cp_async_commit();
+  // on the diagonal, warp w's rows need the columns j <= 16 w + 15 only
+  const int nb_end = it == jt ? 2 * w + 2 : 8;
+  float acc[8][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int nb = 0; nb < 8; ++nb) f32::zero(acc[nb]);
+  sm90::cp_async_wait<0>();
+  __syncthreads();
+  for (int kk = 0; kk < nk; kk += 8) {
+    const auto a = f32::frag_a(Cs, ldk, r0, kk, lane);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += KC) {
-    __syncthreads();
-    for (int e = tid; e < TILE * KC; e += THREADS) {
-      const int r = e / KC, k = e % KC, n = k0 + k;
-      const int i = i0 + r, j = j0 + r;
-      Cs[r][k] = (i < Q && c0 + i < S && n < N) ? to_f32(cbase[(c0 + i) * c_ss + n]) : 0.f;
-      Bs[r][k] = (j < Q && c0 + j < S && n < N) ? to_f32(bbase[(c0 + j) * b_ss + n]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < KC; ++k) {
-      float cv[4], bv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) cv[r] = Cs[ty + 16 * r][k];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) bv[q] = Bs[tx + 16 * q][k];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(cv[r], bv[q], acc[r][q]);
-    }
+    for (int nb = 0; nb < 8; ++nb)
+      if (nb < nb_end) mma3(acc[nb], a, f32::frag_b_t(Bs, ldk, 8 * nb, kk, lane));
   }
-  float* out = cb + ((size_t)bg * nc + c) * Q * Q;
+  float* out = cb + ((size_t)bg * nc + c) * QP * QP +
+               (size_t)(i0 + r0 + (lane >> 2)) * QP + j0 + 2 * (lane & 3);
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty + 16 * r;
-    if (i >= Q) continue;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int j = j0 + tx + 16 * q;
-      if (j < Q) out[(size_t)i * Q + j] = acc[r][q];
-    }
+  for (int nb = 0; nb < 8; ++nb) {
+    *reinterpret_cast<float2*>(out + 8 * nb) = make_float2(acc[nb][0], acc[nb][1]);
+    *reinterpret_cast<float2*>(out + 8 * QP + 8 * nb) = make_float2(acc[nb][2], acc[nb][3]);
   }
 }
 
-// ---------------------------------------------------------------------------
-// ssd_scan_kernel: grid (ceil(P / PT), B * H).  Thread (rr, pp) =
-// (tid / 16, tid % 16) owns state column p0 + pp; for y it owns rows
-// rr + 16 k of a 64-row tile, for the state rows n = rr + 16 k.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ A, const float* __restrict__ cb,
-                const float* __restrict__ bm, const float* __restrict__ cm,
-                const float* __restrict__ state_in, float* __restrict__ y,
-                float* __restrict__ state_out, int S, int H, int G, int N,
-                int P, int Q, int nc, long long x_sb, long long x_ss,
-                long long b_sb, long long b_ss, long long c_sb, long long c_ss) {
-  constexpr int MS = TILE + 1;  // row stride of the score tile
-  const int NS = N + 1;         // row stride of the C / B tile
-  extern __shared__ float smem[];
-  float* cums = smem;               // [Q]   inclusive cumsum of dt * A
-  float* ein = cums + Q;            // [Q]   e^cums
-  float* eout = ein + Q;            // [Q]   e^(cums[-1] - cums)
-  float* xbar = eout + Q;           // [Q][PT]  dt * x
-  float* st = xbar + Q * PT;        // [N][PT]  the carried state's columns
-  float* tile = st + N * PT;        // [TILE][NS] rows of C or of B
-  float* Ms = tile + TILE * NS;     // [TILE][MS] (C B^T) o L
+// the forward's launch, and the backward's (a name of its own, so that a
+// trace tells the two apart)
+__global__ void __launch_bounds__(F_THREADS)
+ssd_cb_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
+              float* __restrict__ cb, int S, int G, int N, int Q, int QP, int nc,
+              long long b_sb, long long b_ss, long long c_sb, long long c_ss, int vec) {
+  cb_tiles(bm, cm, cb, S, G, N, Q, QP, nc, b_sb, b_ss, c_sb, c_ss, vec);
+}
 
-  const int tid = threadIdx.x;
-  const int rr = tid / PT, pp = tid % PT;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int g = h / (H / G);
-  const int p0 = blockIdx.x * PT;
-  const bool pcol = p0 + pp < P;
+__global__ void __launch_bounds__(F_THREADS)
+ssd_bwd_cb_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
+                  float* __restrict__ cb, int S, int G, int N, int Q, int QP, int nc,
+                  long long b_sb, long long b_ss, long long c_sb, long long c_ss,
+                  int vec) {
+  cb_tiles(bm, cm, cb, S, G, N, Q, QP, nc, b_sb, b_ss, c_sb, c_ss, vec);
+}
+
+// ---------------------------------------------------------------------------
+// ssd_state_kernel: the chunk-parallel state pass (ssd_f32.cuh).  grid
+// (B * H, nc, ceil(P / 64)), eight warps; warp w computes the state rows
+// [16 m, 16 m + 16) for m = w (and w + 8 when MT = 2, N > 128) of the
+// chunk's own hat[n][p] = sum_j U_j[n] (om_j V_j[p]) over 64 columns of P,
+// the chunk's steps streamed 32 at a time through a ring of three stages
+// (two blocks an SM at N <= 128).  The last
+// block of each (batch * head, P tile) to finish carries the sum.
+// ---------------------------------------------------------------------------
+constexpr int ST_THREADS = 256;
+constexpr int ST_NST = 3;                    // ring stages
+constexpr int ST_LDV = ld8(f32::T);          // V [32][64], read down columns
+
+int state_smem_floats(int N, int QP) {
+  return ST_NST * H2 * (ld8(N) + ST_LDV) + 2 * QP + ST_THREADS / 32;
+}
+
+template <int MT>
+__device__ __forceinline__ void state_pass(
+    const float* __restrict__ u, const float* __restrict__ v,
+    const float* __restrict__ dt, const float* __restrict__ A,
+    const float* __restrict__ init, float* hat, float* out, float* __restrict__ fin,
+    float* __restrict__ cums_out, float* __restrict__ last_out,
+    unsigned* __restrict__ counters, int rev, int S, int H, int G, int N, int P, int Q,
+    int QP, int nc, int npt, long long u_sb, long long u_ss, long long v_sb,
+    long long v_ss, int vec) {
+  constexpr int NTHR = ST_THREADS;
+  const int ldu = ld8(N), NU = round_up(N, 16);   // U columns its fragments read
+  const int stage = H2 * (ldu + ST_LDV);
+  extern __shared__ __align__(16) float smem[];
+  float* cums = smem + ST_NST * stage;       // [QP]
+  float* om = cums + QP;                     // [QP] the rows' weights
+  float* wsum = om + QP;                     // [NTHR / 32]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t2 = 2 * (lane & 3);
+  const int bh = blockIdx.x, c = blockIdx.y, pt = blockIdx.z;
+  const int b = bh / H, h = bh % H, g = h / (H / G);
+  const int c0 = c * Q, len = min(Q, S - c0), p0 = pt * f32::T;
+  const float* ub = u + b * u_sb + (long long)c0 * u_ss + (long long)g * N;
+  const float* vb = v + b * v_sb + (long long)c0 * v_ss + (long long)h * P + p0;
+  const float* dtb = dt + ((size_t)b * S + c0) * H + h;
+  // no carry reads the last chunk's own state forward (the first's
+  // reversed) unless fin is asked for: that chunk skips its product
+  const bool dead = fin == nullptr && c == (rev ? 0 : nc - 1);
+  const int nsteps = dead ? 0 : (len + H2 - 1) / H2;
+  auto load = [&](int s) {                   // one commit group a step, empty past the end
+    if (s < nsteps) {
+      float* st = smem + (s % ST_NST) * stage;
+      const int j0 = s * H2;
+      f32::load_tile(st, ldu, ub + (long long)j0 * u_ss, u_ss, H2, NU, len - j0, N, vec,
+                     tid, NTHR);
+      f32::load_tile(st + H2 * ldu, ST_LDV, vb + (long long)j0 * v_ss, v_ss, H2, f32::T,
+                     len - j0, P - p0, vec, tid, NTHR);
+    }
+    sm90::cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < ST_NST - 1; ++s) load(s);
+
+  // cums: thread t scans steps [t per, (t + 1) per) (past len, dt = 0), then
+  // the threads' totals are scanned (the bf16 instance's scan)
   const float a = A[h];
-  const float* xb = x + b * x_sb + (long long)h * P;
-  const float* bb = bm + b * b_sb + (long long)g * N;
-  const float* cbb = cm + b * c_sb + (long long)g * N;
-  const float* dtb = dt + (size_t)b * S * H + h;
-  float* yb = y + ((size_t)b * S * H + h) * P;
-
-  for (int e = tid; e < N * PT; e += THREADS) {
-    const int n = e / PT, q = e % PT;
-    st[e] = (state_in != nullptr && p0 + q < P)
-                ? state_in[((size_t)bh * N + n) * P + p0 + q] : 0.f;
+  const int per = (QP + NTHR - 1) / NTHR;    // <= 4 (QP <= 1024)
+  float dv[4], loc[4], run = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = tid * per + k;
+    dv[k] = k < per && i < len ? dtb[(size_t)i * H] : 0.f;
+    run += dv[k] * a;
+    loc[k] = run;
   }
+  float incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) wsum[warp] = incl;
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.f;
+  __syncthreads();
+  for (int v2 = 0; v2 < warp; ++v2) excl += wsum[v2];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = tid * per + k;
+    if (k < per && i < QP) cums[i] = loc[k] + excl;
+  }
+  __syncthreads();
+  const float last = cums[QP - 1];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = tid * per + k;
+    if (k < per && i < QP) om[i] = rev ? expf(cums[i]) : dv[k] * expf(last - cums[i]);
+  }
+  if (cums_out != nullptr && pt == 0)
+    for (int i = tid; i < QP; i += NTHR) cums_out[((size_t)bh * nc + c) * QP + i] = cums[i];
+  if (tid == 0) last_out[(size_t)bh * nc + c] = last;   // each P tile's carry reads it
 
-  for (int c = 0; c < nc; ++c) {
-    const int c0 = c * Q;
-    const int len = min(Q, S - c0);
-    __syncthreads();  // the previous chunk is done with every buffer
-
-    // cums: warp 0; lane l scans a contiguous run of Q / 32, then the runs'
-    // totals are scanned across the warp.  Steps past len have dt = 0.
-    if (tid < 32) {
-      const int per = (Q + 31) / 32, s0 = tid * per;
-      float run = 0.f;
-      for (int k = 0; k < per; ++k) {
-        const int i = s0 + k;
-        if (i < Q) {
-          run += i < len ? dtb[(size_t)(c0 + i) * H] * a : 0.f;
-          cums[i] = run;
-        }
-      }
-      float incl = run;
+  float acc[MT][8][4];
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, incl, off);
-        if (tid >= off) incl += o;
-      }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (tid == 0) excl = 0.f;
-      for (int k = 0; k < per; ++k) {
-        const int i = s0 + k;
-        if (i < Q) cums[i] += excl;
-      }
-    }
-    for (int e = tid; e < Q * PT; e += THREADS) {
-      const int j = e / PT, q = e % PT;
-      xbar[e] = (j < len && p0 + q < P)
-                    ? to_f32(xb[(c0 + j) * x_ss + p0 + q]) * dtb[(size_t)(c0 + j) * H]
-                    : 0.f;
-    }
-    __syncthreads();
-    const float last = cums[Q - 1];
-    for (int i = tid; i < Q; i += THREADS) {
-      ein[i] = expf(cums[i]);
-      eout[i] = expf(last - cums[i]);
-    }
-
-    // ---- y, one 64-row tile at a time ----
-    const float* cbc = cb + ((size_t)(b * G + g) * nc + c) * Q * Q;
-    const int ntile = (len + TILE - 1) / TILE;
-    for (int it = 0; it < ntile; ++it) {
-      const int i0 = it * TILE;
-      __syncthreads();
-      for (int e = tid; e < TILE * N; e += THREADS) {
-        const int r = e / N, n = e % N, i = i0 + r;
-        tile[r * NS + n] = i < len ? to_f32(cbb[(c0 + i) * c_ss + n]) : 0.f;
-      }
-      __syncthreads();
-      // carried state: (C S)[i, p] e^cums_i
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int n = 0; n < N; ++n) {
-        const float sv = st[n * PT + pp];
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) acc[k] = fmaf(tile[(rr + 16 * k) * NS + n], sv, acc[k]);
-      }
+    for (int nb = 0; nb < 8; ++nb) f32::zero(acc[m][nb]);
+  for (int s = 0; s < nsteps; ++s) {
+    sm90::cp_async_wait<ST_NST - 2>();
+    __syncthreads();                         // step s (and om) for every thread; s - 1 consumed
+    load(s + ST_NST - 1);
+    const float* Us = smem + (s % ST_NST) * stage;
+    const float* Vs = Us + H2 * ldu;
+    const float* os = om + s * H2;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int i = i0 + rr + 16 * k;
-        acc[k] *= i < Q ? ein[i] : 0.f;
-      }
-      // within the chunk: sum over j <= i of ((C B^T) o L)[i, j] (dt x)[j, p]
-      for (int jt = 0; jt <= it; ++jt) {
-        const int j0 = jt * TILE;
-        __syncthreads();
-        for (int e = tid; e < TILE * TILE; e += THREADS) {
-          const int r = e / TILE, q = e % TILE, i = i0 + r, j = j0 + q;
-          // mask before exp: only j <= i < len is ever exponentiated
-          Ms[r * MS + q] = (j <= i && i < len)
-                               ? cbc[(size_t)i * Q + j] * expf(cums[i] - cums[j])
-                               : 0.f;
-        }
-        __syncthreads();
-        const int jn = min(TILE, len - j0);
-        for (int jj = 0; jj < jn; ++jj) {
-          const float xv = xbar[(j0 + jj) * PT + pp];
+    for (int kk = 0; kk < H2; kk += 8) {
+      Split<2> bf[8];
 #pragma unroll
-          for (int k = 0; k < 4; ++k) acc[k] = fmaf(Ms[(rr + 16 * k) * MS + jj], xv, acc[k]);
-        }
-      }
+      for (int nb = 0; nb < 8; ++nb) bf[nb] = f32::frag_b(Vs, ST_LDV, kk, 8 * nb, lane, os);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int i = i0 + rr + 16 * k;
-        if (i < len && pcol) yb[(size_t)(c0 + i) * H * P + p0 + pp] = acc[k];
-      }
-    }
-
-    // ---- state: S e^cums[-1] + (B o e^(cums[-1] - cums))^T (dt x) ----
-    const float dlast = expf(last);
-    float sacc[MAXK];
+      for (int m = 0; m < MT; ++m) {
+        const int m0 = 16 * (warp + 8 * m);
+        if (m0 < N) {
+          const auto af = f32::frag_a_t(Us, ldu, m0, kk, lane);
 #pragma unroll
-    for (int k = 0; k < MAXK; ++k) {
-      const int n = rr + 16 * k;
-      sacc[k] = n < N ? st[n * PT + pp] * dlast : 0.f;
-    }
-    for (int j0 = 0; j0 < len; j0 += TILE) {
-      __syncthreads();
-      for (int e = tid; e < TILE * N; e += THREADS) {
-        const int r = e / N, n = e % N, j = j0 + r;
-        tile[r * NS + n] = j < len ? to_f32(bb[(c0 + j) * b_ss + n]) * eout[j] : 0.f;
-      }
-      __syncthreads();
-      const int jn = min(TILE, len - j0);
-      for (int jj = 0; jj < jn; ++jj) {
-        const float xv = xbar[(j0 + jj) * PT + pp];
-#pragma unroll
-        for (int k = 0; k < MAXK; ++k) {
-          const int n = rr + 16 * k;
-          if (n < N) sacc[k] = fmaf(tile[jj * NS + n], xv, sacc[k]);
+          for (int nb = 0; nb < 8; ++nb) mma3(acc[m][nb], af, bf[nb]);
         }
       }
     }
-    __syncthreads();  // every reader of st (the y pass) is done
+  }
+  const size_t cs = (size_t)N * P;           // one chunk's [N, P]
+  float* hb = hat + ((size_t)bh * nc + c) * cs;
 #pragma unroll
-    for (int k = 0; k < MAXK; ++k) {
-      const int n = rr + 16 * k;
-      if (n < N) st[n * PT + pp] = sacc[k];
+  for (int m = 0; m < MT; ++m) {
+    const int m0 = 16 * (warp + 8 * m);
+    if (m0 >= N) continue;
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      const int p = p0 + 8 * nb + t2;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int n = m0 + gq + 8 * hf;
+        if (n >= N) continue;
+        if (p < P) hb[(size_t)n * P + p] = acc[m][nb][2 * hf];
+        if (p + 1 < P) hb[(size_t)n * P + p + 1] = acc[m][nb][2 * hf + 1];
+      }
     }
   }
 
-  if (state_out != nullptr) {
-    __syncthreads();
-    for (int e = tid; e < N * PT; e += THREADS) {
-      const int n = e / PT, q = e % PT;
-      if (p0 + q < P) state_out[((size_t)bh * N + n) * P + p0 + q] = st[e];
+  // The carry, by the last block of this (batch * head, P tile).  Every
+  // thread's fence and the barrier order the block's hat before thread 0's
+  // ticket, whose release makes it visible at gpu scope; the last ticket's
+  // acquire, and the barrier after it, order the other chunks' hat before
+  // the carry's loads (which bypass L1).
+  __threadfence();
+  __syncthreads();
+  unsigned ticket = 0;
+  unsigned* counter = counters + (size_t)bh * npt + pt;
+  if (tid == 0) ticket = sm90::atomic_add_acq_rel(counter, 1u);
+  if (!__syncthreads_or(tid == 0 && ticket == (unsigned)nc - 1)) return;
+  // thread tid carries the elements e = e0 + tid + NTHR k of the [N, pw]
+  // tile; chunk cc's stores overlap chunk cc's successor's loads
+  constexpr int EG = 16;
+  const int pw = min(f32::T, P - p0), ne = N * pw;
+  const float* lb = last_out + (size_t)bh * nc;
+  for (int e0 = 0; e0 < ne; e0 += NTHR * EG) {
+    int off[EG];
+    float sv[EG], add[EG];
+#pragma unroll
+    for (int k = 0; k < EG; ++k) {
+      const int e = e0 + tid + NTHR * k, n = e / pw;
+      off[k] = e < ne ? n * P + p0 + (e - n * pw) : -1;
+      sv[k] = off[k] >= 0 && init != nullptr ? init[(size_t)bh * cs + off[k]] : 0.f;
+      add[k] = off[k] >= 0 ? __ldcg(hat + ((size_t)bh * nc + (rev ? nc - 1 : 0)) * cs + off[k])
+                           : 0.f;
+    }
+    for (int step = 0; step < nc; ++step) {
+      const int cc = rev ? nc - 1 - step : step, cn = rev ? cc - 1 : cc + 1;
+      float nx[EG];
+#pragma unroll
+      for (int k = 0; k < EG; ++k)
+        nx[k] = step + 1 < nc && off[k] >= 0
+                    ? __ldcg(hat + ((size_t)bh * nc + cn) * cs + off[k]) : 0.f;
+      const float decay = expf(__ldcg(lb + cc));
+      float* ob = out + ((size_t)bh * nc + cc) * cs;
+#pragma unroll
+      for (int k = 0; k < EG; ++k) {
+        if (off[k] >= 0) ob[off[k]] = sv[k];
+        sv[k] = fmaf(sv[k], decay, add[k]);
+        add[k] = nx[k];
+      }
+    }
+    if (fin != nullptr)
+#pragma unroll
+      for (int k = 0; k < EG; ++k)
+        if (off[k] >= 0) fin[(size_t)bh * cs + off[k]] = sv[k];
+  }
+  if (tid == 0) *counter = 0u;
+}
+
+#define REPRO_SSD_STATE_KERNEL(name)                                             \
+  template <int MT>                                                              \
+  __global__ void __launch_bounds__(ST_THREADS, 3 - MT) name(                    \
+      const float* __restrict__ u, const float* __restrict__ v,                  \
+      const float* __restrict__ dt, const float* __restrict__ A,                 \
+      const float* __restrict__ init, float* hat, float* out,                    \
+      float* __restrict__ fin, float* __restrict__ cums_out,                     \
+      float* __restrict__ last_out, unsigned* __restrict__ counters, int rev,    \
+      int S, int H, int G, int N, int P, int Q, int QP, int nc, int npt,         \
+      long long u_sb, long long u_ss, long long v_sb, long long v_ss, int vec) { \
+    state_pass<MT>(u, v, dt, A, init, hat, out, fin, cums_out, last_out,         \
+                   counters, rev, S, H, G, N, P, Q, QP, nc, npt, u_sb, u_ss,     \
+                   v_sb, v_ss, vec);                                             \
+  }
+// the forward's launch, and the backward's two (names of their own)
+REPRO_SSD_STATE_KERNEL(ssd_state_kernel)
+REPRO_SSD_STATE_KERNEL(ssd_bwd_state_kernel)
+#undef REPRO_SSD_STATE_KERNEL
+
+// ---------------------------------------------------------------------------
+// ssd_y_kernel: y.  grid (B * H * npt, nc, QP / 64); a block owns the 64-row
+// tile I = QP / 64 - 1 - blockIdx.z of a chunk (the tiles with the most
+// pairs launch first) and 64 columns of P; warp w owns its rows [16 w,
+// 16 w + 16).  Its steps stream through a ring of Y_NST stages: first the
+// carried state, e^cums_i (C_I S_in), over slabs of 32 columns of C and
+// rows of S_in; then for each half tile of J <= I (32 steps j) the scores
+// (C B^T)_ij e^(cums_i - cums_j) (C B^T from ssd_cb_kernel's scratch, masked
+// before exp) go from registers into the A fragments of the product with
+// dt_j x_j.
+// ---------------------------------------------------------------------------
+constexpr int Y_NST = 2;                      // ring stages
+constexpr int Y_LDC = ld4(H2);                // C slab [64][32], read by frag_a
+constexpr int Y_LDS = ld8(f32::T);            // S_in slab [32][64], read down columns
+constexpr int Y_LDX = ld4(f32::T);            // x half [32][64], read by frag_b_perm
+constexpr int Y_LDQ = ld8(H2);                // C B^T half [64 i][32 j], read as accumulators
+constexpr int Y_STAGE = (f32::T * Y_LDC + H2 * Y_LDS) > (H2 * Y_LDX + f32::T * Y_LDQ)
+                            ? f32::T * Y_LDC + H2 * Y_LDS : H2 * Y_LDX + f32::T * Y_LDQ;
+
+__global__ void __launch_bounds__(F_THREADS)
+ssd_y_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+             const float* __restrict__ cm, const float* __restrict__ cb,
+             const float* __restrict__ cums_g, const float* __restrict__ s_in,
+             float* __restrict__ y, int S, int H, int G, int N, int P, int Q, int QP,
+             int nc, int npt, int has_state, long long x_sb, long long x_ss,
+             long long c_sb, long long c_ss, int vec) {
+  constexpr int T = f32::T;
+  extern __shared__ __align__(16) float smem[];
+  float* cums = smem + Y_NST * Y_STAGE;       // [QP]
+  float* dts = cums + QP;                     // [QP]
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, r0 = 16 * w;
+  const int gq = lane >> 2, t2 = 2 * (lane & 3);
+  const int bh = blockIdx.x / npt, pt = blockIdx.x % npt, c = blockIdx.y;
+  const int it = gridDim.z - 1 - blockIdx.z;
+  const int b = bh / H, h = bh % H, g = h / (H / G);
+  const int c0 = c * Q, len = min(Q, S - c0), i0 = it * T, p0 = pt * T;
+  if (i0 >= len) return;                      // past the ragged edge
+  const float* xb = x + b * x_sb + (long long)c0 * x_ss + (long long)h * P + p0;
+  const float* dtb = dt + ((size_t)b * S + c0) * H + h;
+  const float* cib = cm + b * c_sb + (long long)(c0 + i0) * c_ss + (long long)g * N;
+  const float* sib = s_in + ((size_t)bh * nc + c) * N * P + p0;
+  const float* cbb = cb + ((size_t)(b * G + g) * nc + c) * QP * QP + (size_t)i0 * QP;
+  const bool inter = has_state || c > 0;      // S_in is 0 otherwise
+  const int ncs = inter ? (N + H2 - 1) / H2 : 0;          // slabs of C S_in
+  const int nh = min(2 * it + 2, (len + H2 - 1) / H2);    // half tiles j0 = 32 h
+  const int nsteps = ncs + nh;
+  auto load = [&](int s) {                    // one commit group a step, empty past the end
+    if (s < nsteps) {
+      float* st = smem + (s % Y_NST) * Y_STAGE;
+      if (s < ncs) {
+        const int k0 = s * H2;
+        f32::load_tile(st, Y_LDC, cib + k0, c_ss, T, H2, len - i0, N - k0, vec, tid,
+                       F_THREADS);
+        f32::load_tile(st + T * Y_LDC, Y_LDS, sib + (size_t)k0 * P, P, H2, T, N - k0,
+                       P - p0, (P & 3) == 0, tid, F_THREADS);
+      } else {
+        const int j0 = (s - ncs) * H2;
+        f32::load_tile(st, Y_LDX, xb + (long long)j0 * x_ss, x_ss, H2, T, len - j0,
+                       P - p0, vec, tid, F_THREADS);
+        f32::load_tile(st + H2 * Y_LDX, Y_LDQ, cbb + j0, QP, T, H2, T, H2, true, tid,
+                       F_THREADS);
+      }
+    }
+    sm90::cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < Y_NST - 1; ++s) load(s);
+  for (int i = tid; i < QP; i += F_THREADS) {
+    cums[i] = cums_g[((size_t)bh * nc + c) * QP + i];
+    dts[i] = i < len ? dtb[(size_t)i * H] : 0.f;
+  }
+  const int il = i0 + r0 + gq, ih = il + 8;   // this thread's rows (chunk-relative)
+
+  float acc[8][4];
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) f32::zero(acc[nb]);
+  for (int s = 0; s < nsteps; ++s) {
+    sm90::cp_async_wait<Y_NST - 2>();
+    __syncthreads();                          // step s (and cums) for every thread; s - 1 consumed
+    load(s + Y_NST - 1);
+    const float* st = smem + (s % Y_NST) * Y_STAGE;
+    if (s < ncs) {
+      const float* Ss = st + T * Y_LDC;
+      for (int kk = 0; kk < H2 && s * H2 + kk < N; kk += 8) {
+        const auto af = f32::frag_a(st, Y_LDC, r0, kk, lane);
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) mma3(acc[nb], af, f32::frag_b(Ss, Y_LDS, kk, 8 * nb, lane));
+      }
+      if (s == ncs - 1) {                     // the carried state is complete
+        const float el = expf(cums[il]), eh = expf(cums[ih]);
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          acc[nb][0] *= el;
+          acc[nb][1] *= el;
+          acc[nb][2] *= eh;
+          acc[nb][3] *= eh;
+        }
+      }
+      continue;
+    }
+    const float* Qs = st + H2 * Y_LDX;
+    const int j0 = (s - ncs) * H2;
+    // the 8-column blocks this warp's rows see: j0 + 8 jj <= i0 + r0 + 15
+    const int d = i0 + r0 + 15 - j0;
+    const int jj_end = d < 0 ? 0 : min(4, d / 8 + 1);
+    const float cl = cums[il], ch = cums[ih];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      if (jj >= jj_end) continue;
+      const int ja = j0 + 8 * jj + t2, jb = ja + 1;
+      const float2 ql = *reinterpret_cast<const float2*>(Qs + (r0 + gq) * Y_LDQ + 8 * jj + t2);
+      const float2 qh = *reinterpret_cast<const float2*>(Qs + (r0 + gq + 8) * Y_LDQ + 8 * jj + t2);
+      const float ca = cums[ja], cbv = cums[jb];
+      // mask before exp: only j <= i < len is exponentiated
+      const float sc[4] = {ja <= il && il < len ? ql.x * expf(cl - ca) : 0.f,
+                           jb <= il && il < len ? ql.y * expf(cl - cbv) : 0.f,
+                           ja <= ih && ih < len ? qh.x * expf(ch - ca) : 0.f,
+                           jb <= ih && ih < len ? qh.y * expf(ch - cbv) : 0.f};
+      const auto af = acc_as_a(sc);
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+        mma3(acc[nb], af, f32::frag_b_perm(st, Y_LDX, 8 * jj, 8 * nb, lane, dts + j0));
+    }
+  }
+
+  float* yb = y + (((size_t)b * S + c0) * H + h) * P;
+  const bool pairs = (P & 1) == 0;
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) {
+    const int p = p0 + 8 * nb + t2;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int i = hf ? ih : il;
+      if (i >= len || p >= P) continue;
+      float* dst = yb + (size_t)i * H * P + p;
+      if (pairs) {
+        *reinterpret_cast<float2*>(dst) = make_float2(acc[nb][2 * hf], acc[nb][2 * hf + 1]);
+      } else {
+        dst[0] = acc[nb][2 * hf];
+        if (p + 1 < P) dst[1] = acc[nb][2 * hf + 1];
+      }
     }
   }
 }
 
-size_t scan_smem_bytes(int N, int Q) {
-  return sizeof(float) * ((size_t)3 * Q + (size_t)Q * PT + (size_t)N * PT +
-                          (size_t)TILE * (N + 1) + (size_t)TILE * (TILE + 1));
-}
-
-cudaError_t launch_f32(const float* x, const float* dt, const float* A,
-                       const float* bm, const float* cm, const float* state_in,
-                       float* y, float* state_out, float* cb, int B, int S,
-                       int H, int G, int N, int P, int Q, long long x_sb,
-                       long long x_ss, long long b_sb, long long b_ss,
-                       long long c_sb, long long c_ss, cudaStream_t stream) {
-  const int nc = (S + Q - 1) / Q;
-  const int nt = (Q + TILE - 1) / TILE;
-  const dim3 grid1(nt * (nt + 1) / 2, nc, B * G);
-  ssd_cb_kernel<<<grid1, THREADS, 0, stream>>>(bm, cm, cb, S, G, N, Q, nc,
-                                              b_sb, b_ss, c_sb, c_ss);
-  cudaError_t err = cudaGetLastError();
+template <int MT>
+cudaError_t launch_state_mt(int bwd, int rev, const float* u, const float* v,
+                            const float* dt, const float* A, const float* init,
+                            float* hat, float* out, float* fin, float* cums,
+                            float* last, unsigned* counters, int B, int S, int H, int G,
+                            int N, int P, int Q, int QP, int nc, long long u_sb,
+                            long long u_ss, long long v_sb, long long v_ss, int vec,
+                            cudaStream_t stream) {
+  auto* kernel = bwd ? ssd_bwd_state_kernel<MT> : ssd_state_kernel<MT>;
+  const int smem = 4 * state_smem_floats(N, QP);
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const size_t smem = scan_smem_bytes(N, Q);
-  err = cudaFuncSetAttribute(ssd_scan_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid2((P + PT - 1) / PT, B * H);
-  ssd_scan_kernel<<<grid2, THREADS, smem, stream>>>(
-      x, dt, A, cb, bm, cm, state_in, y, state_out, S, H, G, N, P, Q, nc,
-      x_sb, x_ss, b_sb, b_ss, c_sb, c_ss);
+  const int npt = (P + f32::T - 1) / f32::T;
+  kernel<<<dim3(B * H, nc, npt), ST_THREADS, smem, stream>>>(
+      u, v, dt, A, init, hat, out, fin, cums, last, counters, rev, S, H, G, N, P, Q, QP,
+      nc, npt, u_sb, u_ss, v_sb, v_ss, vec);
   return cudaGetLastError();
 }
+
 
 // ===========================================================================
 // bfloat16: tensor cores (wgmma)
@@ -902,17 +1117,6 @@ ssd_chunk_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-// every kernel of the bf16 instance asks for the largest shared-memory
-// carveout, so consecutive launches do not reconfigure the SMs
-template <typename K>
-cudaError_t set_smem(K* kernel, int bytes) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      (int)cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess || bytes <= 48 * 1024) return err;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 template <int NPT>
 cudaError_t launch_nt(const bf16* x, const float* dt, const float* A,
                       const bf16* bm, const bf16* cm, const float* state_in,
@@ -955,7 +1159,6 @@ cudaError_t launch_nt(const bf16* x, const float* dt, const float* A,
                             b_ss, c_sb, c_ss, aligned);
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 cudaError_t launch_tc(const bf16* x, const float* dt, const float* A,
                       const bf16* bm, const bf16* cm, const float* state_in,
@@ -977,19 +1180,84 @@ cudaError_t launch_tc(const bf16* x, const float* dt, const float* A,
   }
 }
 
+cudaError_t launch_f32(const float* x, const float* dt, const float* A,
+                       const float* bm, const float* cm, const float* state_in,
+                       float* y, float* state_out, float* ws_cb, float* ws_cums,
+                       float* ws_last, float* ws_states, unsigned* counters, int B,
+                       int S, int H, int G, int N, int P, int Q, long long x_sb, long long x_ss, long long b_sb,
+                       long long b_ss, long long c_sb, long long c_ss,
+                       cudaStream_t stream) {
+  const int nc = (S + Q - 1) / Q, QP = round_up(Q, f32::T);
+  const int npt = (P + f32::T - 1) / f32::T;
+  const int vec = aligned16(x) && aligned16(bm) && aligned16(cm) && N % 4 == 0 &&
+                  P % 4 == 0 && x_sb % 4 == 0 && x_ss % 4 == 0 && b_sb % 4 == 0 &&
+                  b_ss % 4 == 0 && c_sb % 4 == 0 && c_ss % 4 == 0;
+  cudaError_t err = f32::launch_cb(0, bm, cm, ws_cb, B, S, G, N, Q, QP, nc, b_sb,
+                                   b_ss, c_sb, c_ss, vec, stream);
+  if (err != cudaSuccess) return err;
+  err = f32::launch_state(0, 0, bm, x, dt, A, state_in, ws_states, ws_states, state_out, ws_cums,
+                          ws_last, counters, B, S, H, G, N, P, Q, QP, nc, b_sb, b_ss,
+                          x_sb, x_ss, vec, stream);
+  if (err != cudaSuccess) return err;
+  const int smem = 4 * (Y_NST * Y_STAGE + 2 * QP);
+  err = set_smem(ssd_y_kernel, smem);
+  if (err != cudaSuccess) return err;
+  ssd_y_kernel<<<dim3(B * H * npt, nc, QP / f32::T), F_THREADS, smem, stream>>>(
+      x, dt, cm, ws_cb, ws_cums, ws_states, y, S, H, G, N, P, Q, QP, nc, npt,
+      (int)(state_in != nullptr), x_sb, x_ss, c_sb, c_ss, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+namespace repro_torch {
+namespace ssd_f32 {
+
+cudaError_t launch_cb(int bwd, const float* bm, const float* cm, float* cb, int B,
+                      int S, int G, int N, int Q, int QP, int nc, long long b_sb,
+                      long long b_ss, long long c_sb, long long c_ss, int vec,
+                      cudaStream_t stream) {
+  const int nt = QP / T, smem = 4 * 2 * T * ld4(round_up(N, 8));
+  auto* kernel = bwd ? ssd_bwd_cb_kernel : ssd_cb_kernel;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(nt * (nt + 1) / 2, nc, B * G), F_THREADS, smem, stream>>>(
+      bm, cm, cb, S, G, N, Q, QP, nc, b_sb, b_ss, c_sb, c_ss, vec);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_state(int bwd, int rev, const float* u, const float* v,
+                         const float* dt, const float* A, const float* init, float* hat,
+                         float* out, float* fin, float* cums, float* last,
+                         unsigned* counters, int B, int S, int H, int G, int N, int P,
+                         int Q, int QP, int nc, long long u_sb, long long u_ss,
+                         long long v_sb, long long v_ss, int vec, cudaStream_t stream) {
+  return N > 128 ? launch_state_mt<2>(bwd, rev, u, v, dt, A, init, hat, out, fin, cums,
+                                      last, counters, B, S, H, G, N, P, Q, QP, nc, u_sb,
+                                      u_ss, v_sb, v_ss, vec, stream)
+                 : launch_state_mt<1>(bwd, rev, u, v, dt, A, init, hat, out, fin, cums,
+                                      last, counters, B, S, H, G, N, P, Q, QP, nc, u_sb,
+                                      u_ss, v_sb, v_ss, vec, stream);
+}
+
+}  // namespace ssd_f32
+}  // namespace repro_torch
+
+
 
 // x [B,S,H,P] and bm, cm [B,S,G,N] (is_bf16: 1 bfloat16, 0 float32), each
 // with its last two dims contiguous and the given strides (in elements)
 // between batch rows (*_sb) and positions (*_ss); dt [B,S,H] and A [H]
 // float32; state_in (or null) and state_out (or null) [B,H,N,P] float32; y
 // [B,S,H,P] contiguous.  Workspaces (nc = ceil(S / Q), QP and NP = Q and N
-// rounded up to 64, npt = ceil(P / 64)): float32 ws0 = C B^T [B*G, nc, Q, Q];
-// bfloat16 ws0 = cums [B*H, nc, QP] f32, ws1 = cums[-1] [B*H, nc] f32, ws2 =
-// chunk states [B*H, nc, N, P] f32, ws3 / ws4 = S_in's bf16 halves
-// [B*H, nc, npt, NP, 64], ws5 = B*H*npt unsigned ticket counters, zero
-// before the call and left at zero.  Returns the cudaError_t of the launches
-// (0 on success).
+// rounded up to 64, npt = ceil(P / 64)): bfloat16 ws0 = cums [B*H, nc, QP]
+// f32, ws1 = cums[-1] [B*H, nc] f32, ws2 = chunk states [B*H, nc, N, P] f32,
+// ws3 / ws4 = S_in's bf16 halves [B*H, nc, npt, NP, 64]; float32 ws0 = C B^T
+// [B*G, nc, QP, QP], ws1 = cums [B*H, nc, QP], ws2 = cums[-1] [B*H, nc], ws3
+// = S_in [B*H, nc, N, P] (written over the chunk states), ws4 unused (may
+// be null); ws5 = B*H*npt unsigned ticket
+// counters, zero before the call and left at zero.  Returns the cudaError_t
+// of the launches (0 on success).
 extern "C" int ssd_chunk_fwd(const void* x, const void* dt, const void* A,
                              const void* bm, const void* cm,
                              const void* state_in, void* y, void* state_out,
@@ -998,7 +1266,7 @@ extern "C" int ssd_chunk_fwd(const void* x, const void* dt, const void* A,
                              int H, int G, int N, int P, int Q, long long x_sb,
                              long long x_ss, long long b_sb, long long b_ss,
                              long long c_sb, long long c_ss, void* stream) {
-  if (B <= 0 || S <= 0 || G <= 0 || H % G != 0 || N <= 0 || N > 16 * MAXK ||
+  if (B <= 0 || S <= 0 || G <= 0 || H % G != 0 || N <= 0 || N > 256 ||
       P <= 0 || Q <= 0 || Q > S || Q > 1024)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1006,17 +1274,19 @@ extern "C" int ssd_chunk_fwd(const void* x, const void* dt, const void* A,
   const float* af = static_cast<const float*>(A);
   const float* s_in = static_cast<const float*>(state_in);
   float* sout = static_cast<float*>(state_out);
+  unsigned* counters = static_cast<unsigned*>(ws5);
   if (is_bf16)
     return launch_tc(static_cast<const bf16*>(x), dtf, af,
                      static_cast<const bf16*>(bm), static_cast<const bf16*>(cm),
                      s_in, static_cast<bf16*>(y), sout,
                      static_cast<float*>(ws0), static_cast<float*>(ws1),
                      static_cast<float*>(ws2), static_cast<bf16*>(ws3),
-                     static_cast<bf16*>(ws4), static_cast<unsigned*>(ws5), B, S, H,
+                     static_cast<bf16*>(ws4), counters, B, S, H,
                      G, N, P, Q, x_sb, x_ss, b_sb, b_ss, c_sb, c_ss, st);
-  if (scan_smem_bytes(N, Q) > 232448) return cudaErrorInvalidValue;
   return launch_f32(static_cast<const float*>(x), dtf, af,
                     static_cast<const float*>(bm), static_cast<const float*>(cm),
                     s_in, static_cast<float*>(y), sout, static_cast<float*>(ws0),
+                    static_cast<float*>(ws1), static_cast<float*>(ws2),
+                    static_cast<float*>(ws3), counters,
                     B, S, H, G, N, P, Q, x_sb, x_ss, b_sb, b_ss, c_sb, c_ss, st);
 }

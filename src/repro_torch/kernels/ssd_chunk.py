@@ -24,9 +24,15 @@ C S_in with S_in as two halves).  Each stage has its plain version here:
 :func:`ssd_chunk_state_plain`, :func:`ssd_state_pass_plain` (the carry) and
 :func:`ssd_chunk_scan_plain`; :func:`ssd_stages` exposes the kernels'
 stages on the card so that tests can hold each against them.  The float32
-instance keeps float32 FMAs (C Bᵀ once per group, then one block per
-(batch·head, 16 state columns) walking the chunks), as the TPU kernel
-computes in float32.
+instance (training's, at B=2, S=512 with no state_in and no final state:
+2.19 GFLOP of float32-accurate products, 13.2 us as 3xTF32 at 495 TFLOP/s)
+runs every product on the tensor cores as ``mma.sync`` TF32 in a 3xTF32
+split (``csrc/tf32x3.cuh``: float32 accuracy; one TF32 product misses
+the 1e-4 tolerance), in three launches: C Bᵀ once per (batch, group,
+chunk) into scratch; the chunk-parallel state pass (cums, each chunk's own Ŝ, the carry by the last
+block to finish, as the bf16 instance, writing S_in over Ŝ; the last
+chunk's Ŝ only when the final state is returned); and y per (batch·head,
+chunk, 64-row tile), the tiles with the most pairs first.
 
 Training differentiates it: for CUDA tensors that need a gradient the
 wrapper runs the float32 instance through an autograd function that saves
@@ -35,19 +41,22 @@ its inputs (never y) and whose backward is a kernel of its own
 differentiates ``models/mamba2.py::ssd_chunked``): the VJP of
 :func:`ssd_plain`, written out in :func:`ssd_bwd_plain`.  What bounds it:
 at Mamba-2's training shape (B=2, S=512, H=64, P=64, G=1, N=128, chunk 256)
-the function needs 11.9 GFLOP of float32 products (the lower triangles of
-C Bᵀ, dy xbarᵀ, Wᵀ dy, Zᵀ C and Z B; the carried states forward and back;
-the state terms), 0.18 ms at the 67 TFLOP/s float32 CUDA-core rate,
-against 53 MB moved (16 us).  Seven launches, float32 FMAs from
-shared memory: cums; the carried states S_in per chunk (one block per
-(batch·head, 16 state columns) walking the chunks, as the forward); the
-reverse carry dS_out per chunk, the same kernel walking backwards; a
-column pass and a row pass, one block per (batch·head, chunk, 64-row
-tile), each recomputing the tiles of C Bᵀ and dy xbarᵀ it needs; a
-finishing pass per (batch·head, chunk) (the reverse cumsum of dcums, ddt,
-each chunk's part of dA); and the sums over each group's heads (dB, dC)
-and over (batch, chunk) (dA) in a fixed order.  No atomics: two calls give
-the same bits.
+the function needs 9.19 GFLOP of float32-accurate products (the lower
+triangles of C Bᵀ, dy xbarᵀ, Wᵀ dy, Zᵀ C and Z B; the chunks' own states
+forward and back where a carry reads them; the state terms where S_in or
+dS_out is not 0), 56 us as 3xTF32 on the tensor cores, against 53 MB
+moved (16 us).  Every product runs there as the forward's, in seven
+launches: C Bᵀ once per (batch, group, chunk) (the forward's
+kernel); the state pass forward (S_in per chunk, recomputed: the forward
+saves nothing) and reversed (each chunk's own dŜ = (C∘e^{cums})ᵀ dy, then
+dS_out per chunk from the final state's cotangent down to d state_in);
+a column pass and a row pass, one block
+per (batch·head, chunk, 64-row tile) with its accumulators in registers,
+each recomputing the tiles of dy xbarᵀ it needs and reading C Bᵀ from
+scratch; a finishing pass per (batch·head, chunk) (the reverse cumsum of
+dcums, ddt, each chunk's part of dA); and the sums over each group's heads
+(dB, dC) and over (batch, chunk) (dA) in a fixed order.  No float atomics:
+two calls give the same bits.
 
 The carry's tickets count on one zeroed counter buffer per card that the
 kernel leaves at 0 (``build.counters``), so calls on one card must be
@@ -67,9 +76,9 @@ __all__ = ["ssd", "ssd_plain", "ssd_chunk_state_plain", "ssd_state_pass_plain",
            "ssd_chunk_scan_plain", "ssd_stages", "ssd_bwd", "ssd_bwd_plain"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_STATE = 256       # float32: 16 x 16 state rows a thread; bf16: 4 tiles of 64
+MAX_STATE = 256       # bf16: 4 tiles of 64; float32: sweeps of 128 columns
 MAX_CHUNK = 1024      # the chunk buffers must fit in a block's shared memory
-TILE = 64             # the bf16 kernels' tile side
+TILE = 64             # the kernels' tile side
 
 
 def _check(x, dt, A, Bm, Cm, state_in) -> None:
@@ -330,7 +339,7 @@ def ssd_bwd(x, dt, A, Bm, Cm, dy, *, chunk: int = 256, state_in=None,
     CPU tensors take :func:`ssd_bwd_plain`; CUDA tensors launch the
     backward kernels (float32; x, B, C with their last two dims contiguous,
     dt, A, dy and the states contiguous; N <= 256, chunk <= 1024) or raise.
-    ``ssd_bwd.launches`` counts its calls (seven launches each).
+    ``ssd_bwd.launches`` counts its calls (seven kernel launches each).
     """
     _check(x, dt, A, Bm, Cm, state_in)
     if x.device.type == "cpu":
@@ -349,7 +358,7 @@ def ssd_bwd(x, dt, A, Bm, Cm, dy, *, chunk: int = 256, state_in=None,
     if x.dtype != torch.float32:
         raise ValueError(f"the backward kernels take float32; got {x.dtype}")
     nc = -(-s // q)
-    pieces, nbytes = _bwd_workspace(b, s, h, n, p, q)
+    pieces, nbytes = _bwd_workspace(b, s, h, g, n, p, q)
     ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     dx = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     ddt = torch.empty((b, s, h), dtype=torch.float32, device=x.device)
@@ -364,9 +373,10 @@ def ssd_bwd(x, dt, A, Bm, Cm, dy, *, chunk: int = 256, state_in=None,
         None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
         ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
         None if d_in is None else d_in.data_ptr(),
-        *[ws.data_ptr() + off for off, _ in pieces], b, s, h, g, n, p, q, nc,
-        x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0),
-        Cm.stride(1), torch.cuda.current_stream(x.device).cuda_stream)
+        *[ws.data_ptr() + off for off, _ in pieces], _counters(x.device, b, h, p),
+        b, s, h, g, n, p, q, nc, x.stride(0), x.stride(1), Bm.stride(0),
+        Bm.stride(1), Cm.stride(0), Cm.stride(1),
+        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "ssd_bwd")
     ssd_bwd.launches += 1
     return dx, ddt, dA, dB, dC, d_in
@@ -375,17 +385,20 @@ def ssd_bwd(x, dt, A, Bm, Cm, dy, *, chunk: int = 256, state_in=None,
 ssd_bwd.launches = 0
 
 
-def _bwd_workspace(b, s, h, n, p, q):
+def _bwd_workspace(b, s, h, g, n, p, q):
     """The backward kernels' scratch, in the order of ``ssd_chunk_bwd``'s
-    ws0..ws9, as (byte offset, float32 count), each 256-byte aligned; and
-    the buffer's size: cums [BH, nc, q]; the carried states S_in and the
-    reverse carry dS_out per chunk [BH, nc, N, P]; per-head dB and dC [B,
-    S, H, N]; the chunk pass's row and column parts of dcums, v and x·dxbar
-    [BH, nc·q]; each (batch·head, chunk)'s part of dA [BH, nc]."""
+    ws0..ws11, as (byte offset, float32 count), each 256-byte aligned; and
+    the buffer's size (qp = q rounded up to 64): cums [BH, nc, qp] and
+    cums[-1] [BH, nc]; the carried states S_in and the reverse carry dS_out
+    per chunk [BH, nc, N, P] (each written in place over the chunk's own
+    contribution); C Bᵀ [B·G, nc, qp, qp]; per-head dB and dC [B, S, H, N];
+    the pair passes' row and column parts of dcums, v and x·dxbar [BH, nc,
+    qp]; each (batch·head, chunk)'s part of dA [BH, nc]."""
     nc = -(-s // q)
-    bh, sq = b * h, nc * q
-    counts = [bh * sq, bh * nc * n * p, bh * nc * n * p, b * s * h * n,
-              b * s * h * n, bh * sq, bh * sq, bh * sq, bh * sq, bh * nc]
+    qp = _round_up(q)
+    bh, sq = b * h, nc * qp
+    counts = [bh * sq, bh * nc, bh * nc * n * p, bh * nc * n * p, b * g * nc * qp * qp,
+              b * s * h * n, b * s * h * n, bh * sq, bh * sq, bh * sq, bh * sq, bh * nc]
     out, off = [], 0
     for c in counts:
         out.append((off, c))
@@ -448,18 +461,24 @@ def _round_up(v: int) -> int:
 def _workspace(b, s, h, g, n, p, q, bf16: bool):
     """The pieces of the kernels' one workspace buffer, in the order of
     ``ssd_chunk_fwd``'s ws0..ws4: (byte offset, dtype, shape) each, each
-    piece 256-byte aligned; and the buffer's size.  float32: C Bᵀ per
-    (batch·group, chunk).  bf16: cums, cums[-1], the chunk states Ŝ, and
-    S_in's two bf16 halves in the [P tiles, N rounded up to 64, 64] layout
-    that the scan kernel copies whole."""
+    piece 256-byte aligned; and the buffer's size.  bf16: cums, cums[-1],
+    the chunk states Ŝ, and S_in's two bf16 halves in the [P tiles, N
+    rounded up to 64, 64] layout that the scan kernel copies whole.
+    float32: C Bᵀ per (batch·group, chunk) in [q, q] blocks (q rounded up to
+    64), cums, cums[-1], and the chunk states Ŝ, which the carry overwrites
+    with S_in per chunk; ``ssd_chunk_fwd``'s ws4 is then unused."""
     nc = -(-s // q)
+    qp = _round_up(q)
     if bf16:
         half = (torch.bfloat16, (b * h, nc, _round_up(p) // TILE, _round_up(n), TILE))
-        pieces = [(torch.float32, (b * h, nc, _round_up(q))),
+        pieces = [(torch.float32, (b * h, nc, qp)),
                   (torch.float32, (b * h, nc)),
                   (torch.float32, (b * h, nc, n, p)), half, half]
     else:
-        pieces = [(torch.float32, (b * g * nc * q * q,))]
+        pieces = [(torch.float32, (b * g, nc, qp, qp)),
+                  (torch.float32, (b * h, nc, qp)),
+                  (torch.float32, (b * h, nc)),
+                  (torch.float32, (b * h, nc, n, p))]
     out, off = [], 0
     for dtype, shape in pieces:
         out.append((off, dtype, shape))
@@ -468,17 +487,16 @@ def _workspace(b, s, h, g, n, p, q, bf16: bool):
 
 
 def _launch(x, dt, A, Bm, Cm, q, state_in, return_state):
-    """One call of ``ssd_chunk_fwd`` (two launches): (y, the final state or
-    None, (workspace buffer, its pieces))."""
+    """One call of ``ssd_chunk_fwd`` (two launches in bf16, three in
+    float32): (y, the final state or None, (workspace buffer, its pieces))."""
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     pieces, nbytes = _workspace(b, s, h, g, n, p, q, x.dtype == torch.bfloat16)
     ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     ptrs = [ws.data_ptr() + off for off, _, _ in pieces]
-    ptrs += [None] * (5 - len(ptrs))
-    # bf16: the carry's ticket counters, one per (batch·head, 64 columns of P)
-    ptrs.append(build.counters("ssd", x.device, b * h * _round_up(p) // TILE).data_ptr()
-                if x.dtype == torch.bfloat16 else None)
+    ptrs += [None] * (5 - len(ptrs))         # float32 has no ws4
+    # the carry's ticket counters, one per (batch·head, 64 columns of P)
+    ptrs.append(_counters(x.device, b, h, p))
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     state_out = (torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
                  if return_state else None)
@@ -494,34 +512,46 @@ def _launch(x, dt, A, Bm, Cm, q, state_in, return_state):
     return y, state_out, (ws, pieces)
 
 
+def _counters(device, b, h, p) -> int:
+    """The ticket counters of the state carries (both dtypes, forward and
+    backward): zeroed, left at zero by every call."""
+    return build.counters("ssd", device, b * h * (_round_up(p) // TILE)).data_ptr()
+
+
 def ssd_stages(x, dt, A, Bm, Cm, *, chunk: int = 256, state_in=None) -> dict:
-    """The bf16 kernels' stages on the card, for holding each against its
-    plain version: one call of the kernels, then their workspaces as
-    ``cums`` [B,H,nc,q], ``last`` [B,H,nc] and ``shat`` [B,H,nc,N,P]
-    (chunk states), ``s_in`` [B,H,nc,N,P] (the carry's hi + lo, in float32;
-    chunk 0's is ``state_in`` or 0) and ``state`` (the carry), and ``y`` (the
-    chunk scan).  Not on the model path: ``ssd_stages.launches`` counts its
-    calls apart from ``ssd``'s."""
+    """The kernels' stages on the card (bf16 or float32), for holding each
+    against its plain version: one call of the kernels, then their
+    workspaces as ``cums`` [B,H,nc,q], ``last`` [B,H,nc] and ``shat``
+    [B,H,nc,N,P] (chunk states; None in float32, whose carry writes S_in
+    over them), ``s_in`` [B,H,nc,N,P] (the carry's S_in per chunk; bf16:
+    its hi + lo in float32; chunk 0's is ``state_in`` or 0) and ``state``
+    (the carry), and ``y`` (the chunk scan).  Not on the model
+    path: ``ssd_stages.launches`` counts its calls apart from ``ssd``'s."""
     _check(x, dt, A, Bm, Cm, state_in)
-    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
-        raise ValueError("ssd_stages runs the bf16 kernels on CUDA tensors")
+    if x.device.type != "cuda":
+        raise ValueError("ssd_stages runs the kernels on CUDA tensors")
     q = _check_kernel_inputs(x, dt, A, Bm, Cm, state_in, chunk)
     b, _, h, p = x.shape
     n = Bm.shape[3]
     y, state, (ws, pieces) = _launch(x, dt, A, Bm, Cm, q, state_in, True)
     ssd_stages.launches += 1
-    cums, last, shat, hi, lo = (
-        ws[off:off + torch.Size(shape).numel() * dtype.itemsize].view(dtype).view(shape)
-        for off, dtype, shape in pieces)
+    views = [ws[off:off + torch.Size(shape).numel() * dtype.itemsize].view(dtype).view(shape)
+             for off, dtype, shape in pieces]
 
     def heads(t):
         return t.reshape(b, h, *t.shape[1:])
 
-    s_in = (hi.float() + lo.float()).permute(0, 1, 3, 2, 4).flatten(3)
-    if state_in is None:        # chunk 0's S_in is 0; the kernel does not write it
-        s_in[:, 0] = 0.0
-    return dict(cums=heads(cums[..., :q]), last=heads(last), shat=heads(shat),
-                s_in=heads(s_in[..., :n, :p]), state=state, y=y)
+    if x.dtype == torch.float32:
+        _, cums, last, s_in = views
+        shat = None
+    else:
+        cums, last, shat, hi, lo = views
+        s_in = (hi.float() + lo.float()).permute(0, 1, 3, 2, 4).flatten(3)[..., :n, :p]
+        if state_in is None:    # chunk 0's S_in is 0; the kernel does not write it
+            s_in[:, 0] = 0.0
+    return dict(cums=heads(cums[..., :q]), last=heads(last),
+                shat=None if shat is None else heads(shat),
+                s_in=heads(s_in), state=state, y=y)
 
 
 ssd_stages.launches = 0

@@ -282,40 +282,49 @@ def test_ssd_kernel_at_wrapper_limits(dtype, tol):
     torch.testing.assert_close(state, want_state, atol=stol, rtol=stol)
 
 
+@pytest.mark.parametrize("dtype,ytol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
 @pytest.mark.parametrize("b,s,h,g,n,p,chunk,with_state", [
     (1, 512, 64, 1, 128, 64, 256, False),  # mamba2-1.3b prefill shape
     (1, 300, 64, 1, 128, 64, 256, True),   # ragged S with state_in
     (2, 200, 4, 2, 32, 64, 64, True),      # G=2, 4 chunks
     (1, 100, 2, 1, 8, 24, 64, True),       # N=8, P=24
 ])
-def test_ssd_stage_kernels_match_plain_stages(b, s, h, g, n, p, chunk, with_state):
-    """Each bf16 kernel stage against its plain stage on the same inputs: the
-    chunk states (cums, S^) from x, dt, A, B; the carry (S_in per chunk as
-    its two bf16 halves, the final state) from the kernel's S^ and cums[-1];
-    the chunk scan (y) from the kernel's cums and S_in.  cums and states are
-    float32 (1e-4; cums are sums of up to 256 steps of |dt A| ~ 1, summed
-    in another order); y is bf16 (2e-2)."""
-    x, dt, a, bm, cm, st = _ssd_inputs(b, s, h, g, n, p, torch.bfloat16, s + n)
+def test_ssd_stage_kernels_match_plain_stages(b, s, h, g, n, p, chunk, with_state,
+                                              dtype, ytol):
+    """Each kernel stage against its plain stage on the same inputs: the
+    chunk states (cums, S^) from x, dt, A, B; the carry (S_in per chunk, in
+    bf16 as its two bf16 halves; the final state) from the kernel's S^ (in
+    float32, whose carry writes S_in over S^, from the plain S^) and
+    cums[-1]; the chunk scan (y) from the kernel's cums and S_in.  cums and
+    states are float32 (1e-4; cums are sums of up to 256 steps of |dt A| ~ 1,
+    summed in another order); y is held at its dtype's tolerance (bf16 2e-2,
+    float32 1e-4)."""
+    x, dt, a, bm, cm, st = _ssd_inputs(b, s, h, g, n, p, dtype, s + n)
     state_in = st if with_state else None
     got = k4.ssd_stages(x, dt, a, bm, cm, chunk=chunk, state_in=state_in)
     torch.cuda.synchronize()
     cums, shat = k4.ssd_chunk_state_plain(x, dt, a, bm, chunk=chunk)
     torch.testing.assert_close(got["cums"], cums, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got["last"], cums[..., -1], atol=1e-4, rtol=1e-4)
-    torch.testing.assert_close(got["shat"], shat, atol=1e-4, rtol=1e-4)
-    s_in, final = k4.ssd_state_pass_plain(got["shat"], got["last"], state_in)
+    if dtype == torch.float32:
+        assert got["shat"] is None
+    else:
+        torch.testing.assert_close(got["shat"], shat, atol=1e-4, rtol=1e-4)
+        shat = got["shat"]
+    s_in, final = k4.ssd_state_pass_plain(shat, got["last"], state_in)
     torch.testing.assert_close(got["s_in"], s_in, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got["state"], final, atol=1e-4, rtol=1e-4)
     y = k4.ssd_chunk_scan_plain(x, dt, bm, cm, got["cums"], got["s_in"], chunk=chunk)
-    torch.testing.assert_close(got["y"].float(), y.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(got["y"].float(), y.float(), atol=ytol, rtol=ytol)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("with_state", [False, True])
-def test_ssd_kernel_repeats_bit_identical(with_state):
+def test_ssd_kernel_repeats_bit_identical(with_state, dtype):
     """Two calls in a row and three replays of a captured CUDA graph give the
     same bits: no atomics in the sums, and the carry's ticket counters are
     left at 0 for the next call or replay."""
-    x, dt, a, bm, cm, st = _ssd_inputs(1, 512, 64, 1, 128, 64, torch.bfloat16, 3)
+    x, dt, a, bm, cm, st = _ssd_inputs(1, 512, 64, 1, 128, 64, dtype, 3)
     state_in = st if with_state else None
     first = k4.ssd(x, dt, a, bm, cm, chunk=256, state_in=state_in, return_state=True)
     second = k4.ssd(x, dt, a, bm, cm, chunk=256, state_in=state_in, return_state=True)
@@ -335,6 +344,59 @@ def test_ssd_kernel_repeats_bit_identical(with_state):
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(u, v) for u, v in zip(out, first))
+
+
+def _ssd_call(shape, dtype, backward):
+    """One K4 call (forward with the final state, or the backward) on inputs
+    drawn from ``shape``; returns its outputs."""
+    b, s, h, g, n, p, chunk = shape
+    x, dt, a, bm, cm, st = _ssd_inputs(b, s, h, g, n, p, dtype, s + h)
+    if backward:
+        dy = _normal((b, s, h, p), torch.float32, 8)
+        ds = _normal((b, h, n, p), torch.float32, 9)
+        return [t for t in k4.ssd_bwd(x, dt, a, bm, cm, dy, chunk=chunk, state_in=st,
+                                      dstate=ds) if t is not None]
+    return list(k4.ssd(x, dt, a, bm, cm, chunk=chunk, state_in=st, return_state=True))
+
+
+@pytest.mark.parametrize("calls", [
+    [((1, 512, 64, 1, 128, 64, 256), torch.float32, False),
+     ((2, 300, 8, 2, 32, 24, 64), torch.float32, False)],
+    [((1, 512, 64, 1, 128, 64, 256), torch.bfloat16, False),
+     ((1, 512, 64, 1, 128, 64, 256), torch.float32, False),
+     ((2, 333, 8, 1, 64, 64, 128), torch.float32, True)],
+], ids=["two shapes", "bf16, float32, backward"])
+def test_ssd_calls_alternating_on_one_stream_repeat_bit_identical(calls):
+    """Calls that alternate shapes, dtypes and the backward share the
+    "ssd" ticket counters on one stream: each call leaves them at 0, so the
+    second round repeats the first bit for bit (a ticket left behind would
+    end a carry early or never)."""
+    first = [_ssd_call(*call) for call in calls]
+    second = [_ssd_call(*call) for call in calls]
+    torch.cuda.synchronize()
+    for u, v in zip(first, second):
+        assert all(torch.equal(a, b) for a, b in zip(u, v))
+
+
+def test_ssd_float32_with_more_chunk_blocks_than_sms():
+    """More (batch * head, chunk) blocks than the card has SMs (B=2, S=1024,
+    H=64: 512): the float32 forward and the backward hold their plain
+    versions, and the carries by the last block of each head are complete."""
+    b, s, h, g, n, p, chunk = 2, 1024, 64, 1, 128, 64, 256
+    assert b * h * (s // chunk) > torch.cuda.get_device_properties(0).multi_processor_count
+    x, dt, a, bm, cm, st = _ssd_inputs(b, s, h, g, n, p, torch.float32, 11)
+    y, state = k4.ssd(x, dt, a, bm, cm, chunk=chunk, state_in=st, return_state=True)
+    dy = _normal((b, s, h, p), torch.float32, 12)
+    ds = _normal((b, h, n, p), torch.float32, 13)
+    got = k4.ssd_bwd(x, dt, a, bm, cm, dy, chunk=chunk, state_in=st, dstate=ds)
+    torch.cuda.synchronize()
+    want_y, want_state = k4.ssd_plain(x, dt, a, bm, cm, chunk=chunk, state_in=st,
+                                      return_state=True)
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(state, want_state, atol=1e-4, rtol=1e-4)
+    want = k4.ssd_bwd_plain(x, dt, a, bm, cm, dy, chunk=chunk, state_in=st, dstate=ds)
+    for u, w in zip(got, want):
+        assert _max_rel(u, w) <= 1e-4
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
