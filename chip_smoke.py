@@ -247,7 +247,7 @@ L2_COLD_BYTES = 64e6                              # > the 50 MB L2: a ring of in
 DECODE = dict(b=8, s=640, h=32, kv=8, hd=128)     # a generation wave's decode
 DECODE_CUR = 576                                  # cache entries in use
 K1_BF16 = "flash_fwd_wgmma_kernel"     # the tensor-core instance (bf16)
-K1_F32 = "flash_fwd_f32_kernel"       # the CUDA-core instance (float32)
+K1_F32 = "flash_fwd_f32_mma_kernel"   # the float32 instance (3xTF32 mma.sync)
 K1_BWD = "flash_bwd_"                 # the backward's kernels (float32, 3xTF32)
 K1_BWD_MMA = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")  # tensor cores
 K3_KERNEL = "decode_attention_kernel"
@@ -394,11 +394,11 @@ def k2a_census(lines: list[str]) -> dict[str, int]:
 def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
     """SASS instruction counts of the K1, K1 backward, K2a, K3, K4 and K4
     backward kernels in the built library (``cuobjdump --dump-sass``), and
-    the designs they show: for K1's and K4's bf16 instances, K4's float32
-    instance and the product kernels of K1's and K4's backwards (float32 as
-    3xTF32) "wgmma" (HGMMA in every such kernel of the family), "mma.sync"
-    (HMMA) or "neither"; for K2a's bf16 fast instances "ldg.128" (a 128-bit
-    global load in each) or "scalar"."""
+    the designs they show: for K1's and K4's bf16 instances, K1's and K4's
+    float32 instances and the product kernels of K1's and K4's backwards
+    (float32 as 3xTF32) "wgmma" (HGMMA in every such kernel of the family),
+    "mma.sync" (HMMA) or "neither"; for K2a's bf16 fast instances
+    "ldg.128" (a 128-bit global load in each) or "scalar"."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         sass = subprocess.run([cuobjdump, "--dump-sass", str(lib_path)],
@@ -406,7 +406,8 @@ def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
                               timeout=300).stdout
     except (OSError, subprocess.SubprocessError) as exc:
         print(f"SASS census: cuobjdump not available ({exc})")
-        return {"K1": "not measured", "K2a": "not measured", "K4": "not measured",
+        return {"K1": "not measured", "K1 f32": "not measured",
+                "K2a": "not measured", "K4": "not measured",
                 "K4 f32": "not measured", "K1 bwd": "not measured",
                 "K4 bwd": "not measured"}
     ops = ("HGMMA", "HMMA", "FFMA", "LDGSTS", "MUFU.EX2")
@@ -424,8 +425,8 @@ def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
             for op in ops:
                 if f" {op}" in line:
                     census[func][op] += 1
-    bf16 = {"K1": (K1_BF16,), "K4": K4_BF16, "K4 f32": K4_F32, "K1 bwd": K1_BWD_MMA,
-            "K4 bwd": K4_BWD_MMA}
+    bf16 = {"K1": (K1_BF16,), "K1 f32": (K1_F32,), "K4": K4_BF16, "K4 f32": K4_F32,
+            "K1 bwd": K1_BWD_MMA, "K4 bwd": K4_BWD_MMA}
     found: dict[str, list[str]] = {fam: [] for fam in bf16}
     k2a: list[str] = []
     for func, counts in sorted(census.items()):
@@ -3232,33 +3233,96 @@ def loss_grads(bundle, params, batch: dict, device: str) -> list:
     return [g.detach() for g in torch.autograd.grad(loss, ws)]
 
 
-def train_forward_f32(k1) -> None:
+def k1_f32_hmma(b, s, h, dqk, dv, causal=True, window=0) -> int:
+    """HMMA instructions K1's float32 forward issues, from its loop bounds:
+    every warp (16 query rows; at dv > 128 two warps, each half the output
+    columns) runs each 32-key tile that holds a key of its rows as 3 m16n8k8
+    products a block of Q K^T (dqk / 8 x 4 blocks) and of P V (4 x dv_w / 8)."""
+    split = 2 if dv > 128 else 1
+    per_tile = 3 * 4 * (dqk // 8 + dv // split // 8)
+    tiles = 0
+    for wr0 in range(0, s, 16):
+        wr1 = min(s - 1, wr0 + 15)
+        for k0 in range(0, s, 32):
+            if (causal and k0 > wr1) or (window > 0 and k0 + 31 <= wr0 - window):
+                continue
+            tiles += 1
+    return b * h * split * tiles * per_tile
+
+
+def train_forward_f32(k1) -> dict:
     """Phase 13: the float32 forward with lse (``flash_attention_lse``, run
     twice a layer by a training step: the forward and the checkpointed
-    block's recompute) at Llama-3-8B's training shape, timed beside its
-    bound and SDPA's float32 forward (the port never calls it)."""
+    block's recompute) at Llama-3-8B's training shape and the quickstart's
+    (``TRAIN_BWD``'s first two rows).  At each, o and lse are held against
+    the plain version (2e-5, 1e-5), a repeat and the call without lse give
+    the same o bit for bit; then the call is timed by CUDA-graph replay
+    beside its two bounds (3xTF32 on the tensor cores, as the kernel runs
+    the products, and float32 on the CUDA cores), the plain version and
+    SDPA's float32 forward (the port never calls it), with the HMMA issue
+    rate its loop bounds give.  Returns the row of the first shape."""
     import torch.nn.functional as F
 
-    _, b, s, h, kv, hd, _, _, _ = TRAIN_BWD[0]
-    q = normal((b, s, h, hd), torch.float32, 21)
-    k = normal((b, s, kv, hd), torch.float32, 22)
-    v = normal((b, s, kv, hd), torch.float32, 23)
-    ms = timed("K1 float32 forward with lse", lambda: k1.flash_attention_lse(q, k, v),
-               20, K1_F32)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib_ms = timed("K1 float32 forward sdpa", lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    # q, k, v read once; o and lse written once; two products of the causal pairs
-    n_bytes = 4.0 * (2 * q.numel() + k.numel() + v.numel() + b * h * s)
-    n_flops = 4.0 * hd * b * h * attention_pairs(s, True, 0)
-    b_ms, b_by = bound(n_bytes, n_flops, FP32_FLOPS)
-    tf_ms, _ = bound(n_bytes, 3 * n_flops, TF32_FLOPS)
-    print(f"K1 float32 forward llama3-8b training shape time {ms:.4f} ms "
-          f"({n_flops / ms / 1e9:.1f} TFLOP/s achieved, {ms / b_ms:.2f}x the "
-          f"CUDA-core bound); sdpa float32 forward {lib_ms:.4f} ms "
-          f"({ms / lib_ms:.2f}x); bound {b_ms:.5f} ms ({b_by}: "
-          f"{n_bytes / 1e6:.2f} MB, {n_flops / 1e9:.3f} GFLOP float32 on the "
-          f"CUDA cores), {tf_ms:.5f} ms as 3xTF32 on the tensor cores")
+    row = None
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, b, s, h, kv, hd, _, _, _ in TRAIN_BWD[:2]:
+        q = normal((b, s, h, hd), torch.float32, 21)
+        k = normal((b, s, kv, hd), torch.float32, 22)
+        v = normal((b, s, kv, hd), torch.float32, 23)
+        o, lse = k1.flash_attention_lse(q, k, v)
+        o2, lse2 = k1.flash_attention_lse(q, k, v)
+        o3 = k1.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        want = k1.flash_attention_plain(q, k, v)
+        sim, _, _ = k1._scores_plain(q, k, True, 0, 0.0, None)
+        want_lse = torch.logsumexp(sim, -1)
+        torch.testing.assert_close(o, want, atol=2e-5, rtol=2e-5)
+        torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+        same = torch.equal(o, o2) and torch.equal(lse, lse2) and torch.equal(o, o3)
+        err = float((o - want).abs().max())
+        lse_err = float((lse - want_lse).abs().max())
+        print(f"K1 float32 forward {label}: q {tuple(q.shape)} kv {kv}: max |o - "
+              f"plain| {err:.3e} (tol 2e-5), max |lse - plain| {lse_err:.3e} (tol "
+              f"1e-5); repeat and without lse bit-identical {same}")
+        if not same:
+            raise AssertionError(f"K1 float32 forward at {label}: not bit for bit")
+        ms = timed(f"K1 float32 forward with lse, {label}",
+                   lambda: k1.flash_attention_lse(q, k, v), 20, K1_F32)
+        clocks = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True, text=True,
+            timeout=60).stdout.strip().split(",")
+        plain_ms = timed(f"K1 float32 forward plain, {label}",
+                         lambda: k1.flash_attention_plain(q, k, v), 5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = timed(f"K1 float32 forward sdpa, {label}",
+                       lambda: F.scaled_dot_product_attention(
+                           qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+        # q, k, v read once; o and lse written once; two products of the causal pairs
+        n_bytes = 4.0 * (2 * q.numel() + k.numel() + v.numel() + b * h * s)
+        n_flops = 4.0 * hd * b * h * attention_pairs(s, True, 0)
+        core_ms, core_by = bound(n_bytes, n_flops, FP32_FLOPS)
+        b_ms, b_by = bound(n_bytes, 3 * n_flops, TF32_FLOPS)
+        hmma = k1_f32_hmma(b, s, h, hd, hd)
+        per_clk = hmma / (ms * 1e-3 * n_sm * float(clocks[-1]) * 1e6)
+        print(f"K1 float32 forward {label} time {ms:.4f} ms ({n_flops / ms / 1e9:.1f} "
+              f"TFLOP/s float32-accurate, {ms / b_ms:.2f}x the 3xTF32 bound, "
+              f"{ms / core_ms:.2f}x the CUDA-core bound); plain {plain_ms:.4f} ms; "
+              f"sdpa float32 forward {lib_ms:.4f} ms ({ms / lib_ms:.2f}x); bounds: "
+              f"3xTF32 on the tensor cores {b_ms:.5f} ms ({b_by}; products "
+              f"{3 * n_flops / TF32_FLOPS * 1e3:.5f} ms), float32 on the CUDA cores "
+              f"{core_ms:.5f} ms ({core_by}) ({n_bytes / 1e6:.2f} MB, "
+              f"{n_flops / 1e9:.3f} GFLOP); {hmma / 1e6:.3f} M HMMA, "
+              f"{per_clk:.3f} a clock per SM at the {clocks[-1].strip()} MHz "
+              f"maximum SM clock (SM clock read after the run: "
+              f"{clocks[0].strip()} MHz)")
+        if row is None:
+            row = dict(name="flash_attention@f32", route="cuda",
+                       source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                       replaces="src/repro/kernels/flash_attention.py:88",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib_ms)
+    return row
 
 
 def phase_train_kernel(k1) -> dict:
@@ -3338,7 +3402,6 @@ def phase_train_kernel(k1) -> dict:
                        replaces="src/repro/kernels/flash_attention.py:88",
                        max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    train_forward_f32(k1)
     return row
 
 
@@ -3784,8 +3847,9 @@ def phase_train(k1, k4, k5, counters, card: str) -> tuple[list, dict]:
     recipe's loss drop; full-width llama3-8b at 4 layers, mamba2-1.3b at 48
     and recurrentgemma-9b at 2 (the launches of their steps are the
     backward rows'); the kill-and-resume drill on llama3-8b and mamba2-1.3b,
-    bit for bit.  Returns the three backward rows and, by row name, the
-    launch counts of the run each row reports."""
+    bit for bit.  Returns the three backward rows and K1's float32
+    forward's and, by row name, the launch counts of the run each row
+    reports."""
     t_phase = time.perf_counter()
     total = dict.fromkeys(counts_of(counters), 0)
 
@@ -3796,8 +3860,8 @@ def phase_train(k1, k4, k5, counters, card: str) -> tuple[list, dict]:
 
     lap = Clock("train clock:").lap
     reset(counters)
-    rows = [phase_train_kernel(k1)]
-    lap("K1 bwd")
+    rows = [phase_train_kernel(k1), train_forward_f32(k1)]
+    lap("K1 bwd and K1's float32 forward")
     rows += phase_recurrent_bwd(k4, k5)
     lap("K4 bwd and K5 bwd")
     tally()
@@ -3809,7 +3873,8 @@ def phase_train(k1, k4, k5, counters, card: str) -> tuple[list, dict]:
     train_quickstart(card)
     lap("quickstart")
     tally()
-    launches = {"flash_attention_bwd": train_full_width(counters, card)}
+    llama_counts = train_full_width(counters, card)
+    launches = {"flash_attention_bwd": llama_counts, "flash_attention@f32": llama_counts}
     lap("llama3-8b full width")
     tally()
     for arch, name in zip(FULL_RECURRENT, ("ssd_bwd", "rglru_bwd")):
@@ -3891,9 +3956,9 @@ def main() -> int:
                 or line.startswith("=="):
             print(f"  {line.strip()}")
     designs = sass_census(res.path)
-    print(f"K1, K2a and K4 designs (bf16 instances), K4's float32 instance's "
-          f"and K1 bwd's and K4 bwd's (float32 as 3xTF32), from their SASS: "
-          f"{designs}")
+    print(f"K1, K2a and K4 designs (bf16 instances), K1's and K4's float32 "
+          f"instances' and K1 bwd's and K4 bwd's (float32 as 3xTF32), from "
+          f"their SASS: {designs}")
     for fam, design in designs.items():
         if design not in ("wgmma", "mma.sync", "ldg.128", "not measured"):
             raise AssertionError(f"a tensor-core kernel of {fam} runs no "

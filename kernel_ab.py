@@ -14,8 +14,10 @@ readings of one checkout.  Every measurement prints the device time per call
 of K1 (flash prefill attention) at Llama-3-8B's prefill shape and at
 Griffin's hd 256 shape, of K3 (decode attention) at the generation path's
 decode shape, and of K4 (the SSD chunk scan, bf16, final state returned) at
-Mamba-2's prefill shape, of K1's backward (float32) at Llama-3-8B's
-training shape and at hd 8 with G=7 (``chip_smoke.TRAIN_BWD``), of K4's
+Mamba-2's prefill shape, of K1's float32 forward with lse (as training
+calls it) at Llama-3-8B's and the quickstart's training shapes, of K1's
+backward (float32) at Llama-3-8B's training shape and at hd 8 with G=7
+(``chip_smoke.TRAIN_BWD``), of K4's
 float32 forward and K4's backward at each shape of ``chip_smoke.SSD_BWD``
 (Mamba-2's training shape first), from a CUDA-graph replay
 (``chip_smoke.graph_ms``),
@@ -142,6 +144,18 @@ def measure(root: pathlib.Path, sweep: bool) -> list[dict]:
         torch.cuda.synchronize()
         rows.append(dict(kernel="K1", shape=label, us=1e3 * cs.graph_ms(call, 50),
                          by_name=cs.kernel_split(call, 20)))
+
+    for label, b, s, h, kv, hd, _, _, _ in cs.TRAIN_BWD[:2]:
+        q, k, v = (cs.normal(shape, torch.float32, seed) for shape, seed in (
+            ((b, s, h, hd), 21), ((b, s, kv, hd), 22), ((b, s, kv, hd), 23)))
+
+        def fwd(q=q, k=k, v=v):
+            return k1.flash_attention_lse(q, k, v)
+
+        fwd()
+        torch.cuda.synchronize()
+        rows.append(dict(kernel="K1 f32", shape=label, us=1e3 * cs.graph_ms(fwd, 20),
+                         by_name=cs.kernel_split(fwd, 20)))
 
     for label, b, s, h, kv, hd, window, cap, scale in cs.TRAIN_BWD:
         if label not in ("llama3-8b", "hd 8, G=7"):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where K4's bf16 kernels spend their time, block by block, on the card.
+"""Where K4's bf16 kernels and K1's float32 forward spend their time, on the card.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100:
 
@@ -15,7 +15,17 @@ marks are placed by matching lines of the source; a mark whose line is gone
 stops the script with that line.  Then, as a yardstick, one streaming copy
 kernel reads 192 KB per block through a 4-stage ``cp.async`` ring (the load
 pattern of the K4 kernels), at 16 and 128 blocks: what L2 delivers per block
-and in all.  Prints the card's name and power limit first.
+and in all.
+
+K1's float32 forward (``flash_fwd_f32_mma_kernel`` in
+``src/repro_torch/kernels/csrc/flash_attention.cu``) is patched the same
+way into ``build/kernel_phases/``, with each warp adding the ``clock64``
+cycles it spends in each phase of its tile loop (the wait for the tile and
+the barrier, S = Q K^T, the softmax, the second barrier or a skipped tile,
+P V); it runs through its wrapper at ``chip_smoke.TRAIN_BWD``'s llama3-8b
+and quickstart shapes and prints, per shape, each phase's cycles a warp and
+share, and the HMMA a clock one warp issues in S and in P V.  Prints the
+card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as k1  # noqa: E402
 from repro_torch.kernels import ssd_chunk as k4  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_phases"
@@ -67,7 +78,9 @@ extern "C" const char* kernels_error_string(int err) {
 MARKS = [
     (0, "0", "start", "  const int ntiles = (len + T - 1) / T;\n", True),
     (0, "1", "dt loaded", "    run += dtv[k] * a;\n    loc[k] = run;\n  }\n", True),
-    (0, "2", "cums scanned", "  const float last = cums[QP - 1];\n", True),
+    (0, "2", "cums scanned", "#pragma unroll\n  for (int k = 0; k < 8; ++k) {\n"
+     "    const int i = tid * per + k;\n"
+     "    if (k < per && i < QP) w[i] = dtv[k] * expf(last - cums[i]);\n", False),
     (0, "3", "w computed", "  if (tid == 0) ws_last[(size_t)bh * nc + c] = last;"
      "   // each P tile's carry reads it\n", True),
     (0, "4+2jt", "tile jt in shared memory",
@@ -77,10 +90,14 @@ MARKS = [
      "  // S^ through shared memory", False),
     (0, "20", "S^ stored", "  // the carry, by the last block", False),
     (0, "21", "last ticket drawn (carry blocks)",
+     "  // (which bypass L1).\n  __syncthreads();\n  unsigned ticket = 0;\n"
+     "  unsigned* counter = counters + (size_t)bh * npt + pt;\n"
+     "  if (tid == 0) ticket = sm90::atomic_add_acq_rel(counter, 1u);\n"
      "  if (!__syncthreads_or(tid == 0 && ticket == (unsigned)nc - 1)) return;\n", True),
     (0, "23", "carry: chunks walked", "  if (state_out != nullptr) {\n#pragma unroll\n"
      "    for (int k = 0; k < GPT; ++k) {\n      const int g", False),
-    (0, "22", "carry done", "  if (tid == 0) *counter = 0u;\n", True),
+    (0, "22", "carry done", "        if (p + 3 < P) dst[3] = sv[k].w;\n      }\n    }\n  }\n"
+     "  if (tid == 0) *counter = 0u;\n", True),
     (1, "0", "start", "  if (it0 >= ntl) return;                      // past the ragged edge\n",
      True),
     (1, "1", "input copies issued", '      asm volatile("griddepcontrol.wait;\\n" ::: "memory");\n',
@@ -98,6 +115,101 @@ MARKS = [
     (1, "28", "carried-state term done, y next", "  if (!live) return;\n\n  bf16* yb",
      False),
 ]
+
+# K1's float32 forward: phase cycles a warp.  (phase, source line, insert
+# after the line?); the lap adds the cycles since the last lap to its phase,
+# after the values it names are computed
+K1_PROF = r"""
+__device__ unsigned long long k1_cycles[8];   // phases 0-4, warps, live warp-tiles
+__device__ __forceinline__ void k1_lap(unsigned long long& acc, long long& t) {
+  const long long now = clock64();
+  acc += now - t;
+  t = now;
+}
+template <int N>
+__device__ __forceinline__ void k1_after(const float (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    asm volatile("" ::"f"(x[i][0]), "f"(x[i][1]), "f"(x[i][2]), "f"(x[i][3]));
+}
+"""
+K1_EXTERN = r"""
+extern "C" int k1_cycles_read(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, k1_cycles, sizeof(k1_cycles));
+  const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(k1_cycles, zero, sizeof(zero));
+  return (int)e;
+}
+"""
+K1_PHASES = ["tile wait and barrier", "S = Q K^T", "softmax",
+             "second barrier or skipped tile", "P V"]
+K1_MARKS = [
+    ("  float l[2] = {0.f, 0.f};           // this thread's columns only; summed at the end\n",
+     True, "  unsigned long long k1c[5] = {0, 0, 0, 0, 0};\n  unsigned long long k1n = 0;\n"
+     "  long long k1t = clock64();\n"),
+    ("    const float* Ks = stages + stage * C::STAGE_WORDS;\n", False,
+     "    k1_lap(k1c[0], k1t);\n"),
+    ("      // soft-cap, log2(e), mask (only on tiles that cross an edge), row max\n", False,
+     "      k1_after(sacc);\n      k1_lap(k1c[1], k1t);\n      ++k1n;\n"),
+    ("    if (C::STAGES == 1) {\n      sm90::cp_async_wait<0>();  // V(kt) landed\n", False,
+     "    k1_after(sacc);\n    k1_lap(k1c[2], k1t);\n"),
+    ("    if (!live) continue;\n", False, "    k1_lap(k1c[3], k1t);\n"),
+    ("                     tf32x3::load_b_perm(Vs, RSV, 8 * j, ch * C::DVW + 8 * n, lane));\n"
+     "    }\n", True, "    k1_after(oacc);\n    k1_lap(k1c[4], k1t);\n"),
+    ("  sm90::cp_async_wait<0>();\n\n  if (wr0 >= S) return;\n", False,
+     "  if (lane == 0) {\n    for (int i = 0; i < 5; ++i) atomicAdd(&k1_cycles[i], k1c[i]);\n"
+     "    atomicAdd(&k1_cycles[5], 1ull);\n    atomicAdd(&k1_cycles[6], k1n);\n  }\n"),
+]
+
+
+def k1_patched_library() -> ctypes.CDLL:
+    """flash_attention.cu with K1_MARKS' laps in the float32 kernel."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    src = src.replace("namespace {\n", K1_PROF + "namespace {\n", 1)
+    for line, after, code in K1_MARKS:
+        if src.count(line) != 1:
+            raise RuntimeError(f"K1 lap: the line {line!r} is not in the source exactly once")
+        src = src.replace(line, line + code if after else code + line)
+    OUT.mkdir(parents=True, exist_ok=True)
+    for header in build.CSRC.glob("*.cuh"):
+        (OUT / header.name).write_text(header.read_text())
+    (OUT / "flash_attention.cu").write_text(src + K1_EXTERN)
+    lib = nvcc_shared(OUT / "flash_attention.cu", OUT / "libk1phases.so")
+    lib.flash_attention_fwd.argtypes = build._SIGNATURES["flash_attention_fwd"]
+    lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.k1_cycles_read.argtypes = [ctypes.c_void_p]
+    lib.kernels_error_string.argtypes = [ctypes.c_int]
+    lib.kernels_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def k1_phases(lib) -> None:
+    """K1's float32 forward with lse at the llama3-8b and quickstart training
+    shapes, through the wrapper on the patched copy."""
+    out = (ctypes.c_ulonglong * 8)()
+    for label, b, s, h, kv, hd, _, _, _ in cs.TRAIN_BWD[:2]:
+        q, k, v = (cs.normal(shape, torch.float32, seed) for shape, seed in (
+            ((b, s, h, hd), 21), ((b, s, kv, hd), 22), ((b, s, kv, hd), 23)))
+        k1.flash_attention_lse(q, k, v)
+        torch.cuda.synchronize()
+        lib.k1_cycles_read(out)                # zeroes the counters
+        k1.flash_attention_lse(q, k, v)
+        torch.cuda.synchronize()
+        lib.k1_cycles_read(out)
+        warps, tiles = out[5], out[6]
+        total = sum(out[i] for i in range(5))
+        hmma = 3 * 4 * (hd // 8 + hd // 8)     # one warp-tile: S and P V
+        print(json.dumps({
+            "kernel": "flash_fwd_f32_mma_kernel", "shape": label, "warps": warps,
+            "live_warp_tiles": tiles,
+            "cycles_a_warp": {n: round(out[i] / warps) for i, n in enumerate(K1_PHASES)},
+            "share": {n: round(out[i] / total, 3) for i, n in enumerate(K1_PHASES)},
+            "hmma_a_clock_of_one_warp": {
+                "S": round(tiles * hmma / 2 / out[1], 4),
+                "P V": round(tiles * hmma / 2 / out[4], 4)},
+            "patched_us": round(1e3 * cs.graph_ms(lambda: k1.flash_attention_lse(q, k, v),
+                                                  20), 2)}))
+
 
 YARDSTICK = r'''
 #include <cuda_runtime.h>
@@ -248,10 +360,13 @@ def main() -> int:
                          check=True, timeout=60)
     print(f"card: {smi.stdout.strip()}")
     lib = patched_library()
-    build.load = lambda: lib          # the wrapper launches the patched copy
+    build.load = lambda: lib          # the wrappers launch the patched copy
     for state in (False, True):
         phases(lib, state)
     yardstick()
+    lib_k1 = k1_patched_library()
+    build.load = lambda: lib_k1
+    k1_phases(lib_k1)
     return 0
 
 

@@ -22,7 +22,7 @@
 // the causal products are 2.15 GFLOP, 2.2 us at the bf16 tensor-core rate,
 // against 10.5 MB of q, k, v and o, 3.1 us at 3.35 TB/s: both are small, so
 // what the design must avoid is float32 FMAs (67 TFLOP/s, 32 us) and loads
-// that stall the products.  Two instances:
+// that stall the products.  Two instances, both on the tensor cores:
 //
 // bfloat16 (the model path), flash_fwd_wgmma_kernel: one warpgroup (128
 // threads) owns the 64-row query tile, wgmma's M.  S = Q K^T is
@@ -45,27 +45,56 @@
 // grid's y axis walks query tiles from the last, so the causal tiles with the
 // most KV tiles start first.
 //
-// float32, flash_fwd_f32_kernel: float32 FMAs from shared memory, as the
-// Pallas kernel computes in float32 throughout (q scaled in float32 before
-// the product); float32 tensor cores would be TF32, which cannot meet the
-// 2e-5 float32 tolerance.  Thread map (256 threads = a 16 x 16 grid, ty =
-// tid / 16, tx = tid % 16): thread (ty, tx) owns query rows ty + 16 i
-// (i < 4); for the score tile it owns key columns tx + 16 j (j < 4), for the
-// output head-dim columns tx + 16 jj (jj < ceil(DV / 16); at DV = 8 the
-// threads with tx >= 8 own none).  The 16 threads of one row sit in one
-// half-warp, so row max and row sum are xor-shuffles over lane offsets 8, 4,
-// 2, 1.  Q and K tiles are stored with a row stride of DQK + 1 floats so
-// that the 16 key columns of a half-warp fall in 16 different banks.  Shared
-// memory is 4 (64 (DQK+1) + 64 (DQK+1) + 64 DV + 64 * 65) bytes: 213,760 at
-// 256, 148,224 at (192, 128), under the 232,448 a Hopper block may opt into.
-// Given an lse pointer (training: the backward in flash_attention_bwd.cu
-// recomputes the probabilities from it), the float32 instance also writes
-// each row's log-sum-exp m + log(l) [B, H, S]; serving passes none, and o
-// does not depend on it.
+// float32 (training, and every float32 check), flash_fwd_f32_mma_kernel:
+// what bounds it at Llama-3-8B's training shape (B=2, S=512, H=32, KV=8,
+// HD=128, with lse) is 4.30 GFLOP of float32-accurate products, 64 us on the
+// float32 CUDA cores and 26 us as 3xTF32 on the tensor cores, against 42.1
+// MB moved (12.6 us).  One TF32 product keeps 10 mantissa bits and misses
+// the 2e-5 float32 tolerance; the 3xTF32 split of tf32x3.cuh (each operand
+// big + small, three mma.sync.m16n8k8 a product) meets it at 2.5x the CUDA
+// cores' rate, as in K1's backward.  The design:
+//  - each warp owns 16 query rows; a block is 128 rows (8 warps) at
+//    hd 128, where the shared memory allows no second block on an SM, and
+//    64 rows (4 warps) elsewhere, so small grids fill the card.  S =
+//    (scale q) K^T and O += P V are both m16n8k8 TF32 in the 3xTF32 split.
+//    At DV = 256 two warps share 16 rows, each owning 128 output columns (S
+//    computed twice), so the O accumulator stays at 64 floats a thread.
+//  - q is scaled in float32 and split once per block into two planes of
+//    TF32 bits in shared memory; Q's and K's fragments come by ldmatrix (4
+//    fragments an instruction), K's and V's split as loaded, as the
+//    backward does.
+//  - K/V tiles of 32 keys stream by 16-byte cp.async copies through a
+//    2-stage ring (tile kt + 1 lands while kt is computed, one barrier a
+//    tile); at (256, 256), where a ring does not fit, through one K and one
+//    V tile (V(kt) lands while S(kt) is computed, K(kt + 1) while P V(kt)
+//    is, two barriers a tile).  Row strides follow each tile's reader
+//    (F32Cfg).
+//  - the scale, soft-cap, mask and online softmax act on the accumulator
+//    fragments in registers (row max and sum over the 4 lanes of a quad;
+//    exp2 with log2(e) folded in after the product, so q is still scaled in
+//    float32 before it, as the Pallas kernel does); P goes from the score
+//    accumulators to the A fragments of P V in registers (tf32x3.cuh's
+//    permuted reduction slots, V read at rows 2t and 2t + 1); the O rescale
+//    is skipped when no row max of the warp moved (a factor of 1).
+//  - the grid's y axis walks query tiles from the last, so the causal tiles
+//    with the most KV tiles start first; tiles that hold no key of a warp's
+//    rows are skipped by that warp.
+// Why mma.sync and not wgmma: TF32 wgmma takes B only K-major from shared
+// memory, so P V would need V transposed into shared memory, both split
+// planes of each operand there (the split cannot be made in registers), and
+// a layout for each of the eight (DQK, DV) pairs; the mma.sync fragments,
+// loaders and the accumulator-to-A trick of K1's and K4's backwards serve
+// every pair.  Given an lse pointer (training: the backward in
+// flash_attention_bwd.cu recomputes the probabilities from it) it also
+// writes each row's log-sum-exp in natural log, m ln 2 + log(l) [B, H, S];
+// serving passes none, and o does not depend on it.  Every output is
+// written once after sums in a fixed order: no atomics, the same bits from
+// run to run.
 
 #include <stdint.h>
 
 #include "sm90.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -340,42 +369,69 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// float32: CUDA cores
+// float32: tensor cores, 3xTF32 (mma.sync.m16n8k8)
 // ---------------------------------------------------------------------------
 
-constexpr int BK = 64;          // keys per tile
-constexpr int THREADS = 256;
+namespace tf32x3 = repro_torch::tf32x3;
 
-template <int DQK, int DV>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (BQ * (DQK + 1) + BK * (DQK + 1) + BK * DV + BQ * (BK + 1));
-}
+constexpr float LN2 = 0.6931471805599453f;
 
-template <int DQK, int DV>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int S, int H, int KV, int causal,
-                     int window, float logit_cap, float scale) {
-  constexpr int QS = DQK + 1;    // row stride of the Q and K tiles
-  constexpr int PS = BK + 1;     // row stride of the P tile
-  constexpr int DJ = (DV + 15) / 16;  // output columns per thread (at most)
-  extern __shared__ float smem[];
-  float* Qs = smem;              // [BQ][QS], already scaled
-  float* Ks = Qs + BQ * QS;      // [BK][QS]
-  float* Vs = Ks + BK * QS;      // [BK][DV]
-  float* Ps = Vs + BK * DV;      // [BQ][PS]
-  // this thread's output columns tx + 16 jj exist (DV < 16: only tx < DV)
-  const bool has_col = DV % 16 == 0 || threadIdx.x % 16 < DV % 16;
+// One instance's shape: BQ query rows a block, in warps of 16 rows; at
+// DV > 128 two warps share 16 rows, each owning half of the output columns
+// (both compute the rows' scores).  K/V tiles of 32 keys.  Shared memory: the
+// scaled Q tile as two planes of TF32 bits (small, big), then either a
+// 2-stage ring of K and V tiles (STAGES = 2: tile kt + 1 lands while kt is
+// computed, one barrier a tile) or one K and one V tile (STAGES = 1: V(kt)
+// lands while S(kt) is computed and K(kt + 1) while P V(kt) is, two barriers
+// a tile).  Row strides: Q and K are read by ldmatrix along rows (stride
+// DQK + 4 floats: an odd number of 16-byte units, so the 8 rows of a matrix
+// hit 8 different 16-byte bank groups); V down its columns at rows 2t and
+// 2t + 1 (stride DV + 4: 2 (DV + 4) = 8 mod 32, so the 4 row pairs x 8
+// columns of a load hit 32 banks).
+template <int DQK, int DV, int BQ_, int STAGES_>
+struct F32Cfg {
+  static constexpr int BQ = BQ_;
+  static constexpr int BK = 32;
+  static constexpr int STAGES = STAGES_;
+  static constexpr int NSPLIT = DV > 128 ? 2 : 1;
+  static constexpr int DVW = DV / NSPLIT;          // output columns of a warp
+  static constexpr int ROW_WARPS = BQ / 16;
+  static constexpr int THREADS = 32 * ROW_WARPS * NSPLIT;
+  static constexpr int RSQ = DQK + 4;
+  static constexpr int RSV = DV + 4;
+  static constexpr int Q_WORDS = BQ * RSQ;         // one Q plane
+  static constexpr int K_WORDS = BK * RSQ;
+  static constexpr int STAGE_WORDS = K_WORDS + BK * RSV;
+  static constexpr int SMEM = 4 * (2 * Q_WORDS + STAGES * STAGE_WORDS);
+  // two blocks share an SM where their shared memory allows it
+  static constexpr int MIN_BLOCKS = 2 * (SMEM + 1024) <= 233472 ? 2 : 1;
+  static_assert(SMEM <= 232448, "over the shared memory a block may use");
+  static_assert(DQK % 8 == 0 && DVW % 8 == 0 && (STAGES == 1 || STAGES == 2),
+                "instance shape");
+};
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
+template <int DQK, int DV, int BQ_, int STAGES_>
+__global__ void __launch_bounds__(F32Cfg<DQK, DV, BQ_, STAGES_>::THREADS,
+                                  F32Cfg<DQK, DV, BQ_, STAGES_>::MIN_BLOCKS)
+flash_fwd_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int S, int H, int KV,
+                         int causal, int window, float logit_cap, float scale) {
+  using C = F32Cfg<DQK, DV, BQ_, STAGES_>;
+  constexpr int BK = C::BK, NJ = BK / 8, NN = C::DVW / 8;
+  constexpr int RSQ = C::RSQ, RSV = C::RSV, NT = C::THREADS;
+  extern __shared__ __align__(16) uint32_t fsmem[];
+  uint32_t* Qs = fsmem;                            // [BQ][RSQ] small parts
+  uint32_t* Qb = Qs + C::Q_WORDS;                  // [BQ][RSQ] big parts
+  float* stages = reinterpret_cast<float*>(Qb + C::Q_WORDS);  // K [BK][RSQ], V [BK][RSV]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = warp % C::ROW_WARPS, ch = warp / C::ROW_WARPS;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KV);
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;  // last tiles first
   const size_t q_row = (size_t)H * DQK;   // strides between sequence positions
   const size_t k_row = (size_t)KV * DQK;
   const size_t v_row = (size_t)KV * DV;
@@ -383,171 +439,243 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* qb = q + ((size_t)b * S * H + h) * DQK;
   const float* kb = k + ((size_t)b * S * KV + kvh) * DQK;
   const float* vb = v + ((size_t)b * S * KV + kvh) * DV;
-  float* ob = o + ((size_t)b * S * H + h) * DV;
 
-  for (int i = tid; i < BQ * DQK; i += THREADS) {
-    const int r = i / DQK, d = i % DQK, s = q0 + r;
-    Qs[r * QS + d] = s < S ? qb[s * q_row + d] * scale : 0.f;
-  }
-
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = 0.f;
-  }
-
-  // live KV tiles: causal -> k_start <= last query row of the tile;
-  // window -> k_start + BK - 1 > q0 - window (the Pallas block-skip rule)
+  // the block's live KV tiles: causal -> k_start <= its last row; window ->
+  // k_start + BK - 1 > q0 - window (the Pallas block-skip rule)
   const int n_tiles = (S + BK - 1) / BK;
-  const int kt_end = causal ? min(n_tiles, (q0 + BQ - 1) / BK + 1) : n_tiles;
+  const int kt_end = causal ? min(n_tiles, min(S - 1, q0 + C::BQ - 1) / BK + 1)
+                            : n_tiles;
   int kt_begin = 0;
   if (window > 0) {
     const int lo = q0 - window - BK + 1;  // live iff kt * BK > lo
     kt_begin = lo < 0 ? 0 : lo / BK + 1;
   }
+  const int n_kt = kt_end - kt_begin;
+  auto load_k = [&](int stage, int kt) {
+    sm90::cp_async_rows<DQK, BK, RSQ, NT>(stages + stage * C::STAGE_WORDS, kb,
+                                          k_row, kt * BK, S, tid);
+  };
+  auto load_v = [&](int stage, int kt) {
+    sm90::cp_async_rows<DV, BK, RSV, NT>(stages + stage * C::STAGE_WORDS + C::K_WORDS,
+                                         vb, v_row, kt * BK, S, tid);
+  };
+  load_k(0, kt_begin);
+  if (C::STAGES == 2) load_v(0, kt_begin);
+  sm90::cp_async_commit();
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers are done (and Qs is written)
-    for (int i = tid; i < BK * DQK; i += THREADS) {
-      const int r = i / DQK, d = i % DQK, s = k0 + r;
-      Ks[r * QS + d] = s < S ? kb[s * k_row + d] : 0.f;
-    }
-    for (int i = tid; i < BK * DV; i += THREADS) {
-      const int r = i / DV, d = i % DV, s = k0 + r;
-      Vs[r * DV + d] = s < S ? vb[s * v_row + d] : 0.f;
-    }
-    __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DQK; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
-      float rmax = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        float s = sc[i][j];
-        if (logit_cap > 0.f) s = logit_cap * tanhf(s / logit_cap);
-        const bool ok = kp < S && (!causal || kp <= qp) &&
-                        (window <= 0 || kp > qp - window);
-        s = ok ? s : NEG_INF;
-        sc[i][j] = s;
-        rmax = fmaxf(rmax, s);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float m_new = fmaxf(m[i], rmax);
-      const float corr = expf(m[i] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - m_new);
-        sc[i][j] = p;
-        rsum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      l[i] = l[i] * corr + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) acc[i][jj] *= corr;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(ty + 16 * i) * PS + tx + 16 * j] = sc[i][j];
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[4], vv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * PS + c];
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj)
-        vv[jj] = has_col ? Vs[c * DV + tx + 16 * jj] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = fmaf(pv[i], vv[jj], acc[i][jj]);
-    }
+  // Q, scaled in float32, split once into its TF32 planes
+  constexpr int QCH = DQK / 4;
+  for (int i = tid; i < C::BQ * QCH; i += NT) {
+    const int r = i / QCH, c = 4 * (i % QCH), s = q0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (s < S) x = __ldg(reinterpret_cast<const float4*>(qb + s * q_row + c));
+    uint4 big, small;
+    tf32x3::split(x.x * scale, big.x, small.x);
+    tf32x3::split(x.y * scale, big.y, small.y);
+    tf32x3::split(x.z * scale, big.z, small.z);
+    tf32x3::split(x.w * scale, big.w, small.w);
+    *reinterpret_cast<uint4*>(Qb + r * RSQ + c) = big;
+    *reinterpret_cast<uint4*>(Qs + r * RSQ + c) = small;
   }
 
+  // this warp's rows [wr0, wr1]; its accumulators (tf32x3.cuh's C fragment):
+  // element e of 8-column block n sits at row wr0 + g + 8 (e >> 1), column
+  // 8 n + 2 t + (e & 1)
+  const int wr0 = q0 + 16 * rg, wr1 = min(S - 1, wr0 + 15);
+  // ldmatrix row addresses: Q's A fragment (matrix i: rows + 8 (i & 1),
+  // columns + 4 (i >> 1)); two of K's B fragments, 8-key blocks 2 jp and
+  // 2 jp + 1 (matrix i: keys + 8 (i >> 1), columns + 4 (i & 1))
+  const int mi = lane >> 3, mr = lane & 7;
+  const uint32_t qa = 4u * ((16 * rg + mr + 8 * (mi & 1)) * RSQ + 4 * (mi >> 1));
+  const uint32_t qb_addr = sm90::smem_addr(Qb) + qa;
+  const uint32_t qs_addr = sm90::smem_addr(Qs) + qa;
+  const uint32_t ka = 4u * ((mr + 8 * (mi >> 1)) * RSQ + 4 * (mi & 1));
+  float oacc[NN][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty + 16 * i;
-    if (s < S && has_col) {
-      const float denom = fmaxf(l[i], 1e-30f);
+  for (int n = 0; n < NN; ++n)
 #pragma unroll
-      for (int jj = 0; jj < DJ; ++jj)
-        ob[s * o_row + tx + 16 * jj] = acc[i][jj] / denom;
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};   // row maxima, log2 units
+  float l[2] = {0.f, 0.f};           // this thread's columns only; summed at the end
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int kt = kt_begin + it;
+    const int stage = C::STAGES == 2 ? (it & 1) : 0;
+    sm90::cp_async_wait<0>();  // K(kt) landed (and V(kt) in the ring)
+    __syncthreads();           // ... for every thread; P V(kt - 1) is done
+    if (C::STAGES == 2) {
+      if (it + 1 < n_kt) {
+        load_k(stage ^ 1, kt + 1);
+        load_v(stage ^ 1, kt + 1);
+      }
+    } else {
+      load_v(0, kt);
     }
-    // m and l are the same in the 16 threads of the row
-    if (lse != nullptr && s < S && tx == 0)
-      lse[((size_t)b * H + h) * S + s] = m[i] + logf(fmaxf(l[i], 1e-30f));
+    sm90::cp_async_commit();
+    const float* Ks = stages + stage * C::STAGE_WORDS;
+    const float* Vs = Ks + C::K_WORDS;
+    const int k0 = kt * BK;
+    // tiles that hold no key of this warp's rows are skipped (warp-uniform)
+    const bool live = wr0 < S && !(causal && k0 > wr1) &&
+                      !(window > 0 && k0 + BK - 1 <= wr0 - window);
+
+    float sacc[NJ][4], corr[2];
+    bool moved = false;
+    if (live) {
+      // S = (scale q) K^T, 3xTF32: Q's planes as loaded, K split as loaded
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
+      const uint32_t k_addr = sm90::smem_addr(Ks) + ka;
+#pragma unroll
+      for (int kk = 0; kk < DQK / 8; ++kk) {
+        tf32x3::Split<4> a;
+        sm90::ldmatrix_x4(a.big, qb_addr + 32 * kk);
+        sm90::ldmatrix_x4(a.small, qs_addr + 32 * kk);
+#pragma unroll
+        for (int jp = 0; jp < NJ / 2; ++jp) {
+          uint32_t kr[4];
+          sm90::ldmatrix_x4(kr, k_addr + 4 * 16 * jp * RSQ + 32 * kk);
+          tf32x3::Split<2> b0, b1;
+          tf32x3::split(__uint_as_float(kr[0]), b0.big[0], b0.small[0]);
+          tf32x3::split(__uint_as_float(kr[1]), b0.big[1], b0.small[1]);
+          tf32x3::split(__uint_as_float(kr[2]), b1.big[0], b1.small[0]);
+          tf32x3::split(__uint_as_float(kr[3]), b1.big[1], b1.small[1]);
+          tf32x3::mma3(sacc[2 * jp], a, b0);
+          tf32x3::mma3(sacc[2 * jp + 1], a, b1);
+        }
+      }
+
+      // soft-cap, log2(e), mask (only on tiles that cross an edge), row max
+      const bool edge = (causal && k0 + BK - 1 > wr0) ||
+                        (window > 0 && k0 <= wr1 - window) || k0 + BK > S;
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float s = sacc[j][e];
+          s = logit_cap > 0.f ? logit_cap * LOG2E * tanhf(s / logit_cap) : s * LOG2E;
+          if (edge) {
+            const int qp = wr0 + g + 8 * (e >> 1);
+            const int kp = k0 + 8 * j + 2 * t + (e & 1);
+            const bool ok = kp < S && (!causal || kp <= qp) &&
+                            (window <= 0 || kp > qp - window);
+            s = ok ? s : NEG_INF;
+          }
+          sacc[j][e] = s;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        moved |= m_new != m[r];
+        corr[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(sacc[j][e] - m[e >> 1]);
+          sacc[j][e] = p;
+          l[e >> 1] += p;
+        }
+    }
+    if (C::STAGES == 1) {
+      sm90::cp_async_wait<0>();  // V(kt) landed
+      __syncthreads();           // ... for every thread; S(kt) is done
+      if (it + 1 < n_kt) load_k(0, kt + 1);
+      sm90::cp_async_commit();
+    }
+    if (!live) continue;
+    // a factor of 1 changes nothing: skip the rescale when no row max moved
+    if (__any_sync(0xffffffffu, moved)) {
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oacc[n][e] *= corr[e >> 1];
+    }
+
+    // O += P V, 3xTF32: P from the score accumulators in registers (permuted
+    // reduction slots), V split as loaded at rows 2 t and 2 t + 1
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const auto pa = tf32x3::acc_as_a(sacc[j]);
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+        tf32x3::mma3(oacc[n], pa,
+                     tf32x3::load_b_perm(Vs, RSV, 8 * j, ch * C::DVW + 8 * n, lane));
+    }
+  }
+  sm90::cp_async_wait<0>();
+
+  if (wr0 >= S) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = wr0 + g + 8 * r;
+    if (row >= S) continue;
+    const float denom = fmaxf(l[r], 1e-30f), inv = 1.f / denom;
+    float* orow = o + ((size_t)b * S + row) * o_row + (size_t)h * DV + ch * C::DVW;
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) =
+          make_float2(oacc[n][2 * r] * inv, oacc[n][2 * r + 1] * inv);
+    // natural log, as the backward reads it: lse = m ln 2 + log l
+    if (lse != nullptr && ch == 0 && t == 0)
+      lse[((size_t)b * H + h) * S + row] = m[r] * LN2 + logf(denom);
   }
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, int BQ_, int STAGES_>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int S, int H, int KV, int causal,
                        int window, float logit_cap, float scale,
                        cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DQK, DV>();
-  static_assert(smem <= 232448, "over the shared memory a block may use");
+  using C = F32Cfg<DQK, DV, BQ_, STAGES_>;
+  auto kernel = flash_fwd_f32_mma_kernel<DQK, DV, BQ_, STAGES_>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<DQK, DV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_f32_kernel<DQK, DV><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid(B * H, (S + C::BQ - 1) / C::BQ);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), S, H, KV, causal, window, logit_cap, scale);
   return cudaGetLastError();
 }
 
-// the (DQK, DV) pairs built: the wrapper's _HEAD_DIMS and _QK_V_PAIRS
+// the (DQK, DV) pairs built: the wrapper's _HEAD_DIMS and _QK_V_PAIRS; the
+// float32 instance's query rows a block and K/V stages (its plan test reads
+// this table): 128 rows at hd 128, where the shared memory allows no second
+// block on an SM; 64 rows elsewhere, so small grids fill the card; one K and
+// one V tile (1) where a ring does not fit
 template <bool BF16>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      void* lse, int B, int S, int H, int KV, int DQK, int DV,
                      int causal, int window, float logit_cap, float scale,
                      cudaStream_t stream) {
-#define REPRO_FLASH_PAIR(dqk, dv)                                             \
+#define REPRO_FLASH_PAIR(dqk, dv, bq, stages)                                 \
   if (DQK == dqk && DV == dv)                                                 \
     return BF16 ? launch_wgmma<dqk, dv>(q, k, v, o, B, S, H, KV, causal,      \
                                         window, logit_cap, scale, stream)     \
-                : launch_f32<dqk, dv>(q, k, v, o, lse, B, S, H, KV, causal,   \
-                                      window, logit_cap, scale, stream);
-  REPRO_FLASH_PAIR(8, 8)
-  REPRO_FLASH_PAIR(16, 16)
-  REPRO_FLASH_PAIR(32, 32)
-  REPRO_FLASH_PAIR(64, 64)
-  REPRO_FLASH_PAIR(128, 128)
-  REPRO_FLASH_PAIR(256, 256)
-  REPRO_FLASH_PAIR(192, 128)
-  REPRO_FLASH_PAIR(24, 16)
+                : launch_f32<dqk, dv, bq, stages>(q, k, v, o, lse, B, S, H,   \
+                                                  KV, causal, window,         \
+                                                  logit_cap, scale, stream);
+  REPRO_FLASH_PAIR(8, 8, 64, 2)
+  REPRO_FLASH_PAIR(16, 16, 64, 2)
+  REPRO_FLASH_PAIR(32, 32, 64, 2)
+  REPRO_FLASH_PAIR(64, 64, 64, 2)
+  REPRO_FLASH_PAIR(128, 128, 128, 2)
+  REPRO_FLASH_PAIR(256, 256, 64, 1)
+  REPRO_FLASH_PAIR(192, 128, 64, 2)
+  REPRO_FLASH_PAIR(24, 16, 64, 2)
 #undef REPRO_FLASH_PAIR
   return cudaErrorInvalidValue;
 }
@@ -555,7 +683,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success).  is_bf16 selects the
-// storage type of q, k, v and o: 1 bfloat16 (tensor-core kernel), 0 float32.
+// storage type of q, k, v and o: 1 bfloat16 (wgmma), 0 float32 (3xTF32 mma.sync).
 // HD is the head dim of q and k, HDV that of v and o.  lse (float32
 // [B, H, S]) is written when it is not null; only the float32 instance takes
 // one.

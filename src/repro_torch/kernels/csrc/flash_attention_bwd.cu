@@ -6,7 +6,7 @@
 // computes, which has no backward); the port's model path runs K1 in every
 // attention layer, so the gradient of K1's function needs a kernel of its
 // own.  It takes what the float32 forward (flash_attention.cu,
-// flash_fwd_f32_kernel) leaves: q, k, v, o and the row log-sum-exp lse
+// flash_fwd_f32_mma_kernel) leaves: q, k, v, o and the row log-sum-exp lse
 // [B, H, S] of the scaled, soft-capped, masked scores, and the output
 // gradient dO, all in the model layout (q, o, dO [B, S, H, HD], k, v
 // [B, S, KV, HD]), and writes dQ, dK, dV in the layouts of q, k, v.  It
@@ -115,14 +115,7 @@ template <int HD, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           size_t stride, int row0, int S,
                                           int tid) {
-  constexpr int CH = HD / 4;
-#pragma unroll 4
-  for (int i = tid; i < ROWS * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH, s = row0 + r;
-    const bool ok = s < S;
-    sm90::cp_async16(sm90::smem_addr(dst + r * (HD + 4) + 4 * c),
-                     src + (size_t)(ok ? s : 0) * stride + 4 * c, ok);
-  }
+  sm90::cp_async_rows<HD, ROWS, HD + 4, THREADS>(dst, src, stride, row0, S, tid);
 }
 
 // The streamed tiles (q and dO in the dK/dV kernel, k and v in the dQ

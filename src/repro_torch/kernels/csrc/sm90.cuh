@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels: 16- and
-// 4-byte cp.async copies, the 128-byte-swizzled shared-memory tile layout that the
-// wgmma descriptors read, and the warpgroup matrix-multiply instructions.
+// 4-byte cp.async copies, ldmatrix, the 128-byte-swizzled shared-memory tile
+// layout that the wgmma descriptors read, and the warpgroup matrix-multiply
+// instructions.
 //
 // Tile layout ("sw128"): a tile of R rows of bf16 is stored as panels of 64
 // columns (128 bytes a row); panel p holds rows 0..R-1 at p * R * 128 +
@@ -43,6 +44,36 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
+}
+
+// four 8 x 8 matrices of 16-bit elements (8 rows of 16 bytes each) from
+// shared memory: lanes 8 i .. 8 i + 7 give the 16-byte aligned row
+// addresses of matrix i, and lane l receives in r[i] the 32-bit word l % 4
+// of row l / 4 of matrix i.  Read as float32 data, each matrix is 8 rows of
+// 4 floats, and r[i] holds the float at (l / 4, l % 4): the layout of
+// mma.sync's TF32 fragments.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// rows [r0, r0 + R) of a D-wide row-major float array (rows `stride` floats
+// apart, S of them) -> shared memory at dst, row stride RS floats, by
+// 16-byte cp.async from NT threads; rows at or past S are zero-filled.  D,
+// RS, dst and src are 16-byte multiples.  The caller commits.
+template <int D, int R, int RS, int NT>
+__device__ __forceinline__ void cp_async_rows(float* dst, const float* src,
+                                              size_t stride, int r0, int S,
+                                              int tid) {
+  constexpr int CH = D / 4;
+#pragma unroll 4
+  for (int i = tid; i < R * CH; i += NT) {
+    const int r = i / CH, c = i % CH, s = r0 + r;
+    const bool ok = s < S;
+    cp_async16(smem_addr(dst + r * RS + 4 * c),
+               src + (size_t)(ok ? s : 0) * stride + 4 * c, ok);
+  }
 }
 
 // atomic add at gpu scope with release and acquire semantics; returns the

@@ -14,10 +14,15 @@ state in registers and never writes the S x S score matrix, so it moves only
 those bytes.  Its bfloat16 instance (the model path) computes both products
 on the tensor cores with ``wgmma`` (Q K^T from shared memory, P V with P in
 registers, float32 accumulation) and streams K/V tiles through a 2-stage
-``cp.async`` ring; its float32 instance keeps float32 FMAs from shared
-memory (one TF32 product misses the float32 tolerance; the backward's
-3xTF32 split, below, would meet it, and the forward does not use it yet).
-Griffin's local attention runs it at hd=256 (B=1, S=512, H=16, KV=1, window
+``cp.async`` ring.  Its float32 instance (training, and every float32
+check) is bound by its products: 4.30 GFLOP at Llama-3-8B's training shape
+(B=2, S=512), 64 us on the float32 CUDA cores, 26 us as 3xTF32 on the
+tensor cores.  One TF32 product misses the float32 tolerance, so it runs
+both products as ``mma.sync`` TF32 in the 3xTF32 split of
+``csrc/tf32x3.cuh``, as the backward does: q scaled and split once per
+block, K and V split as loaded, streamed through ``cp.async`` copies that
+overlap the products, P passed from the score accumulators to P V in
+registers, the longest causal query tiles first.  Griffin's local attention runs it at hd=256 (B=1, S=512, H=16, KV=1, window
 2048), Gemma-2 at hd=256 (H=16, KV=8, soft-cap 50, windows 4,096 and 0),
 MLA (DeepSeek-V2) with a qk head dim of 192 against a v head dim of 128.
 

@@ -1,4 +1,5 @@
-"""The port and its chip smoke script import neither JAX nor the reference."""
+"""The port and the scripts that run it on the card import neither JAX nor
+the reference."""
 
 import ast
 import pathlib
@@ -6,7 +7,8 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+CARD_SCRIPTS = ("chip_smoke.py", "kernel_ab.py", "kernel_phases.py", "mma_peak.py")
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / f for f in CARD_SCRIPTS]
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -31,7 +33,7 @@ def test_no_jax_or_reference_import(path):
 
 
 def test_scan_covers_the_package():
-    assert len(FILES) > 20 and (ROOT / "chip_smoke.py").exists()
+    assert len(FILES) > 20 and all((ROOT / f).exists() for f in CARD_SCRIPTS)
 
 
 @pytest.mark.parametrize("part", ["training", "data", "checkpoint",

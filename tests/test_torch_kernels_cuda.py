@@ -6,7 +6,9 @@ it runs on a machine with the card:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
-Tolerances are those of tests/test_kernels.py: attention 2e-5 float32, 2e-2
+Tolerances are those of tests/test_kernels.py: attention 2e-5 float32 (K1's
+float32 forward runs 3xTF32 products on the tensor cores, emulated on the
+CPU in tests/test_torch_flash_fwd_plan.py; its lse 1e-5), 2e-2
 bfloat16 (K1's backward: 1e-4 of the largest reference gradient, with window,
 soft-cap, GQA and ragged S at every head dim 8 to 128; its 3xTF32 products
 are emulated on the CPU in tests/test_torch_flash_bwd_plan.py) (K1 also at MLA's qk 192 / v 128 and 24 / 16 and at hd 8, K3 at hd
@@ -1045,13 +1047,15 @@ def test_flash_bwd_kernel_two_shapes_alternately():
                 assert _max_rel(g, w) <= 1e-4
 
 
-@pytest.mark.parametrize("hd", [8, 16, 32, 64, 128])
-def test_flash_fwd_lse_equals_forward_and_plain(hd):
+@pytest.mark.parametrize("hd,hd_v", [(8, 8), (16, 16), (32, 32), (64, 64),
+                                     (128, 128), (256, 256), (192, 128), (24, 16)])
+def test_flash_fwd_lse_equals_forward_and_plain(hd, hd_v):
     """The float32 forward with lse writes the same o, bit for bit, as
-    without; lse equals the plain log-sum-exp to 1e-5."""
+    without; lse equals the plain log-sum-exp to 1e-5; at every built
+    (qk, v) pair."""
     q = _normal((2, 150, 4, hd), torch.float32, 5)
     k = _normal((2, 150, 2, hd), torch.float32, 6)
-    v = _normal((2, 150, 2, hd), torch.float32, 7)
+    v = _normal((2, 150, 2, hd_v), torch.float32, 7)
     for kw in (dict(), dict(window=40, logit_cap=30.0), dict(causal=False)):
         o0 = k1.flash_attention(q, k, v, **kw)
         o1, lse = k1.flash_attention_lse(q, k, v, **kw)
@@ -1062,6 +1066,40 @@ def test_flash_fwd_lse_equals_forward_and_plain(hd):
                                      None)
         torch.testing.assert_close(lse, torch.logsumexp(sim, -1), atol=1e-5,
                                    rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,hd_v,window,cap", [
+    (2, 512, 32, 8, 128, 128, 0, 0.0),    # llama3-8b's training shape
+    (8, 256, 8, 8, 64, 64, 0, 0.0),       # the quickstart recipe's
+    (2, 333, 32, 8, 128, 128, 0, 0.0),    # ragged S
+    (2, 333, 8, 2, 64, 64, 100, 50.0),    # ragged S, window, soft-cap
+    (1, 300, 4, 2, 8, 8, 0, 0.0),
+    (1, 300, 4, 2, 16, 16, 0, 30.0),
+    (1, 300, 4, 2, 32, 32, 70, 0.0),
+    (1, 300, 4, 2, 256, 256, 0, 50.0),
+    (1, 300, 4, 4, 192, 128, 0, 0.0),
+    (1, 300, 4, 4, 24, 16, 33, 30.0),
+])
+def test_flash_f32_forward_matches_plain_and_repeats(b, s, h, kv, hd, hd_v,
+                                                    window, cap):
+    """K1's float32 forward (3xTF32 on the tensor cores) against the plain
+    version at 2e-5 and its lse against the plain log-sum-exp at 1e-5, at
+    the training shapes, ragged S and every built (qk, v) pair; a second
+    call gives the same bits (no atomics)."""
+    q = _normal((b, s, h, hd), torch.float32, 31)
+    k = _normal((b, s, kv, hd), torch.float32, 32)
+    v = _normal((b, s, kv, hd_v), torch.float32, 33)
+    kw = dict(window=window, logit_cap=cap, scale=hd ** -0.5)
+    before = k1.flash_attention.launches
+    o, lse = k1.flash_attention_lse(q, k, v, **kw)
+    o2, lse2 = k1.flash_attention_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert k1.flash_attention.launches == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    want = k1.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(o, want, atol=2e-5, rtol=2e-5)
+    sim, _, _ = k1._scores_plain(q, k, True, window, cap, hd ** -0.5)
+    torch.testing.assert_close(lse, torch.logsumexp(sim, -1), atol=1e-5, rtol=1e-5)
 
 
 def test_flash_autograd_launches_forward_and_backward_kernels():
