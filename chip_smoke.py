@@ -167,14 +167,20 @@ result line:
    recovery, violation and breach minutes, restarts, the zombie's fate,
    invariant violations and the slowest restore;
 13. training (``make_train_step``, ``launch/train.main``; float32): K1's
-   backward kernel against ``flash_attention_bwd_plain`` at five shapes
-   (Llama-3-8B's B=2, S=512, H=32, KV=8, hd 128; the quickstart's B=8,
-   S=256, H=8, hd 64; reduced gemma2's hd 32 with soft-cap 50, window 16 and
-   ``attn_scale``; hd 8 at G=7; a ragged S), max |diff| <= 1e-4 of the
-   largest reference gradient, each repeated bit for bit and timed beside
-   its two bounds (float32 products on the CUDA cores; 3xTF32 on the tensor
-   cores, as the kernel runs them), the plain version and SDPA's backward;
-   the float32 forward with lse at Llama's shape beside SDPA's; K4's
+   backward kernel against ``flash_attention_bwd_plain`` at ``TRAIN_BWD``'s
+   eleven shapes (Llama-3-8B's B=2, S=512, H=32, KV=8, hd 128; the
+   quickstart's B=8, S=256, H=8, hd 64; reduced gemma2's hd 32 with soft-cap
+   50, window 16 and ``attn_scale``; hd 8 at G=7; a ragged S; at B=2, S=512
+   gemma2-9b's hd 256, GQA 16/8, soft-cap 50 and scale 224^-1/2 with windows
+   4,096 and 0, recurrentgemma-9b's hd 256 MQA (G=16) with window 2,048 and
+   deepseek-v2-lite's MLA at qk 192 / v 128; reduced MLA's 24 / 16; a ragged
+   S at hd 256), max |diff| <= 1e-4 of the largest reference gradient, each
+   repeated bit for bit and timed beside its two bounds (float32 products on
+   the CUDA cores; 3xTF32 on the tensor cores, as the kernel runs them), the
+   plain version and one PyTorch call's backward (SDPA's, or where there is
+   a soft-cap ``flex_attention``'s with a tanh score_mod; "none" with the
+   reason where it does not run); the float32 forward with lse at Llama's
+   shape beside SDPA's; K4's
    backward kernel against ``ssd_bwd_plain`` at Mamba-2's training shape
    (B=2, S=512, H=64, P=64, N=128, chunk 256), a ragged S with state_in and
    a final-state cotangent, G=2 and S=2,048 over 8 chunks, also with dt
@@ -190,25 +196,32 @@ result line:
    lr: ``TRAIN_GRAD_TOL``, ``TRAIN_MEAN_LR``); reduced mamba2-1.3b and
    recurrentgemma-9b: step-0 gradients card vs CPU within
    ``TRAIN_GRAD_TOL`` at the launches of checkpointed blocks, 3 steps
-   twice on the card bit for bit; the recipe of
+   twice on the card bit for bit; reduced deepseek-v2-lite's step-0
+   gradients card vs CPU (K1's backward at 24 / 16); the recipe of
    examples/train_quickstart.py (llama-100m, 300 steps), whose loss must
    fall as sound runs fall (the mean of the first 25 losses less the last
    25's within ``QUICKSTART_FALL``; the example's own 0.4, unmet by the
    reference too, printed); B=2, S=512, int8 gradients, 5 steps (step times,
    peak memory, launches per step, one traced step) of full-width
-   Llama-3-8B cut to 4 layers (K1 forward 8, backward 4), mamba2-1.3b at
-   all 48 layers (K4 forward 96, backward 48) and recurrentgemma-9b cut to
-   its 2 leading, recurrent layers (K5 forward 2, backward 2), K2a/K2b one
-   per leaf and every other kernel 0; and ``launch/train.main``'s
-   kill-at-step-10 drill resumed to 20 on reduced llama3-8b and
-   mamba2-1.3b, whose state must equal the uninterrupted run's bit for bit;
+   Llama-3-8B cut to 4 layers (K1 forward 8, backward 4), gemma2-9b cut to
+   4 (two (local, global) pairs: K1 8, backward 4 at hd 256),
+   deepseek-v2-lite-16b cut to 4 (its dense lead layer, not checkpointed,
+   and three MoE layers: K1 7, backward 4 at qk 192 / v 128), mamba2-1.3b
+   at all 48 layers (K4 forward 96, backward 48) and recurrentgemma-9b cut
+   to its first (rec, rec, attn) group (K5 forward 4, backward 2; K1 2,
+   backward 1 at hd 256), K2a/K2b one per leaf and every other kernel 0;
+   and ``launch/train.main``'s kill-at-step-10 drill resumed to 20 on
+   reduced llama3-8b and mamba2-1.3b, whose state must equal the
+   uninterrupted run's bit for bit;
 14. print the ``kernels`` line (K1/K2 launches from phase 3, K3's from
    phase 4, K4's from the Mamba-2 serve, K5's from the Griffin serve; the
    rows of K1 and K3 at the new shapes with the launches of the deepseek,
    qwen3-moe and gemma2 serve and generation runs and of the hd-8 reduced
    runs; K1's, K4's and K5's backward with the launches of the full-width
-   Llama-3-8B, Mamba-2 and Griffin training steps) and, last, ``{"ok":
-   true, "device": {...}}``.
+   Llama-3-8B, Mamba-2 and Griffin training steps, K1's backward at hd 256
+   with gemma2-9b's and Griffin's, at MLA's (192, 128) with
+   deepseek-v2-lite's and at (24, 16) with the reduced deepseek-v2-lite
+   gradients) and, last, ``{"ok": true, "device": {...}}``.
 
 Every phase that drives a path sets the launch counts to 0 just before it
 and checks them just after.
@@ -218,6 +231,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import pathlib
@@ -448,8 +462,9 @@ def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
             continue                      # K3: the head dim of the path only
         if name.startswith(K4_BF16) and not name.endswith("<2>"):
             continue                      # K4: N = 128 (the path) only
-        if name.startswith(K1_BWD_MMA) and not name.endswith("<128>"):
-            continue                      # K1 bwd: hd 128 (Llama) only
+        if name.startswith(K1_BWD_MMA) and not name.endswith(
+                ("<128, 128>", "<256, 256>", "<192, 128>", "<24, 16>")):
+            continue                      # K1 bwd: the training paths' pairs
         if name.endswith(">") and name.startswith(K4_F32 + K4_BWD_MMA) and \
                 not name.endswith(("<1>", "<16>")):
             continue                      # K4 float32 and bwd: N = 128 only
@@ -743,7 +758,14 @@ def flex_yardstick(s_q: int, s_k: int, scale: float, cap: float, window: int,
     q [B,s_q,H,hd], k/v [B,s_k,KV,hd] (views taken as they are) ->
     [B,s_q,H,hd].  Timed only, as a yardstick: the port never calls it.
     Its compile caches go under build/ (gitignored), compiled in this
-    process."""
+    process.  A window that reaches past s_k masks nothing: calls that
+    differ only there share one function and its compiles."""
+    return _flex_yardstick(s_q, s_k, scale, cap, window if window < s_k else 0,
+                           causal)
+
+
+@functools.lru_cache(maxsize=None)
+def _flex_yardstick(s_q, s_k, scale, cap, window, causal):
     import os
 
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
@@ -3099,15 +3121,35 @@ def phase_simulator(counters, card: str) -> None:
 
 
 # ---- phase 13: training ----
-# K1's backward against its plain version: (label, b, s, h, kv, hd, window,
-# cap, scale); the first is the full-width training shape, timed
+# K1's backward against its plain version: (label, b, s, h, kv, hd, hd_v,
+# window, cap, scale); the first is Llama-3-8B's full-width training shape,
+# then the quickstart's, reduced gemma2's, hd 8 at G=7 and a ragged S; then
+# the instances this slice added at the full-width training shapes of
+# gemma2-9b (hd 256, GQA 16/8, soft-cap 50, scale 224^-1/2; windows 4,096
+# and 0), recurrentgemma-9b (hd 256, MQA: G=16 through the sum pass, window
+# 2,048) and deepseek-v2-lite (MLA, qk 192 / v 128), reduced MLA (24 / 16)
+# and a ragged S at hd 256
 TRAIN_BWD = [
-    ("llama3-8b", 2, 512, 32, 8, 128, 0, 0.0, None),
-    ("quickstart", 8, 256, 8, 8, 64, 0, 0.0, None),
-    ("gemma2 reduced", 2, 256, 4, 2, 32, 16, 50.0, 16.0 ** -0.5),
-    ("hd 8, G=7", 2, 256, 7, 1, 8, 0, 0.0, None),
-    ("ragged S", 2, 333, 32, 8, 128, 0, 0.0, None),
+    ("llama3-8b", 2, 512, 32, 8, 128, 128, 0, 0.0, None),
+    ("quickstart", 8, 256, 8, 8, 64, 64, 0, 0.0, None),
+    ("gemma2 reduced", 2, 256, 4, 2, 32, 32, 16, 50.0, 16.0 ** -0.5),
+    ("hd 8, G=7", 2, 256, 7, 1, 8, 8, 0, 0.0, None),
+    ("ragged S", 2, 333, 32, 8, 128, 128, 0, 0.0, None),
+    ("gemma2-9b local", 2, 512, 16, 8, 256, 256, 4096, 50.0, 224.0 ** -0.5),
+    ("gemma2-9b global", 2, 512, 16, 8, 256, 256, 0, 50.0, 224.0 ** -0.5),
+    ("recurrentgemma-9b", 2, 512, 16, 1, 256, 256, 2048, 0.0, None),
+    ("deepseek-v2-lite", 2, 512, 16, 16, 192, 128, 0, 0.0, 192.0 ** -0.5),
+    ("mla reduced", 2, 256, 4, 4, 24, 16, 0, 0.0, 24.0 ** -0.5),
+    ("ragged hd 256", 2, 333, 16, 8, 256, 256, 0, 50.0, None),
 ]
+# the kernels line's rows of K1's backward, one per instance a training path
+# runs, by the TRAIN_BWD shape that times it; their launches come from the
+# full-width steps (hd 256: gemma2-9b's and recurrentgemma-9b's; MLA:
+# deepseek-v2-lite's) and, for (24, 16), reduced deepseek-v2-lite's gradients
+BWD_ROWS = {"llama3-8b": "flash_attention_bwd",
+            "gemma2-9b local": "flash_attention_bwd@hd256",
+            "deepseek-v2-lite": "flash_attention_bwd@mla",
+            "mla reduced": "flash_attention_bwd@mla_reduced"}
 # max |kernel - plain| / max |plain| of each of dq, dk, dv: 3xTF32 products
 # on the tensor cores against float32 matmuls summed in another order
 BWD_TOL = 1e-4
@@ -3147,9 +3189,16 @@ FULL_TRAIN = dict(n_layers=4, steps=5, batch=2, seq=512)
 # the recurrent families at full width, with FULL_TRAIN's steps, B and S:
 # mamba2-1.3b at all 48 layers (~20 bytes a parameter: params, gradients,
 # AdamW's two moments and the int8 residual, ~27 GB for 1.35 B); and
-# recurrentgemma-9b cut to its 2 leading layers, both recurrent: its third
-# layer is local attention at hd 256, whose backward K1 does not build yet
-FULL_RECURRENT = {"mamba2-1.3b": None, "recurrentgemma-9b": 2}
+# recurrentgemma-9b cut to its first (rec, rec, attn) group, 3 layers, so K5
+# and K1 at hd 256 (MQA, window 2,048) run forward and backward (all 38
+# layers' float32 AdamW state, ~180 GB, does not fit one card)
+FULL_RECURRENT = {"mamba2-1.3b": None, "recurrentgemma-9b": 3}
+# the rest of the zoo that trains on one card at full width, cut in depth
+# only, as Llama (AdamW's float32 state of the whole model does not fit):
+# gemma2-9b at 4 layers, two (local, global) pairs (K1 bwd at hd 256 with
+# the soft-cap, 1.71 B parameters), and deepseek-v2-lite-16b at 4, its
+# dense lead layer and three MoE layers (K1 bwd at qk 192 / v 128, 2.76 B)
+FULL_ZOO = {"gemma2-9b": 4, "deepseek-v2-lite-16b": 4}
 # K4's backward against its plain version: (label, b, s, h, g, n, p, chunk,
 # state_in and a final-state cotangent, dt scale); the first is Mamba-2's
 # training shape, whose row the kernels line reports.  At dt scale 1 (the
@@ -3265,7 +3314,7 @@ def train_forward_f32(k1) -> dict:
 
     row = None
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    for label, b, s, h, kv, hd, _, _, _ in TRAIN_BWD[:2]:
+    for label, b, s, h, kv, hd, _, _, _, _ in TRAIN_BWD[:2]:
         q = normal((b, s, h, hd), torch.float32, 21)
         k = normal((b, s, kv, hd), torch.float32, 22)
         v = normal((b, s, kv, hd), torch.float32, 23)
@@ -3325,24 +3374,74 @@ def train_forward_f32(k1) -> dict:
     return row
 
 
-def phase_train_kernel(k1) -> dict:
-    """Phase 13: K1's backward against ``flash_attention_bwd_plain`` on the
-    card at the five training shapes (each repeated bit for bit), each
-    timed beside its two bounds (float32 products on the CUDA cores, and as
-    3xTF32 on the tensor cores, as the kernel runs them), the plain version
-    and SDPA's backward (the port never calls it; it has no soft-cap, so at
-    gemma2's shape it computes the function without one); then the float32
-    forward at the first shape.  Returns the row of the first, full-width
-    shape, whose bound is the 3xTF32 one (the least time the card can take
-    for float32-accurate products)."""
+def bwd_library(k1, q, k, v, do, window, cap, scale):
+    """One PyTorch call's backward of K1's function at these inputs (the
+    port never calls it): (ms, what) from forward and backward replayed in
+    one CUDA graph less the forward's replay, or (None, why) where no call
+    runs.  SDPA's float32 backward where there is no soft-cap (causal; an
+    explicit mask where the window bites); where there is, ``flex_attention``
+    with a tanh score_mod (``flex_yardstick``), its gradients held against
+    the plain version's first (1e-2 of each largest: a sanity check of the
+    function; its products may round as TF32)."""
     import torch.nn.functional as F
 
-    row = None
-    for label, b, s, h, kv, hd, window, cap, scale in TRAIN_BWD:
+    s = q.shape[1]
+    qt, kt, vt = (t.detach().requires_grad_() for t in (q, k, v))
+    if cap:
+        what = "flex_attention"
+        try:
+            flex = flex_yardstick(s, s, scale, cap, window, True)
+
+            def fwd():
+                return flex(qt, kt, vt)
+
+            got = torch.autograd.grad(fwd(), (qt, kt, vt), do)
+            want = torch.autograd.grad(k1.flash_attention_plain(
+                qt, kt, vt, window=window, logit_cap=cap, scale=scale),
+                (qt, kt, vt), do)
+        except Exception as exc:  # a yardstick only: report why it is missing
+            return None, f"{what} did not run ({type(exc).__name__}: {str(exc)[:160]})"
+        rel = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+        print(f"  K1 bwd flex_attention (soft-cap score_mod) vs plain: max |d| / "
+              f"max |ref| {[f'{x:.2e}' for x in rel]} (sanity gate 1e-2)")
+        if max(rel) > 1e-2:
+            raise AssertionError("flex_attention's backward is not the function "
+                                 "of K1's plain version")
+    else:
+        what = "sdpa"
+        mask = None
+        if 0 < window < s:
+            pos = torch.arange(s, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+
+        def fwd():
+            return F.scaled_dot_product_attention(
+                qt.transpose(1, 2), kt.transpose(1, 2), vt.transpose(1, 2),
+                attn_mask=mask, is_causal=mask is None, scale=scale,
+                enable_gqa=True).transpose(1, 2)
+    try:
+        ms = graph_ms(lambda: torch.autograd.grad(fwd(), (qt, kt, vt), do), 10) \
+            - graph_ms(fwd, 10)
+    except Exception as exc:  # a yardstick only: report why it is missing
+        return None, f"{what} did not run ({type(exc).__name__}: {str(exc)[:160]})"
+    return ms, what
+
+
+def phase_train_kernel(k1) -> list[dict]:
+    """Phase 13: K1's backward against ``flash_attention_bwd_plain`` on the
+    card at ``TRAIN_BWD``'s shapes (each repeated bit for bit), each timed
+    beside its two bounds (float32 products on the CUDA cores, and as
+    3xTF32 on the tensor cores, as the kernel runs them), the plain version
+    and one PyTorch call's backward (``bwd_library``; the reduced gemma2
+    row keeps SDPA's without the soft-cap, as before).  Returns the rows
+    ``BWD_ROWS`` names, whose bound is the 3xTF32 one (the least time the
+    card can take for float32-accurate products)."""
+    rows = []
+    for label, b, s, h, kv, hd, hd_v, window, cap, scale in TRAIN_BWD:
         q = normal((b, s, h, hd), torch.float32, 21)
         k = normal((b, s, kv, hd), torch.float32, 22)
-        v = normal((b, s, kv, hd), torch.float32, 23)
-        do = normal((b, s, h, hd), torch.float32, 24)
+        v = normal((b, s, kv, hd_v), torch.float32, 23)
+        do = normal((b, s, h, hd_v), torch.float32, 24)
         kw = dict(causal=True, window=window, logit_cap=cap, scale=scale)
         o, lse = k1.flash_attention_lse(q, k, v, **kw)
         got = k1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
@@ -3352,10 +3451,10 @@ def phase_train_kernel(k1) -> dict:
         rel = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
         abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         same = all(torch.equal(g, a) for g, a in zip(got, again))
-        print(f"K1 bwd {label}: q {tuple(q.shape)} kv {kv} window={window} "
-              f"cap={cap} scale={scale}: max |d| / max |ref| dq {rel[0]:.2e} dk "
-              f"{rel[1]:.2e} dv {rel[2]:.2e} (tol {BWD_TOL}), max_abs_err "
-              f"{abs_err:.3e}; repeat bit-identical {same}")
+        print(f"K1 bwd {label}: q {tuple(q.shape)} kv {kv} hd_v {hd_v} "
+              f"window={window} cap={cap} scale={scale}: max |d| / max |ref| dq "
+              f"{rel[0]:.2e} dk {rel[1]:.2e} dv {rel[2]:.2e} (tol {BWD_TOL}), "
+              f"max_abs_err {abs_err:.3e}; repeat bit-identical {same}")
         if max(rel) > BWD_TOL or not same:
             raise AssertionError(f"K1 backward at {label}: {rel}, repeat {same}")
         ms = timed("K1 bwd kernel", lambda: k1.flash_attention_bwd(
@@ -3366,43 +3465,36 @@ def phase_train_kernel(k1) -> dict:
             {name: round(us, 2) for name, us in split.items()}))
         plain_ms = timed("K1 bwd plain", lambda: k1.flash_attention_bwd_plain(
             q, k, v, o, lse, do, **kw), 5)
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-        dot = do.transpose(1, 2)
-        mask = None
-        if window:
-            pos = torch.arange(s, device="cuda")
-            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
-
-        def sdpa():
-            return F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None, scale=scale,
-                enable_gqa=True)
-
-        # SDPA's backward alone: forward + backward replayed from one CUDA
-        # graph, less the forward's replay (the profiler has lost events)
-        lib_ms = graph_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot),
-                          10) - graph_ms(sdpa, 10)
-        print(f"  K1 bwd sdpa backward{' (no soft-cap)' if cap else ''}: graph "
-              f"{lib_ms:.5f} ms/call (forward and backward less forward)")
+        if label == "gemma2 reduced":      # SDPA has no soft-cap: printed only
+            lib_ms, lib = bwd_library(k1, q, k, v, do, window, 0.0, scale)
+            lib = f"{lib} without the soft-cap"
+        else:
+            lib_ms, lib = bwd_library(k1, q, k, v, do, window, cap, scale)
+        print(f"  K1 bwd {lib} backward: " + (
+            f"graph {lib_ms:.5f} ms/call (forward and backward less forward)"
+            if lib_ms is not None else "none"))
         # q, k, v, o, dO and lse read once; dq, dk and dv written once
-        n_bytes = 4.0 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel() + lse.numel())
-        n_flops = 10.0 * hd * b * h * attention_pairs(s, True, window)
+        n_bytes = 4.0 * (2 * q.numel() + 2 * do.numel() + 2 * k.numel()
+                         + 2 * v.numel() + lse.numel())
+        # s, dK and dQ reduce over hd, dP and dV over hd_v
+        n_flops = 2.0 * (3 * hd + 2 * hd_v) * b * h * attention_pairs(s, True, window)
         core_ms, core_by = bound(n_bytes, n_flops, FP32_FLOPS)
         b_ms, b_by = bound(n_bytes, 3 * n_flops, TF32_FLOPS)
+        lib_txt = (f"{lib} backward {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)"
+                   if lib_ms is not None else f"library: none ({lib})")
         print(f"K1 bwd {label} time {ms:.4f} ms ({n_flops / ms / 1e9:.1f} TFLOP/s "
               f"achieved, {ms / b_ms:.2f}x the 3xTF32 bound, {ms / core_ms:.2f}x "
-              f"the CUDA-core bound); plain {plain_ms:.4f} ms; sdpa backward "
-              f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x); bounds: 3xTF32 on the "
-              f"tensor cores {b_ms:.5f} ms ({b_by}), float32 on the CUDA cores "
-              f"{core_ms:.5f} ms ({core_by}) ({n_bytes / 1e6:.2f} MB, "
+              f"the CUDA-core bound); plain {plain_ms:.4f} ms; {lib_txt}; bounds: "
+              f"3xTF32 on the tensor cores {b_ms:.5f} ms ({b_by}), float32 on the "
+              f"CUDA cores {core_ms:.5f} ms ({core_by}) ({n_bytes / 1e6:.2f} MB, "
               f"{n_flops / 1e9:.3f} GFLOP float32-accurate)")
-        if row is None:
-            row = dict(name="flash_attention_bwd", route="cuda",
-                       source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-                       replaces="src/repro/kernels/flash_attention.py:88",
-                       max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    return row
+        if label in BWD_ROWS:
+            rows.append(dict(name=BWD_ROWS[label], route="cuda",
+                             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                             replaces="src/repro/kernels/flash_attention.py:88",
+                             max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+    return rows
 
 
 def ssd_bwd_flops(b, s, h, g, n, p, chunk, with_state=False,
@@ -3680,15 +3772,20 @@ def train_quickstart(card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def scan_launches(cfg) -> dict:
-    """Launches of one training step's forward and backward on a Mamba-2
-    or Griffin config: checkpointed blocks (Mamba-2) or groups (Griffin)
-    run their forward kernels twice and their backward once; Griffin's tail
-    layers are not checkpointed."""
+def step_launches(cfg) -> dict:
+    """Launches of one training step's forward and backward: checkpointed
+    blocks (a transformer's stacked blocks, Mamba-2's) or groups (Griffin's)
+    run their forward kernels twice and their backward once; a
+    transformer's dense lead layers and Griffin's tail layers are not
+    checkpointed."""
     from repro_torch.models.mamba2 import Mamba2Config
+    from repro_torch.models.transformer import TransformerConfig, n_lead
 
     if isinstance(cfg, Mamba2Config):
         return {"ssd": 2 * cfg.n_layers, "ssd_bwd": cfg.n_layers}
+    if isinstance(cfg, TransformerConfig):
+        return {"flash_attention": 2 * cfg.n_layers - n_lead(cfg),
+                "flash_attention_bwd": cfg.n_layers}
     grouped = cfg.n_groups * np.array([cfg.pattern.count(k) for k in ("rec", "attn")])
     tail = np.array([cfg.tail_kinds().count(k) for k in ("rec", "attn")])
     (rec2, attn2), (rec1, attn1) = 2 * grouped + tail, grouped + tail
@@ -3696,15 +3793,14 @@ def scan_launches(cfg) -> dict:
             "flash_attention": int(attn2), "flash_attention_bwd": int(attn1)}
 
 
-def train_recurrent_card_vs_cpu(arch: str, counters) -> None:
-    """Phase 13: a reduced Mamba-2 or Griffin model's step-0 gradients on
-    the card (launches ``scan_launches``) against the CPU's, within
-    ``TRAIN_GRAD_TOL`` of each leaf's max; then 3 steps with int8
-    gradients, twice on the card (bit for bit) and once on the CPU (losses
-    printed)."""
+def reduced_grads_card_vs_cpu(arch: str, counters):
+    """Phase 13: a reduced model's step-0 gradients on the card (launches
+    exactly ``step_launches``) against the CPU's, within ``TRAIN_GRAD_TOL``
+    of each leaf's max.  Returns the bundle, its CPU weights and the card
+    run's launch counts."""
     from repro_torch.configs import get_bundle
     from repro_torch.data import DataConfig, SyntheticTokens
-    from repro_torch.models.common import tree_flatten, tree_map
+    from repro_torch.models.common import tree_map
 
     small = get_bundle(arch, reduced=True)
     cpu_params = small.init(torch.Generator().manual_seed(0), "cpu", torch.float32)
@@ -3714,7 +3810,7 @@ def train_recurrent_card_vs_cpu(arch: str, counters) -> None:
     before = counts_of(counters)
     g_card = loss_grads(small, gpu_params, batch0, "cuda")
     counts = {k: v - before[k] for k, v in counts_of(counters).items()}
-    want = {k: 0 for k in counts} | scan_launches(small.cfg)
+    want = {k: 0 for k in counts} | step_launches(small.cfg)
     g_cpu = loss_grads(small, cpu_params, batch0, "cpu")
     gap = grad_gap(g_card, g_cpu)
     print(f"train reduced {arch}, step-0 gradients over {len(g_cpu)} leaves, "
@@ -3723,6 +3819,17 @@ def train_recurrent_card_vs_cpu(arch: str, counters) -> None:
     if gap > TRAIN_GRAD_TOL or counts != want:
         raise AssertionError(f"reduced {arch}: card vs CPU {gap}, launches "
                              f"{counts}, want {want}")
+    return small, cpu_params, counts
+
+
+def train_recurrent_card_vs_cpu(arch: str, counters) -> None:
+    """Phase 13: a reduced Mamba-2 or Griffin model's step-0 gradients on
+    the card against the CPU's (``reduced_grads_card_vs_cpu``); then 3 steps
+    with int8 gradients, twice on the card (bit for bit) and once on the
+    CPU (losses printed)."""
+    from repro_torch.models.common import tree_flatten, tree_map
+
+    small, cpu_params, _ = reduced_grads_card_vs_cpu(arch, counters)
     runs = {}
     for name, dev in (("card", "cuda"), ("card 2", "cuda"), ("cpu", "cpu")):
         params = tree_map(lambda a: a.clone().to(dev), cpu_params)
@@ -3780,30 +3887,18 @@ def train_full(label: str, big, counters, card: str, per_step_want: dict) -> dic
     return counts
 
 
-def train_full_width(counters, card: str) -> dict:
-    """Phase 13: full-width Llama-3-8B cut to 4 layers, 5 steps with int8
-    gradients (the launches of its steps are the K1 backward row's)."""
-    from repro_torch.configs import get
-    from repro_torch.models.api import bundle_for
-
-    nl = FULL_TRAIN["n_layers"]
-    big = bundle_for("llama3-8b", dataclasses.replace(get("llama3-8b"), n_layers=nl))
-    return train_full(f"llama3-8b full width, {nl} layers", big, counters, card,
-                      {"flash_attention": 2 * nl, "flash_attention_bwd": nl})
-
-
-def train_full_recurrent(arch: str, counters, card: str) -> dict:
-    """Phase 13: full-width ``arch`` at the depth ``FULL_RECURRENT`` gives,
-    5 steps with int8 gradients (the launches of its steps are the K4 or K5
-    backward row's)."""
+def train_full_model(arch: str, n_layers: int | None, counters, card: str) -> dict:
+    """Phase 13: full-width ``arch`` cut to ``n_layers`` (None: all), 5
+    steps with int8 gradients (launches per step ``step_launches``; the
+    counts are its backward rows')."""
     from repro_torch.configs import get
     from repro_torch.models.api import bundle_for
 
     cfg = get(arch)
-    if FULL_RECURRENT[arch] is not None:
-        cfg = dataclasses.replace(cfg, n_layers=FULL_RECURRENT[arch])
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     return train_full(f"{arch} full width, {cfg.n_layers} layers",
-                      bundle_for(arch, cfg), counters, card, scan_launches(cfg))
+                      bundle_for(arch, cfg), counters, card, step_launches(cfg))
 
 
 def train_drill(arch: str = "llama3-8b") -> None:
@@ -3843,13 +3938,16 @@ def phase_train(k1, k4, k5, counters, card: str) -> tuple[list, dict]:
     """Phase 13, training through ``make_train_step`` and
     ``launch/train.main``: K1's, K4's and K5's backward kernels against
     their plain versions; reduced llama3-8b card == card and card == CPU,
-    reduced mamba2-1.3b and recurrentgemma-9b likewise; the quickstart
-    recipe's loss drop; full-width llama3-8b at 4 layers, mamba2-1.3b at 48
-    and recurrentgemma-9b at 2 (the launches of their steps are the
-    backward rows'); the kill-and-resume drill on llama3-8b and mamba2-1.3b,
-    bit for bit.  Returns the three backward rows and K1's float32
-    forward's and, by row name, the launch counts of the run each row
-    reports."""
+    reduced mamba2-1.3b and recurrentgemma-9b likewise, reduced
+    deepseek-v2-lite's step-0 gradients card vs CPU (K1 bwd at (24, 16));
+    the quickstart recipe's loss drop; at full width llama3-8b at 4 layers,
+    gemma2-9b at 4 (K1 bwd at hd 256 with the soft-cap),
+    deepseek-v2-lite-16b at 4 (MLA: K1 bwd at qk 192 / v 128), mamba2-1.3b
+    at 48 and recurrentgemma-9b at 3 (one (rec, rec, attn) group: K5 and K1
+    at hd 256, forward and backward); the kill-and-resume drill on
+    llama3-8b and mamba2-1.3b, bit for bit.  Returns the backward rows and
+    K1's float32 forward's and, by row name, the launch counts of the run
+    each row reports."""
     t_phase = time.perf_counter()
     total = dict.fromkeys(counts_of(counters), 0)
 
@@ -3860,7 +3958,7 @@ def phase_train(k1, k4, k5, counters, card: str) -> tuple[list, dict]:
 
     lap = Clock("train clock:").lap
     reset(counters)
-    rows = [phase_train_kernel(k1), train_forward_f32(k1)]
+    rows = phase_train_kernel(k1) + [train_forward_f32(k1)]
     lap("K1 bwd and K1's float32 forward")
     rows += phase_recurrent_bwd(k4, k5)
     lap("K4 bwd and K5 bwd")
@@ -3870,17 +3968,32 @@ def phase_train(k1, k4, k5, counters, card: str) -> tuple[list, dict]:
     for arch in FULL_RECURRENT:
         train_recurrent_card_vs_cpu(arch, counters)
         lap(f"reduced {arch} card vs CPU")
+    tally()
+    _, _, mla_reduced = reduced_grads_card_vs_cpu("deepseek-v2-lite-16b", counters)
+    tally()
+    lap("reduced deepseek-v2-lite-16b card vs CPU")
     train_quickstart(card)
     lap("quickstart")
     tally()
-    llama_counts = train_full_width(counters, card)
-    launches = {"flash_attention_bwd": llama_counts, "flash_attention@f32": llama_counts}
+    llama_counts = train_full_model("llama3-8b", FULL_TRAIN["n_layers"], counters,
+                                    card)
+    launches = {"flash_attention_bwd": llama_counts, "flash_attention@f32": llama_counts,
+                "flash_attention_bwd@mla_reduced": mla_reduced}
     lap("llama3-8b full width")
     tally()
-    for arch, name in zip(FULL_RECURRENT, ("ssd_bwd", "rglru_bwd")):
-        launches[name] = train_full_recurrent(arch, counters, card)
+    zoo = {}
+    for arch, n_layers in FULL_ZOO.items():
+        zoo[arch] = train_full_model(arch, n_layers, counters, card)
         tally()
         lap(f"{arch} full width")
+    for arch, name in zip(FULL_RECURRENT, ("ssd_bwd", "rglru_bwd")):
+        launches[name] = train_full_model(arch, FULL_RECURRENT[arch], counters, card)
+        tally()
+        lap(f"{arch} full width")
+    # K1 bwd at hd 256: gemma2-9b's steps and recurrentgemma-9b's
+    launches["flash_attention_bwd@hd256"] = {
+        k: zoo["gemma2-9b"][k] + launches["rglru_bwd"][k] for k in llama_counts}
+    launches["flash_attention_bwd@mla"] = zoo["deepseek-v2-lite-16b"]
     for arch in ("llama3-8b", "mamba2-1.3b"):
         train_drill(arch)
         lap(f"{arch} drill")

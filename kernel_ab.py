@@ -16,8 +16,9 @@ Griffin's hd 256 shape, of K3 (decode attention) at the generation path's
 decode shape, and of K4 (the SSD chunk scan, bf16, final state returned) at
 Mamba-2's prefill shape, of K1's float32 forward with lse (as training
 calls it) at Llama-3-8B's and the quickstart's training shapes, of K1's
-backward (float32) at Llama-3-8B's training shape and at hd 8 with G=7
-(``chip_smoke.TRAIN_BWD``), of K4's
+backward (float32) at Llama-3-8B's training shape, at hd 8 with G=7 and at
+gemma2-9b's, recurrentgemma-9b's (hd 256) and deepseek-v2-lite's (MLA)
+(``chip_smoke.TRAIN_BWD``; where a checkout builds the instance), of K4's
 float32 forward and K4's backward at each shape of ``chip_smoke.SSD_BWD``
 (Mamba-2's training shape first), from a CUDA-graph replay
 (``chip_smoke.graph_ms``),
@@ -47,6 +48,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # (label, b, s, h, kv, hd, window): K1 at the two model paths' prefill shapes
 K1_SHAPES = [("llama", 1, 512, 32, 8, 128, 0),
              ("griffin", 1, 512, 16, 1, 256, 2048)]
+# K1's backward at these rows of chip_smoke.TRAIN_BWD (each where the
+# measured checkout builds its instance)
+K1_BWD_SHAPES = ("llama3-8b", "hd 8, G=7", "gemma2-9b local", "recurrentgemma-9b",
+                 "deepseek-v2-lite")
 
 
 def measure_k2(cs, k2) -> list[dict]:
@@ -145,7 +150,7 @@ def measure(root: pathlib.Path, sweep: bool) -> list[dict]:
         rows.append(dict(kernel="K1", shape=label, us=1e3 * cs.graph_ms(call, 50),
                          by_name=cs.kernel_split(call, 20)))
 
-    for label, b, s, h, kv, hd, _, _, _ in cs.TRAIN_BWD[:2]:
+    for label, b, s, h, kv, hd, _, _, _, _ in cs.TRAIN_BWD[:2]:
         q, k, v = (cs.normal(shape, torch.float32, seed) for shape, seed in (
             ((b, s, h, hd), 21), ((b, s, kv, hd), 22), ((b, s, kv, hd), 23)))
 
@@ -157,12 +162,12 @@ def measure(root: pathlib.Path, sweep: bool) -> list[dict]:
         rows.append(dict(kernel="K1 f32", shape=label, us=1e3 * cs.graph_ms(fwd, 20),
                          by_name=cs.kernel_split(fwd, 20)))
 
-    for label, b, s, h, kv, hd, window, cap, scale in cs.TRAIN_BWD:
-        if label not in ("llama3-8b", "hd 8, G=7"):
-            continue
+    for label, b, s, h, kv, hd, hd_v, window, cap, scale in cs.TRAIN_BWD:
+        if label not in K1_BWD_SHAPES or not k1.supported_bwd(hd, hd_v, torch.float32):
+            continue                    # a checkout without this instance
         q, k, v, do = (cs.normal(shape, torch.float32, seed) for shape, seed in (
-            ((b, s, h, hd), 21), ((b, s, kv, hd), 22), ((b, s, kv, hd), 23),
-            ((b, s, h, hd), 24)))
+            ((b, s, h, hd), 21), ((b, s, kv, hd), 22), ((b, s, kv, hd_v), 23),
+            ((b, s, h, hd_v), 24)))
         kw = dict(causal=True, window=window, logit_cap=cap, scale=scale)
         o, lse = k1.flash_attention_lse(q, k, v, **kw)
 

@@ -187,7 +187,7 @@ def k1_phases(lib) -> None:
     """K1's float32 forward with lse at the llama3-8b and quickstart training
     shapes, through the wrapper on the patched copy."""
     out = (ctypes.c_ulonglong * 8)()
-    for label, b, s, h, kv, hd, _, _, _ in cs.TRAIN_BWD[:2]:
+    for label, b, s, h, kv, hd, _, _, _, _ in cs.TRAIN_BWD[:2]:
         q, k, v = (cs.normal(shape, torch.float32, seed) for shape, seed in (
             ((b, s, h, hd), 21), ((b, s, kv, hd), 22), ((b, s, kv, hd), 23)))
         k1.flash_attention_lse(q, k, v)

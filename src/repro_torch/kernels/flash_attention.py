@@ -29,23 +29,27 @@ MLA (DeepSeek-V2) with a qk head dim of 192 against a v head dim of 128.
 Training differentiates it: for CUDA tensors that need a gradient the
 wrapper runs the float32 instance through an autograd function whose
 forward also writes the rows' log-sum-exp and whose backward is a kernel of
-its own (``csrc/flash_attention_bwd.cu``, head dims 8 to 128, hd = hd_v),
-which replaces no TPU kernel (the reference differentiates its XLA
-attention).  What bounds the backward: at Llama-3-8B's training shape
-(B=2, S=512, H=32, KV=8, hd=128) its five products of the causal pairs are
-10.76 GFLOP of float32-accurate products, 161 us at the float32 CUDA-core
-rate or 65 us as 3xTF32 on the tensor cores (3 TF32 products each, at 495
-TFLOP/s), against 84.0 MB moved (q, k, v, o, dO and lse read once, dq, dk
-and dv written once; 25 us).  It runs every product with ``mma.sync``
-TF32 fragments in a 3xTF32 split (``csrc/tf32x3.cuh``: one TF32 product
-misses the float32 tolerance, the split keeps float32 accuracy at 2.5x the
-CUDA-core rate; ``wgmma`` would take TF32 operands only K-major from shared
-memory, and the products read q, k, dO, P and dS in both orientations).
-Its dK/dV kernel walks the work items of :func:`bwd_work_table`, one per
-(batch, query head, 64-key tile), longest first; the G query heads of a KV
-head write partials to a scratch that a second pass sums in the order
-g = 0 .. G - 1, so the result is the same bit for bit from run to run, with
-no float atomics.
+its own (``csrc/flash_attention_bwd.cu``, float32, at every pair the forward
+builds: hd = hd_v in 8 to 256 and MLA's (192, 128) and (24, 16)), which
+replaces no TPU kernel (the reference differentiates its XLA attention).
+What bounds the backward: at Llama-3-8B's training shape (B=2, S=512,
+H=32, KV=8, hd=128) its five products of the causal pairs are 10.76 GFLOP
+of float32-accurate products, 161 us at the float32 CUDA-core rate or 65 us
+as 3xTF32 on the tensor cores (3 TF32 products each, at 495 TFLOP/s),
+against 84.0 MB moved (q, k, v, o, dO and lse read once, dq, dk and dv
+written once; 25 us); Gemma-2's and Griffin's training shapes at hd 256
+(H=16) need the same 10.76 GFLOP, MLA's (H=16, qk 192, v 128) 6.99 (42
+us).  It runs every product with ``mma.sync`` TF32 fragments in a 3xTF32
+split (``csrc/tf32x3.cuh``: one TF32 product misses the float32 tolerance,
+the split keeps float32 accuracy at 2.5x the CUDA-core rate; ``wgmma``
+would take TF32 operands only K-major from shared memory, and the products
+read q, k, dO, P and dS in both orientations).  Its dK/dV kernel walks the
+work items of :func:`bwd_work_table`, one per (batch, query head, 64-key
+tile), longest first; the G query heads of a KV head write partials to a
+scratch that a second pass sums in the order g = 0 .. G - 1, so the result
+is the same bit for bit from run to run, with no float atomics.  At hd 256
+two warps share each 16 rows, one computing P and keeping dV, the other dP
+and dS and keeping dK, so neither holds both.
 
 The wrapper takes the plain version only for tensors on the CPU (where
 autograd differentiates it); for a CUDA tensor it launches the kernels or
@@ -72,8 +76,6 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # width and (24, 16) reduced
 _HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 _QK_V_PAIRS = ((192, 128), (24, 16))
-# the backward's instances: float32, hd = hd_v
-_BWD_HEAD_DIMS = (8, 16, 32, 64, 128)
 _BWD_TILE = 64                      # keys and query rows per tile of the backward
 _BWD_TABLES: dict = {}              # (device, b, s, h, kv, causal, window) -> work table
 
@@ -85,8 +87,9 @@ def supported(hd: int, hd_v: int) -> bool:
 
 
 def supported_bwd(hd: int, hd_v: int, dtype) -> bool:
-    """Whether the backward kernel is built for these head dims and dtype."""
-    return dtype == torch.float32 and hd == hd_v and hd in _BWD_HEAD_DIMS
+    """Whether the backward kernel is built for these head dims and dtype:
+    float32, at every pair of :func:`supported`."""
+    return dtype == torch.float32 and supported(hd, hd_v)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -146,7 +149,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0,
                               logit_cap=0.0, scale=None):
     """The backward kernel's formula in plain float32 PyTorch.
 
-    From the forward's output ``o`` [B,S,H,hd] and row log-sum-exp ``lse``
+    From the forward's output ``o`` [B,S,H,hd_v] and row log-sum-exp ``lse``
     [B,H,S] and the output gradient ``do``: P = exp(s - lse) on the mask,
     D = rowsum(dO o), dV = P^T dO, dS = P (dO V^T - D) (1 - tanh^2 where
     soft-capped), dQ = scale dS K, dK = dS^T (scale q), dK and dV summed
@@ -272,12 +275,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
 
     CPU tensors take :func:`flash_attention_bwd_plain`; CUDA tensors launch
     the backward kernel (contiguous float32, q, k, v and do 16-byte
-    aligned, hd = hd_v in 8..128) or raise.  ``flash_attention_bwd.launches``
-    counts its launches (one a call: the D, dK/dV, partial-sum (G > 1) and
-    dQ kernels).
+    aligned, head dims that :func:`supported_bwd` names) or raise.
+    ``flash_attention_bwd.launches`` counts its launches (one a call: the
+    D, dK/dV, partial-sum (G > 1) and dQ kernels).
     """
     _check(q, k, v)
     b, s, h, hd = q.shape
+    hd_v = v.shape[3]
     sc = hd ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
@@ -285,11 +289,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
                                          scale=sc)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for device {q.device}")
-    if not supported_bwd(hd, v.shape[3], q.dtype):
+    if not supported_bwd(hd, hd_v, q.dtype):
         raise ValueError(f"the backward kernel takes float32 with hd = hd_v in "
-                         f"{_BWD_HEAD_DIMS}; got {q.dtype}, hd={hd}, "
-                         f"hd_v={v.shape[3]}")
-    for name, t, shape, dt in (("o", o, q.shape, q.dtype), ("do", do, q.shape, q.dtype),
+                         f"{_HEAD_DIMS} or (hd, hd_v) in {_QK_V_PAIRS}; got "
+                         f"{q.dtype}, hd={hd}, hd_v={hd_v}")
+    for name, t, shape, dt in (("o", o, (b, s, h, hd_v), q.dtype),
+                               ("do", do, (b, s, h, hd_v), q.dtype),
                                ("lse", lse, (b, h, s), torch.float32)):
         if tuple(t.shape) != tuple(shape) or t.dtype != dt or t.device != q.device:
             raise ValueError(f"{name}: want {dt} {tuple(shape)} on {q.device}; "
@@ -302,15 +307,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     items = _bwd_table_on(q.device, b, s, h, kv, causal, window)
-    # the G partials of dK and dV (G = 1 writes dk, dv directly)
-    scratch = torch.empty((2, h // kv, b, s, kv, hd), dtype=torch.float32,
+    # the G partials of dK [G, B, S, KV, hd], then of dV [G, B, S, KV, hd_v]
+    # (G = 1 writes dk, dv directly)
+    scratch = torch.empty(h // kv * b * s * kv * (hd + hd_v), dtype=torch.float32,
                           device=q.device) if h > kv else None
     lib = build.load()
     err = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), items.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), b, s, h, kv, hd,
+        None if scratch is None else scratch.data_ptr(), b, s, h, kv, hd, hd_v,
         int(causal), int(window), items.shape[0], float(logit_cap), float(sc),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention_bwd")
@@ -361,7 +367,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, logit_cap=0.0,
         if not supported_bwd(q.shape[3], v.shape[3], q.dtype):
             raise ValueError(f"no backward kernel for {q.dtype}, hd={q.shape[3]}, "
                              f"hd_v={v.shape[3]}: it takes float32 with hd = "
-                             f"hd_v in {_BWD_HEAD_DIMS}")
+                             f"hd_v in {_HEAD_DIMS} or (hd, hd_v) in "
+                             f"{_QK_V_PAIRS}")
         return _FlashAttention.apply(q, k, v, bool(causal), int(window),
                                      float(logit_cap), float(sc))
     return _launch_fwd(q, k, v, causal, window, logit_cap, sc, False)[0]

@@ -13,7 +13,13 @@ decides its result besides the card's arithmetic is checked here:
   (TF32 keeps 10 mantissa bits; rounding to nearest, ties away from zero,
   is ``cvt.rna.tf32.f32``'s), meets the kernel's tolerance, 1e-4 of the
   largest gradient against float64, where one TF32 product (rounded to
-  nearest) does not.
+  nearest) does not: at Llama-3-8B's hd 128, Gemma-2's hd 256 (soft-cap 50)
+  and MLA's qk 192 / v 128.
+
+At hd 256 the kernel's two warps of a 16-row group split the work by role
+(one computes P and dV, the other dP, dS and dK; in the dQ kernel each keeps
+half of dQ's columns): every sum runs over the same terms in the same order
+as with one warp, so the walk checked here is the same.
 
 The card holds the kernel itself against the plain version
 (tests/test_torch_kernels_cuda.py::test_flash_bwd_kernel_matches_plain).
@@ -26,19 +32,25 @@ import torch
 from repro_torch.kernels import flash_attention as k1
 
 TILE = 64
-# (b, s, h, kv, hd, causal, window, cap, scale): the card test's eight shapes,
-# then S = 512 at G = 4 and S = 1
+# (b, s, h, kv, hd, hd_v, causal, window, cap, scale): the card test's eight
+# shapes, then S = 512 at G = 4 and S = 1, then the wide instances: hd 256
+# GQA with Gemma-2's soft-cap and scale, hd 256 MQA at G = 16 with a window
+# (Griffin), MLA's qk 192 / v 128 and, ragged at G = 3, 24 / 16
 SHAPES = [
-    (2, 512, 32, 8, 128, True, 0, 0.0, None),
-    (8, 256, 8, 8, 64, True, 0, 0.0, None),
-    (2, 100, 4, 2, 32, True, 16, 50.0, 16.0 ** -0.5),
-    (2, 77, 7, 1, 8, True, 0, 0.0, None),
-    (1, 130, 4, 2, 16, True, 48, 0.0, None),
-    (2, 96, 4, 4, 64, False, 0, 30.0, None),
-    (1, 200, 8, 2, 128, True, 64, 20.0, None),
-    (1, 65, 2, 1, 32, False, 24, 0.0, None),
-    (1, 512, 8, 2, 64, True, 0, 0.0, None),
-    (2, 1, 4, 2, 16, True, 0, 0.0, None),
+    (2, 512, 32, 8, 128, 128, True, 0, 0.0, None),
+    (8, 256, 8, 8, 64, 64, True, 0, 0.0, None),
+    (2, 100, 4, 2, 32, 32, True, 16, 50.0, 16.0 ** -0.5),
+    (2, 77, 7, 1, 8, 8, True, 0, 0.0, None),
+    (1, 130, 4, 2, 16, 16, True, 48, 0.0, None),
+    (2, 96, 4, 4, 64, 64, False, 0, 30.0, None),
+    (1, 200, 8, 2, 128, 128, True, 64, 20.0, None),
+    (1, 65, 2, 1, 32, 32, False, 24, 0.0, None),
+    (1, 512, 8, 2, 64, 64, True, 0, 0.0, None),
+    (2, 1, 4, 2, 16, 16, True, 0, 0.0, None),
+    (2, 192, 8, 4, 256, 256, True, 100, 50.0, 224.0 ** -0.5),
+    (1, 200, 16, 1, 256, 256, True, 64, 0.0, None),
+    (2, 160, 4, 4, 192, 128, True, 0, 0.0, None),
+    (2, 77, 6, 2, 24, 16, True, 0, 0.0, None),
 ]
 
 
@@ -53,14 +65,17 @@ def _mask(s, causal, window):
     return keep
 
 
-def _inputs(b, s, h, kv, hd, seed):
+def _inputs(b, s, h, kv, hd, seed, hd_v=None):
+    """q, k [.., hd], v and dO [.., hd_v] (hd_v = hd by default)."""
     rng = np.random.default_rng(seed)
+    hd_v = hd if hd_v is None else hd_v
     return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
-            for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, s, h, hd))]
+            for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd_v),
+                          (b, s, h, hd_v))]
 
 
-@pytest.mark.parametrize("b,s,h,kv,hd,causal,window,cap,scale", SHAPES)
-def test_work_table_covers_live_tiles_longest_first(b, s, h, kv, hd, causal,
+@pytest.mark.parametrize("b,s,h,kv,hd,hd_v,causal,window,cap,scale", SHAPES)
+def test_work_table_covers_live_tiles_longest_first(b, s, h, kv, hd, hd_v, causal,
                                                     window, cap, scale):
     table = k1.bwd_work_table(b, s, h, kv, causal, window)
     n_t = -(-s // TILE)
@@ -85,15 +100,15 @@ def test_work_table_covers_live_tiles_longest_first(b, s, h, kv, hd, causal,
 def _run_table(q, k, v, o, lse, do, causal, window, cap, scale):
     """dK, dV from the work table, item by item with the plain formulas:
     each item writes the partials of its keys for its query head's slot g
-    of the scratch [2, G, B, S, KV, hd], then the G slots are summed in the
-    order g = 0 .. G - 1."""
+    of the scratches [G, B, S, KV, hd] and [G, B, S, KV, hd_v], then the G
+    slots are summed in the order g = 0 .. G - 1."""
     b, s, h, hd = q.shape
-    kv = k.shape[2]
+    kv, hd_v = k.shape[2], v.shape[3]
     g = h // kv
     sc = hd ** -0.5 if scale is None else scale
     keep = _mask(s, causal, window)
     delta = (do * o).sum(-1)                                  # [b, s, h]
-    part = torch.zeros((2, g, b, s, kv, hd))
+    part = [torch.zeros((g, b, s, kv, hd)), torch.zeros((g, b, s, kv, hd_v))]
     written = torch.zeros((g, b, s, kv), dtype=torch.int64)
     for bi, hi, kt, q0, q1 in k1.bwd_work_table(b, s, h, kv, causal, window).tolist():
         keys = slice(kt * TILE, min(s, kt * TILE + TILE))
@@ -106,21 +121,21 @@ def _run_table(q, k, v, o, lse, do, causal, window, cap, scale):
             t = torch.tanh(raw / cap)
             raw, dcap = cap * t, 1.0 - t * t
         p = torch.exp(raw - lse[bi, hi, rows][:, None]).masked_fill(~keep[rows, keys], 0.0)
-        ds = p * (doh @ vh.T - delta[bi, rows, hi][:, None]) * dcap
-        part[0, hi % g, bi, keys, hi // g] = ds.T @ (qh * sc)
-        part[1, hi % g, bi, keys, hi // g] = p.T @ doh
+        ds = p * dcap * (doh @ vh.T - delta[bi, rows, hi][:, None])
+        part[0][hi % g, bi, keys, hi // g] = ds.T @ (qh * sc)
+        part[1][hi % g, bi, keys, hi // g] = p.T @ doh
         written[hi % g, bi, keys, hi // g] += 1
     assert bool((written == 1).all())                   # every partial row once
-    dk, dv = part[0, 0].clone(), part[1, 0].clone()
+    dk, dv = part[0][0].clone(), part[1][0].clone()
     for gi in range(1, g):
-        dk, dv = dk + part[0, gi], dv + part[1, gi]
+        dk, dv = dk + part[0][gi], dv + part[1][gi]
     return dk, dv
 
 
-@pytest.mark.parametrize("b,s,h,kv,hd,causal,window,cap,scale", SHAPES)
-def test_work_table_executed_on_cpu_equals_plain(b, s, h, kv, hd, causal, window,
-                                                 cap, scale):
-    q, k, v, do = _inputs(b, s, h, kv, hd, seed=s + h)
+@pytest.mark.parametrize("b,s,h,kv,hd,hd_v,causal,window,cap,scale", SHAPES)
+def test_work_table_executed_on_cpu_equals_plain(b, s, h, kv, hd, hd_v, causal,
+                                                 window, cap, scale):
+    q, k, v, do = _inputs(b, s, h, kv, hd, seed=s + h, hd_v=hd_v)
     kw = dict(causal=causal, window=window, logit_cap=cap, scale=scale)
     o, lse = k1.flash_attention_lse(q, k, v, **kw)
     _, dk_want, dv_want = k1.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
@@ -160,17 +175,22 @@ def _product(a, b, mode):
     return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
 
 
-def _emulated_bwd(q, k, v, o, lse, do, scale, mode):
-    """The kernel's backward for one head group (q, o, do [H, S, hd]; k, v
-    [S, hd]; lse [H, S]; causal) with its five products in ``mode``."""
+def _emulated_bwd(q, k, v, o, lse, do, scale, mode, cap=0.0):
+    """The kernel's backward for one head group (q [H, S, hd], o, do
+    [H, S, hd_v]; k [S, hd], v [S, hd_v]; lse [H, S]; causal, soft-capped at
+    ``cap`` if set) with its five products in ``mode``."""
     dt = torch.float64 if mode == "f64" else torch.float32
     q, k, v, o, lse, do = (x.to(dt) for x in (q, k, v, o, lse, do))
     s = q.shape[1]
     keep = _mask(s, True, 0)
     raw = scale * _product(q, k.T, mode)                        # [H, S, S]
+    dcap = 1.0
+    if cap:
+        t = torch.tanh(raw / cap)
+        raw, dcap = cap * t, 1.0 - t * t
     p = torch.exp(raw - lse[..., None]).masked_fill(~keep, 0.0)
     delta = (do * o).sum(-1, keepdim=True)
-    ds = p * (_product(do, v.T, mode) - delta)
+    ds = p * dcap * (_product(do, v.T, mode) - delta)
     dv = _product(p.transpose(1, 2), do, mode).sum(0)
     dk = scale * _product(ds.transpose(1, 2), q, mode).sum(0)
     dq = scale * _product(ds, k, mode)
@@ -194,4 +214,27 @@ def test_3xtf32_products_meet_the_gradient_tolerance(mode, meets):
     got = _emulated_bwd(*args, mode)
     err = max(float((g.double() - t).abs().max() / t.abs().max())
               for g, t in zip(got, truth))
+    assert (err <= 1e-4) == meets, err
+
+
+@pytest.mark.parametrize("mode,meets", [("3xtf32", True), ("tf32", False)])
+@pytest.mark.parametrize("g,hd,hd_v,cap,scale", [
+    (2, 256, 256, 50.0, 224.0 ** -0.5),       # Gemma-2-9B: G = 2, soft-cap 50
+    (1, 192, 128, 0.0, 192 ** -0.5),          # DeepSeek-V2-Lite's MLA
+], ids=["gemma2-hd256", "mla-192-128"])
+def test_3xtf32_products_meet_the_gradient_tolerance_at_wide_heads(
+        g, hd, hd_v, cap, scale, mode, meets):
+    """The wide instances' training shapes cut to one head group (S=512,
+    causal), unit-normal inputs, against float64: the kernel's 3xTF32 split
+    meets 1e-4 of each gradient's largest value; one TF32 product misses
+    it."""
+    q, k, v, do = _inputs(1, 512, g, 1, hd, seed=11, hd_v=hd_v)
+    kw = dict(logit_cap=cap, scale=scale)
+    o, lse = k1.flash_attention_lse(q, k, v, **kw)
+    args = (q[0].transpose(0, 1), k[0, :, 0], v[0, :, 0], o[0].transpose(0, 1),
+            lse[0], do[0].transpose(0, 1), scale)
+    truth = _emulated_bwd(*args, "f64", cap=cap)
+    got = _emulated_bwd(*args, mode, cap=cap)
+    err = max(float((u.double() - t).abs().max() / t.abs().max())
+              for u, t in zip(got, truth))
     assert (err <= 1e-4) == meets, err

@@ -984,30 +984,39 @@ def _max_rel(got, want):
                  / want.float().abs().max().clamp_min(1e-30))
 
 
-@pytest.mark.parametrize("b,s,h,kv,hd,causal,window,cap,scale", [
-    (2, 512, 32, 8, 128, True, 0, 0.0, None),     # llama3-8b's training shape
-    (8, 256, 8, 8, 64, True, 0, 0.0, None),       # the quickstart recipe
-    (2, 100, 4, 2, 32, True, 16, 50.0, 16.0 ** -0.5),  # reduced gemma2
-    (2, 77, 7, 1, 8, True, 0, 0.0, None),         # hd 8, G = 7, ragged S
-    (1, 130, 4, 2, 16, True, 48, 0.0, None),      # hd 16, window, ragged S
-    (2, 96, 4, 4, 64, False, 0, 30.0, None),      # non-causal, soft-cap
-    (1, 200, 8, 2, 128, True, 64, 20.0, None),    # hd 128: window and cap
-    (1, 65, 2, 1, 32, False, 24, 0.0, None),      # non-causal window, 2 tiles
-    (1, 512, 8, 2, 64, True, 0, 0.0, None),       # G = 4: partials, fixed-order sum
-    (2, 192, 4, 4, 128, True, 0, 0.0, None),      # G = 1: no scratch
-    (2, 40, 6, 2, 32, True, 0, 0.0, None),        # S < 64: one tile
-    (4, 384, 16, 4, 64, True, 0, 0.0, None),      # 384 work items, > 132 SMs
+@pytest.mark.parametrize("b,s,h,kv,hd,hd_v,causal,window,cap,scale", [
+    (2, 512, 32, 8, 128, 128, True, 0, 0.0, None),     # llama3-8b's training shape
+    (8, 256, 8, 8, 64, 64, True, 0, 0.0, None),        # the quickstart recipe
+    (2, 100, 4, 2, 32, 32, True, 16, 50.0, 16.0 ** -0.5),  # reduced gemma2
+    (2, 77, 7, 1, 8, 8, True, 0, 0.0, None),           # hd 8, G = 7, ragged S
+    (1, 130, 4, 2, 16, 16, True, 48, 0.0, None),       # hd 16, window, ragged S
+    (2, 96, 4, 4, 64, 64, False, 0, 30.0, None),       # non-causal, soft-cap
+    (1, 200, 8, 2, 128, 128, True, 64, 20.0, None),    # hd 128: window and cap
+    (1, 65, 2, 1, 32, 32, False, 24, 0.0, None),       # non-causal window, 2 tiles
+    (1, 512, 8, 2, 64, 64, True, 0, 0.0, None),        # G = 4: partials, fixed-order sum
+    (2, 192, 4, 4, 128, 128, True, 0, 0.0, None),      # G = 1: no scratch
+    (2, 40, 6, 2, 32, 32, True, 0, 0.0, None),         # S < 64: one tile
+    (4, 384, 16, 4, 64, 64, True, 0, 0.0, None),       # 384 work items, > 132 SMs
+    (2, 512, 16, 8, 256, 256, True, 4096, 50.0, 224.0 ** -0.5),  # gemma2-9b local
+    (2, 512, 16, 8, 256, 256, True, 0, 50.0, 224.0 ** -0.5),     # gemma2-9b global
+    (2, 512, 16, 1, 256, 256, True, 2048, 0.0, None),  # recurrentgemma-9b, G = 16
+    (2, 333, 16, 8, 256, 256, True, 0, 50.0, None),    # hd 256, ragged S
+    (1, 200, 4, 2, 256, 256, False, 40, 30.0, None),   # hd 256: non-causal window
+    (2, 512, 16, 16, 192, 128, True, 0, 0.0, 192 ** -0.5),  # deepseek-v2-lite MLA
+    (1, 130, 4, 2, 192, 128, True, 48, 20.0, None),    # (192, 128): G = 2, window, cap
+    (2, 256, 4, 4, 24, 16, True, 0, 0.0, 24 ** -0.5),  # MLA reduced
+    (2, 77, 6, 2, 24, 16, False, 24, 30.0, None),      # (24, 16): G = 3, ragged
 ])
-def test_flash_bwd_kernel_matches_plain(b, s, h, kv, hd, causal, window, cap,
-                                        scale):
+def test_flash_bwd_kernel_matches_plain(b, s, h, kv, hd, hd_v, causal, window,
+                                        cap, scale):
     """dQ, dK, dV of the backward kernel against ``flash_attention_bwd_plain``
     on the same o and lse: max |diff| <= 1e-4 of the largest reference
     gradient (3xTF32 products on the tensor cores against float32 matmuls in
-    another order)."""
+    another order), at every built (qk, v) pair."""
     q = _normal((b, s, h, hd), torch.float32, 1)
     k = _normal((b, s, kv, hd), torch.float32, 2)
-    v = _normal((b, s, kv, hd), torch.float32, 3)
-    do = _normal((b, s, h, hd), torch.float32, 4)
+    v = _normal((b, s, kv, hd_v), torch.float32, 3)
+    do = _normal((b, s, h, hd_v), torch.float32, 4)
     kw = dict(causal=causal, window=window, logit_cap=cap, scale=scale)
     o, lse = k1.flash_attention_lse(q, k, v, **kw)
     before = k1.flash_attention_bwd.launches
@@ -1122,15 +1131,39 @@ def test_flash_autograd_launches_forward_and_backward_kernels():
     assert k1.flash_attention_bwd.launches == b0 + 1
 
 
+@pytest.mark.parametrize("hd,hd_v,window,cap", [(256, 256, 20, 50.0),
+                                                (192, 128, 0, 0.0),
+                                                (24, 16, 0, 30.0)])
+def test_flash_autograd_runs_the_wide_backward_instances(hd, hd_v, window, cap):
+    """Autograd through ``flash_attention`` at hd 256 and MLA's pairs: one
+    forward and one backward launch, gradients within 1e-4 of the plain
+    version's autograd."""
+    q = _normal((2, 96, 4, hd), torch.float32, 8).requires_grad_()
+    k = _normal((2, 96, 2, hd), torch.float32, 9).requires_grad_()
+    v = _normal((2, 96, 2, hd_v), torch.float32, 10).requires_grad_()
+    kw = dict(window=window, logit_cap=cap)
+    f0, b0 = k1.flash_attention.launches, k1.flash_attention_bwd.launches
+    o = k1.flash_attention(q, k, v, **kw)
+    do = _normal(tuple(o.shape), torch.float32, 11)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert k1.flash_attention.launches == f0 + 1
+    assert k1.flash_attention_bwd.launches == b0 + 1
+    want = torch.autograd.grad(k1.flash_attention_plain(q, k, v, **kw), (q, k, v), do)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert _max_rel(g, w) <= 1e-4
+
+
 @pytest.mark.parametrize("dtype,hd,hd_v", [(torch.bfloat16, 64, 64),
-                                           (torch.float32, 256, 256),
-                                           (torch.float32, 192, 128),
-                                           (torch.float32, 24, 16)])
+                                           (torch.float32, 48, 48),
+                                           (torch.float32, 128, 64)])
 def test_flash_autograd_rejects_unsupported(dtype, hd, hd_v):
+    """bf16 (the backward is float32) and pairs no instance builds raise."""
     q = _normal((1, 64, 2, hd), dtype, 1).requires_grad_()
     k = _normal((1, 64, 2, hd), dtype, 2)
     v = _normal((1, 64, 2, hd_v), dtype, 3)
-    with pytest.raises(ValueError, match="backward"):
+    with pytest.raises(ValueError, match="backward.*float32"):
         k1.flash_attention(q, k, v)
 
 
@@ -1178,12 +1211,18 @@ def test_reduced_train_steps_on_the_card_repeat_and_match_the_cpu(compression):
 
 
 @pytest.mark.parametrize("arch,tol", [("llama3-8b", 5e-4),
-                                      ("qwen3-moe-30b-a3b", 1e-4)])
+                                      ("qwen3-moe-30b-a3b", 1e-4),
+                                      ("deepseek-v2-lite-16b", 1e-4),
+                                      ("gemma2-9b", 1.2e-3)])
 def test_reduced_gradients_on_the_card_match_the_cpu(arch, tol):
     """Step-0 gradients, card vs CPU, within ``tol`` of each leaf's max
     (float32 in other orders; reduced llama3-8b's init saturates its
-    softmax, whose gradients cancel: chip_smoke.py's TRAIN_GRAD_TOL); K1's
-    backward runs once a layer."""
+    softmax, whose gradients cancel: chip_smoke.py's TRAIN_GRAD_TOL; reduced
+    gemma2 is ill-conditioned in float32: either package's gradients lie
+    2e-4 to 6e-4 of the leaf max from a float64 evaluation,
+    tests/test_torch_training.py's GRAD_TOL, so two float32 evaluations may
+    lie twice that apart); K1's backward runs once a layer (deepseek-v2-lite:
+    the (24, 16) instance, gemma2: hd 32 with the soft-cap)."""
     bundle = get_bundle(arch, reduced=True)
     params = bundle.init(torch.Generator().manual_seed(0), "cpu",
                          torch.float32)
@@ -1400,6 +1439,50 @@ def test_scan_blocks_on_the_card_give_every_parameter_its_gradient(arch):
     before = counter.launches
     card = _block_grads(fn, lp, x, "cuda")
     assert counter.launches == before + 1
+    cpu = _block_grads(fn, lp, x, "cpu")
+    for u, w in zip(card, cpu):
+        assert _max_rel(u, w) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "recurrentgemma-9b"])
+def test_full_width_attention_block_gradients_on_the_card_match_the_cpu(arch):
+    """One full-width attention block at S = 512 through autograd: gemma2-9b's
+    local block (hd 256, GQA 16/8, soft-cap 50, scale 224^-1/2, window
+    4,096, its FFN and sandwich norms) and recurrentgemma-9b's local MQA
+    attention block (hd 256, G = 16, window 2,048).  K1's forward and
+    backward run once each on the card; the input's and every parameter's
+    gradient within 1e-4 of the largest CPU value (the plain versions'
+    autograd).  wq and wk are rescaled for unit-variance scores, as
+    chip_smoke.py's ``conditioned``: the reference's ``dense_init`` takes
+    their fan-in from H and KV, so at full width the scores' std is ~256,
+    the softmax is an argmax, and float32 order alone parts card from CPU
+    by 1.2e-4 (gemma2) and 1.1e-3 (Griffin) of a leaf's max (this test on
+    those weights, on an H100)."""
+    from repro_torch.configs import get
+    from repro_torch.models import griffin, transformer
+
+    cfg = get(arch)
+    gen = torch.Generator().manual_seed(0)
+    if arch == "gemma2-9b":
+        lp = transformer._block_params(cfg, gen, "cpu", torch.float32)
+        attn, n_kv = lp["attn"], cfg.n_kv
+        window = int(cfg.windows()[0])
+
+        def fn(xi, p):
+            return transformer.block_forward(xi, p, cfg, window=window)
+    else:
+        lp = attn = griffin._attn_params(cfg, gen, "cpu", torch.float32)
+        n_kv = 1
+
+        def fn(xi, p):
+            return griffin.attn_forward(xi, p, cfg)
+    attn["wq"] = attn["wq"] * (cfg.n_heads / cfg.d_model) ** 0.5
+    attn["wk"] = attn["wk"] * (n_kv / cfg.d_model) ** 0.5
+    x = _normal((1, 512, cfg.d_model), torch.float32, 7).cpu()
+    f0, b0 = k1.flash_attention.launches, k1.flash_attention_bwd.launches
+    card = _block_grads(fn, lp, x, "cuda")
+    assert k1.flash_attention.launches == f0 + 1
+    assert k1.flash_attention_bwd.launches == b0 + 1
     cpu = _block_grads(fn, lp, x, "cpu")
     for u, w in zip(card, cpu):
         assert _max_rel(u, w) <= 1e-4

@@ -70,7 +70,8 @@ from repro_torch.training import (
     make_train_step,
 )
 
-ARCHS = ("llama3-8b", "gemma2-9b", "qwen3-moe-30b-a3b", "internvl2-1b")
+ARCHS = ("llama3-8b", "gemma2-9b", "qwen3-moe-30b-a3b", "internvl2-1b",
+         "deepseek-v2-lite-16b")
 GRAD_TOL = {"gemma2-9b": 2e-4}           # of each leaf's max; 1e-4 elsewhere
 
 
@@ -120,20 +121,24 @@ def _both(arch, seed=0):
 # --------------------------------------------------------------------------- #
 # K1's gradient
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("b,s,h,kv,hd,causal,window,cap,scale", [
-    (2, 40, 4, 2, 16, True, 0, 0.0, None),      # causal GQA
-    (1, 37, 6, 2, 8, True, 7, 0.0, None),       # window, ragged, hd 8
-    (2, 33, 4, 2, 32, True, 16, 50.0, 16.0 ** -0.5),  # gemma2: cap, window, scale
-    (1, 29, 7, 1, 8, True, 0, 0.0, None),       # MQA at G = 7 (internvl2)
-    (2, 24, 4, 4, 16, False, 0, 30.0, None),    # non-causal, soft-cap
+@pytest.mark.parametrize("b,s,h,kv,hd,hd_v,causal,window,cap,scale", [
+    (2, 40, 4, 2, 16, 16, True, 0, 0.0, None),      # causal GQA
+    (1, 37, 6, 2, 8, 8, True, 7, 0.0, None),        # window, ragged, hd 8
+    (2, 33, 4, 2, 32, 32, True, 16, 50.0, 16.0 ** -0.5),  # gemma2: cap, window, scale
+    (1, 29, 7, 1, 8, 8, True, 0, 0.0, None),        # MQA at G = 7 (internvl2)
+    (2, 24, 4, 4, 16, 16, False, 0, 30.0, None),    # non-causal, soft-cap
+    (1, 45, 8, 1, 256, 256, True, 20, 0.0, None),   # Griffin: hd 256 MQA, window
+    (2, 38, 4, 2, 256, 256, True, 16, 50.0, 224.0 ** -0.5),  # gemma2-9b's hd 256
+    (2, 35, 4, 4, 192, 128, True, 0, 0.0, 192 ** -0.5),  # MLA at full width
+    (2, 31, 4, 4, 24, 16, True, 0, 0.0, 24 ** -0.5),     # MLA reduced
 ])
-def test_attention_grads_match_reference(b, s, h, kv, hd, causal, window, cap,
-                                         scale):
+def test_attention_grads_match_reference(b, s, h, kv, hd, hd_v, causal, window,
+                                         cap, scale):
     rng = np.random.default_rng(s)
     q = rng.standard_normal((b, s, h, hd), dtype=np.float32)
     k = rng.standard_normal((b, s, kv, hd), dtype=np.float32)
-    v = rng.standard_normal((b, s, kv, hd), dtype=np.float32)
-    do = rng.standard_normal((b, s, h, hd), dtype=np.float32)
+    v = rng.standard_normal((b, s, kv, hd_v), dtype=np.float32)
+    do = rng.standard_normal((b, s, h, hd_v), dtype=np.float32)
 
     def ref(q, k, v):
         o = jax_chunked_attention(q, k, v, causal=causal, window=window,
