@@ -16,7 +16,8 @@ Griffin's hd 256 shape, of K3 (decode attention) at the generation path's
 decode shape, and of K4 (the SSD chunk scan, bf16, final state returned) at
 Mamba-2's prefill shape, of K1's float32 forward with lse (as training
 calls it) at Llama-3-8B's and the quickstart's training shapes, of K1's
-backward (float32) at Llama-3-8B's training shape, at hd 8 with G=7 and at
+backward (float32, and bf16 where the checkout builds it) at Llama-3-8B's
+training shape, at hd 8 with G=7 and at
 gemma2-9b's, recurrentgemma-9b's (hd 256) and deepseek-v2-lite's (MLA)
 (``chip_smoke.TRAIN_BWD``; where a checkout builds the instance), of K4's
 float32 forward and K4's backward at each shape of ``chip_smoke.SSD_BWD``
@@ -163,21 +164,22 @@ def measure(root: pathlib.Path, sweep: bool) -> list[dict]:
                          by_name=cs.kernel_split(fwd, 20)))
 
     for label, b, s, h, kv, hd, hd_v, window, cap, scale in cs.TRAIN_BWD:
-        if label not in K1_BWD_SHAPES or not k1.supported_bwd(hd, hd_v, torch.float32):
-            continue                    # a checkout without this instance
-        q, k, v, do = (cs.normal(shape, torch.float32, seed) for shape, seed in (
-            ((b, s, h, hd), 21), ((b, s, kv, hd), 22), ((b, s, kv, hd_v), 23),
-            ((b, s, h, hd_v), 24)))
-        kw = dict(causal=True, window=window, logit_cap=cap, scale=scale)
-        o, lse = k1.flash_attention_lse(q, k, v, **kw)
+        for dt, name in ((torch.float32, "K1 bwd"), (torch.bfloat16, "K1 bwd bf16")):
+            if label not in K1_BWD_SHAPES or not k1.supported_bwd(hd, hd_v, dt):
+                continue                # a checkout without this instance
+            q, k, v, do = (cs.normal(shape, dt, seed) for shape, seed in (
+                ((b, s, h, hd), 21), ((b, s, kv, hd), 22), ((b, s, kv, hd_v), 23),
+                ((b, s, h, hd_v), 24)))
+            kw = dict(causal=True, window=window, logit_cap=cap, scale=scale)
+            o, lse = k1.flash_attention_lse(q, k, v, **kw)
 
-        def bwd(q=q, k=k, v=v, o=o, lse=lse, do=do, kw=kw):
-            return k1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            def bwd(q=q, k=k, v=v, o=o, lse=lse, do=do, kw=kw):
+                return k1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
 
-        bwd()
-        torch.cuda.synchronize()
-        rows.append(dict(kernel="K1 bwd", shape=label, us=1e3 * cs.graph_ms(bwd, 20),
-                         by_name=cs.kernel_split(bwd, 20)))
+            bwd()
+            torch.cuda.synchronize()
+            rows.append(dict(kernel=name, shape=label, us=1e3 * cs.graph_ms(bwd, 20),
+                             by_name=cs.kernel_split(bwd, 20)))
 
     rows += measure_k4_f32(cs, k4)
 

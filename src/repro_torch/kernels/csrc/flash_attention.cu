@@ -24,7 +24,8 @@
 // what the design must avoid is float32 FMAs (67 TFLOP/s, 32 us) and loads
 // that stall the products.  Two instances, both on the tensor cores:
 //
-// bfloat16 (the model path), flash_fwd_wgmma_kernel: one warpgroup (128
+// bfloat16 (the model path: serving, and training in bf16),
+// flash_fwd_wgmma_kernel: one warpgroup (128
 // threads) owns the 64-row query tile, wgmma's M.  S = Q K^T is
 // wgmma.m64n64k16 with Q and K read from shared memory (sw128 tiles, see
 // sm90.cuh); the scale, soft-cap, mask and online softmax act on the float32
@@ -45,7 +46,7 @@
 // grid's y axis walks query tiles from the last, so the causal tiles with the
 // most KV tiles start first.
 //
-// float32 (training, and every float32 check), flash_fwd_f32_mma_kernel:
+// float32 (float32 training and every float32 check), flash_fwd_f32_mma_kernel:
 // what bounds it at Llama-3-8B's training shape (B=2, S=512, H=32, KV=8,
 // HD=128, with lse) is 4.30 GFLOP of float32-accurate products, 64 us on the
 // float32 CUDA cores and 26 us as 3xTF32 on the tensor cores, against 42.1
@@ -84,12 +85,14 @@
 // planes of each operand there (the split cannot be made in registers), and
 // a layout for each of the eight (DQK, DV) pairs; the mma.sync fragments,
 // loaders and the accumulator-to-A trick of K1's and K4's backwards serve
-// every pair.  Given an lse pointer (training: the backward in
-// flash_attention_bwd.cu recomputes the probabilities from it) it also
-// writes each row's log-sum-exp in natural log, m ln 2 + log(l) [B, H, S];
-// serving passes none, and o does not depend on it.  Every output is
-// written once after sums in a fixed order: no atomics, the same bits from
-// run to run.
+// every pair.
+//
+// Both instances, given an lse pointer (training: the backward in
+// flash_attention_bwd.cu recomputes the probabilities from it), also write
+// each row's log-sum-exp in natural log, m ln 2 + log(l), float32 [B, H, S],
+// in their epilogue, where l is summed and m held; serving passes none, and
+// o does not depend on it.  Every output is written once after sums in a
+// fixed order: no atomics, the same bits from run to run.
 
 #include <stdint.h>
 
@@ -104,6 +107,7 @@ using bf16 = __nv_bfloat16;
 constexpr int BQ = 64;          // query rows per block
 constexpr float NEG_INF = -2.0e38f;  // the Pallas kernel's mask value
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
 // bfloat16: tensor cores (wgmma)
@@ -169,8 +173,8 @@ template <int DQK, int DV>
 __global__ void __launch_bounds__(128, 1)
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o,
-                       int S, int H, int KV, int causal, int window,
-                       float logit_cap, float scale) {
+                       float* __restrict__ lse, int S, int H, int KV, int causal,
+                       int window, float logit_cap, float scale) {
   using C = TcCfg<DQK, DV>;
   constexpr int BK = C::BK, STAGES = C::STAGES, ON = C::ON, NO = C::NO;
   extern __shared__ uint8_t smem_raw[];
@@ -349,11 +353,20 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           *reinterpret_cast<uint32_t*>(ob + qp * o_row + col) = pk;
         }
       }
+  // natural log, as the backward reads it: m is in log2 units, lse = m ln 2
+  // + log l (the float32 instance's epilogue)
+  if (lse != nullptr && (lane & 3) == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = q0 + r_lo + 8 * r;
+      if (qp < S)
+        lse[((size_t)b * H + h) * S + qp] = m[r] * LN2 + logf(fmaxf(l[r], 1e-30f));
+    }
 }
 
 template <int DQK, int DV>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                         int B, int S, int H, int KV, int causal, int window,
+                         void* lse, int B, int S, int H, int KV, int causal, int window,
                          float logit_cap, float scale, cudaStream_t stream) {
   constexpr int smem = TcCfg<DQK, DV>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
@@ -363,8 +376,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
   flash_fwd_wgmma_kernel<DQK, DV><<<grid, 128, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, KV, causal,
-      window, logit_cap, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), S, H, KV, causal, window, logit_cap, scale);
   return cudaGetLastError();
 }
 
@@ -373,8 +386,6 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
 // ---------------------------------------------------------------------------
 
 namespace tf32x3 = repro_torch::tf32x3;
-
-constexpr float LN2 = 0.6931471805599453f;
 
 // One instance's shape: BQ query rows a block, in warps of 16 rows; at
 // DV > 128 two warps share 16 rows, each owning half of the output columns
@@ -663,7 +674,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      cudaStream_t stream) {
 #define REPRO_FLASH_PAIR(dqk, dv, bq, stages)                                 \
   if (DQK == dqk && DV == dv)                                                 \
-    return BF16 ? launch_wgmma<dqk, dv>(q, k, v, o, B, S, H, KV, causal,      \
+    return BF16 ? launch_wgmma<dqk, dv>(q, k, v, o, lse, B, S, H, KV, causal, \
                                         window, logit_cap, scale, stream)     \
                 : launch_f32<dqk, dv, bq, stages>(q, k, v, o, lse, B, S, H,   \
                                                   KV, causal, window,         \
@@ -685,18 +696,16 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 // Returns the cudaError_t of the launch (0 on success).  is_bf16 selects the
 // storage type of q, k, v and o: 1 bfloat16 (wgmma), 0 float32 (3xTF32 mma.sync).
 // HD is the head dim of q and k, HDV that of v and o.  lse (float32
-// [B, H, S]) is written when it is not null; only the float32 instance takes
-// one.
+// [B, H, S]) is written when it is not null, by either instance.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int is_bf16, int B,
                                    int S, int H, int KV, int HD, int HDV,
                                    int causal, int window, float logit_cap,
                                    float scale, void* stream) {
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
-  if (is_bf16 && lse != nullptr) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch<true>(q, k, v, o, nullptr, B, S, H, KV, HD, HDV, causal,
+    return dispatch<true>(q, k, v, o, lse, B, S, H, KV, HD, HDV, causal,
                           window, logit_cap, scale, st);
   return dispatch<false>(q, k, v, o, lse, B, S, H, KV, HD, HDV, causal, window,
                          logit_cap, scale, st);

@@ -11,13 +11,14 @@ hd=128, bf16) the function reads q, k, v and writes o, 10.5 MB, 3.1 us at
 3.35 TB/s; its causal products are 2.15 GFLOP, 2.2 us at the bf16 tensor
 rate.  The kernel (``csrc/flash_attention.cu``) keeps the whole softmax
 state in registers and never writes the S x S score matrix, so it moves only
-those bytes.  Its bfloat16 instance (the model path) computes both products
-on the tensor cores with ``wgmma`` (Q K^T from shared memory, P V with P in
-registers, float32 accumulation) and streams K/V tiles through a 2-stage
-``cp.async`` ring.  Its float32 instance (training, and every float32
-check) is bound by its products: 4.30 GFLOP at Llama-3-8B's training shape
-(B=2, S=512), 64 us on the float32 CUDA cores, 26 us as 3xTF32 on the
-tensor cores.  One TF32 product misses the float32 tolerance, so it runs
+those bytes.  Its bfloat16 instance (the model path, serving and
+training) computes both products on the tensor cores with ``wgmma`` (Q K^T
+from shared memory, P V with P in registers, float32 accumulation) and
+streams K/V tiles through a 2-stage ``cp.async`` ring.  Its float32
+instance (float32 training and every float32 check) is bound by its
+products: 4.30 GFLOP at Llama-3-8B's training shape (B=2, S=512), 64 us on
+the float32 CUDA cores, 26 us as 3xTF32 on the tensor cores.  One TF32
+product misses the float32 tolerance, so it runs
 both products as ``mma.sync`` TF32 in the 3xTF32 split of
 ``csrc/tf32x3.cuh``, as the backward does: q scaled and split once per
 block, K and V split as loaded, streamed through ``cp.async`` copies that
@@ -27,29 +28,37 @@ registers, the longest causal query tiles first.  Griffin's local attention runs
 MLA (DeepSeek-V2) with a qk head dim of 192 against a v head dim of 128.
 
 Training differentiates it: for CUDA tensors that need a gradient the
-wrapper runs the float32 instance through an autograd function whose
-forward also writes the rows' log-sum-exp and whose backward is a kernel of
-its own (``csrc/flash_attention_bwd.cu``, float32, at every pair the forward
-builds: hd = hd_v in 8 to 256 and MLA's (192, 128) and (24, 16)), which
-replaces no TPU kernel (the reference differentiates its XLA attention).
-What bounds the backward: at Llama-3-8B's training shape (B=2, S=512,
-H=32, KV=8, hd=128) its five products of the causal pairs are 10.76 GFLOP
-of float32-accurate products, 161 us at the float32 CUDA-core rate or 65 us
-as 3xTF32 on the tensor cores (3 TF32 products each, at 495 TFLOP/s),
-against 84.0 MB moved (q, k, v, o, dO and lse read once, dq, dk and dv
-written once; 25 us); Gemma-2's and Griffin's training shapes at hd 256
-(H=16) need the same 10.76 GFLOP, MLA's (H=16, qk 192, v 128) 6.99 (42
-us).  It runs every product with ``mma.sync`` TF32 fragments in a 3xTF32
-split (``csrc/tf32x3.cuh``: one TF32 product misses the float32 tolerance,
-the split keeps float32 accuracy at 2.5x the CUDA-core rate; ``wgmma``
-would take TF32 operands only K-major from shared memory, and the products
-read q, k, dO, P and dS in both orientations).  Its dK/dV kernel walks the
-work items of :func:`bwd_work_table`, one per (batch, query head, 64-key
-tile), longest first; the G query heads of a KV head write partials to a
-scratch that a second pass sums in the order g = 0 .. G - 1, so the result
-is the same bit for bit from run to run, with no float atomics.  At hd 256
-two warps share each 16 rows, one computing P and keeping dV, the other dP
-and dS and keeping dK, so neither holds both.
+wrapper runs the forward of the inputs' dtype through an autograd function
+whose forward also writes the rows' log-sum-exp (both instances write it)
+and whose backward is a kernel of its own (``csrc/flash_attention_bwd.cu``,
+float32 and bf16, at every pair the forward builds: hd = hd_v in 8 to 256
+and MLA's (192, 128) and (24, 16)), which replaces no TPU kernel (the
+reference differentiates its XLA attention).  Training runs bf16
+activations, as the reference does, so the bf16 instances are its path; the
+float32 ones serve float32 training and every float32 check.  What bounds
+the backward: at Llama-3-8B's training shape (B=2, S=512, H=32, KV=8,
+hd=128) its five products of the causal pairs are 10.76 GFLOP, 10.9 us at
+the bf16 tensor rate against 42.1 MB moved in bf16 (q, k, v, o, dO read
+once, lse float32, dq, dk and dv written once; 12.6 us): the bf16 instance
+is bound by its bytes.  In float32 the same products, float32-accurate, are
+161 us at the float32 CUDA-core rate or 65 us as 3xTF32 on the tensor cores
+(3 TF32 products each, at 495 TFLOP/s), against 84.0 MB (25 us); Gemma-2's
+and Griffin's training shapes at hd 256 (H=16) need the same 10.76 GFLOP,
+MLA's (H=16, qk 192, v 128) 6.99.  The float32 instance runs every product
+with ``mma.sync`` TF32 fragments in a 3xTF32 split (``csrc/tf32x3.cuh``: one
+TF32 product misses the float32 tolerance, the split keeps float32 accuracy
+at 2.5x the CUDA-core rate; ``wgmma`` would take TF32 operands only K-major
+from shared memory, and the products read q, k, dO, P and dS in both
+orientations); the bf16 instance runs them as ``mma.sync`` bf16 m16n8k16
+with float32 accumulators, its operands by ``ldmatrix``, P and dS rounded to
+bf16 only as operands.  Its dK/dV kernel walks the work items of
+:func:`bwd_work_table`, one per (batch, query head, 64-key tile), longest
+first; the G query heads of a KV head write float32 partials to a scratch
+that a second pass sums in the order g = 0 .. G - 1, so the result is the
+same bit for bit from run to run, with no float atomics.  Where one warp
+cannot hold its rows' dK and dV (hd 256), or the pair measured faster (bf16
+from qk 192), two warps share each 16 rows, one computing P and keeping dV,
+the other dP and dS and keeping dK.
 
 The wrapper takes the plain version only for tensors on the CPU (where
 autograd differentiates it); for a CUDA tensor it launches the kernels or
@@ -88,8 +97,8 @@ def supported(hd: int, hd_v: int) -> bool:
 
 def supported_bwd(hd: int, hd_v: int, dtype) -> bool:
     """Whether the backward kernel is built for these head dims and dtype:
-    float32, at every pair of :func:`supported`."""
-    return dtype == torch.float32 and supported(hd, hd_v)
+    float32 or bfloat16, at every pair of :func:`supported`."""
+    return dtype in _DTYPES and supported(hd, hd_v)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -219,8 +228,8 @@ def _bwd_table_on(device, b, s, h, kv, causal, window) -> torch.Tensor:
 
 
 def _launch_fwd(q, k, v, causal, window, logit_cap, scale, with_lse: bool):
-    """The forward kernel on CUDA tensors: o, and lse [B,H,S] (float32
-    instance only) when ``with_lse``."""
+    """The forward kernel on CUDA tensors: o, and the float32 lse [B,H,S]
+    when ``with_lse`` (either instance writes it)."""
     b, s, h, hd = q.shape
     hd_v = v.shape[3]
     if q.dtype not in _DTYPES or not supported(hd, hd_v):
@@ -235,8 +244,6 @@ def _launch_fwd(q, k, v, causal, window, logit_cap, scale, with_lse: bool):
         raise ValueError("kernel takes 16-byte aligned q, k, v")
     if s == 0 or b == 0:
         raise ValueError("empty batch or sequence")
-    if with_lse and q.dtype != torch.float32:
-        raise ValueError("only the float32 instance writes lse")
     o = q.new_empty((b, s, h, hd_v))
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) \
         if with_lse else None
@@ -256,8 +263,9 @@ def flash_attention_lse(q, k, v, *, causal=True, window=0, logit_cap=0.0,
                         scale=None):
     """(o, lse): the forward and its rows' log-sum-exp [B,H,S], float32.
 
-    CPU tensors take the plain version; CUDA tensors launch the float32
-    forward with its lse output (counted in ``flash_attention.launches``).
+    CPU tensors take the plain version; CUDA tensors launch the forward
+    (float32 or bfloat16) with its lse output (counted in
+    ``flash_attention.launches``).
     """
     _check(q, k, v)
     sc = q.shape[3] ** -0.5 if scale is None else scale
@@ -274,8 +282,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
     """(dq, dk, dv) of K1's function from the forward's o and lse.
 
     CPU tensors take :func:`flash_attention_bwd_plain`; CUDA tensors launch
-    the backward kernel (contiguous float32, q, k, v and do 16-byte
-    aligned, head dims that :func:`supported_bwd` names) or raise.
+    the backward kernel (q, k, v, o and do contiguous and of one dtype,
+    float32 or bfloat16, lse float32; q, k, v and do 16-byte aligned; head
+    dims that :func:`supported_bwd` names) or raise.  dq, dk and dv come
+    out in q's dtype.
     ``flash_attention_bwd.launches`` counts its launches (one a call: the
     D, dK/dV, partial-sum (G > 1) and dQ kernels).
     """
@@ -290,8 +300,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for device {q.device}")
     if not supported_bwd(hd, hd_v, q.dtype):
-        raise ValueError(f"the backward kernel takes float32 with hd = hd_v in "
-                         f"{_HEAD_DIMS} or (hd, hd_v) in {_QK_V_PAIRS}; got "
+        raise ValueError(f"the backward kernel takes {_DTYPES} with hd = hd_v "
+                         f"in {_HEAD_DIMS} or (hd, hd_v) in {_QK_V_PAIRS}; got "
                          f"{q.dtype}, hd={hd}, hd_v={hd_v}")
     for name, t, shape, dt in (("o", o, (b, s, h, hd_v), q.dtype),
                                ("do", do, (b, s, h, hd_v), q.dtype),
@@ -316,7 +326,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), items.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), b, s, h, kv, hd, hd_v,
+        None if scratch is None else scratch.data_ptr(),
+        int(q.dtype == torch.bfloat16), b, s, h, kv, hd, hd_v,
         int(causal), int(window), items.shape[0], float(logit_cap), float(sc),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention_bwd")
@@ -325,8 +336,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K1 with its gradient on CUDA tensors: the float32 forward saves o and
-    lse; the backward is the backward kernel."""
+    """K1 with its gradient on CUDA tensors: the forward (float32 or
+    bfloat16) saves o and lse; the backward is the backward kernel of the
+    same dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, logit_cap, scale):
@@ -352,9 +364,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, logit_cap=0.0,
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
     Hopper kernel (contiguous float32 or bfloat16, head dims that
     :func:`supported` names) or raise.  Where grad mode is on and an input
-    requires a gradient, a CUDA call runs the float32 forward with lse and
-    the backward kernel (:func:`supported_bwd`), and raises for any other
-    dtype or head dims.  ``flash_attention.launches`` counts kernel
+    requires a gradient, a CUDA call runs the forward with lse and the
+    backward kernel of its dtype (:func:`supported_bwd`: bf16 training runs
+    the bf16 instances, never the float32 ones), and raises for head dims
+    no instance is built for.  ``flash_attention.launches`` counts kernel
     launches.
     """
     _check(q, k, v)
@@ -366,7 +379,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, logit_cap=0.0,
                                     or v.requires_grad):
         if not supported_bwd(q.shape[3], v.shape[3], q.dtype):
             raise ValueError(f"no backward kernel for {q.dtype}, hd={q.shape[3]}, "
-                             f"hd_v={v.shape[3]}: it takes float32 with hd = "
+                             f"hd_v={v.shape[3]}: it takes {_DTYPES} with hd = "
                              f"hd_v in {_HEAD_DIMS} or (hd, hd_v) in "
                              f"{_QK_V_PAIRS}")
         return _FlashAttention.apply(q, k, v, bool(causal), int(window),

@@ -35,10 +35,11 @@ chunk's Ŝ only when the final state is returned); and y per (batch·head,
 chunk, 64-row tile), the tiles with the most pairs first.
 
 Training differentiates it: for CUDA tensors that need a gradient the
-wrapper runs the float32 instance through an autograd function that saves
-its inputs (never y) and whose backward is a kernel of its own
-(``csrc/ssd_chunk_bwd.cu``), which replaces no TPU kernel (the reference
-differentiates ``models/mamba2.py::ssd_chunked``): the VJP of
+wrapper runs the float32 instance (bf16 x, B and C cast to float32 first, as
+the reference's ``ssd_chunked`` scans in float32, y cast back) through an
+autograd function that saves its inputs (never y) and whose backward is a
+kernel of its own (``csrc/ssd_chunk_bwd.cu``), which replaces no TPU kernel
+(the reference differentiates ``models/mamba2.py::ssd_chunked``): the VJP of
 :func:`ssd_plain`, written out in :func:`ssd_bwd_plain`.  What bounds it:
 at Mamba-2's training shape (B=2, S=512, H=64, P=64, G=1, N=128, chunk 256)
 the function needs 9.19 GFLOP of float32-accurate products (the lower
@@ -301,9 +302,11 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256, state_in=None,
     kernels (x, B, C float32 or bfloat16 with their last two dims
     contiguous; N <= 256, chunk <= 1024) or raise.  Where grad mode is on
     and an input requires a gradient, a CUDA call runs the float32 kernels
-    through :class:`_SSD`, whose backward is :func:`ssd_bwd`, and raises
-    for bfloat16.  ``ssd.launches`` counts the forward calls that launched
-    the kernels (one a call).
+    through :class:`_SSD`, whose backward is :func:`ssd_bwd`, whatever x's
+    dtype: bfloat16 x, B and C are cast to float32 (exact) and y comes back
+    in x's dtype, as the reference's ``ssd_chunked`` scans in float32.
+    Without grad, bfloat16 runs the bf16 kernels.  ``ssd.launches`` counts
+    the forward calls that launched the kernels (one a call).
     """
     _check(x, dt, A, Bm, Cm, state_in)
     if chunk <= 0:
@@ -316,11 +319,11 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256, state_in=None,
     q = _check_kernel_inputs(x, dt, A, Bm, Cm, state_in, chunk)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, state_in)):
-        if x.dtype != torch.float32:
-            raise ValueError(f"no SSD backward kernel for {x.dtype}: it takes "
-                             "float32")
-        out = _SSD.apply(x, dt, A, Bm, Cm, state_in, q, return_state)
-        return out if return_state else out[0]
+        # float32 whatever x's dtype, as the reference's ssd_chunked scans
+        out = _SSD.apply(x.float(), dt, A, Bm.float(), Cm.float(), state_in, q,
+                         return_state)
+        y = out[0].to(x.dtype)
+        return (y, out[1]) if return_state else y
     y, state_out, _ = _launch(x, dt, A, Bm, Cm, q, state_in, return_state)
     ssd.launches += 1
     return (y, state_out) if return_state else y

@@ -168,10 +168,11 @@ def _lm_loss(module, cfg: Any, params: dict, batch: dict) -> torch.Tensor:
     [B,S], and for a transformer an optional "prefix_embeds" [B,P,
     prefix_dim]}) through ``module``'s embedding, its checkpointed
     ``forward_hidden`` and the tied or untied head, with the family's final
-    soft-cap (0 for none).  Activations are float32 (the reference's are
-    bf16): the backward kernels of K1, K4 and K5 take float32."""
-    x = module.embed_tokens(params, cfg, batch["tokens"],
-                            compute_dtype=torch.float32)
+    soft-cap (0 for none).  Activations are bf16, the families'
+    ``embed_tokens`` default, as the reference's: attention runs K1's bf16
+    forward and backward, the SSD and the RG-LRU scan in float32 inside
+    (K4's and K5's float32 kernels), as the reference's do."""
+    x = module.embed_tokens(params, cfg, batch["tokens"])
     prefix = batch.get("prefix_embeds")
     if prefix is not None:
         x = module.embed_prefix(params, prefix, x)

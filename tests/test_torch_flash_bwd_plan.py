@@ -14,7 +14,13 @@ decides its result besides the card's arithmetic is checked here:
   is ``cvt.rna.tf32.f32``'s), meets the kernel's tolerance, 1e-4 of the
   largest gradient against float64, where one TF32 product (rounded to
   nearest) does not: at Llama-3-8B's hd 128, Gemma-2's hd 256 (soft-cap 50)
-  and MLA's qk 192 / v 128.
+  and MLA's qk 192 / v 128;
+- the bf16 instance's arithmetic (bf16 operands, P and dS rounded to bf16
+  as operands, float32 sums, outputs rounded once), emulated, meets its
+  bf16 tolerance, 2e-2 of the largest gradient against float64, and not
+  the float32 one, at hd 128, hd 256 with the soft-cap and both MLA pairs;
+- the rule that picks one warp or a pair of warps a 16-row group for each
+  type (read from the source) is the measured one.
 
 At hd 256 the kernel's two warps of a 16-row group split the work by role
 (one computes P and dV, the other dP, dS and dK; in the dQ kernel each keeps
@@ -24,6 +30,9 @@ as with one warp, so the walk checked here is the same.
 The card holds the kernel itself against the plain version
 (tests/test_torch_kernels_cuda.py::test_flash_bwd_kernel_matches_plain).
 """
+
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -164,11 +173,14 @@ def _split(x, kernel):
 
 
 def _product(a, b, mode):
-    """a @ b in float64, float32, one TF32 product, or a 3xTF32 split (the
+    """a @ b in float64, float32, one TF32 product, a 3xTF32 split (the
     two cross terms first, then big * big): the kernel's, or both parts
-    rounded to nearest."""
+    rounded to nearest; or with both operands rounded to bf16 and float32
+    sums (the bf16 instance's mma.sync.m16n8k16)."""
     if mode in ("f64", "f32"):
         return a @ b
+    if mode == "bf16":
+        return a.bfloat16().float() @ b.bfloat16().float()
     if mode == "tf32":
         return _tf32(a) @ _tf32(b)
     (a_big, a_small), (b_big, b_small) = (_split(x, mode == "3xtf32") for x in (a, b))
@@ -194,6 +206,8 @@ def _emulated_bwd(q, k, v, o, lse, do, scale, mode, cap=0.0):
     dv = _product(p.transpose(1, 2), do, mode).sum(0)
     dk = scale * _product(ds.transpose(1, 2), q, mode).sum(0)
     dq = scale * _product(ds, k, mode)
+    if mode == "bf16":                        # rounded once, when stored
+        return tuple(x.bfloat16() for x in (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -238,3 +252,54 @@ def test_3xtf32_products_meet_the_gradient_tolerance_at_wide_heads(
     err = max(float((u.double() - t).abs().max() / t.abs().max())
               for u, t in zip(got, truth))
     assert (err <= 1e-4) == meets, err
+
+
+@pytest.mark.parametrize("g,hd,hd_v,cap,scale", [
+    (4, 128, 128, 0.0, 128 ** -0.5),          # Llama-3-8B: G = 4
+    (2, 256, 256, 50.0, 224.0 ** -0.5),       # Gemma-2-9B: soft-cap 50
+    (1, 192, 128, 0.0, 192 ** -0.5),          # DeepSeek-V2-Lite's MLA
+    (2, 24, 16, 0.0, 24 ** -0.5),             # MLA reduced (qk padded to 32)
+], ids=["llama-hd128", "gemma2-hd256", "mla-192-128", "mla-24-16"])
+def test_bf16_products_meet_the_bf16_tolerance(g, hd, hd_v, cap, scale):
+    """The bf16 instance's arithmetic, emulated: q, k, v, dO (and o) in
+    bf16, every product with bf16 operands and float32 sums (P and dS
+    rounded to bf16 as operands), dq, dk, dv rounded once.  Against float64
+    from the same bf16 inputs, S=512 causal, it meets the kernel's bf16
+    tolerance, 2e-2 of each gradient's largest value, and not the float32
+    one (1e-4): bf16 training is held to its own tolerance.  The zero
+    columns the kernel pads head dims with (24 -> 32) add nothing to a
+    product, so the padded walk is this one."""
+    q, k, v, do = (x.bfloat16().float()
+                   for x in _inputs(1, 512, g, 1, hd, seed=13, hd_v=hd_v))
+    kw = dict(logit_cap=cap, scale=scale)
+    o, lse = k1.flash_attention_lse(q, k, v, **kw)
+    o = o.bfloat16().float()                  # the bf16 forward's output
+    args = (q[0].transpose(0, 1), k[0, :, 0], v[0, :, 0], o[0].transpose(0, 1),
+            lse[0], do[0].transpose(0, 1), scale)
+    truth = _emulated_bwd(*args, "f64", cap=cap)
+    got = _emulated_bwd(*args, "bf16", cap=cap)
+    err = max(float((u.double() - t).abs().max() / t.abs().max())
+              for u, t in zip(got, truth))
+    assert 1e-4 < err <= 2e-2, err
+
+
+def test_each_type_splits_rows_where_it_measured_faster():
+    """The kernel's ``n_split`` (read from csrc/flash_attention_bwd.cu):
+    float32 pairs two warps on 16 rows only at hd 256, bf16 from qk 192 on
+    (kernel_ab.py against builds with the rule changed, PERF.md); every
+    instance's dQ columns divide between the pair."""
+    src = (pathlib.Path(k1.__file__).with_name("csrc") /
+           "flash_attention_bwd.cu").read_text()
+    bf16_from, f32_from = map(int, re.search(
+        r"constexpr int n_split\(\) \{\s*return sizeof\(T\) == 2 \? "
+        r"\(DQK > (\d+) \? 2 : 1\) : \(DQK > (\d+) \? 2 : 1\);", src).groups())
+
+    def split(bf16, dqk):
+        return 2 if dqk > (bf16_from if bf16 else f32_from) else 1
+
+    pairs = [(8, 8), (16, 16), (32, 32), (64, 64), (128, 128), (256, 256),
+             (192, 128), (24, 16)]
+    got = {(bf16, dqk): split(bf16, dqk) for bf16 in (False, True) for dqk, _ in pairs}
+    assert [dqk for (bf16, dqk), n in got.items() if n == 2 and not bf16] == [256]
+    assert sorted(dqk for (bf16, dqk), n in got.items() if n == 2 and bf16) == [192, 256]
+    assert all(dqk // 8 % n == 0 for (_, dqk), n in got.items())

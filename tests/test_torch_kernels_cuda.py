@@ -12,12 +12,17 @@ CPU in tests/test_torch_flash_fwd_plan.py; its lse 1e-5), 2e-2
 bfloat16 (K1's backward: 1e-4 of the largest reference gradient, with window,
 soft-cap, GQA and ragged S at every head dim 8 to 128; its 3xTF32 products
 are emulated on the CPU in tests/test_torch_flash_bwd_plan.py) (K1 also at MLA's qk 192 / v 128 and 24 / 16 and at hd 8, K3 at hd
-8 and 256); SSD (K4) 1e-4 float32 for y and the float32 state (also in bf16),
-2e-2 for bf16 outputs; RG-LRU (K5) 1e-5 float32, 2e-2 bf16; int8 is held bit
-for bit, bf16 quantize over every finite input.
+8 and 256); K1's bf16 backward 2e-2 of the largest reference gradient, bit
+for bit on repeat; SSD (K4) 1e-4 float32 for y and the float32 state (also
+in bf16), 2e-2 for bf16 outputs; RG-LRU (K5) 1e-5 float32, 2e-2 bf16; int8
+is held bit for bit, bf16 quantize over every finite input.  Training
+gradients card vs CPU: float32 (``_f32_port``) at the stated leaf
+tolerances; bf16 (the training path) within 3 times the CPU's own
+bf16-vs-float32 gap plus 1e-3 of each leaf's max.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -51,6 +56,18 @@ def _normal(shape, dtype, seed):
 
 
 pytestmark = pytest.mark.usefixtures("hopper_card")
+
+
+@pytest.fixture
+def _f32_port(monkeypatch):
+    """bundle.loss with float32 activations (each family's ``embed_tokens``
+    compute dtype): the float32 training path; without it the loss embeds
+    in bf16, as the reference's."""
+    from repro_torch.models import griffin, mamba2, transformer
+
+    for mod in (transformer, mamba2, griffin):
+        monkeypatch.setattr(mod, "embed_tokens", functools.partial(
+            mod.embed_tokens, compute_dtype=torch.float32))
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
@@ -984,7 +1001,7 @@ def _max_rel(got, want):
                  / want.float().abs().max().clamp_min(1e-30))
 
 
-@pytest.mark.parametrize("b,s,h,kv,hd,hd_v,causal,window,cap,scale", [
+BWD_CASES = [
     (2, 512, 32, 8, 128, 128, True, 0, 0.0, None),     # llama3-8b's training shape
     (8, 256, 8, 8, 64, 64, True, 0, 0.0, None),        # the quickstart recipe
     (2, 100, 4, 2, 32, 32, True, 16, 50.0, 16.0 ** -0.5),  # reduced gemma2
@@ -1006,7 +1023,10 @@ def _max_rel(got, want):
     (1, 130, 4, 2, 192, 128, True, 48, 20.0, None),    # (192, 128): G = 2, window, cap
     (2, 256, 4, 4, 24, 16, True, 0, 0.0, 24 ** -0.5),  # MLA reduced
     (2, 77, 6, 2, 24, 16, False, 24, 30.0, None),      # (24, 16): G = 3, ragged
-])
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,hd_v,causal,window,cap,scale", BWD_CASES)
 def test_flash_bwd_kernel_matches_plain(b, s, h, kv, hd, hd_v, causal, window,
                                         cap, scale):
     """dQ, dK, dV of the backward kernel against ``flash_attention_bwd_plain``
@@ -1054,6 +1074,55 @@ def test_flash_bwd_kernel_two_shapes_alternately():
             for g, r, w in zip(got, ref, want):
                 assert torch.equal(g, r)
                 assert _max_rel(g, w) <= 1e-4
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,hd_v,causal,window,cap,scale", BWD_CASES)
+def test_flash_bf16_bwd_kernel_matches_plain(b, s, h, kv, hd, hd_v, causal,
+                                             window, cap, scale):
+    """The bf16 instance of the backward kernel (bf16 mma.sync, P and dS
+    rounded to bf16 as operands, float32 accumulators) against
+    ``flash_attention_bwd_plain`` (float32 from the same bf16 inputs) on the
+    same o and lse, from the bf16 forward with lse: max |diff| <= 2e-2 of
+    the largest reference gradient (the bf16 tolerance of
+    tests/test_kernels.py), dq, dk, dv in bf16, the same bits on repeat, at
+    every case of the float32 test above."""
+    q = _normal((b, s, h, hd), torch.bfloat16, 1)
+    k = _normal((b, s, kv, hd), torch.bfloat16, 2)
+    v = _normal((b, s, kv, hd_v), torch.bfloat16, 3)
+    do = _normal((b, s, h, hd_v), torch.bfloat16, 4)
+    kw = dict(causal=causal, window=window, logit_cap=cap, scale=scale)
+    o, lse = k1.flash_attention_lse(q, k, v, **kw)
+    before = k1.flash_attention_bwd.launches
+    got = k1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = k1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert k1.flash_attention_bwd.launches == before + 2
+    want = k1.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, g, w, a in zip("qkv", got, want, again):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        assert _max_rel(g, w) <= 2e-2, name
+        assert torch.equal(g, a)                       # no float atomics
+
+
+@pytest.mark.parametrize("hd,hd_v", [(8, 8), (16, 16), (32, 32), (64, 64),
+                                     (128, 128), (256, 256), (192, 128), (24, 16)])
+def test_flash_bf16_fwd_lse_equals_forward_and_plain(hd, hd_v):
+    """The bf16 forward with lse writes the same o, bit for bit, as without
+    (the serving call); its lse (float32, natural log) equals the plain
+    log-sum-exp of the same bf16 inputs to 1e-5, at every built pair."""
+    q = _normal((2, 150, 4, hd), torch.bfloat16, 5)
+    k = _normal((2, 150, 2, hd), torch.bfloat16, 6)
+    v = _normal((2, 150, 2, hd_v), torch.bfloat16, 7)
+    for kw in (dict(), dict(window=40, logit_cap=30.0), dict(causal=False)):
+        o0 = k1.flash_attention(q, k, v, **kw)
+        o1, lse = k1.flash_attention_lse(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(o0, o1) and lse.dtype == torch.float32
+        sim, _, _ = k1._scores_plain(q, k, kw.get("causal", True),
+                                     kw.get("window", 0), kw.get("logit_cap", 0.0),
+                                     None)
+        torch.testing.assert_close(lse, torch.logsumexp(sim, -1), atol=1e-5,
+                                   rtol=1e-5)
 
 
 @pytest.mark.parametrize("hd,hd_v", [(8, 8), (16, 16), (32, 32), (64, 64),
@@ -1155,16 +1224,43 @@ def test_flash_autograd_runs_the_wide_backward_instances(hd, hd_v, window, cap):
         assert _max_rel(g, w) <= 1e-4
 
 
-@pytest.mark.parametrize("dtype,hd,hd_v", [(torch.bfloat16, 64, 64),
+@pytest.mark.parametrize("dtype,hd,hd_v", [(torch.bfloat16, 48, 48),
                                            (torch.float32, 48, 48),
                                            (torch.float32, 128, 64)])
 def test_flash_autograd_rejects_unsupported(dtype, hd, hd_v):
-    """bf16 (the backward is float32) and pairs no instance builds raise."""
+    """Pairs no instance builds raise under grad, in bf16 as in float32:
+    nothing falls back to the plain version."""
     q = _normal((1, 64, 2, hd), dtype, 1).requires_grad_()
     k = _normal((1, 64, 2, hd), dtype, 2)
     v = _normal((1, 64, 2, hd_v), dtype, 3)
-    with pytest.raises(ValueError, match="backward.*float32"):
+    with pytest.raises(ValueError, match="no backward kernel.*float32"):
         k1.flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("hd,hd_v,window,cap", [(64, 64, 20, 0.0),
+                                                (256, 256, 20, 50.0),
+                                                (192, 128, 0, 0.0),
+                                                (24, 16, 0, 30.0)])
+def test_flash_bf16_autograd_runs_the_bf16_instances(hd, hd_v, window, cap):
+    """bf16 inputs under grad run the bf16 forward with lse and the bf16
+    backward (one launch each), never the float32 ones; the gradients come
+    out in bf16 within 2e-2 of the plain version's autograd."""
+    q = _normal((2, 96, 4, hd), torch.bfloat16, 8).requires_grad_()
+    k = _normal((2, 96, 2, hd), torch.bfloat16, 9).requires_grad_()
+    v = _normal((2, 96, 2, hd_v), torch.bfloat16, 10).requires_grad_()
+    kw = dict(window=window, logit_cap=cap)
+    f0, b0 = k1.flash_attention.launches, k1.flash_attention_bwd.launches
+    o = k1.flash_attention(q, k, v, **kw)
+    do = _normal(tuple(o.shape), torch.bfloat16, 11)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16
+    assert (k1.flash_attention.launches - f0, k1.flash_attention_bwd.launches - b0) \
+        == (1, 1)
+    want = torch.autograd.grad(k1.flash_attention_plain(q, k, v, **kw), (q, k, v), do)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert _max_rel(g, w) <= 2e-2
 
 
 def _reduced_train_run(device, steps=3, compression=True):
@@ -1183,6 +1279,7 @@ def _reduced_train_run(device, steps=3, compression=True):
     return losses, tree_map(lambda t: t.cpu(), state["params"])
 
 
+@pytest.mark.usefixtures("_f32_port")
 @pytest.mark.parametrize("compression", [False, True])
 def test_reduced_train_steps_on_the_card_repeat_and_match_the_cpu(compression):
     """Three steps: two card runs bit for bit; the CPU run (plain versions)
@@ -1210,6 +1307,7 @@ def test_reduced_train_steps_on_the_card_repeat_and_match_the_cpu(compression):
     assert float(gaps.max()) <= 3 and float(gaps.mean()) <= 0.05
 
 
+@pytest.mark.usefixtures("_f32_port")
 @pytest.mark.parametrize("arch,tol", [("llama3-8b", 5e-4),
                                       ("qwen3-moe-30b-a3b", 1e-4),
                                       ("deepseek-v2-lite-16b", 1e-4),
@@ -1241,6 +1339,68 @@ def test_reduced_gradients_on_the_card_match_the_cpu(arch, tol):
             assert k1.flash_attention_bwd.launches - b0 == bundle.cfg.n_layers
     for a, c in zip(*grads):
         assert float((a - c).abs().max()) <= tol * float(c.abs().max())
+
+
+def _loss_grads(bundle, params, batch, dev):
+    leaves, structure = tree_flatten(tree_map(lambda a: a.to(dev), params))
+    ws = [p.clone().requires_grad_(True) for p in leaves]
+    loss = bundle.loss(tree_unflatten(structure, ws),
+                       {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+    return [g.cpu() for g in torch.autograd.grad(loss, ws)]
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen3-moe-30b-a3b",
+                                  "deepseek-v2-lite-16b", "gemma2-9b",
+                                  "mamba2-1.3b", "recurrentgemma-9b"])
+def test_reduced_bf16_gradients_on_the_card_match_the_cpu(arch, monkeypatch):
+    """Step-0 gradients of the bf16 training path, card vs CPU: each leaf
+    within 3 times the CPU's own bf16-vs-float32 gap on that leaf plus 1e-3
+    of its largest magnitude (chip_smoke.py's TRAIN_BF16_C and
+    TRAIN_BF16_FLOOR, tests/test_torch_training.py's rule for the port
+    against the reference: the reduced models are ill-conditioned in bf16);
+    K1's bf16 backward runs once a layer, the float32 one never."""
+    from repro_torch.models import griffin, mamba2, transformer
+
+    bundle = get_bundle(arch, reduced=True)
+    params = bundle.init(torch.Generator().manual_seed(0), "cpu", torch.float32)
+    batch = SyntheticTokens(DataConfig(vocab=bundle.cfg.vocab, batch=2,
+                                       seq_len=64)).batch_at(0)
+    seen = []
+    bwd = k1.flash_attention_bwd
+
+    def spy(q, *args, **kw):
+        seen.append(q.dtype)
+        return bwd(q, *args, **kw)
+
+    spy.launches = bwd.launches
+    monkeypatch.setattr(k1, "flash_attention_bwd", spy)
+    card = _loss_grads(bundle, params, batch, "cuda")
+    monkeypatch.setattr(k1, "flash_attention_bwd", bwd)
+    cpu = _loss_grads(bundle, params, batch, "cpu")
+    with monkeypatch.context() as m:
+        for mod in (transformer, mamba2, griffin):
+            m.setattr(mod, "embed_tokens", functools.partial(
+                mod.embed_tokens, compute_dtype=torch.float32))
+        cpu32 = _loss_grads(bundle, params, batch, "cpu")
+    n_attn = 0 if bundle.family == "mamba2" else \
+        getattr(bundle.cfg, "n_attn", bundle.cfg.n_layers)
+    assert seen == [torch.bfloat16] * n_attn
+    for a, b, c in zip(card, cpu, cpu32):
+        limit = 3 * float((b - c).abs().max()) + 1e-3 * float(b.abs().max())
+        assert float((a - b).abs().max()) <= limit
+
+
+def test_reduced_bf16_train_steps_on_the_card_repeat():
+    """Three bf16 steps of reduced llama3-8b with int8 gradients: two card
+    runs give the same losses and params bit for bit (no float atomics on
+    the path), the losses finite; K1's bf16 backward runs 3 x 2 times."""
+    b0 = k1.flash_attention_bwd.launches
+    la, pa = _reduced_train_run("cuda")
+    assert k1.flash_attention_bwd.launches - b0 == 3 * 2
+    lb, pb = _reduced_train_run("cuda")
+    assert la == lb and all(np.isfinite(la))
+    for a, b in zip(tree_flatten(pa)[0], tree_flatten(pb)[0]):
+        assert torch.equal(a, b)
 
 
 # --------------------------------------------------------------------------- #
@@ -1368,12 +1528,53 @@ def test_rglru_autograd_runs_the_backward_kernel(with_h0):
 
 
 def test_scan_autograd_rejects_bf16():
-    x, dt, a, bm, cm, _ = _ssd_inputs(1, 64, 2, 1, 16, 16, torch.bfloat16, 1)
-    with pytest.raises(ValueError, match="backward"):
-        k4.ssd(x.requires_grad_(), dt, a, bm, cm, chunk=32)
+    """K5 has no bf16 backward: bf16 under grad raises (no model path gives
+    it bf16 under grad: ``_lru_gates`` hands it float32, as the
+    reference's)."""
     av = torch.sigmoid(_normal((1, 8, 16), torch.bfloat16, 2))
     with pytest.raises(ValueError, match="backward"):
         k5.rglru(av, _normal((1, 8, 16), torch.bfloat16, 3).requires_grad_())
+
+
+@pytest.mark.parametrize("return_state", [False, True])
+def test_ssd_autograd_runs_bf16_through_the_float32_kernels(return_state):
+    """bf16 x, B and C under grad: cast to float32 and run through K4's
+    float32 forward and K4 bwd (one launch each, as the launch counters
+    show), as the reference's ssd_chunked scans in float32; y comes back in
+    bf16 and equals the float32 kernels' y on the cast inputs, rounded; the
+    gradients (in x's, B's and C's dtype) match the float32 plain version's
+    autograd on the cast inputs within 2e-2."""
+    x, dt, a, bm, cm, st = _ssd_inputs(2, 150, 4, 1, 32, 32, torch.bfloat16, 1)
+    ins = [x.requires_grad_(), dt.requires_grad_(), a.requires_grad_(),
+           bm.requires_grad_(), cm.requires_grad_()]
+    f0, b0 = k4.ssd.launches, k4.ssd_bwd.launches
+    out = k4.ssd(*ins, chunk=64, return_state=return_state)
+    y, state = out if return_state else (out, None)
+    dy = _normal(tuple(y.shape), torch.bfloat16, 7)
+    loss = (y.float() * dy.float()).sum()
+    if return_state:
+        loss = loss + (state * _normal(tuple(state.shape), torch.float32, 8)).sum()
+    got = torch.autograd.grad(loss, ins)
+    torch.cuda.synchronize()
+    assert (k4.ssd.launches - f0, k4.ssd_bwd.launches - b0) == (1, 1)
+    assert y.dtype == torch.bfloat16
+    with torch.no_grad():
+        y32 = k4.ssd(x.float(), dt, a, bm.float(), cm.float(), chunk=64,
+                     return_state=return_state)
+    y32 = y32[0] if return_state else y32
+    assert torch.equal(y, y32.to(torch.bfloat16))
+    f32 = [x.detach().float().requires_grad_(), dt.detach().requires_grad_(),
+           a.detach().requires_grad_(), bm.detach().float().requires_grad_(),
+           cm.detach().float().requires_grad_()]
+    ref = k4.ssd_plain(*f32, chunk=64, return_state=return_state)
+    yr, sr = ref if return_state else (ref, None)
+    lref = (yr * dy.float()).sum()
+    if return_state:
+        lref = lref + (sr * _normal(tuple(sr.shape), torch.float32, 8)).sum()
+    want = torch.autograd.grad(lref, f32)
+    for g, w, t in zip(got, want, ins):
+        assert g.dtype == t.dtype
+        assert _max_rel(g, w) <= 2e-2
 
 
 def test_int8_and_decode_kernels_refuse_inputs_that_need_a_gradient():

@@ -11,10 +11,14 @@ int8 gradients off and on; ``launch/train.main`` on each family, killed
 and resumed.
 
 Weights come from the reference's ``init`` through ``params_from_jax``.
-The port trains with float32 activations (the backward kernels take
-float32); the reference's losses embed tokens in bf16, so its
-``embed_tokens`` compute dtype is set to float32 per test
-(``_f32_reference``) and like is compared with like.
+Both packages' losses embed tokens in bf16 and scan in float32 inside (the
+reference's ``ssd_chunked`` casts x, B and C to float32; ``_lru_gates``
+gives the RG-LRU float32 inputs), as the port's K4 and K5 do.  The bf16
+tests compare the two packages as they train, by the rule of
+tests/test_torch_training.py (``BF16_C`` times the reference's own
+bf16-vs-float32 gap plus ``BF16_FLOOR``); the float32 tests set both
+packages' ``embed_tokens`` compute dtype to float32 (``_f32_reference`` and
+the port-side twin ``_f32_port``) and compare like with like.
 
 Tolerances: the plain backward versions 1e-5 of each output's largest
 magnitude (float32, sums in other orders); the loss 1e-5 relative and each
@@ -50,6 +54,8 @@ from repro_torch.launch import train
 from repro_torch.models.common import tree_flatten, tree_unflatten
 from repro_torch.models.convert import params_from_jax
 from repro_torch.training import AdamWConfig, TrainStepConfig, make_train_step
+from test_torch_training import _f32_port  # noqa: F401 (a fixture)
+from test_torch_training import check_bf16_loss_and_grads, check_bf16_train_steps
 
 ARCHS = ("mamba2-1.3b", "recurrentgemma-9b")
 
@@ -192,7 +198,7 @@ def _batch(cfg, b=2, s=40, seed=0):
                                       seed=seed)).batch_at(0)
 
 
-@pytest.mark.usefixtures("_f32_reference")
+@pytest.mark.usefixtures("_f32_reference", "_f32_port")
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_every_grad_leaf_match_reference(arch):
     """S = 40 runs three of reduced Mamba-2's chunks of 16 (the last
@@ -212,6 +218,14 @@ def test_loss_and_every_grad_leaf_match_reference(arch):
     for i, (g, w) in enumerate(zip(grads, want)):
         assert g.shape == w.shape, i
         assert _rel(g, w) <= 1e-4, (arch, i, _rel(g, w))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bf16_loss_and_every_grad_leaf_match_reference(arch, monkeypatch):
+    """bf16 activations on both sides, S = 40 as above."""
+    jb, jparams, tb, tparams = _both(arch)
+    check_bf16_loss_and_grads(monkeypatch, arch, jb, jparams, tb, tparams,
+                              _batch(tb.cfg))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -235,7 +249,7 @@ def test_losses_checkpoint_blocks_and_leave_serving_alone(arch):
 # --------------------------------------------------------------------------- #
 # whole steps
 # --------------------------------------------------------------------------- #
-@pytest.mark.usefixtures("_f32_reference")
+@pytest.mark.usefixtures("_f32_reference", "_f32_port")
 @pytest.mark.parametrize("compression", [False, True])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_three_train_steps_match_reference(arch, compression):
@@ -290,6 +304,13 @@ def test_three_train_steps_match_reference(arch, compression):
         over += int((err > 1e-5).sum())
         total += err.size
     assert over <= total * 1e-4, (over, total)
+
+
+@pytest.mark.parametrize("compression", [False, True])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_three_bf16_train_steps_match_reference(arch, compression, monkeypatch):
+    jb, jparams, tb, tparams = _both(arch)
+    check_bf16_train_steps(monkeypatch, jb, jparams, tb, tparams, compression)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

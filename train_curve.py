@@ -10,12 +10,12 @@ steps over 300).  The example asserts last loss < first - 0.4.
     PYTHONPATH=src python train_curve.py --package both
     python3 train_curve.py --package port [--seed N] [--fault zero|neg]
 
-``both`` (the CPU, ~10 s a step): the reference (``bundle.loss`` with
-float32 activations and ``adamw_update``, jitted outside any mesh, as
+``both`` (the CPU, ~10 s a step): the reference (``bundle.loss``, bf16
+activations as it trains, and ``adamw_update``, jitted outside any mesh, as
 tests/test_torch_training.py calls it) and the port (``make_train_step``
-on the CPU) step for step from the same weights, the reference's
-``init(PRNGKey(0))`` through ``params_from_jax``; prints both losses and
-their gap.  The model is chaotic at init (a 1e-7 relative change of the
+on the CPU, bf16 activations likewise) step for step from the same
+weights, the reference's ``init(PRNGKey(0))`` through ``params_from_jax``;
+prints both losses and their gap.  The model is chaotic at init (a 1e-7 relative change of the
 weights moves the step-0 loss by ~5e-4 at 8 layers), so the two curves
 agree in their fall, not step by step.  ``port`` (the card): phase 13's
 run, from the port's seeded init (``--seed``, 0 there); ``--fault``
@@ -51,15 +51,12 @@ def summary(losses: list) -> dict:
 def both(steps: int) -> dict:
     """The reference and the port on the CPU, step for step, from the
     reference's init."""
-    import functools
-
     import jax
     import jax.numpy as jnp
 
     from repro.configs import get_bundle as jax_get_bundle
     from repro.data import DataConfig as JaxDataConfig
     from repro.data import SyntheticTokens as JaxSyntheticTokens
-    from repro.models import transformer as jax_transformer
     from repro.models.api import bundle_for as jax_bundle_for
     from repro.training import AdamWConfig as JaxAdamWConfig
     from repro.training import adamw_init, adamw_update
@@ -67,9 +64,6 @@ def both(steps: int) -> dict:
     from repro_torch.models.convert import params_from_jax
     from repro_torch.training import AdamWConfig, TrainStepConfig, make_train_step
 
-    # the reference's loss embeds tokens in bf16: float32, like the port
-    jax_transformer.embed_tokens = functools.partial(
-        jax_transformer.embed_tokens, compute_dtype=jnp.float32)
     port = quickstart_bundle()
     ref = jax_bundle_for(QUICKSTART["name"], dataclasses.replace(
         jax_get_bundle("llama3-8b", reduced=True).cfg, **QUICKSTART))
