@@ -13,8 +13,9 @@ result line:
    registers and spills, then the SASS instruction census of the K1, K2a,
    K3 and K4 kernels (``cuobjdump``) and the designs it shows (``wgmma``:
    HGMMA in the bf16 kernels of K1 and K4; ``mma.sync``: HMMA in K4's
-   float32 kernels and the product kernels of K1's and K4's backwards,
-   bf16 HMMA (HMMA.16816.F32.BF16) in every bf16 instance of K1's;
+   float32 kernels and the product kernels of K1's float32 and K4's
+   backwards; ``wgmma`` in every bf16 instance of K1's backward's product
+   kernels, with no bf16 HMMA (HMMA.16816.F32.BF16) left in them;
    K2a's 128-bit loads, store widths and divisions; the script fails if
    any of those kernels has no tensor-core instruction, or a bf16 fast K2a
    kernel no 128-bit global load);
@@ -283,7 +284,8 @@ DECODE_CUR = 576                                  # cache entries in use
 K1_BF16 = "flash_fwd_wgmma_kernel"     # the tensor-core instance (bf16)
 K1_F32 = "flash_fwd_f32_mma_kernel"   # the float32 instance (3xTF32 mma.sync)
 K1_BWD = "flash_bwd_"                 # the backward's kernels (float32 3xTF32, bf16)
-K1_BWD_MMA = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")  # tensor cores
+K1_BWD_MMA = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")  # float32: 3xTF32 mma.sync
+K1_BWD_WGMMA = ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")  # bf16: wgmma
 K3_KERNEL = "decode_attention_kernel"
 K4_BF16 = ("ssd_chunk_state_kernel", "ssd_chunk_scan_kernel")  # tensor cores
 K4_F32 = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_y_kernel")  # 3xTF32 mma.sync
@@ -395,7 +397,8 @@ def kernel_split(fn, iters: int) -> dict[str, float]:
 
 def kernel_instance(mangled: str) -> str:
     """``decode_attention_kernel<bf16, 128, 4>`` from a mangled name."""
-    names = (K1_BF16, K1_F32, K3_KERNEL) + K4_BF16 + K2A + K1_BWD_MMA + K4_F32 + K4_BWD_MMA
+    names = (K1_BF16, K1_F32, K3_KERNEL) + K4_BF16 + K2A + K1_BWD_MMA + K1_BWD_WGMMA \
+        + K4_F32 + K4_BWD_MMA
     m = re.search(f"(?<![A-Za-z])({'|'.join(names)})I(.*)", mangled)
     if not m:
         return next((k for k in K4_F32 + K4_BWD_MMA if k in mangled), mangled)
@@ -432,8 +435,9 @@ def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
     float32 instances and the product kernels of K1's and K4's backwards
     (float32 as 3xTF32) "wgmma" (HGMMA in every such kernel of the family),
     "mma.sync" (HMMA) or "neither"; for K1's bf16 backward ("K1 bwd bf16")
-    "mma.sync" where every bf16 instance of its product kernels runs bf16
-    HMMA (HMMA.16816.F32.BF16); for K2a's bf16 fast instances
+    "wgmma" where every instance of its product kernels runs HGMMA and no
+    bf16 HMMA (HMMA.16816.F32.BF16), "mma.sync" where one runs bf16 HMMA
+    without HGMMA; for K2a's bf16 fast instances
     "ldg.128" (a 128-bit global load in each) or "scalar"."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
@@ -462,7 +466,7 @@ def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
                 if f" {op}" in line:
                     census[func][op] += 1
     bf16 = {"K1": (K1_BF16,), "K1 f32": (K1_F32,), "K4": K4_BF16, "K4 f32": K4_F32,
-            "K1 bwd": K1_BWD_MMA, "K1 bwd bf16": K1_BWD_MMA, "K4 bwd": K4_BWD_MMA}
+            "K1 bwd": K1_BWD_MMA, "K1 bwd bf16": K1_BWD_WGMMA, "K4 bwd": K4_BWD_MMA}
     found: dict[str, list[str]] = {fam: [] for fam in bf16}
     k2a: list[str] = []
     for func, counts in sorted(census.items()):
@@ -474,16 +478,17 @@ def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
             print(f"  SASS {name}: {mem}")
             continue
         if not name.startswith((K1_BF16, K1_F32, K3_KERNEL) + K4_BF16 + K4_F32
-                               + K1_BWD_MMA + K4_BWD_MMA):
+                               + K1_BWD_MMA + K1_BWD_WGMMA + K4_BWD_MMA):
             continue
         for fam, names in bf16.items():
             if not name.startswith(names):
                 continue
-            if fam.startswith("K1 bwd"):  # each type's instances: its own HMMA
-                if ("<bf16" in name) != (fam == "K1 bwd bf16"):
-                    continue
-                hmma = counts["HMMA.16816.F32.BF16" if "<bf16" in name else "HMMA"]
-                found[fam].append("mma.sync" if hmma else "neither")
+            if fam == "K1 bwd":           # float32 (3xTF32): HMMA
+                found[fam].append("mma.sync" if counts["HMMA"] else "neither")
+            elif fam == "K1 bwd bf16":    # HGMMA, and no bf16 mma.sync left
+                bf16_hmma = counts["HMMA.16816.F32.BF16"]
+                found[fam].append("wgmma" if counts["HGMMA"] and not bf16_hmma else
+                                  "mma.sync" if bf16_hmma else "neither")
             else:
                 found[fam].append("wgmma" if counts["HGMMA"] else
                                   "mma.sync" if counts["HMMA"] else "neither")
@@ -491,8 +496,8 @@ def sass_census(lib_path: pathlib.Path) -> dict[str, str]:
             continue                      # K3: the head dim of the path only
         if name.startswith(K4_BF16) and not name.endswith("<2>"):
             continue                      # K4: N = 128 (the path) only
-        if name.startswith(K1_BWD_MMA) and not name.endswith(
-                (" 128, 128>", " 256, 256>", " 192, 128>", " 24, 16>", " 64, 64>")):
+        if name.startswith(K1_BWD_MMA + K1_BWD_WGMMA) and not re.search(
+                r"[< ](128, 128|256, 256|192, 128|24, 16|64, 64)>$", name):
             continue                      # K1 bwd: the training paths' pairs
         if name.endswith(">") and name.startswith(K4_F32 + K4_BWD_MMA) and \
                 not name.endswith(("<1>", "<16>")):
@@ -3637,15 +3642,37 @@ def train_forward_bf16(k1) -> dict:
     return row
 
 
-def phase_train_kernel_bf16(k1) -> list[dict]:
+def train_bwd_bf16_splits(k1) -> dict[str, dict[str, float]]:
+    """Device microseconds of each kernel one bf16 K1 backward call launches
+    (D, dK/dV, the partials' sum where a dK/dV item walks fewer than G
+    heads, dQ), at every ``TRAIN_BWD`` shape, by ``kernel_split``.  Taken
+    first in phase 2: after the run's flex_attention compiles the profiler
+    drops some of the port's kernels' events, and by phase 13 all of them
+    (its float32 K1 rows there read "profiler None")."""
+    out = {}
+    for label, b, s, h, kv, hd, hd_v, window, cap, scale in TRAIN_BWD:
+        q = normal((b, s, h, hd), torch.bfloat16, 21)
+        k = normal((b, s, kv, hd), torch.bfloat16, 22)
+        v = normal((b, s, kv, hd_v), torch.bfloat16, 23)
+        do = normal((b, s, h, hd_v), torch.bfloat16, 24)
+        kw = dict(causal=True, window=window, logit_cap=cap, scale=scale)
+        o, lse = k1.flash_attention_lse(q, k, v, **kw)
+        out[label] = kernel_split(
+            lambda: k1.flash_attention_bwd(q, k, v, o, lse, do, **kw), 10)
+    return out
+
+
+def phase_train_kernel_bf16(k1, splits: dict[str, dict[str, float]]) -> list[dict]:
     """Phase 13: K1's bf16 backward (the bf16 training path's) against
     ``flash_attention_bwd_plain`` at every ``TRAIN_BWD`` shape, from the bf16
     forward's o and lse, within ``BWD_BF16_TOL``, bit for bit on repeat;
     each timed by CUDA-graph replay beside its bound (bf16 products at the
     dense bf16 peak, bf16 bytes), the plain version and one PyTorch call's
     bf16 backward (``bwd_library``: SDPA's, or flex_attention's where there
-    is a soft-cap; the reduced gemma2 row SDPA's without it, printed only).
-    Returns the rows ``BWD_BF16_ROWS`` names."""
+    is a soft-cap; the reduced gemma2 row SDPA's without it, printed only),
+    and the device time of each kernel a call launches (``splits``, from
+    ``train_bwd_bf16_splits`` in phase 2) beside the call's bound and library
+    time.  Returns the rows ``BWD_BF16_ROWS`` names."""
     rows = []
     for label, b, s, h, kv, hd, hd_v, window, cap, scale in TRAIN_BWD:
         q = normal((b, s, h, hd), torch.bfloat16, 21)
@@ -3686,6 +3713,13 @@ def phase_train_kernel_bf16(k1) -> list[dict]:
               f"({ms / b_ms:.2f}x its bound {b_ms:.5f} ms, {b_by}; "
               f"{n_bytes / 1e6:.2f} MB, {n_flops / 1e9:.3f} GFLOP); plain "
               f"{plain_ms:.4f} ms; {lib_txt}")
+        heads = k1.bwd_heads_per_item(b, s, h, kv)
+        print(f"  K1 bwd bf16 {label} by kernel (us a call, profiler, phase 2; "
+              f"{heads} of G={h // kv} heads a dK/dV item; call {1e3 * ms:.2f} us, bound "
+              f"{1e3 * b_ms:.2f} us, library "
+              + (f"{1e3 * lib_ms:.2f} us" if lib_ms is not None else "none") + "): "
+              + (", ".join(f"{name} {us:.2f}" for name, us in splits[label].items())
+                 or "no device events"))
         if max(rel) > BWD_BF16_TOL or not same or \
                 any(g.dtype != torch.bfloat16 for g in got):
             raise AssertionError(f"K1 bf16 backward at {label}: {rel}, repeat {same}")
@@ -4236,7 +4270,8 @@ def train_drill(arch: str = "llama3-8b") -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_train(k1, k4, k5, counters, card: str) -> tuple[list, dict]:
+def phase_train(k1, k4, k5, counters, card: str,
+                bwd_splits: dict[str, dict[str, float]]) -> tuple[list, dict]:
     """Phase 13, training through ``make_train_step`` and
     ``launch/train.main``, in bf16 activations as the reference trains
     (float32 where ``f32_activations`` says so): K1's float32 and bf16
@@ -4265,7 +4300,7 @@ def phase_train(k1, k4, k5, counters, card: str) -> tuple[list, dict]:
     reset(counters)
     rows = phase_train_kernel(k1) + [train_forward_f32(k1)]
     lap("K1 bwd and K1's float32 forward")
-    rows += phase_train_kernel_bf16(k1) + [train_forward_bf16(k1)]
+    rows += phase_train_kernel_bf16(k1, bwd_splits) + [train_forward_bf16(k1)]
     lap("K1 bwd bf16 and K1's bf16 forward with lse")
     rows += phase_recurrent_bwd(k4, k5)
     lap("K4 bwd and K5 bwd")
@@ -4393,10 +4428,16 @@ def main() -> int:
             raise AssertionError(f"a tensor-core kernel of {fam} runs no "
                                  "tensor-core instruction" if fam != "K2a" else
                                  "a bf16 fast K2a kernel has no 128-bit load")
+    if designs["K1 bwd bf16"] not in ("wgmma", "not measured"):
+        raise AssertionError("a bf16 instance of K1's backward runs no wgmma, or "
+                             "still runs bf16 mma.sync")
 
     lap("phase 1 (card, build)")
 
     # ---- phase 2: kernels against their plain versions ----
+    # first, while the profiler records every kernel: later (after the
+    # flex_attention compiles) it drops some of the port's kernels' events
+    bwd_splits = train_bwd_bf16_splits(k1)   # printed in phase 13
     rows = phase_kernels(k1, k2)
     rows.append(phase_decode_kernel(k3))
     rows.append(phase_ssd_kernel(k4))
@@ -4545,7 +4586,7 @@ def main() -> int:
     lap("phase 12 (simulator)")
 
     # ---- phase 13: training ----
-    train_rows, train_counts = phase_train(k1, k4, k5, counters, card)
+    train_rows, train_counts = phase_train(k1, k4, k5, counters, card, bwd_splits)
     rows += train_rows
 
     lap("phase 13 (training)")

@@ -17,7 +17,7 @@ decode shape, and of K4 (the SSD chunk scan, bf16, final state returned) at
 Mamba-2's prefill shape, of K1's float32 forward with lse (as training
 calls it) at Llama-3-8B's and the quickstart's training shapes, of K1's
 backward (float32, and bf16 where the checkout builds it) at Llama-3-8B's
-training shape, at hd 8 with G=7 and at
+training shape, the quickstart's (hd 64), at hd 8 with G=7 and at
 gemma2-9b's, recurrentgemma-9b's (hd 256) and deepseek-v2-lite's (MLA)
 (``chip_smoke.TRAIN_BWD``; where a checkout builds the instance), of K4's
 float32 forward and K4's backward at each shape of ``chip_smoke.SSD_BWD``
@@ -31,7 +31,9 @@ against ``cur_len`` separates its fixed cost from its per-key cost).  K2a
 [512, 2048], with its input in L2 and, at [512, 4096], over a ring of
 inputs larger than the L2; K2b (dequantize) at [512, 4096].  ``--sweep``
 also times this checkout's K3 over other values of
-``BLOCKS_PER_SM``, the split plan's one knob.  Prints one JSON line per
+``BLOCKS_PER_SM``, the split plan's one knob, and its bf16 K1 backward
+over the values of ``BWD_MIN_ITEMS`` that change its plan (the query heads
+a dK/dV work item walks, ``bwd_heads_per_item``).  Prints one JSON line per
 measurement and the card's name and power limit.
 """
 
@@ -51,8 +53,8 @@ K1_SHAPES = [("llama", 1, 512, 32, 8, 128, 0),
              ("griffin", 1, 512, 16, 1, 256, 2048)]
 # K1's backward at these rows of chip_smoke.TRAIN_BWD (each where the
 # measured checkout builds its instance)
-K1_BWD_SHAPES = ("llama3-8b", "hd 8, G=7", "gemma2-9b local", "recurrentgemma-9b",
-                 "deepseek-v2-lite")
+K1_BWD_SHAPES = ("llama3-8b", "quickstart", "hd 8, G=7", "gemma2-9b local",
+                 "recurrentgemma-9b", "deepseek-v2-lite")
 
 
 def measure_k2(cs, k2) -> list[dict]:
@@ -180,6 +182,19 @@ def measure(root: pathlib.Path, sweep: bool) -> list[dict]:
             torch.cuda.synchronize()
             rows.append(dict(kernel=name, shape=label, us=1e3 * cs.graph_ms(bwd, 20),
                              by_name=cs.kernel_split(bwd, 20)))
+            if sweep and dt == torch.bfloat16 and hasattr(k1, "BWD_MIN_ITEMS"):
+                default, plans = k1.BWD_MIN_ITEMS, {}
+                for m in (1, 132, 264, 10 ** 9):   # whole groups .. one head an item
+                    k1.BWD_MIN_ITEMS = m
+                    plans.setdefault(k1.bwd_heads_per_item(b, s, h, kv), m)
+                for heads, m in sorted(plans.items()):
+                    k1.BWD_MIN_ITEMS = m
+                    bwd()
+                    torch.cuda.synchronize()
+                    rows.append(dict(kernel=name, shape=f"{label} heads={heads}",
+                                     min_items=m, us=1e3 * cs.graph_ms(bwd, 20),
+                                     by_name=cs.kernel_split(bwd, 20)))
+                k1.BWD_MIN_ITEMS = default
 
     rows += measure_k4_f32(cs, k4)
 
@@ -225,7 +240,8 @@ def main() -> int:
     ap.add_argument("--measure", type=pathlib.Path,
                     help="(internal) measure the checkout at this root")
     ap.add_argument("--sweep", action="store_true",
-                    help="also time this checkout's K3 over BLOCKS_PER_SM")
+                    help="also time this checkout's K3 over BLOCKS_PER_SM and its "
+                         "bf16 K1 backward over BWD_MIN_ITEMS")
     args = ap.parse_args()
     if args.measure is not None:
         for row in measure(args.measure.resolve(), args.sweep):

@@ -24,8 +24,14 @@ cycles it spends in each phase of its tile loop (the wait for the tile and
 the barrier, S = Q K^T, the softmax, the second barrier or a skipped tile,
 P V); it runs through its wrapper at ``chip_smoke.TRAIN_BWD``'s llama3-8b
 and quickstart shapes and prints, per shape, each phase's cycles a warp and
-share, and the HMMA a clock one warp issues in S and in P V.  Prints the
-card's name and power limit first.
+share, and the HMMA a clock one warp issues in S and in P V.  K1's bf16
+backward (``flash_bwd_dkdv_wgmma_kernel`` and ``flash_bwd_dq_wgmma_kernel``
+in ``src/repro_torch/kernels/csrc/flash_attention_bwd.cu``) is patched the
+same way, each warp of a one-warpgroup block adding the cycles of each
+phase of its step (the tiles' wait, the products issued and retired, the
+next step's copies, the softmax, dS); it prints, at the same two shapes,
+each phase's cycles a warp and step and its share.  Prints the card's
+name and power limit first.
 """
 
 from __future__ import annotations
@@ -211,6 +217,140 @@ def k1_phases(lib) -> None:
                                                   20), 2)}))
 
 
+# K1's bf16 backward (flash_attention_bwd.cu): phase cycles a warp and step
+# of the one-warpgroup walks (kv_walk<.., 3>, q_walk<.., 3>).  (source line,
+# insert after the line?, code); a lap adds the cycles since the last lap
+K1B_PROF = r"""
+__device__ unsigned long long k1b_cycles[2][12];  // [dK/dV, dQ][phases, warps, steps]
+__device__ __forceinline__ void k1b_lap(unsigned long long& acc, long long& t) {
+  const long long now = clock64();
+  acc += now - t;
+  t = now;
+}
+"""
+K1B_EXTERN = r"""
+extern "C" int k1b_cycles_read(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, k1b_cycles, sizeof(k1b_cycles));
+  static const unsigned long long zero[24] = {0};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(k1b_cycles, zero, sizeof(zero));
+  return (int)e;
+}
+extern "C" const char* kernels_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+"""
+K1B_PHASES = {
+    "flash_bwd_dkdv_wgmma_kernel": [
+        "tiles' wait and barrier", "s^T, dP^T issued; s^T (and the last dV, dK) retired",
+        "barrier, next copies issued", "P^T, dV issued", "dP^T retired, dS^T, dK issued",
+        "last products drained"],
+    "flash_bwd_dq_wgmma_kernel": [
+        "tiles' wait and barrier", "s, dP issued; s (and the last dQ) retired",
+        "barrier, next copies issued", "P (1 - tanh^2)", "dP retired, dS",
+        "dQ issued", "last products drained"],
+}
+K1B_RECORD = ("  if constexpr (WHAT == 3) {{\n    if ((x.tid & 31) == 0) {{\n"
+              "      for (int i = 0; i < {n}; ++i) atomicAdd(&k1b_cycles[{k}][i], kbc[i]);\n"
+              "      atomicAdd(&k1b_cycles[{k}][10], 1ull);\n"
+              "      atomicAdd(&k1b_cycles[{k}][11], (unsigned long long)x.n_steps);\n"
+              "    }}\n  }}\n")
+K1B_INIT = ("  unsigned long long kbc[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+            "  long long kbt = clock64();\n")
+K1B_MARKS = [
+    # dK/dV walk
+    ("  uint32_t pa[4][4], sa[4][4];\n", True, K1B_INIT),
+    ("    const uint32_t sQ = x.sSt + stage * C::TILES, sO = sQ + C::QK_BYTES;\n", False,
+     "    k1b_lap(kbc[0], kbt);\n"),
+    ("    bar_sync(1, NT);\n    if (step + 1 < x.n_steps) kv_load<DQK, DV, NT>(x, step + 1, "
+     "stage ^ 1);\n", False, "    k1b_lap(kbc[1], kbt);\n"),
+    ("    // P^T, and dV += P^T dO (dO read MN-major) while dP^T runs\n", False,
+     "    k1b_lap(kbc[2], kbt);\n"),
+    ("    // dS^T, and dK += dS^T q (q read MN-major)\n", False, "    k1b_lap(kbc[3], kbt);\n"),
+    ("      mma_cols<OK, NOK>(dk, sa, sQ, 0);\n      sm90::wgmma_commit();\n    }\n", True,
+     "    k1b_lap(kbc[4], kbt);\n"),
+    ("  sm90::wgmma_wait<0>();\n  if constexpr (KEEP_V) fence_all(dv);\n"
+     "  if constexpr (KEEP_K) fence_all(dk);\n", True,
+     "  k1b_lap(kbc[5], kbt);\n" + K1B_RECORD.format(n=6, k=0)),
+    # dQ walk
+    ("  uint32_t sa[4][4];   // dS as bf16 A fragments, rewritten after dQ's retires\n", True,
+     K1B_INIT),
+    ("    const uint32_t sK = x.sSt + stage * C::TILES, sV = sK + C::QK_BYTES;\n", False,
+     "    k1b_lap(kbc[0], kbt);\n"),
+    ("    bar_sync(1, NT);\n    if (step + 1 < x.n_steps)\n      q_load<DQK, DV, NT>", False,
+     "    k1b_lap(kbc[1], kbt);\n"),
+    ("    // P (1 - tanh^2) in place of s; the roles trade it for dP\n", False,
+     "    k1b_lap(kbc[2], kbt);\n"),
+    ("    if constexpr (WHAT == 3) {\n      sm90::wgmma_wait<0>();    // dP retired\n", False,
+     "    k1b_lap(kbc[3], kbt);\n"),
+    ("    // dQ += dS k over this warpgroup's columns: k read MN-major\n", False,
+     "    k1b_lap(kbc[4], kbt);\n"),
+    ("    mma_cols<OQ, NOQ>(dq, sa, sK, role * (W / 64));\n    sm90::wgmma_commit();\n", True,
+     "    k1b_lap(kbc[5], kbt);\n"),
+    ("  sm90::wgmma_wait<0>();\n  fence_all(dq);\n", True,
+     "  k1b_lap(kbc[6], kbt);\n" + K1B_RECORD.format(n=7, k=1)),
+]
+
+
+def k1b_patched_library() -> ctypes.CDLL:
+    """flash_attention_bwd.cu with K1B_MARKS' laps in the bf16 walks."""
+    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    src = src.replace("namespace {\n", K1B_PROF + "namespace {\n", 1)
+    for line, after, code in K1B_MARKS:
+        if src.count(line) != 1:
+            raise RuntimeError(f"K1 bwd lap: the line {line!r} is not in the source "
+                               "exactly once")
+        src = src.replace(line, line + code if after else code + line)
+    OUT.mkdir(parents=True, exist_ok=True)
+    for header in build.CSRC.glob("*.cuh"):
+        (OUT / header.name).write_text(header.read_text())
+    (OUT / "flash_attention_bwd.cu").write_text(src + K1B_EXTERN)
+    lib = nvcc_shared(OUT / "flash_attention_bwd.cu", OUT / "libk1bphases.so")
+    lib.flash_attention_bwd.argtypes = build._SIGNATURES["flash_attention_bwd"]
+    lib.flash_attention_bwd.restype = ctypes.c_int
+    lib.k1b_cycles_read.argtypes = [ctypes.c_void_p]
+    lib.kernels_error_string.argtypes = [ctypes.c_int]
+    lib.kernels_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def k1b_phases(lib) -> None:
+    """K1's bf16 backward at the llama3-8b and quickstart training shapes,
+    through the wrapper on the patched copy (o and lse from the forward of
+    the built library)."""
+    out = (ctypes.c_ulonglong * 24)()
+    load = build.load
+    for label, b, s, h, kv, hd, hd_v, window, cap, scale in cs.TRAIN_BWD[:2]:
+        q, k, v, do = (cs.normal(shape, torch.bfloat16, seed) for shape, seed in (
+            ((b, s, h, hd), 21), ((b, s, kv, hd), 22), ((b, s, kv, hd_v), 23),
+            ((b, s, h, hd_v), 24)))
+        kw = dict(causal=True, window=window, logit_cap=cap, scale=scale)
+        build.load = load
+        o, lse = k1.flash_attention_lse(q, k, v, **kw)
+        build.load = lambda: lib      # the backward launches the patched copy
+
+        def bwd():
+            return k1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+
+        bwd()
+        torch.cuda.synchronize()
+        lib.k1b_cycles_read(out)               # zeroes the counters
+        bwd()
+        torch.cuda.synchronize()
+        lib.k1b_cycles_read(out)
+        for kern, (name, phases) in enumerate(K1B_PHASES.items()):
+            row = out[12 * kern:12 * kern + 12]
+            warps, steps = row[10], row[11]
+            total = sum(row[i] for i in range(len(phases)))
+            print(json.dumps({
+                "kernel": name, "shape": label,
+                "heads_a_dkdv_item": k1.bwd_heads_per_item(b, s, h, kv),
+                "warps": warps, "warp_steps": steps,
+                "cycles_a_warp_step": {n: round(row[i] / steps) for i, n in enumerate(phases)},
+                "share": {n: round(row[i] / total, 3) for i, n in enumerate(phases)},
+                "patched_us": round(1e3 * cs.graph_ms(bwd, 20), 2)}))
+    build.load = load
+
+
 YARDSTICK = r'''
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -359,6 +499,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     print(f"card: {smi.stdout.strip()}")
+    loaded = build.load               # the built library (K1 bwd's o and lse)
     lib = patched_library()
     build.load = lambda: lib          # the wrappers launch the patched copy
     for state in (False, True):
@@ -367,6 +508,8 @@ def main() -> int:
     lib_k1 = k1_patched_library()
     build.load = lambda: lib_k1
     k1_phases(lib_k1)
+    build.load = loaded
+    k1b_phases(k1b_patched_library())
     return 0
 
 

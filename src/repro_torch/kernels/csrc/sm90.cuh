@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels: 16- and
-// 4-byte cp.async copies, ldmatrix (plain and transposed), the 128-byte-swizzled shared-memory tile
+// 4-byte cp.async copies, ldmatrix, the 128-byte-swizzled shared-memory tile
 // layout that the wgmma descriptors read, and the warpgroup matrix-multiply
 // instructions.
 //
@@ -55,27 +55,6 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// two 8 x 8 matrices of 16-bit elements: lanes 0 .. 7 give the row
-// addresses of matrix 0, lanes 8 .. 15 those of matrix 1 (the other lanes'
-// are not read); lane l receives in r[i] the 32-bit word l % 4 of row l / 4
-// of matrix i: the B fragment of mma.sync.m16n8k16 of two 8 x 8 blocks
-// stored with the output axis along the rows
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-
-// the same, each matrix transposed: lane l receives in r[i] the elements at
-// rows 2 (l % 4) and 2 (l % 4) + 1, column l / 4, of matrix i: the B fragment
-// of mma.sync.m16n8k16 of two 8 x 8 blocks stored with the reduction axis
-// along the rows
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
                : "r"(addr));
 }
 

@@ -49,16 +49,27 @@ with ``mma.sync`` TF32 fragments in a 3xTF32 split (``csrc/tf32x3.cuh``: one
 TF32 product misses the float32 tolerance, the split keeps float32 accuracy
 at 2.5x the CUDA-core rate; ``wgmma`` would take TF32 operands only K-major
 from shared memory, and the products read q, k, dO, P and dS in both
-orientations); the bf16 instance runs them as ``mma.sync`` bf16 m16n8k16
-with float32 accumulators, its operands by ``ldmatrix``, P and dS rounded to
-bf16 only as operands.  Its dK/dV kernel walks the work items of
+orientations); its dK/dV kernel walks the work items of
 :func:`bwd_work_table`, one per (batch, query head, 64-key tile), longest
-first; the G query heads of a KV head write float32 partials to a scratch
-that a second pass sums in the order g = 0 .. G - 1, so the result is the
-same bit for bit from run to run, with no float atomics.  Where one warp
-cannot hold its rows' dK and dV (hd 256), or the pair measured faster (bf16
-from qk 192), two warps share each 16 rows, one computing P and keeping dV,
-the other dP and dS and keeping dK.
+first, and the G query heads of a KV head write float32 partials that a
+second pass sums in the order g = 0 .. G - 1.  Where one warp cannot hold
+its rows' dK and dV (hd 256) two warps share each 16 rows by role.  The
+bf16 instance runs every product on ``wgmma`` from 128-byte-swizzled
+shared-memory tiles, as the forward does: s^T, dP^T (dK/dV) and s, dP (dQ)
+with both operands in shared memory, dV, dK and dQ with P^T, dS^T or dS
+rounded to bf16 in registers and dO, q or k read MN-major; 64-row steps
+through a two-stage ``cp.async`` ring, each step's s and dP issued while
+the last step's dV and dK (dQ) still run.  Its work items walk
+:func:`bwd_heads_per_item` query heads of one KV head each, summing their
+dK and dV in registers, so only the G / heads groups write float32
+partials; the heads an item are the most that still leave
+``BWD_MIN_ITEMS`` items to fill the card (measured: at Llama-3-8B's
+training shape two heads an item beat one, twice the partials, and four,
+too few items for the causal imbalance).  Where one
+warpgroup cannot hold a tile's accumulators ((192, 128) and 256 in the
+dK/dV kernel, 256 in the dQ kernel) two warpgroups share the tile by role.
+Every output is written once after sums in a fixed order: the same bits
+from run to run, no float atomics.
 
 The wrapper takes the plain version only for tensors on the CPU (where
 autograd differentiates it); for a CUDA tensor it launches the kernels or
@@ -75,7 +86,7 @@ from . import build
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse",
            "flash_attention_bwd", "flash_attention_bwd_plain", "bwd_work_table",
-           "supported", "supported_bwd"]
+           "bwd_heads_per_item", "supported", "supported_bwd"]
 
 NEG_INF = -2.0e38
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -86,7 +97,12 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 _QK_V_PAIRS = ((192, 128), (24, 16))
 _BWD_TILE = 64                      # keys and query rows per tile of the backward
-_BWD_TABLES: dict = {}              # (device, b, s, h, kv, causal, window) -> work table
+_BWD_TABLES: dict = {}              # (device, b, s, h, kv, causal, window, heads) -> table
+# the fewest dK/dV work items the bf16 backward leaves when it gives an item
+# more query heads (bwd_heads_per_item): one an SM; chosen by measurement
+# against 1 (whole KV heads), 264 and one head an item (kernel_ab.py
+# --sweep, PERF.md)
+BWD_MIN_ITEMS = 132
 
 
 def supported(hd: int, hd_v: int) -> bool:
@@ -192,17 +208,35 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0,
             heads_to_kv(dv).to(v.dtype))
 
 
+def bwd_heads_per_item(b: int, s: int, h: int, kv: int) -> int:
+    """Query heads a dK/dV work item of the bf16 backward walks: the largest
+    divisor of G = h / kv that still leaves ``BWD_MIN_ITEMS`` items (b x kv
+    x G / heads x 64-key tiles) to spread over the card, else 1.  More heads
+    an item means fewer float32 partials (none at G); fewer heads, more
+    items to fill the SMs under the causal imbalance."""
+    g = h // kv
+    n_items = b * kv * -(-s // _BWD_TILE)
+    for heads in range(g, 0, -1):
+        if g % heads == 0 and n_items * (g // heads) >= BWD_MIN_ITEMS:
+            return heads
+    return 1
+
+
 @functools.lru_cache(maxsize=None)
 def bwd_work_table(b: int, s: int, h: int, kv: int, causal: bool,
-                   window: int) -> torch.Tensor:
+                   window: int, heads: int = 1) -> torch.Tensor:
     """The backward's dK/dV work items: int32 [n, 5] on the CPU, one row
-    (b, query head h, key tile, first query tile, end query tile) per (b, h,
-    64-key tile).  The query tiles [first, end) are those that hold a
-    (query, key) pair the mask keeps with a key of the tile, none other.
+    (b, first query head h0, key tile, first query tile, end query tile) per
+    (b, group of ``heads`` query heads h0 .. h0 + heads - 1 of one KV head,
+    64-key tile); the float32 kernel takes heads = 1.  The query tiles
+    [first, end) are those that hold a (query, key) pair the mask keeps with
+    a key of the tile, none other, the same for every head of the group.
     Rows come longest first (a stable sort: equal lengths in (key tile, b,
-    h) order, so the G query heads of a KV head run side by side)."""
-    if b <= 0 or s <= 0 or h <= 0 or kv <= 0 or h % kv:
-        raise ValueError(f"no work table for b={b}, s={s}, h={h}, kv={kv}")
+    h0) order, so the groups of a KV head run side by side)."""
+    if b <= 0 or s <= 0 or h <= 0 or kv <= 0 or h % kv or heads <= 0 \
+            or (h // kv) % heads:
+        raise ValueError(f"no work table for b={b}, s={s}, h={h}, kv={kv}, "
+                         f"heads={heads}")
     kt = torch.arange(-(-s // _BWD_TILE))
     first = kt * _BWD_TILE                                 # the tile's first key
     last = torch.clamp(first + _BWD_TILE - 1, max=s - 1)   # and its last
@@ -212,17 +246,18 @@ def bwd_work_table(b: int, s: int, h: int, kv: int, causal: bool,
         torch.full_like(first, s - 1)
     q_begin, q_end = lo // _BWD_TILE, hi // _BWD_TILE + 1
     kt = kt[torch.argsort(q_begin - q_end, stable=True)]
-    bb, hh, tt = torch.meshgrid(torch.arange(b), torch.arange(h), kt, indexing="ij")
+    bb, hh, tt = torch.meshgrid(torch.arange(b), torch.arange(0, h, heads), kt,
+                                indexing="ij")
     bb, hh, tt = (x.permute(2, 0, 1).reshape(-1) for x in (bb, hh, tt))
     return torch.stack([bb, hh, tt, q_begin[tt], q_end[tt]], 1).to(torch.int32)
 
 
-def _bwd_table_on(device, b, s, h, kv, causal, window) -> torch.Tensor:
+def _bwd_table_on(device, b, s, h, kv, causal, window, heads) -> torch.Tensor:
     """:func:`bwd_work_table` on ``device``, copied there once."""
-    key = (device, b, s, h, kv, bool(causal), int(window))
+    key = (device, b, s, h, kv, bool(causal), int(window), heads)
     table = _BWD_TABLES.get(key)
     if table is None:
-        table = bwd_work_table(b, s, h, kv, bool(causal), int(window)).to(device)
+        table = bwd_work_table(b, s, h, kv, bool(causal), int(window), heads).to(device)
         _BWD_TABLES[key] = table
     return table
 
@@ -283,7 +318,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
 
     CPU tensors take :func:`flash_attention_bwd_plain`; CUDA tensors launch
     the backward kernel (q, k, v, o and do contiguous and of one dtype,
-    float32 or bfloat16, lse float32; q, k, v and do 16-byte aligned; head
+    float32 or bfloat16, lse float32; q, k, v, o and do 16-byte aligned; head
     dims that :func:`supported_bwd` names) or raise.  dq, dk and dv come
     out in q's dtype.
     ``flash_attention_bwd.launches`` counts its launches (one a call: the
@@ -311,16 +346,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if not all(t.is_contiguous() for t in (q, k, v, o, lse, do)):
         raise ValueError("the backward kernel takes contiguous tensors")
-    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
-        raise ValueError("the backward kernel takes 16-byte aligned q, k, v, do")
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise ValueError("the backward kernel takes 16-byte aligned q, k, v, o, do")
     kv = k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    items = _bwd_table_on(q.device, b, s, h, kv, causal, window)
-    # the G partials of dK [G, B, S, KV, hd], then of dV [G, B, S, KV, hd_v]
-    # (G = 1 writes dk, dv directly)
-    scratch = torch.empty(h // kv * b * s * kv * (hd + hd_v), dtype=torch.float32,
-                          device=q.device) if h > kv else None
+    heads = bwd_heads_per_item(b, s, h, kv) if q.dtype == torch.bfloat16 else 1
+    items = _bwd_table_on(q.device, b, s, h, kv, causal, window, heads)
+    # the partials of the G / heads groups: dK [G / heads, B, S, KV, hd], then
+    # dV [G / heads, B, S, KV, hd_v] (one group writes dk, dv directly)
+    parts = h // kv // heads
+    scratch = torch.empty(parts * b * s * kv * (hd + hd_v), dtype=torch.float32,
+                          device=q.device) if parts > 1 else None
     lib = build.load()
     err = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
@@ -328,7 +365,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
         dv.data_ptr(), items.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
         int(q.dtype == torch.bfloat16), b, s, h, kv, hd, hd_v,
-        int(causal), int(window), items.shape[0], float(logit_cap), float(sc),
+        int(causal), int(window), items.shape[0], heads, float(logit_cap), float(sc),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1

@@ -3,32 +3,41 @@
 The kernel (``csrc/flash_attention_bwd.cu``) runs only on the card; what
 decides its result besides the card's arithmetic is checked here:
 
-- the dK/dV work table (``flash_attention.bwd_work_table``): every (b, h,
-  key tile, query tile) pair the mask keeps appears in exactly one item, no
-  dead tile appears, and items come longest first;
-- the table executed item by item with the plain formulas, the G partials
-  of a KV head summed in the order g = 0 .. G - 1, equals
+- the dK/dV work table (``flash_attention.bwd_work_table``), with one query
+  head an item (the float32 kernel), the bf16 wrapper's choice
+  (``bwd_heads_per_item``) and a whole KV head's G query heads an item:
+  every (b, h, key tile, query tile) pair the mask keeps appears in exactly
+  one item, no dead tile appears, and items come longest first;
+- the table executed item by item with the plain formulas, each item
+  summing its heads' dK and dV in the order of its heads and the G / heads
+  groups' partials summed in the order of the groups, equals
   ``flash_attention_bwd_plain`` to 1e-6 of the largest gradient;
-- the 3xTF32 split the kernel runs its five products in, emulated in torch
-  (TF32 keeps 10 mantissa bits; rounding to nearest, ties away from zero,
-  is ``cvt.rna.tf32.f32``'s), meets the kernel's tolerance, 1e-4 of the
-  largest gradient against float64, where one TF32 product (rounded to
-  nearest) does not: at Llama-3-8B's hd 128, Gemma-2's hd 256 (soft-cap 50)
-  and MLA's qk 192 / v 128;
-- the bf16 instance's arithmetic (bf16 operands, P and dS rounded to bf16
-  as operands, float32 sums, outputs rounded once), emulated, meets its
-  bf16 tolerance, 2e-2 of the largest gradient against float64, and not
-  the float32 one, at hd 128, hd 256 with the soft-cap and both MLA pairs;
-- the rule that picks one warp or a pair of warps a 16-row group for each
-  type (read from the source) is the measured one.
+- the bf16 wrapper's heads an item: a divisor of G, the largest that leaves
+  ``BWD_MIN_ITEMS`` items;
+- every bf16 instance's shared memory (the kernel's ``WgBwd``, written out
+  here) fits a Hopper block;
+- the 3xTF32 split the float32 kernel runs its five products in, emulated
+  in torch (TF32 keeps 10 mantissa bits; rounding to nearest, ties away
+  from zero, is ``cvt.rna.tf32.f32``'s), meets the kernel's tolerance, 1e-4
+  of the largest gradient against float64, where one TF32 product (rounded
+  to nearest) does not: at Llama-3-8B's hd 128, Gemma-2's hd 256 (soft-cap
+  50) and MLA's qk 192 / v 128;
+- the bf16 instance's arithmetic (wgmma: bf16 operands, float32 sums; P
+  and dS rounded to bf16 as operands, outputs rounded once), emulated, meets
+  its bf16 tolerance, 2e-2 of the largest gradient against float64, and
+  not the float32 one, at hd 128, hd 256 with the soft-cap and both MLA
+  pairs;
+- the rules that split a tile's work between two warps (float32) or two
+  warpgroups (bf16) by role (read from the source) are the stated ones.
 
-At hd 256 the kernel's two warps of a 16-row group split the work by role
-(one computes P and dV, the other dP, dS and dK; in the dQ kernel each keeps
-half of dQ's columns): every sum runs over the same terms in the same order
-as with one warp, so the walk checked here is the same.
+Where two warps (float32) or two warpgroups (bf16) share a tile by role
+(one computes P and keeps dV, the other dP and dS and keeps dK; in the dQ
+kernel each keeps half of dQ's columns), every sum runs over the same terms
+in the same order as with one, so the walk checked here is the same.
 
 The card holds the kernel itself against the plain version
-(tests/test_torch_kernels_cuda.py::test_flash_bwd_kernel_matches_plain).
+(tests/test_torch_kernels_cuda.py::test_flash_bwd_kernel_matches_plain and
+test_flash_bf16_bwd_kernel_matches_plain).
 """
 
 import pathlib
@@ -83,76 +92,159 @@ def _inputs(b, s, h, kv, hd, seed, hd_v=None):
                           (b, s, h, hd_v))]
 
 
+SMEM_LIMIT = 232448            # bytes of shared memory a Hopper block may use
+CSRC = pathlib.Path(k1.__file__).with_name("csrc") / "flash_attention_bwd.cu"
+HEADS = ["one", "bf16", "whole"]   # query heads an item: 1, the bf16 wrapper's, G
+
+
+def _heads(which, b, s, h, kv):
+    return {"one": 1, "bf16": k1.bwd_heads_per_item(b, s, h, kv),
+            "whole": h // kv}[which]
+
+
+@pytest.mark.parametrize("which", HEADS)
 @pytest.mark.parametrize("b,s,h,kv,hd,hd_v,causal,window,cap,scale", SHAPES)
 def test_work_table_covers_live_tiles_longest_first(b, s, h, kv, hd, hd_v, causal,
-                                                    window, cap, scale):
-    table = k1.bwd_work_table(b, s, h, kv, causal, window)
+                                                    window, cap, scale, which):
+    heads = _heads(which, b, s, h, kv)
+    table = k1.bwd_work_table(b, s, h, kv, causal, window, heads)
     n_t = -(-s // TILE)
-    assert table.dtype == torch.int32 and tuple(table.shape) == (b * h * n_t, 5)
+    assert table.dtype == torch.int32
+    assert tuple(table.shape) == (b * h // heads * n_t, 5)
     # tile (query tile, key tile) is live iff it holds a pair the mask keeps
     keep = torch.zeros((n_t * TILE, n_t * TILE), dtype=torch.bool)
     keep[:s, :s] = _mask(s, causal, window)
     live = keep.reshape(n_t, TILE, n_t, TILE).any(3).any(1)     # [qt, kt]
     want = {(bi, hi, kt, qt) for bi in range(b) for hi in range(h)
             for qt, kt in live.nonzero().tolist()}
-    got = [(bi, hi, kt, qt) for bi, hi, kt, q0, q1 in table.tolist()
-           for qt in range(q0, q1)]
+    got = [(bi, hi, kt, qt) for bi, h0, kt, q0, q1 in table.tolist()
+           for hi in range(h0, h0 + heads) for qt in range(q0, q1)]
     assert len(got) == len(set(got))                    # each pair once
     assert set(got) == want                             # every live one, no dead one
-    items = {(bi, hi, kt) for bi, hi, kt, _, _ in table.tolist()}
-    assert len(items) == b * h * n_t                    # one item per (b, h, key tile)
+    items = {(bi, h0, kt) for bi, h0, kt, _, _ in table.tolist()}
+    assert len(items) == b * h // heads * n_t           # one per (b, group, key tile)
+    # a group's heads share one KV head
+    assert all(h0 % heads == 0 and h0 // (h // kv) == (h0 + heads - 1) // (h // kv)
+               for _, h0, _, _, _ in table.tolist())
     lengths = (table[:, 4] - table[:, 3]).tolist()
     assert lengths == sorted(lengths, reverse=True)     # longest first
     assert min(lengths) >= 1
 
 
-def _run_table(q, k, v, o, lse, do, causal, window, cap, scale):
+def _run_table(q, k, v, o, lse, do, causal, window, cap, scale, heads=1):
     """dK, dV from the work table, item by item with the plain formulas:
-    each item writes the partials of its keys for its query head's slot g
-    of the scratches [G, B, S, KV, hd] and [G, B, S, KV, hd_v], then the G
-    slots are summed in the order g = 0 .. G - 1."""
+    each item sums the dK and dV of its keys over its heads h0 .. h0 +
+    heads - 1, in that order, and writes them to its group's slot of the
+    scratches [G / heads, B, S, KV, hd] and [G / heads, B, S, KV, hd_v];
+    then the slots are summed in the order of the groups."""
     b, s, h, hd = q.shape
     kv, hd_v = k.shape[2], v.shape[3]
     g = h // kv
     sc = hd ** -0.5 if scale is None else scale
     keep = _mask(s, causal, window)
     delta = (do * o).sum(-1)                                  # [b, s, h]
-    part = [torch.zeros((g, b, s, kv, hd)), torch.zeros((g, b, s, kv, hd_v))]
-    written = torch.zeros((g, b, s, kv), dtype=torch.int64)
-    for bi, hi, kt, q0, q1 in k1.bwd_work_table(b, s, h, kv, causal, window).tolist():
+    parts = g // heads
+    part = [torch.zeros((parts, b, s, kv, hd)), torch.zeros((parts, b, s, kv, hd_v))]
+    written = torch.zeros((parts, b, s, kv), dtype=torch.int64)
+    table = k1.bwd_work_table(b, s, h, kv, causal, window, heads)
+    for bi, h0, kt, q0, q1 in table.tolist():
         keys = slice(kt * TILE, min(s, kt * TILE + TILE))
         rows = slice(q0 * TILE, min(s, q1 * TILE))
-        qh, doh = q[bi, rows, hi], do[bi, rows, hi]
-        kh, vh = k[bi, keys, hi // g], v[bi, keys, hi // g]
-        raw = (qh * sc) @ kh.T
-        dcap = torch.ones_like(raw)
-        if cap:
-            t = torch.tanh(raw / cap)
-            raw, dcap = cap * t, 1.0 - t * t
-        p = torch.exp(raw - lse[bi, hi, rows][:, None]).masked_fill(~keep[rows, keys], 0.0)
-        ds = p * dcap * (doh @ vh.T - delta[bi, rows, hi][:, None])
-        part[0][hi % g, bi, keys, hi // g] = ds.T @ (qh * sc)
-        part[1][hi % g, bi, keys, hi // g] = p.T @ doh
-        written[hi % g, bi, keys, hi // g] += 1
+        kh, vh = k[bi, keys, h0 // g], v[bi, keys, h0 // g]
+        dk = torch.zeros((kh.shape[0], hd))
+        dv = torch.zeros((kh.shape[0], hd_v))
+        for hi in range(h0, h0 + heads):
+            qh, doh = q[bi, rows, hi], do[bi, rows, hi]
+            raw = (qh * sc) @ kh.T
+            dcap = torch.ones_like(raw)
+            if cap:
+                t = torch.tanh(raw / cap)
+                raw, dcap = cap * t, 1.0 - t * t
+            p = torch.exp(raw - lse[bi, hi, rows][:, None]).masked_fill(
+                ~keep[rows, keys], 0.0)
+            ds = p * dcap * (doh @ vh.T - delta[bi, rows, hi][:, None])
+            dk = dk + ds.T @ (qh * sc)
+            dv = dv + p.T @ doh
+        slot = h0 % g // heads
+        part[0][slot, bi, keys, h0 // g] = dk
+        part[1][slot, bi, keys, h0 // g] = dv
+        written[slot, bi, keys, h0 // g] += 1
     assert bool((written == 1).all())                   # every partial row once
     dk, dv = part[0][0].clone(), part[1][0].clone()
-    for gi in range(1, g):
+    for gi in range(1, parts):
         dk, dv = dk + part[0][gi], dv + part[1][gi]
     return dk, dv
 
 
+@pytest.mark.parametrize("which", HEADS)
 @pytest.mark.parametrize("b,s,h,kv,hd,hd_v,causal,window,cap,scale", SHAPES)
 def test_work_table_executed_on_cpu_equals_plain(b, s, h, kv, hd, hd_v, causal,
-                                                 window, cap, scale):
+                                                 window, cap, scale, which):
     q, k, v, do = _inputs(b, s, h, kv, hd, seed=s + h, hd_v=hd_v)
     kw = dict(causal=causal, window=window, logit_cap=cap, scale=scale)
     o, lse = k1.flash_attention_lse(q, k, v, **kw)
     _, dk_want, dv_want = k1.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
-    dk, dv = _run_table(q, k, v, o, lse, do, causal, window, cap, scale)
+    dk, dv = _run_table(q, k, v, o, lse, do, causal, window, cap, scale,
+                        _heads(which, b, s, h, kv))
     # the largest gradient of the two: at S = 1, dK is 0 up to rounding
     largest = max(float(dk_want.abs().max()), float(dv_want.abs().max()))
     for got, want in ((dk, dk_want), (dv, dv_want)):
         assert float((got - want).abs().max()) <= 1e-6 * largest
+
+
+@pytest.mark.parametrize("b,s,h,kv", [
+    (2, 512, 32, 8), (8, 256, 8, 8), (2, 256, 7, 1), (2, 512, 16, 1),
+    (2, 512, 16, 8), (4, 384, 16, 4), (1, 512, 16, 1), (2, 1, 4, 2)])
+def test_bf16_heads_per_item_is_the_largest_that_fills_the_card(b, s, h, kv):
+    """The bf16 wrapper's heads an item divide G, leave at least
+    ``BWD_MIN_ITEMS`` items (or are 1), and no larger divisor does."""
+    g = h // kv
+    heads = k1.bwd_heads_per_item(b, s, h, kv)
+
+    def n_items(x):
+        return b * kv * (g // x) * -(-s // TILE)
+
+    assert g % heads == 0
+    assert heads == 1 or n_items(heads) >= k1.BWD_MIN_ITEMS
+    assert all(n_items(x) < k1.BWD_MIN_ITEMS for x in range(heads + 1, g + 1)
+               if g % x == 0)
+
+
+def _bf16_rules():
+    """(kv_roles's DQK + DV bound, q_roles's DQK bound) of the bf16 kernels."""
+    src = CSRC.read_text()
+    kv = int(re.search(r"constexpr int kv_roles\(\) \{ return DQK \+ DV > (\d+) \? 2 : 1; \}",
+                       src).group(1))
+    q = int(re.search(r"constexpr int q_roles\(\) \{ return DQK > (\d+) \? 2 : 1; \}",
+                      src).group(1))
+    return kv, q
+
+
+PAIRS = [(8, 8), (16, 16), (32, 32), (64, 64), (128, 128), (256, 256), (192, 128),
+         (24, 16)]
+
+
+@pytest.mark.parametrize("dqk,dv", PAIRS)
+def test_bf16_instance_shared_memory_fits_a_block(dqk, dv):
+    """The bf16 kernels' shared memory (``WgBwd``: 64-row sw128 tiles of
+    head dims stored in 64-column panels, bf16; k and v (dK/dV) or q and dO
+    (dQ) resident and two stages of the streamed pair; the dK/dV stages'
+    lse and D; the roles' float32 exchanges; 1,024 bytes of alignment) fits
+    the 232,448 bytes a Hopper block may use, at every pair built; hd <= 128
+    leaves room for two dK/dV and two dQ blocks an SM."""
+    kv_bound, q_bound = _bf16_rules()
+    kv_roles = 2 if dqk + dv > kv_bound else 1
+    q_roles = 2 if dqk > q_bound else 1
+
+    def panels(d):
+        return 64 if d < 64 else -(-d // 64) * 64
+
+    tiles = 64 * 2 * (panels(dqk) + panels(dv))
+    kv_smem = 1024 + 3 * tiles + 2 * 2 * 64 * 4 + (kv_roles - 1) * 64 * 64 * 4
+    q_smem = 1024 + 3 * tiles + (q_roles - 1) * 2 * 64 * 64 * 4
+    assert kv_smem <= SMEM_LIMIT and q_smem <= SMEM_LIMIT, (kv_smem, q_smem)
+    if dqk <= 128 and dv <= 128:
+        assert 2 * (kv_smem + 1024) <= 233472 and 2 * (q_smem + 1024) <= 233472
 
 
 def _tf32(x):
@@ -176,7 +268,7 @@ def _product(a, b, mode):
     """a @ b in float64, float32, one TF32 product, a 3xTF32 split (the
     two cross terms first, then big * big): the kernel's, or both parts
     rounded to nearest; or with both operands rounded to bf16 and float32
-    sums (the bf16 instance's mma.sync.m16n8k16)."""
+    sums (the bf16 instance's wgmma)."""
     if mode in ("f64", "f32"):
         return a @ b
     if mode == "bf16":
@@ -284,22 +376,23 @@ def test_bf16_products_meet_the_bf16_tolerance(g, hd, hd_v, cap, scale):
 
 
 def test_each_type_splits_rows_where_it_measured_faster():
-    """The kernel's ``n_split`` (read from csrc/flash_attention_bwd.cu):
-    float32 pairs two warps on 16 rows only at hd 256, bf16 from qk 192 on
-    (kernel_ab.py against builds with the rule changed, PERF.md); every
-    instance's dQ columns divide between the pair."""
-    src = (pathlib.Path(k1.__file__).with_name("csrc") /
-           "flash_attention_bwd.cu").read_text()
-    bf16_from, f32_from = map(int, re.search(
-        r"constexpr int n_split\(\) \{\s*return sizeof\(T\) == 2 \? "
-        r"\(DQK > (\d+) \? 2 : 1\) : \(DQK > (\d+) \? 2 : 1\);", src).groups())
-
-    def split(bf16, dqk):
-        return 2 if dqk > (bf16_from if bf16 else f32_from) else 1
-
-    pairs = [(8, 8), (16, 16), (32, 32), (64, 64), (128, 128), (256, 256),
-             (192, 128), (24, 16)]
-    got = {(bf16, dqk): split(bf16, dqk) for bf16 in (False, True) for dqk, _ in pairs}
-    assert [dqk for (bf16, dqk), n in got.items() if n == 2 and not bf16] == [256]
-    assert sorted(dqk for (bf16, dqk), n in got.items() if n == 2 and bf16) == [192, 256]
-    assert all(dqk // 8 % n == 0 for (_, dqk), n in got.items())
+    """The kernels' rules (read from csrc/flash_attention_bwd.cu): float32
+    (``n_split``) pairs two warps on 16 rows only at hd 256, by measurement
+    (kernel_ab.py against builds with the rule changed, PERF.md); bf16 gives
+    a 64-row tile two warpgroups by role where one cannot hold the tile's
+    accumulators: the dK/dV kernel (``kv_roles``) at (192, 128) and 256,
+    the dQ kernel (``q_roles``) at 256.  Every float32 instance's dQ
+    columns divide between the pair, every bf16 one's into 64-column
+    panels."""
+    src = CSRC.read_text()
+    f32_from = int(re.search(r"constexpr int n_split\(\) \{\s*return DQK > (\d+) \? 2 : 1;",
+                             src).group(1))
+    kv_bound, q_bound = _bf16_rules()
+    f32 = {dqk: 2 if dqk > f32_from else 1 for dqk, _ in PAIRS}
+    kv = {(dqk, dv): 2 if dqk + dv > kv_bound else 1 for dqk, dv in PAIRS}
+    q = {dqk: 2 if dqk > q_bound else 1 for dqk, _ in PAIRS}
+    assert [dqk for dqk, n in f32.items() if n == 2] == [256]
+    assert all(dqk // 8 % n == 0 for dqk, n in f32.items())
+    assert sorted(pair for pair, n in kv.items() if n == 2) == [(192, 128), (256, 256)]
+    assert [dqk for dqk, n in q.items() if n == 2] == [256]
+    assert all(dqk // n % 64 == 0 for dqk, n in q.items() if n == 2)

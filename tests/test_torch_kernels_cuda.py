@@ -1076,16 +1076,27 @@ def test_flash_bwd_kernel_two_shapes_alternately():
                 assert _max_rel(g, w) <= 1e-4
 
 
-@pytest.mark.parametrize("b,s,h,kv,hd,hd_v,causal,window,cap,scale", BWD_CASES)
+# the bf16 kernels' edges: S not a multiple of their 64-row steps at hd 256
+# and at (192, 128) (two warpgroups by role), a single 64-row tile
+BWD_BF16_EDGES = [
+    (1, 100, 4, 2, 256, 256, True, 0, 0.0, None),
+    (1, 100, 4, 4, 192, 128, True, 0, 0.0, None),
+    (2, 64, 4, 1, 128, 128, True, 0, 0.0, None),
+    (1, 30, 4, 2, 256, 256, True, 0, 0.0, None),
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,hd_v,causal,window,cap,scale",
+                         BWD_CASES + BWD_BF16_EDGES)
 def test_flash_bf16_bwd_kernel_matches_plain(b, s, h, kv, hd, hd_v, causal,
                                              window, cap, scale):
-    """The bf16 instance of the backward kernel (bf16 mma.sync, P and dS
-    rounded to bf16 as operands, float32 accumulators) against
+    """The bf16 instance of the backward kernel (wgmma, P and dS rounded to
+    bf16 as operands, float32 accumulators) against
     ``flash_attention_bwd_plain`` (float32 from the same bf16 inputs) on the
     same o and lse, from the bf16 forward with lse: max |diff| <= 2e-2 of
     the largest reference gradient (the bf16 tolerance of
     tests/test_kernels.py), dq, dk, dv in bf16, the same bits on repeat, at
-    every case of the float32 test above."""
+    every case of the float32 test above and at the bf16 kernels' edges."""
     q = _normal((b, s, h, hd), torch.bfloat16, 1)
     k = _normal((b, s, kv, hd), torch.bfloat16, 2)
     v = _normal((b, s, kv, hd_v), torch.bfloat16, 3)
@@ -1102,6 +1113,40 @@ def test_flash_bf16_bwd_kernel_matches_plain(b, s, h, kv, hd, hd_v, causal,
         assert g.shape == w.shape and g.dtype == torch.bfloat16
         assert _max_rel(g, w) <= 2e-2, name
         assert torch.equal(g, a)                       # no float atomics
+
+
+@pytest.mark.parametrize("case,min_items,heads", [
+    ((2, 512, 16, 1, 256, 256, True, 2048, 0.0, None), 64, 4),   # MQA: 4 groups
+    ((2, 512, 16, 1, 256, 256, True, 2048, 0.0, None), 1, 16),   # one group
+    ((2, 512, 32, 8, 128, 128, True, 0, 0.0, None), 132, 2),     # 2 groups
+    ((2, 512, 32, 8, 128, 128, True, 0, 0.0, None), 1, 4),       # one group
+    ((2, 77, 6, 2, 24, 16, False, 24, 30.0, None), 1, 3),
+    ((1, 200, 8, 2, 64, 64, True, 64, 20.0, None), 1, 4),
+], ids=["mqa-4-groups", "mqa-one-group", "llama-2-groups", "llama-one-group",
+        "24-16-one-group", "hd64-one-group"])
+def test_flash_bf16_bwd_groups_of_heads_match_plain(case, min_items, heads,
+                                                    monkeypatch):
+    """dK/dV work items that walk several query heads of one KV head (the
+    bf16 wrapper's ``bwd_heads_per_item``, here forced by
+    ``BWD_MIN_ITEMS``): with several groups the partials go through the
+    fixed-order sum, with one group the items store dk, dv in bf16; both
+    against the plain version (2e-2), the same bits on repeat."""
+    b, s, h, kv, hd, hd_v, causal, window, cap, scale = case
+    monkeypatch.setattr(k1, "BWD_MIN_ITEMS", min_items)
+    assert k1.bwd_heads_per_item(b, s, h, kv) == heads
+    q = _normal((b, s, h, hd), torch.bfloat16, 1)
+    k = _normal((b, s, kv, hd), torch.bfloat16, 2)
+    v = _normal((b, s, kv, hd_v), torch.bfloat16, 3)
+    do = _normal((b, s, h, hd_v), torch.bfloat16, 4)
+    kw = dict(causal=causal, window=window, logit_cap=cap, scale=scale)
+    o, lse = k1.flash_attention_lse(q, k, v, **kw)
+    got = k1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = k1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = k1.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, g, w, a in zip("qkv", got, want, again):
+        assert g.dtype == torch.bfloat16 and _max_rel(g, w) <= 2e-2, name
+        assert torch.equal(g, a)
 
 
 @pytest.mark.parametrize("hd,hd_v", [(8, 8), (16, 16), (32, 32), (64, 64),
