@@ -54,8 +54,10 @@ result line:
    unit variance (see ``conditioned``);
 6. ``SegmentProfiler`` on the same model: 4 segments, 512 tokens, int8
    boundaries; per-segment H100 times and measured/analytic ratios;
-7. follow examples/quickstart.py steps 3-5 at full width: deploy the even
-   3-way split, congest, re-split, and check split == monolith (1e-3);
+7. examples/quickstart.py steps 1-5 at full width through the port's
+   example (``repro_torch/examples/quickstart.py``'s ``main`` on the served
+   weights): deploy the even 3-way split, congest, re-split, and check split
+   == monolith (1e-3), K1 in every layer of both;
    then the two recurrent families at full width and depth, bf16:
    - mamba2-1.3b: serve as phase 3 (K4 = 48 per request), generate 16
      requests of 64 new tokens (K4 = 48 per wave, no launch in a decode
@@ -79,6 +81,17 @@ result line:
    S=129, rel < 5e-2, MoE capacity factor 64; deepseek and gemma2 on
    unit-variance scores, qwen3-moe on its served weights, its QK-norm
    giving unit-variance scores already);
+7b. the port's examples at their own sizes (``quickstart`` and
+   ``serve_batched`` on reduced llama3-8b, ``edge_orchestration``'s Table II
+   and drill; ``train_quickstart`` runs in phase 13), each with its exact
+   launches; ``make_train_step`` on a 1 x 1 mesh (``make_small_mesh(1,
+   1)``) for 3 steps of reduced llama3-8b with int8 gradients, bit-identical
+   to the mesh-less step from the same state (losses, every param leaf,
+   launches); ``make_serve_fns``' prefill and decode on that mesh
+   bit-identical to ``bundle.prefill`` / ``bundle.decode``; one dry-run
+   record (``launch/dryrun.py``: llama3-8b ``train_4k`` at the 16 x 16 pod
+   mesh, counted on ``meta`` tensors) beside the card's name and power
+   limit; the phase's time;
 8. hold each family's reduced model on the card against the same model on
    the CPU (the plain versions) through a SegmentChain with int8
    boundaries, with exact launch counts; for the eight configs of the
@@ -211,7 +224,8 @@ result line:
    launches of checkpointed blocks, 3 float32 steps twice on the card bit
    for bit; reduced deepseek-v2-lite's step-0 gradients card vs CPU, float32
    and bf16 (K1's backward at 24 / 16); the recipe of
-   examples/train_quickstart.py (llama-100m, 300 steps), whose loss must
+   examples/train_quickstart.py (llama-100m, 300 steps) through the port's
+   example (``main`` on a 1 x 1 mesh), whose loss must
    fall as sound runs fall (the mean of the first 25 losses less the last
    25's within ``QUICKSTART_FALL``; the example's own 0.4, unmet by the
    reference too, printed; in bf16); B=2, S=512, int8 gradients, 5 bf16
@@ -267,6 +281,25 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+# the kernels' operation counts (one copy: the dry-run's meta branches read
+# it too) and the examples, whose mains phases 7, 7b and 13 run
+from repro_torch.examples import edge_orchestration as edge_example  # noqa: E402
+from repro_torch.examples import quickstart as quickstart_example  # noqa: E402
+from repro_torch.examples import serve_batched as serve_example  # noqa: E402
+from repro_torch.examples import train_quickstart as train_example  # noqa: E402
+from repro_torch.kernels.cost import (  # noqa: E402
+    decode_attention_bytes,
+    decode_attention_ops,
+    dequantize_ops,
+    flash_attention_bwd_ops,
+    flash_attention_ops,
+    quantize_ops,
+    rglru_bwd_ops,
+    rglru_ops,
+    ssd_bwd_flops,
+    ssd_flops,
+)
 
 # H100 SXM datasheet peaks: HBM bytes/s, dense
 # bf16 tensor FLOP/s, float32 FLOP/s outside the tensor cores
@@ -556,18 +589,6 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float) -> tuple[float, str]:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def attention_pairs(s: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask keeps: the products this input needs."""
-    qp = np.arange(s)[:, None]
-    kp = np.arange(s)[None, :]
-    keep = np.ones((s, s), bool)
-    if causal:
-        keep &= kp <= qp
-    if window > 0:
-        keep &= kp > qp - window
-    return int(keep.sum())
-
-
 def normal(shape, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -607,7 +628,7 @@ def phase_kernels(k1, k2) -> list[dict]:
             lib_ms = timed("K1 sdpa", lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True), 50)
             n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
-            n_flops = 4.0 * hd * b * h * attention_pairs(s, True, 0)
+            n_flops = flash_attention_ops(b, s, h, hd, hd)
             b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
             k1_row = dict(name="flash_attention", route="cuda",
                           source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -639,12 +660,12 @@ def phase_kernels(k1, k2) -> list[dict]:
         qa_ms = phase_k2a_times(k2)
         qa_plain = timed("K2a plain", lambda: k2.quantize_int8_plain(x), 50)
         qa_bytes = x.numel() * 2 + q.numel() + s.numel() * 4
-        qa_b, qa_by = bound(qa_bytes, 6.0 * n * d, FP32_FLOPS)   # abs,max,div,rint,clip x2
+        qa_b, qa_by = bound(qa_bytes, quantize_ops(n, d), FP32_FLOPS)
         dq_ms = timed("K2b kernel", lambda: k2.dequantize_int8(q, s, dt), 200,
                       "dequantize_rows")
         dq_plain = timed("K2b plain", lambda: k2.dequantize_int8_plain(q, s, dt), 50)
         dq_bytes = q.numel() + s.numel() * 4 + y.numel() * 2
-        dq_b, dq_by = bound(dq_bytes, 2.0 * n * d, FP32_FLOPS)   # convert, multiply
+        dq_b, dq_by = bound(dq_bytes, dequantize_ops(n, d), FP32_FLOPS)
         rows.append(dict(name="quantize_int8", route="cuda",
                          source="src/repro_torch/kernels/csrc/int8_transfer.cu",
                          replaces="src/repro/kernels/int8_transfer.py:32",
@@ -762,7 +783,7 @@ def phase_flash_hd256(k1) -> None:
         lib_ms = timed("K1 hd256 sdpa", lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), 50)
         n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
-        n_flops = 4.0 * hd * b * h * attention_pairs(s, True, window)
+        n_flops = flash_attention_ops(b, s, h, hd, hd, True, window)
         b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
         print(f"K1 hd256 time {ms:.4f} ms ({n_flops / ms / 1e9:.1f} TFLOP/s "
               f"achieved); plain {plain_ms:.4f} ms; sdpa {lib_ms:.4f} ms "
@@ -886,7 +907,7 @@ def phase_new_shapes(k1, k3) -> list[dict]:
             else:
                 lib_ms = timed(f"K1 {tag} sdpa", sdpa, 50)
             n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
-            n_flops = 2.0 * (dqk + dv) * b * h * attention_pairs(s, True, window)
+            n_flops = flash_attention_ops(b, s, h, dqk, dv, True, window)
             b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
             rows.append(dict(name=f"flash_attention@{tag}", route="cuda",
                              source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -958,8 +979,9 @@ def phase_new_shapes(k1, k3) -> list[dict]:
             else:
                 lib_ms = timed(f"K3 {tag} sdpa", sdpa, 64 * len(caches))
             del caches
-            n_bytes = (2 * b * cur * kv * hd + 2 * q.numel()) * q.element_size()
-            n_flops = 4.0 * b * h * cur * hd
+            n_bytes = decode_attention_bytes(b, cur, kv, hd, q.numel(),
+                                             q.element_size())
+            n_flops = decode_attention_ops(b, h, cur, hd)
             b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
             rows.append(dict(name=f"decode_attention@{tag}", route="cuda",
                              source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -983,24 +1005,6 @@ def ssd_inputs(b, s, h, g, n, p, dtype, seed):
     bm = normal((b, s, g, n), dtype, seed + 2) * 0.3
     cm = normal((b, s, g, n), dtype, seed + 3) * 0.3
     return x, dt, a, bm, cm, normal((b, h, n, p), torch.float32, seed + 4)
-
-
-def ssd_flops(b, s, h, g, n, p, chunk, with_state=False,
-              return_state=False) -> tuple[float, float]:
-    """(products this input needs: lower triangles, C B^T once per group,
-    the C S_in term only where S_in is live (after chunk 0, or from
-    state_in) and a chunk's own state only where it feeds a later chunk or
-    the returned final state; the TPU kernel's count: full Q x Q tiles,
-    C B^T per head, both state products in every chunk)."""
-    need = tpu = 0.0
-    starts = range(0, s, min(chunk, s))
-    for c, c0 in enumerate(starts):
-        q = min(chunk, s - c0)
-        tri = q * (q + 1) / 2
-        live = (c > 0 or with_state) + (c < len(starts) - 1 or return_state)
-        need += 2 * b * (g * tri * n + h * (tri * p + live * q * n * p))
-        tpu += 2 * b * h * (q * q * n + q * q * p + 2 * q * n * p)
-    return need, tpu
 
 
 def ssd_stage_checks(k4, label, x, dt, a, bm, cm, chunk, state_in) -> None:
@@ -1112,7 +1116,7 @@ def phase_rglru_kernel(k5) -> dict:
         ms = timed("K5 kernel", lambda: k5.rglru(a, x, h0), 100, "rglru_")
         plain_ms = timed("K5 plain", lambda: k5.rglru_plain(a, x, h0), 2)
         n_bytes = sum(t.numel() * t.element_size() for t in (a, x, h0, got))
-        b_ms, b_by = bound(n_bytes, 2.0 * a.numel(), FP32_FLOPS)
+        b_ms, b_by = bound(n_bytes, rglru_ops(a.numel()), FP32_FLOPS)
         row = dict(name="rglru", route="cuda",
                    source="src/repro_torch/kernels/csrc/rglru.cu",
                    replaces="src/repro/kernels/rglru.py:41",
@@ -1213,8 +1217,9 @@ def phase_decode_kernel(k3) -> dict:
             q4, *next(views), enable_gqa=True), 192)
         del caches
         # bytes the function needs: the valid cache entries, q and o
-        n_bytes = (2 * bb * cur * kv * hd + 2 * q.numel()) * q.element_size()
-        n_flops = 4.0 * bb * h * cur * hd
+        n_bytes = decode_attention_bytes(bb, cur, kv, hd, q.numel(),
+                                         q.element_size())
+        n_flops = decode_attention_ops(bb, h, cur, hd)
         b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
         row = dict(name="decode_attention", route="cuda",
                    source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1691,6 +1696,148 @@ def split_equals_monolith(bundle, params, config, counters, n_layers: int) -> No
     want["flash_attention"] = 2 * n_layers
     if counts != want:
         raise AssertionError(f"{bundle.arch} split/monolith launches {counts}")
+
+
+def quickstart_full(bundle, params, counters) -> None:
+    """Phase 7: examples/quickstart.py steps 1-5 through the port's example
+    (``repro_torch/examples/quickstart.py``) on the served full-width model:
+    deploy the even 3-way split, congest, re-split, split == monolith
+    (1e-3, the example's gate), K1 launched by the split and the monolith
+    in every layer and no other kernel."""
+    reset(counters)
+    facts = quickstart_example.main("cuda", bundle, params)
+    torch.cuda.synchronize()
+    counts = counts_of(counters)
+    cfg = facts["config"]
+    print(f"quickstart: initial split {facts['initial'].boundaries} on "
+          f"{facts['initial'].assignment}; {facts['decision'].kind.value} "
+          f"{list(facts['decision'].reasons)} -> {cfg.boundaries} on "
+          f"{cfg.assignment}; split vs monolithic max |dlogit| "
+          f"{facts['err']:.2e}; launches {counts}")
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention"] = 2 * bundle.cfg.n_layers
+    if tuple(facts["logits"].shape) != (2, 16, bundle.cfg.vocab) or counts != want:
+        raise AssertionError(f"quickstart logits {tuple(facts['logits'].shape)}, "
+                             f"launches {counts}, want {want}")
+
+
+MESH_STEPS = dict(steps=3, batch=4, seq=64)       # reduced llama3-8b
+
+
+def phase_examples(counters, card: str) -> None:
+    """Phase 7b: the port's examples at their own sizes on the card
+    (``quickstart``, ``serve_batched`` and ``edge_orchestration``;
+    ``train_quickstart`` runs in phase 13), each with its launches;
+    ``make_train_step`` on a 1 x 1 mesh for 3 steps of reduced llama3-8b,
+    int8 gradients, bit-identical to the mesh-less step from the same
+    state (losses, every param leaf, launches); ``make_serve_fns``' prefill
+    and decode on that mesh bit-identical to ``bundle.prefill`` /
+    ``bundle.decode``; the dry-run's llama3-8b ``train_4k`` record at the
+    pod mesh beside the card's name and power limit."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.models.api import ShapeSpec
+    from repro_torch.models.common import tree_flatten, tree_map
+    from repro_torch.training import (AdamWConfig, TrainStepConfig,
+                                      make_serve_fns, make_train_step)
+
+    t0 = time.perf_counter()
+    small = get_bundle("llama3-8b", reduced=True)
+    n_layers = small.cfg.n_layers
+    zero = dict.fromkeys(counts_of(counters), 0)
+
+    def launched(label, fn, want):
+        reset(counters)
+        out = fn()
+        torch.cuda.synchronize()
+        counts = counts_of(counters)
+        print(f"examples: {label}: launches {counts}")
+        if counts != {**zero, **want(out)}:
+            raise AssertionError(f"{label} launches {counts}, want "
+                                 f"{ {**zero, **want(out)} }")
+        return out
+
+    launched("quickstart (reduced llama3-8b)", lambda: quickstart_example.main("cuda"),
+             lambda _: {"flash_attention": 2 * n_layers})
+    served = launched(
+        "serve_batched", lambda: serve_example.main("cuda"),
+        lambda f: {"flash_attention": f["stats"].waves * n_layers,
+                   "decode_attention": f["stats"].decode_steps * n_layers})
+    if served["stats"].completed != len(served["requests"]):
+        raise AssertionError(f"serve_batched: {served['stats']}")
+    edge = launched("edge_orchestration", lambda: edge_example.main("cuda"),
+                    lambda _: {})
+    print(f"examples: edge_orchestration reconfigurations "
+          f"{edge['reconfigurations']}, final {edge['final_assignment']}")
+
+    mesh = make_small_mesh(1, 1)
+    params = small.init(torch.Generator(device="cuda").manual_seed(0), "cuda",
+                        torch.float32)
+    data = SyntheticTokens(DataConfig(vocab=small.cfg.vocab,
+                                      batch=MESH_STEPS["batch"],
+                                      seq_len=MESH_STEPS["seq"]))
+    cfg = TrainStepConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20),
+                          grad_compression=True)
+    runs = []
+    for m in (None, mesh):
+        step_fn, init_state = make_train_step(small, cfg, "cuda", mesh=m)
+        state = init_state(params=tree_map(torch.clone, params))
+        reset(counters)
+        losses = [float(step_fn(state, data.batch_at(i))[1]["loss"])
+                  for i in range(MESH_STEPS["steps"])]
+        torch.cuda.synchronize()
+        runs.append((losses, tree_flatten(state["params"])[0], counts_of(counters)))
+    same = runs[0][0] == runs[1][0] and runs[0][2] == runs[1][2] and all(
+        torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    print(f"mesh step: {mesh}, {MESH_STEPS['steps']} steps of reduced llama3-8b, "
+          f"int8 gradients: losses {runs[1][0]}; mesh-less {runs[0][0]}; every "
+          f"param leaf and the launches {runs[1][2]} bit-identical: {same}")
+    if not same:
+        raise AssertionError("the 1 x 1 mesh step differs from the mesh-less step")
+
+    b, s = 2, 48
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, small.cfg.vocab, (b, s), dtype=np.int32), device="cuda")
+    fn, _ = make_serve_fns(small, mesh, ShapeSpec("prefill", s, b, "prefill"), "cuda")
+    got, _ = fn(params, {"tokens": toks})
+    want, cache = small.prefill(params, {"tokens": toks}, s + 4)
+    dfn, _ = make_serve_fns(small, mesh, ShapeSpec("decode", s + 4, b, "decode"),
+                            "cuda")
+    mine = tree_map(torch.clone, cache)
+    nxt = toks[:, -1].contiguous()
+    got_d, mine = dfn(params, mine, nxt, s)
+    want_d, cache = small.decode(params, cache, nxt, s)
+    torch.cuda.synchronize()
+    same = (torch.equal(got.to_local(), want) and torch.equal(got_d.to_local(), want_d)
+            and torch.equal(mine["blocks"]["k"].to_local(), cache["blocks"]["k"]))
+    print(f"serve fns on the 1 x 1 mesh: prefill {tuple(got.shape)} and decode "
+          f"logits and the decoded cache bit-identical to bundle.prefill / "
+          f"bundle.decode: {same}")
+    if not same:
+        raise AssertionError("make_serve_fns on a 1 x 1 mesh differs from the bundle")
+    del params, state, cache, mine
+    torch.cuda.empty_cache()
+
+    rec = dryrun.run_cell("llama3-8b", "train_4k", "pod", ROOT / "experiments"
+                          / "dryrun_torch")
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry-run: {rec['error']}")
+    c, mem, roof = rec["cost"], rec["memory_per_chip"], rec["roofline"]
+    print(f"dry-run llama3-8b train_4k at pod ({rec['chips']} chips, "
+          f"{rec['mesh_shape']}; counted on meta tensors in {rec['count_s']} s): "
+          f"operations {c['ops']:.6e} (aten {c['aten']['ops']:.6e}, kernels "
+          + json.dumps({k: [v['calls'], v['ops']] for k, v in c["kernels"].items()})
+          + f"), model_flops {rec['model_flops']:.6e} (ratio "
+          f"{rec['useful_flops_ratio']:.4f}), bytes {c['bytes']:.6e}; per chip: "
+          f"memory {json.dumps(mem)}, dp all-reduce {c['collective_bytes_per_chip']:.6e} "
+          f"B; roofline at {rec['hardware']['name']} ({rec['hardware']['peak_flops']:.4e}"
+          f" FLOP/s, {rec['hardware']['hbm_bytes_per_s']:.3e} B/s): compute "
+          f"{roof['t_compute_s']:.4f} s, memory {roof['t_memory_s']:.4f} s, "
+          f"collective {roof['t_collective_s']} ({roof['bottleneck']}); this "
+          f"card: {card}")
+    print(f"examples: phase {time.perf_counter() - t0:.1f} s")
 
 
 def phase_zoo(serve, arch: str, counters) -> tuple[dict, dict]:
@@ -3242,10 +3389,11 @@ TRAIN_GN_LATER = 1e-2
 # from its init) is QUICKSTART_REF_FALL, printed beside the gate (the
 # port on the CPU, same run: 0.2224), as is the example's assertion,
 # last < first - 0.4, which the reference's recipe misses too (drop 0.2299)
-QUICKSTART = dict(name="llama-100m", d_model=512, n_layers=8, n_heads=8,
-                  n_kv=8, head_dim=64, d_ff=2048, vocab=32_000)
-QUICKSTART_RUN = dict(steps=300, batch=8, seq=256, lr=3e-3, warmup=20)
-QUICKSTART_FALL = (0.20, 0.28)
+# (the recipe and the band live in repro_torch/examples/train_quickstart.py,
+# whose main phase 13 runs)
+QUICKSTART = train_example.CONFIG
+QUICKSTART_RUN = train_example.RECIPE
+QUICKSTART_FALL = train_example.FALL_BAND
 QUICKSTART_REF_FALL = 0.2316
 # full-width llama3-8b cut to 4 layers: float32 AdamW state of 32 layers
 # (~128 GB) does not fit one card
@@ -3437,7 +3585,7 @@ def train_forward_f32(k1) -> dict:
                            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
         # q, k, v read once; o and lse written once; two products of the causal pairs
         n_bytes = 4.0 * (2 * q.numel() + k.numel() + v.numel() + b * h * s)
-        n_flops = 4.0 * hd * b * h * attention_pairs(s, True, 0)
+        n_flops = flash_attention_ops(b, s, h, hd, hd)
         core_ms, core_by = bound(n_bytes, n_flops, FP32_FLOPS)
         b_ms, b_by = bound(n_bytes, 3 * n_flops, TF32_FLOPS)
         hmma = k1_f32_hmma(b, s, h, hd, hd)
@@ -3569,7 +3717,7 @@ def phase_train_kernel(k1) -> list[dict]:
         n_bytes = 4.0 * (2 * q.numel() + 2 * do.numel() + 2 * k.numel()
                          + 2 * v.numel() + lse.numel())
         # s, dK and dQ reduce over hd, dP and dV over hd_v
-        n_flops = 2.0 * (3 * hd + 2 * hd_v) * b * h * attention_pairs(s, True, window)
+        n_flops = flash_attention_bwd_ops(b, s, h, hd, hd_v, True, window)
         core_ms, core_by = bound(n_bytes, n_flops, FP32_FLOPS)
         b_ms, b_by = bound(n_bytes, 3 * n_flops, TF32_FLOPS)
         lib_txt = (f"{lib} backward {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)"
@@ -3627,7 +3775,7 @@ def train_forward_bf16(k1) -> dict:
             qt, kt, vt, is_causal=True, enable_gqa=True), 20)
         # q, k, v read once, o written once (bf16); lse written once (float32)
         n_bytes = 2.0 * (2 * q.numel() + k.numel() + v.numel()) + 4.0 * b * h * s
-        n_flops = 4.0 * hd * b * h * attention_pairs(s, True, 0)
+        n_flops = flash_attention_ops(b, s, h, hd, hd)
         b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
         print(f"K1 bf16 forward with lse {label} time {ms:.4f} ms ({ms / b_ms:.2f}x "
               f"its bound {b_ms:.5f} ms, {b_by}; {n_bytes / 1e6:.2f} MB, "
@@ -3703,7 +3851,7 @@ def phase_train_kernel_bf16(k1, splits: dict[str, dict[str, float]]) -> list[dic
         # q, k, v, o, dO read once and dq, dk, dv written once (bf16); lse (float32)
         n_bytes = 2.0 * (2 * q.numel() + 2 * do.numel() + 2 * k.numel()
                          + 2 * v.numel()) + 4.0 * lse.numel()
-        n_flops = 2.0 * (3 * hd + 2 * hd_v) * b * h * attention_pairs(s, True, window)
+        n_flops = flash_attention_bwd_ops(b, s, h, hd, hd_v, True, window)
         b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
         lib_txt = (f"{lib} bf16 backward {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)"
                    if lib_ms is not None else f"library: none ({lib})")
@@ -3730,31 +3878,6 @@ def phase_train_kernel_bf16(k1, splits: dict[str, dict[str, float]]) -> list[dic
                              max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
     return rows
-
-
-def ssd_bwd_flops(b, s, h, g, n, p, chunk, with_state=False,
-                  with_dstate=False) -> float:
-    """Float32 operations K4's VJP needs at this input: per chunk the lower
-    triangles of C B^T (once per group), dy xbar^T, W^T dy, Z^T C and Z B,
-    and per head the [q, N] x [N, P] products whose operands are live: the
-    chunk's own state (recomputed for S_in) where a later chunk reads it,
-    its own dS^ where an earlier chunk's dS_out or d state_in (wanted only
-    with state_in) reads it, the S_in term of dC where S_in is live (after
-    chunk 0, or from state_in), and the dS_out terms of dxbar and dB where
-    dS_out is live (before the last chunk, or from dS_final)."""
-    ops = 0.0
-    starts = range(0, s, min(chunk, s))
-    nc = len(starts)
-    for c, c0 in enumerate(starts):
-        q = min(chunk, s - c0)
-        tri = q * (q + 1) / 2
-        hat_live = c < nc - 1
-        s_in_live = c > 0 or with_state
-        dhat_live = c > 0 or with_state       # d state_in comes with state_in
-        ds_out_live = c < nc - 1 or with_dstate
-        live = hat_live + dhat_live + s_in_live + 2 * ds_out_live
-        ops += 2 * b * (g * tri * n + h * (tri * (2 * p + 2 * n) + live * q * n * p))
-    return ops
 
 
 def phase_recurrent_bwd(k4, k5) -> list[dict]:
@@ -3876,7 +3999,7 @@ def phase_recurrent_bwd(k4, k5) -> list[dict]:
         ms = timed("K5 bwd kernel", lambda: k5.rglru_bwd(a, hs, dy, h0), 50, K5_BWD)
         plain_ms = timed("K5 bwd plain", lambda: k5.rglru_bwd_plain(a, hs, dy, h0), 2)
         n_bytes = sum(t.numel() * 4 for t in (a, hs, dy, h0, *got) if t is not None)
-        b_ms, b_by = bound(n_bytes, 3.0 * a.numel(), FP32_FLOPS)
+        b_ms, b_by = bound(n_bytes, rglru_bwd_ops(a.numel()), FP32_FLOPS)
         print(f"K5 bwd {label} time {ms:.4f} ms ({n_bytes / ms / 1e9:.3f} TB/s, "
               f"{ms / b_ms:.2f}x the bound); plain {plain_ms:.4f} ms; no library "
               f"call computes a linear recurrence's VJP; bound {b_ms:.5f} ms "
@@ -3889,7 +4012,7 @@ def phase_recurrent_bwd(k4, k5) -> list[dict]:
         # K5's float32 forward at the same shape, as training calls it (no h0)
         fwd_ms = timed("K5 float32 forward", lambda: k5.rglru(a, x), 50, "rglru_")
         f_bytes = 3 * a.numel() * 4
-        f_ms, f_by = bound(f_bytes, 2.0 * a.numel(), FP32_FLOPS)
+        f_ms, f_by = bound(f_bytes, rglru_ops(a.numel()), FP32_FLOPS)
         print(f"K5 float32 forward {label} time {fwd_ms:.4f} ms; bound "
               f"{f_ms:.5f} ms ({f_by}: {f_bytes / 1e6:.2f} MB)")
     return rows
@@ -4007,28 +4130,19 @@ def train_card_vs_cpu(k1) -> None:
         raise AssertionError("two card runs of the reduced bf16 steps differ")
 
 
-def quickstart_bundle():
-    """The port's bundle of examples/train_quickstart.py's llama-100m."""
-    from repro_torch.configs import get_bundle
-    from repro_torch.models.api import bundle_for
-
-    return bundle_for(QUICKSTART["name"], dataclasses.replace(
-        get_bundle("llama3-8b", reduced=True).cfg, **QUICKSTART))
+quickstart_bundle = train_example.quickstart_bundle
 
 
 def train_quickstart(card: str) -> None:
     """Phase 13: the recipe of examples/train_quickstart.py on the card (300
-    steps of llama-100m), its loss curve, step times and one traced step."""
+    steps of llama-100m) through the port's example, which holds the fall
+    to ``QUICKSTART_FALL``; its loss curve, step times and one traced step."""
     from repro_torch.data import DataConfig, SyntheticTokens
 
-    quick = quickstart_bundle()
-    qcfg = quick.cfg
     r = QUICKSTART_RUN
-    params = quick.init(torch.Generator(device="cuda").manual_seed(0), "cuda",
-                        torch.float32)
-    state, losses, _, times, step_fn = train_run(
-        quick, params, "cuda", steps=r["steps"], batch=r["batch"], seq=r["seq"],
-        lr=r["lr"], warmup=r["warmup"], compression=False)
+    facts = train_example.main("cuda")
+    quick, losses, times = facts["bundle"], facts["losses"], facts["times_ms"]
+    state, step_fn = facts["state"], facts["step_fn"]
     warm = times[3:]
     p50 = float(np.median(warm))
     print(f"train quickstart ({quick.num_params() / 1e6:.1f}M params, B="
@@ -4038,19 +4152,14 @@ def train_quickstart(card: str) -> None:
           + f"); step p50 {p50:.3f} ms, p90 "
           f"{float(np.percentile(warm, 90)):.3f} ms, first {times[0]:.1f} ms; "
           f"{r['batch'] * r['seq'] / p50 * 1e3:.0f} tokens/s; card: {card}")
-    batch = SyntheticTokens(DataConfig(vocab=qcfg.vocab, batch=r["batch"],
+    batch = SyntheticTokens(DataConfig(vocab=quick.cfg.vocab, batch=r["batch"],
                                        seq_len=r["seq"])).batch_at(r["steps"])
     breakdown("train quickstart step", lambda: step_fn(state, batch), top=8)
-    fall = float(np.mean(losses[:25]) - np.mean(losses[-25:]))
-    lo, hi = QUICKSTART_FALL
     print(f"train quickstart: mean loss of the first 25 steps - the last 25 "
-          f"{fall:.4f} (gate {lo} to {hi}; the reference's bf16 recipe on the "
-          f"CPU {QUICKSTART_REF_FALL}); the example's assertion, last < first "
-          f"- 0.4: {losses[-1] < losses[0] - 0.4}")
-    if not lo < fall < hi:
-        raise AssertionError(f"the quickstart recipe's loss fell by {fall}, "
-                             f"outside {QUICKSTART_FALL}")
-    del params, state
+          f"{facts['fall']:.4f} (gate {QUICKSTART_FALL}; the reference's bf16 "
+          f"recipe on the CPU {QUICKSTART_REF_FALL}); the example's assertion, "
+          f"last < first - 0.4: {losses[-1] < losses[0] - 0.4}")
+    del state, facts
     torch.cuda.empty_cache()
 
 
@@ -4383,10 +4492,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    from repro_torch.core import (AdaptiveOrchestrator, CapacityProfiler,
-                                  InProcessAgent, ReconfigurationBroadcast,
-                                  SplitRevision, Thresholds, Workload)
-    from repro_torch.edgesim import MECScenarioParams, base_system_state
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as k3
     from repro_torch.kernels import flash_attention as k1
@@ -4478,29 +4583,17 @@ def main() -> int:
 
     lap("phase 6 (segment profiler)")
 
-    # ---- phase 7: quickstart at full width ----
-    graph = bundle.model_graph()
-    state = base_system_state(MECScenarioParams(backhaul_mbps=20.0))
-    profiler = CapacityProfiler(base_state=state)
-    orch = AdaptiveOrchestrator(
-        graph=graph, profiler=profiler,
-        broadcast=ReconfigurationBroadcast(
-            [InProcessAgent(i) for i in range(state.num_nodes)]),
-        workload=Workload(tokens_in=56, tokens_out=8, arrival_rate=4.0),
-        thresholds=Thresholds(), splitter=SplitRevision(device="cuda"))
-    cfg = orch.deploy_initial(graph.even_split(3).boundaries, (0, 3, 0))
-    print(f"quickstart: initial split {cfg.boundaries} on {cfg.assignment}")
-    profiler.observe_latency(0.450)
-    profiler.observe_links(state.link_bw)
-    decision = orch.step(now=100.0)
-    print(f"quickstart: {decision.kind.value} {list(decision.reasons)} -> "
-          f"{orch.current.boundaries} on {orch.current.assignment}")
-    split_equals_monolith(bundle, params, orch.current, counters,
-                          bundle.cfg.n_layers)
+    # ---- phase 7: the quickstart example at full width ----
+    quickstart_full(bundle, params, counters)
     del params
     torch.cuda.empty_cache()
 
     lap("phase 7 (quickstart)")
+
+    # ---- phase 7b: the examples, the mesh step, the dry-run ----
+    phase_examples(counters, card)
+
+    lap("phase 7b (examples, mesh, dry-run)")
 
     # ---- Mamba-2 at full width: serve (K4), generate, prefill+decode ----
     m_counts, engine = phase_family_serve(serve, "mamba2-1.3b", counters,

@@ -28,7 +28,12 @@ _MODULES = {
     "llama3-8b": "llama3_8b",
 }
 
+# the dry-run's sweep: every config but the paper's Llama (the reference's)
+ASSIGNED_ARCHS = tuple(k for k in _MODULES if k != "llama3-8b")
 ALL_ARCHS = tuple(_MODULES)
+# sub-quadratic sequence mixers: the only families the dry-run's long_500k
+# decode cell runs (attention over 524k keys is skipped, as the reference's)
+LONG_CONTEXT_ARCHS = ("mamba2-1.3b", "recurrentgemma-9b")
 
 
 def _module(arch: str):

@@ -87,6 +87,7 @@ from .orchestrator import AdaptiveOrchestrator, Decision, DecisionKind
 from .placement import (
     Solution,
     fixed_point_reference,
+    greedy_placement,
     local_search,
     repair_capacity,
     restrict_state,
@@ -142,7 +143,8 @@ __all__ = [
     "EWMA", "fixed_point_reference", "FixedPointResult", "FlakyAgent",
     "FleetAdmissionController", "FleetCostEvaluator", "FleetDecision",
     "FleetOrchestrator", "FleetSession", "FleetStateBuffers",
-    "forecast_reconfigure", "ForecastConfig", "GraphNode", "hysteresis_keep",
+    "forecast_reconfigure", "ForecastConfig", "GraphNode", "greedy_placement",
+    "hysteresis_keep",
     "InProcessAgent", "JOURNAL_SCHEMA", "link_loads", "local_search",
     "make_transformer_graph", "memory_violations", "memory_violations_packed", "ModelGraph",
     "ModelProfile", "NodeSample", "pack_problem", "pack_sessions",

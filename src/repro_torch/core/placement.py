@@ -5,6 +5,8 @@ restricted to constraint (3): one node per segment).
 
 * :func:`solve_placement_chain_dp` — exact for the chain-latency surrogate
   (per-segment exec + boundary transfers + privacy mask), O(k·n²).
+* :func:`greedy_placement` — segments left to right, each on the node
+  that minimizes the full Φ so far: the seed of :func:`local_search`.
 * :func:`local_search` — refines the FULL Φ (queueing feedback, utilization
   imbalance, memory penalties) with reassign / boundary-shift / merge / split
   moves.  The DP surrogate is additive by construction; Φ's queueing and
@@ -24,6 +26,7 @@ from .graph import ModelGraph, validate_boundaries
 __all__ = [
     "surrogate_cost",
     "solve_placement_chain_dp",
+    "greedy_placement",
     "local_search",
     "repair_capacity",
     "fixed_point_reference",
@@ -199,8 +202,30 @@ def solve_placement_chain_dp(
 
 
 # --------------------------------------------------------------------------- #
-# local search on the FULL Φ
+# greedy + local search on the FULL Φ
 # --------------------------------------------------------------------------- #
+def greedy_placement(
+    graph: ModelGraph,
+    boundaries: Sequence[int],
+    state: SystemState,
+    wl: Workload,
+) -> Solution:
+    """Assign segments left→right to the marginal-cost-minimizing node (the
+    segments not yet placed ride on the same node; ties keep the first)."""
+    n = state.num_nodes
+    assignment: list[int] = []
+    for j in range(len(boundaries) - 1):
+        best, best_c = 0, _INF
+        for i in range(n):
+            trial = assignment + [i] + [i] * (len(boundaries) - 2 - j)
+            c = evaluate(graph, boundaries, trial, state, wl)
+            if c < best_c:
+                best, best_c = i, c
+        assignment.append(best)
+    cost = evaluate(graph, boundaries, assignment, state, wl)
+    return Solution(tuple(boundaries), tuple(assignment), cost)
+
+
 def _boundary_moves(boundaries: tuple[int, ...], L: int) -> list[tuple[int, ...]]:
     out = []
     b = list(boundaries)

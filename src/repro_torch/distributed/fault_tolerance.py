@@ -5,17 +5,18 @@ The fleet control plane's ``node-fail`` trigger class reads a
 declared dead, and every session whose chain touches it is forced into the
 monitoring cycle's solve set.  The training driver feeds step times to a
 :class:`StragglerDetector`, the paper's latency trigger transplanted to
-training.  (The reference's ``plan_elastic_mesh`` waits for the port's
-mesh.)
+training.  :func:`plan_elastic_mesh` sizes the mesh a restore re-shards
+onto after devices are lost.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 
 import numpy as np
 
-__all__ = ["HeartbeatRegistry", "StragglerDetector"]
+__all__ = ["HeartbeatRegistry", "StragglerDetector", "plan_elastic_mesh"]
 
 
 @dataclass
@@ -99,3 +100,24 @@ class StragglerDetector:
         vals = {w: e.get() for w, e in self._ewma.items()}
         med = float(np.median(list(vals.values())))
         return [w for w, v in vals.items() if v > self.ratio * med]
+
+
+def plan_elastic_mesh(alive_devices: int, *, model_axis: int = 16,
+                      pods: int | None = None) -> dict:
+    """Largest power-of-two mesh fitting the surviving devices.
+
+    Keeps the TP ("model") axis intact — TP degree is baked into layouts —
+    and shrinks the data/pod axes, so a restore is a pure DP re-shard of the
+    checkpoint (no weight-layout change).
+    """
+    if alive_devices < model_axis:
+        raise RuntimeError(
+            f"fewer devices ({alive_devices}) than the TP axis ({model_axis}); "
+            "full restart with a smaller TP layout required")
+    dp_total = alive_devices // model_axis
+    dp = 2 ** int(math.floor(math.log2(dp_total)))
+    shape = {"data": dp, "model": model_axis}
+    if pods is not None and pods > 1 and dp % pods == 0 and dp // pods >= 1:
+        shape = {"pod": pods, "data": dp // pods, "model": model_axis}
+    return {"shape": shape, "devices_used": dp * model_axis,
+            "devices_idle": alive_devices - dp * model_axis}

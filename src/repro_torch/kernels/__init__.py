@@ -3,8 +3,11 @@
 Layout: ``csrc/*.cu`` holds the kernels, ``build.py`` compiles them at first
 use and binds them with ctypes, ``<name>.py`` holds each kernel's wrapper
 (with its launch counter) beside a plain PyTorch version of the same
-function, ``ops.py`` the model-layout entry points and ``ref.py`` oracles in
-the TPU kernels' layout.  Nothing is compiled at import time.
+function, ``ops.py`` the model-layout entry points, ``ref.py`` oracles in
+the TPU kernels' layout and ``cost.py`` each kernel's operations and bytes.
+Nothing is compiled at import time.  A wrapper given ``meta`` tensors (the
+dry-run, ``launch/dryrun.py``) launches nothing: it returns an empty result
+of the kernel's output shape and adds the call to ``cost.kernel_tally``.
 
   K1  flash_attention               prefill attention (every transformer
                                     layer, Griffin's local attention)

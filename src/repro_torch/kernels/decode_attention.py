@@ -49,7 +49,7 @@ import math
 
 import torch
 
-from . import build
+from . import build, cost
 
 __all__ = ["decode_attention", "decode_attention_plain", "split_plan"]
 
@@ -163,7 +163,7 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, logit_cap=0.0,
         return decode_attention_plain(q, k_cache, v_cache, cur_len,
                                       window=window, logit_cap=logit_cap,
                                       scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no decode attention kernel for device {q.device}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k_cache, v_cache)):
@@ -175,6 +175,16 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, logit_cap=0.0,
     if q.dtype not in _DTYPES or hd not in _HEAD_DIMS:
         raise ValueError(f"kernel takes {_DTYPES} with hd in {_HEAD_DIMS}; "
                          f"got {q.dtype}, hd={hd}")
+    if q.device.type == "meta":          # the dry-run's count, no launch
+        # a meta cur_len has no value: the whole cache is counted, as at the
+        # dry-run's decode position (the cache's last entry)
+        cur = s if isinstance(cur_len, torch.Tensor) else int(cur_len)
+        cur = min(cur, window) if window > 0 else cur
+        o = torch.empty_like(q)
+        cost.record("decode_attention", cost.decode_attention_ops(b, h, cur, hd),
+                    cost.decode_attention_bytes(b, cur, kv, hd, q.numel(),
+                                                q.element_size()))
+        return o
     if not (q.is_contiguous() and k_cache.is_contiguous()
             and v_cache.is_contiguous()):
         raise ValueError("kernel takes contiguous q and caches")

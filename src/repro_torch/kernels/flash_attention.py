@@ -82,7 +82,7 @@ import functools
 
 import torch
 
-from . import build
+from . import build, cost
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse",
            "flash_attention_bwd", "flash_attention_bwd_plain", "bwd_work_table",
@@ -271,6 +271,12 @@ def _launch_fwd(q, k, v, causal, window, logit_cap, scale, with_lse: bool):
         raise ValueError(f"kernel takes {_DTYPES} with hd = hd_v in "
                          f"{_HEAD_DIMS} or (hd, hd_v) in {_QK_V_PAIRS}; got "
                          f"{q.dtype}, hd={hd}, hd_v={hd_v}")
+    if q.device.type == "meta":          # the dry-run's count, no launch
+        o = q.new_empty((b, s, h, hd_v))
+        lse = q.new_empty((b, h, s), dtype=torch.float32) if with_lse else None
+        cost.record("flash_attention", cost.flash_attention_ops(
+            b, s, h, hd, hd_v, causal, window), cost.nbytes(q, k, v, o, lse))
+        return o, lse
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for device {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -332,7 +338,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          window=window, logit_cap=logit_cap,
                                          scale=sc)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no flash attention kernel for device {q.device}")
     if not supported_bwd(hd, hd_v, q.dtype):
         raise ValueError(f"the backward kernel takes {_DTYPES} with hd = hd_v "
@@ -344,6 +350,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
         if tuple(t.shape) != tuple(shape) or t.dtype != dt or t.device != q.device:
             raise ValueError(f"{name}: want {dt} {tuple(shape)} on {q.device}; "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if q.device.type == "meta":          # the dry-run's count, no launch
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        cost.record("flash_attention_bwd", cost.flash_attention_bwd_ops(
+            b, s, h, hd, hd_v, causal, window),
+            cost.nbytes(q, k, v, o, lse, do, dq, dk, dv))
+        return dq, dk, dv
     if not all(t.is_contiguous() for t in (q, k, v, o, lse, do)):
         raise ValueError("the backward kernel takes contiguous tensors")
     if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, cost
 
 __all__ = ["quantize_int8", "dequantize_int8", "quantize_int8_plain",
            "dequantize_int8_plain", "bf16_domain_rows", "BF16_FINITE"]
@@ -118,7 +118,7 @@ def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"want x [N, D], got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return quantize_int8_plain(x)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no int8 kernel for device {x.device}")
     _no_grad(x)
     if x.dtype not in _DTYPES or not x.is_contiguous() or x.numel() == 0:
@@ -127,6 +127,9 @@ def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     n, d = x.shape
     q = torch.empty((n, d), dtype=torch.int8, device=x.device)
     scales = torch.empty((n, 1), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":          # the dry-run's count, no launch
+        cost.record("quantize_int8", cost.quantize_ops(n, d), cost.nbytes(x, q, scales))
+        return q, scales
     lib = build.load()
     err = lib.quantize_int8_fwd(x.data_ptr(), q.data_ptr(), scales.data_ptr(),
                                 int(x.dtype == torch.bfloat16), n, d, _stream(x))
@@ -150,7 +153,7 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,
                          f"{scales.dtype} {tuple(scales.shape)}")
     if q.device.type == "cpu":
         return dequantize_int8_plain(q, scales, dtype)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no int8 kernel for device {q.device}")
     _no_grad(q, scales)
     if dtype not in _DTYPES or not (q.is_contiguous() and scales.is_contiguous()) \
@@ -159,6 +162,10 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,
                          f"inputs; got {dtype}, {tuple(q.shape)}")
     n, d = q.shape
     x = torch.empty((n, d), dtype=dtype, device=q.device)
+    if q.device.type == "meta":          # the dry-run's count, no launch
+        cost.record("dequantize_int8", cost.dequantize_ops(n, d),
+                    cost.nbytes(q, scales, x))
+        return x
     lib = build.load()
     err = lib.dequantize_int8_fwd(q.data_ptr(), scales.data_ptr(), x.data_ptr(),
                                   int(dtype == torch.bfloat16), n, d, _stream(q))

@@ -37,7 +37,7 @@ import functools
 
 import torch
 
-from . import build
+from . import build, cost
 
 __all__ = ["rglru", "rglru_plain", "rglru_bwd", "rglru_bwd_plain"]
 
@@ -110,7 +110,7 @@ def rglru(a, x, h0=None) -> torch.Tensor:
     _check(a, x, h0)
     if x.device.type == "cpu":
         return rglru_plain(a, x, h0)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no RG-LRU kernel for device {x.device}")
     _check_kernel_inputs(a, x, h0)
     if torch.is_grad_enabled() and any(
@@ -136,6 +136,10 @@ def _check_kernel_inputs(a, x, h0) -> None:
 
 
 def _launch(a, x, h0) -> torch.Tensor:
+    if x.device.type == "meta":          # the dry-run's count, no launch
+        out = torch.empty_like(x)
+        cost.record("rglru", cost.rglru_ops(x.numel()), cost.nbytes(a, x, h0, out))
+        return out
     b, s, w = x.shape
     n_chunks = -(-s // _chunk_steps())
     ws = torch.empty(2 * b * n_chunks * w, dtype=torch.float32, device=x.device)
@@ -162,7 +166,7 @@ def rglru_bwd(a, h, dy, h0=None):
     _check(a, h, h0)
     if h.device.type == "cpu":
         return rglru_bwd_plain(a, h, dy, h0)
-    if h.device.type != "cuda":
+    if h.device.type not in ("cuda", "meta"):
         raise ValueError(f"no RG-LRU kernel for device {h.device}")
     if tuple(dy.shape) != tuple(h.shape) or dy.device != h.device:
         raise ValueError(f"dy {tuple(dy.shape)} on {dy.device} is not h's "
@@ -174,10 +178,14 @@ def rglru_bwd(a, h, dy, h0=None):
     if h.numel() == 0:
         raise ValueError(f"empty input {tuple(h.shape)}")
     b, s, w = h.shape
-    n_chunks = -(-s // _chunk_steps())
-    ws = torch.empty(2 * b * n_chunks * w, dtype=torch.float32, device=h.device)
     da, dx = torch.empty_like(h), torch.empty_like(h)
     dh0 = None if h0 is None else torch.empty_like(h0)
+    if h.device.type == "meta":          # the dry-run's count, no launch
+        cost.record("rglru_bwd", cost.rglru_bwd_ops(h.numel()),
+                    cost.nbytes(a, h, dy, h0, da, dx, dh0))
+        return da, dx, dh0
+    n_chunks = -(-s // _chunk_steps())
+    ws = torch.empty(2 * b * n_chunks * w, dtype=torch.float32, device=h.device)
     lib = build.load()
     err = lib.rglru_bwd(a.data_ptr(), h.data_ptr(), dy.data_ptr(),
                         None if h0 is None else h0.data_ptr(), ws.data_ptr(),

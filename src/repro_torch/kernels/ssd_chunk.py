@@ -71,7 +71,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, cost
 
 __all__ = ["ssd", "ssd_plain", "ssd_chunk_state_plain", "ssd_state_pass_plain",
            "ssd_chunk_scan_plain", "ssd_stages", "ssd_bwd", "ssd_bwd_plain"]
@@ -314,7 +314,7 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256, state_in=None,
     if x.device.type == "cpu":
         return ssd_plain(x, dt, A, Bm, Cm, chunk=chunk, state_in=state_in,
                          return_state=return_state)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no SSD kernel for device {x.device}")
     q = _check_kernel_inputs(x, dt, A, Bm, Cm, state_in, chunk)
     if torch.is_grad_enabled() and any(
@@ -325,7 +325,8 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256, state_in=None,
         y = out[0].to(x.dtype)
         return (y, out[1]) if return_state else y
     y, state_out, _ = _launch(x, dt, A, Bm, Cm, q, state_in, return_state)
-    ssd.launches += 1
+    if x.is_cuda:
+        ssd.launches += 1
     return (y, state_out) if return_state else y
 
 
@@ -348,7 +349,7 @@ def ssd_bwd(x, dt, A, Bm, Cm, dy, *, chunk: int = 256, state_in=None,
     if x.device.type == "cpu":
         return ssd_bwd_plain(x, dt, A, Bm, Cm, dy, chunk=chunk,
                              state_in=state_in, dstate=dstate)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no SSD kernel for device {x.device}")
     q = _check_kernel_inputs(x, dt, A, Bm, Cm, state_in, chunk)
     b, s, h, p = x.shape
@@ -360,6 +361,14 @@ def ssd_bwd(x, dt, A, Bm, Cm, dy, *, chunk: int = 256, state_in=None,
                              f"{x.device}; got {t.dtype} {tuple(t.shape)}")
     if x.dtype != torch.float32:
         raise ValueError(f"the backward kernels take float32; got {x.dtype}")
+    if x.device.type == "meta":          # the dry-run's count, no launch
+        grads = (torch.empty_like(x), torch.empty_like(dt), torch.empty_like(A),
+                 torch.empty_like(Bm), torch.empty_like(Cm),
+                 None if state_in is None else torch.empty_like(state_in))
+        cost.record("ssd_bwd", cost.ssd_bwd_flops(
+            b, s, h, g, n, p, q, state_in is not None, dstate is not None),
+            cost.nbytes(x, dt, A, Bm, Cm, state_in, dy, dstate, *grads))
+        return grads
     nc = -(-s // q)
     pieces, nbytes = _bwd_workspace(b, s, h, g, n, p, q)
     ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
@@ -417,7 +426,8 @@ class _SSD(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, state_in, q, return_state):
         y, state_out, _ = _launch(x, dt, A, Bm, Cm, q, state_in, return_state)
-        ssd.launches += 1
+        if x.is_cuda:
+            ssd.launches += 1
         ctx.save_for_backward(x, dt, A, Bm, Cm, state_in)
         ctx.q = q
         ctx.set_materialize_grads(False)
@@ -494,6 +504,14 @@ def _launch(x, dt, A, Bm, Cm, q, state_in, return_state):
     float32): (y, the final state or None, (workspace buffer, its pieces))."""
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
+    if x.device.type == "meta":          # the dry-run's count, no launch
+        y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+        state_out = (torch.empty((b, h, n, p), dtype=torch.float32,
+                                 device=x.device) if return_state else None)
+        cost.record("ssd", cost.ssd_flops(b, s, h, g, n, p, q, state_in is not None,
+                                          return_state)[0],
+                    cost.nbytes(x, dt, A, Bm, Cm, state_in, y, state_out))
+        return y, state_out, None
     pieces, nbytes = _workspace(b, s, h, g, n, p, q, x.dtype == torch.bfloat16)
     ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     ptrs = [ws.data_ptr() + off for off, _, _ in pieces]

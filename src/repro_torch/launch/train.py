@@ -8,8 +8,10 @@ in every recurrent layer, K2a/K2b on every gradient with
 Fault drill: ``--kill-at-step N`` exits with code 42 after step N;
 re-launching with the same ``--ckpt-dir`` resumes from the latest checkpoint
 and the data pipeline reproduces the exact batch stream (deterministic
-seek).  The mesh waits for the port's distributed slice, so
-``--mesh-data`` and ``--mesh-model`` take 1 only.
+seek).  This entry point trains on one device, so ``--mesh-data`` and
+``--mesh-model`` take 1 only (the data-parallel step is
+``make_train_step(..., mesh=...)``, which the train-quickstart example runs
+under ``torchrun``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
@@ -51,8 +53,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if (args.mesh_data, args.mesh_model) != (1, 1):
-        ap.error("the port trains on one device: --mesh-data and --mesh-model "
-                 "take 1 until the distributed slice")
+        ap.error("launch.train trains on one device: --mesh-data and "
+                 "--mesh-model take 1 (repro_torch.examples.train_quickstart "
+                 "runs the data-parallel step under torchrun)")
 
     dev = resolve_device(args.device)
     bundle = get_bundle(args.arch, reduced=args.reduced)

@@ -1,7 +1,8 @@
-"""Model families: the decoder-only transformer (dense GQA), with its
-prefill + KV-cache decode serving path."""
+"""Model families: the composable transformer (dense GQA, MoE, MLA) with its
+prefill + KV-cache decode serving path, Mamba-2 SSD and the Griffin hybrid."""
 
-from . import transformer, transformer_serve
-from .api import ModelBundle, bundle_for
+from . import griffin, mamba2, transformer, transformer_serve
+from .api import SHAPES, ModelBundle, ShapeSpec, bundle_for
 
-__all__ = ["ModelBundle", "bundle_for", "transformer", "transformer_serve"]
+__all__ = ["SHAPES", "ModelBundle", "ShapeSpec", "bundle_for", "griffin",
+           "mamba2", "transformer", "transformer_serve"]

@@ -19,7 +19,8 @@ from ..models import griffin, mamba2, transformer
 from ..models.api import ModelBundle
 from ..models.common import apply_norm, layer, tree_map
 
-__all__ = ["BoundSegment", "SegmentChain", "SegmentRunner", "split_params"]
+__all__ = ["BoundSegment", "SegmentChain", "SegmentRunner", "run_chain",
+           "split_params"]
 
 _MODELS = {"transformer": transformer, "mamba2": mamba2, "griffin": griffin}
 
@@ -171,24 +172,32 @@ class BoundSegment:
 class SegmentChain:
     """The segment-execution entrypoint: a split scheme bound to params.
 
-    Each segment is bound to the :func:`split_params` view of its own units —
-    the tree a node actually holds in deployment.  ``transfer_hook(j, x)`` —
-    e.g. an :class:`~repro_torch.serving.transfer.ActivationTransport` —
-    sees the activations crossing boundary ``j`` and returns what arrives on
-    the other side.
+    With ``slice_params=True`` (default) each segment is bound to the
+    :func:`split_params` view of its own units — the tree a node actually
+    holds in deployment; ``slice_params=False`` binds every segment to the
+    full tree with global indexing (what :func:`run_chain` runs).  Both give
+    bit-identical outputs (test-enforced).  ``transfer_hook(j, x)`` — e.g.
+    an :class:`~repro_torch.serving.transfer.ActivationTransport` — sees the
+    activations crossing boundary ``j`` and returns what arrives on the
+    other side.
     """
 
     bundle: ModelBundle
     params: Any
     boundaries: tuple[int, ...]
     transfer_hook: Any = None
+    slice_params: bool = True
     segments: list[BoundSegment] = dataclasses.field(default_factory=list)
 
     def __post_init__(self) -> None:
         pairs = list(zip(self.boundaries[:-1], self.boundaries[1:]))
-        views = split_params(self.bundle, self.params, self.boundaries)
+        if self.slice_params:
+            views = split_params(self.bundle, self.params, self.boundaries)
+        else:
+            views = [self.params] * len(pairs)
         self.segments = [
-            BoundSegment(SegmentRunner(self.bundle, lo, hi, local=True), view)
+            BoundSegment(SegmentRunner(self.bundle, lo, hi,
+                                       local=self.slice_params), view)
             for (lo, hi), view in zip(pairs, views)
         ]
 
@@ -200,3 +209,13 @@ class SegmentChain:
             if self.transfer_hook is not None and seg.hi < n:
                 x = self.transfer_hook(j, x)
         return x
+
+
+def run_chain(bundle: ModelBundle, params: Any, boundaries: tuple[int, ...],
+              tokens: torch.Tensor, *, transfer_hook=None) -> torch.Tensor:
+    """Execute the full split chain over the FULL param tree: a
+    :class:`SegmentChain` with ``slice_params=False``, for callers that hold
+    one un-split tree."""
+    chain = SegmentChain(bundle, params, boundaries,
+                         transfer_hook=transfer_hook, slice_params=False)
+    return chain(tokens)

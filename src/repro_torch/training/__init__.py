@@ -1,4 +1,5 @@
-"""Training: AdamW, the train step, int8 error-feedback gradient compression."""
+"""Training: AdamW, the train step (one card or data-parallel on a mesh),
+int8 error-feedback gradient compression, the serving functions on a mesh."""
 
 from .optimizer import (
     AdamWConfig,
@@ -8,8 +9,9 @@ from .optimizer import (
     global_norm,
     lr_schedule,
 )
-from .train_step import TrainStepConfig, compress_grads_int8, make_train_step
+from .train_step import (TrainStepConfig, compress_grads_int8, make_serve_fns,
+                         make_train_step)
 
 __all__ = ["AdamWConfig", "TrainStepConfig", "adamw_init", "adamw_update",
            "clip_by_global_norm", "compress_grads_int8", "global_norm",
-           "lr_schedule", "make_train_step"]
+           "lr_schedule", "make_serve_fns", "make_train_step"]

@@ -137,8 +137,8 @@ def test_rglru_rejects_malformed_inputs(bad):
         tx = tx.double()
     elif bad == "h0_shape":
         h0 = torch.zeros(2, 5)
-    else:
-        ta, tx = ta.to("meta"), tx.to("meta")
+    else:   # a and x on two devices (a meta pair is the dry-run's count)
+        ta = ta.to("meta")
     with pytest.raises(ValueError):
         ops.rglru(ta, tx, h0)
 
