@@ -38,9 +38,10 @@ result line:
    a ragged W, and K1 at head dim 256 (Griffin's shape, SDPA beside it, and
    S=4096 where the window of 2048 bites); K1 at MLA's qk 192 / v 128
    (deepseek-v2-lite prefill), at qwen3-moe's prefill (H=32, KV=4), at
-   gemma2-9b's hd 256 with soft-cap 50 and window 4,096, and at hd 8, K3 at
-   qwen3-moe's decode (G=8), at gemma2's (hd 256, G=2, soft-cap 50) and at
-   hd 8, each bf16 and float32, timed beside its bound and a yardstick:
+   gemma2-9b's hd 256 with soft-cap 50 and window 4,096, at hd 8 and at
+   stablelm-3b's hd 80 (H = KV = 32), K3 at qwen3-moe's decode (G=8), at
+   gemma2's (hd 256, G=2, soft-cap 50), at hd 8 and at stablelm-3b's hd 80,
+   each bf16 and float32, timed beside its bound and a yardstick:
    SDPA, or where there is a soft-cap ``flex_attention`` with a tanh
    score_mod (compiled once, held against the plain version first);
 3. serve 8 requests of 512 tokens through full-width, full-depth bf16
@@ -69,18 +70,24 @@ result line:
      full forward at B=1, S=2,561 over a 2,048-slot ring that wraps (rel <
      5e-2 on unit-variance attention scores, ``conditioned_griffin``; the
      served weights' figure printed beside it);
-   then the rest of the transformer zoo at full width and depth, bf16, one
-   model at a time (each freed before the next, its peak device memory
-   printed): deepseek-v2-lite-16b (MLA, MoE 64 experts top-6 + 2 shared, a
-   dense lead layer; K1 = 27 per request), qwen3-moe-30b-a3b (MoE 128
-   experts top-8, QK-norm; K1 = 48) and gemma2-9b (sandwich norms,
-   soft-caps, windows of 4,096 and 0, hd 256; K1 = 42): serve 8 requests
-   of 512 tokens as phase 3, split == monolith (1e-3), generate 16
-   requests of 32 new tokens (K3 = 48 and 42 per decode step, none for
-   MLA's absorbed decode), and prefill + decode == full forward (B=2,
-   S=129, rel < 5e-2, MoE capacity factor 64; deepseek and gemma2 on
-   unit-variance scores, qwen3-moe on its served weights, its QK-norm
-   giving unit-variance scores already);
+   then the rest of the transformer zoo at full width, bf16, one model at
+   a time (each freed before the next, its peak device memory printed),
+   all layers but command-r-plus-104b's: deepseek-v2-lite-16b (MLA, MoE 64
+   experts top-6 + 2 shared, a dense lead layer; K1 = 27 per request),
+   qwen3-moe-30b-a3b (MoE 128 experts top-8, QK-norm; K1 = 48), gemma2-9b
+   (sandwich norms, soft-caps, windows of 4,096 and 0, hd 256; K1 = 42),
+   stablelm-3b (hd 80, partial RoPE over 20 dims, LayerNorm; K1 = 32),
+   internvl2-1b (G=7, a 256-embedding modality prefix; K1 = 24),
+   musicgen-medium (MHA, GELU; K1 = 48), deepseek-coder-33b (62 layers,
+   G=7, ~66.7 GB of weights; K1 = 62) and command-r-plus-104b cut in depth
+   to its first 16 of 64 layers (the parallel block, vocabulary 256,000;
+   K1 = 16): serve 8 requests of 512 tokens as phase 3 (text only, as the
+   reference's serve), split == monolith (1e-3), generate 16 requests of
+   32 new tokens (K3 = one a layer a decode step, none for MLA's absorbed
+   decode), and prefill + decode == full forward (B=2, S=129, rel < 5e-2,
+   MoE capacity factor 64; qwen3-moe on its served weights, its QK-norm
+   giving unit-variance scores already, the others on unit-variance scores;
+   internvl2-1b's 256 patch embeddings fed before the tokens);
 7b. the port's examples at their own sizes (``quickstart`` and
    ``serve_batched`` on reduced llama3-8b, ``edge_orchestration``'s Table II
    and drill; ``train_quickstart`` runs in phase 13), each with its exact
@@ -185,13 +192,13 @@ result line:
    activations as the reference trains, float32 where ``f32_activations``
    says so): K1's float32 backward kernel against
    ``flash_attention_bwd_plain`` at ``TRAIN_BWD``'s
-   eleven shapes (Llama-3-8B's B=2, S=512, H=32, KV=8, hd 128; the
+   twelve shapes (Llama-3-8B's B=2, S=512, H=32, KV=8, hd 128; the
    quickstart's B=8, S=256, H=8, hd 64; reduced gemma2's hd 32 with soft-cap
    50, window 16 and ``attn_scale``; hd 8 at G=7; a ragged S; at B=2, S=512
    gemma2-9b's hd 256, GQA 16/8, soft-cap 50 and scale 224^-1/2 with windows
    4,096 and 0, recurrentgemma-9b's hd 256 MQA (G=16) with window 2,048 and
    deepseek-v2-lite's MLA at qk 192 / v 128; reduced MLA's 24 / 16; a ragged
-   S at hd 256), max |diff| <= 1e-4 of the largest reference gradient, each
+   S at hd 256; stablelm-3b's hd 80, H = KV = 32), max |diff| <= 1e-4 of the largest reference gradient, each
    repeated bit for bit and timed beside its two bounds (float32 products on
    the CUDA cores; 3xTF32 on the tensor cores, as the kernel runs them), the
    plain version and one PyTorch call's backward (SDPA's, or where there is
@@ -237,7 +244,11 @@ result line:
    and three MoE layers: K1 7, backward 4 at qk 192 / v 128), mamba2-1.3b
    at all 48 layers (K4 forward 96, backward 48) and recurrentgemma-9b cut
    to its first (rec, rec, attn) group (K5 forward 4, backward 2; K1 2,
-   backward 1 at hd 256), K2a/K2b one per leaf and every other kernel 0;
+   backward 1 at hd 256) and stablelm-3b at all 32 layers (K1 64, backward
+   32 at hd 80), K2a/K2b one per leaf and every other kernel 0; then
+   stablelm-3b's step-0 gradient norm at all 32 layers with K1 and with
+   its plain version, bf16 and float32, and on unit-variance scores
+   (printed, not held: the reference's init makes it ~1e15 either way);
    the float32 path's step-0 gradients at full width, B=2, S=512
    (``F32_WITNESS``: llama3-8b at 1 layer, gemma2-9b and deepseek-v2-lite
    at 2), finite at ``step_launches``; and ``launch/train.main``'s
@@ -247,13 +258,13 @@ result line:
 14. print the ``kernels`` line (K1/K2 launches from phase 3, K3's from
    phase 4, K4's from the Mamba-2 serve, K5's from the Griffin serve; the
    rows of K1 and K3 at the new shapes with the launches of the deepseek,
-   qwen3-moe and gemma2 serve and generation runs and of the hd-8 reduced
-   runs; K4's and K5's backward with the launches of the full-width
+   qwen3-moe, gemma2 and stablelm-3b (hd 80) serve and generation runs and
+   of the hd-8 reduced runs; K4's and K5's backward with the launches of the full-width
    Mamba-2 and Griffin training steps; K1's bf16 forward with lse and bf16
    backward (``BWD_BF16_ROWS``) with those of the bf16 Llama-3-8B steps,
    the quickstart (hd 64), gemma2-9b's and Griffin's (hd 256),
-   deepseek-v2-lite's (MLA) and the reduced deepseek-v2-lite gradients
-   (24, 16); K1's float32 forward with lse and float32 backward
+   deepseek-v2-lite's (MLA), stablelm-3b's (hd 80) and the reduced
+   deepseek-v2-lite gradients (24, 16); K1's float32 forward with lse and float32 backward
    (``BWD_ROWS``, off the bf16 training path) with those of the float32
    runs: ``F32_WITNESS``'s and reduced deepseek-v2-lite's float32
    gradients) and, last, ``{"ok": true, "device": {...}}``.
@@ -338,6 +349,17 @@ SERVE_ARGV = ["--full", "--param-dtype", "bfloat16", "--compress",
 SSD_PATH = dict(b=1, s=512, h=64, g=1, n=128, p=64, chunk=256)
 LRU_PATH = (1, 512, 4096)                         # recurrentgemma-9b, 512 tokens
 GRIFFIN_ATTN = dict(b=1, s=512, h=16, kv=1, hd=256, window=2048)
+# the rest of the transformer zoo at full width: K1 launches per forward
+# (every layer, deepseek's dense lead layer included), K3 launches per
+# decode step (deepseek's MLA decodes in the absorbed latent form, plain
+# torch as in the reference: none) and the layers served (None: all).
+# command-r-plus-104b's 64 layers (~210 GB of bf16 weights) do not fit one
+# card: its first 16 (~50 GB of blocks and the 6.3 GB tied embedding), a
+# cut in depth only; deepseek-coder-33b's 62 (~66.7 GB) do
+ZOO = {"deepseek-v2-lite-16b": (27, 0, None), "qwen3-moe-30b-a3b": (48, 48, None),
+       "gemma2-9b": (42, 42, None), "stablelm-3b": (32, 32, None),
+       "internvl2-1b": (24, 24, None), "musicgen-medium": (48, 48, None),
+       "deepseek-coder-33b": (62, 62, None), "command-r-plus-104b": (16, 16, 16)}
 FAMILY_GEN = {  # WaveBatcher runs: 16 requests over 8 slots, 2 waves
     "llama3-8b": dict(requests=16, max_batch=8, max_len=640,
                       prompt=(384, 512), new_tokens=64),
@@ -346,15 +368,8 @@ FAMILY_GEN = {  # WaveBatcher runs: 16 requests over 8 slots, 2 waves
     "recurrentgemma-9b": dict(requests=16, max_batch=8, max_len=640,
                               prompt=(384, 512), new_tokens=32),
     **{arch: dict(requests=16, max_batch=8, max_len=640, prompt=(384, 512),
-                  new_tokens=32)
-       for arch in ("deepseek-v2-lite-16b", "qwen3-moe-30b-a3b", "gemma2-9b")},
+                  new_tokens=32) for arch in ZOO},
 }
-# the rest of the transformer zoo at full width: K1 launches per forward
-# (every layer, deepseek's dense lead layer included) and K3 launches per
-# decode step (deepseek's MLA decodes in the absorbed latent form, plain
-# torch as in the reference: none)
-ZOO = {"deepseek-v2-lite-16b": (27, 0), "qwen3-moe-30b-a3b": (48, 48),
-       "gemma2-9b": (42, 42)}
 # reduced card-vs-CPU runs of the eight new configs: K1 per forward, K3 per
 # decode step (= n_layers, 0 for MLA); hd 8 in the last three
 ZOO_REDUCED = {"qwen3-moe-30b-a3b": (2, 2), "deepseek-v2-lite-16b": (3, 0),
@@ -798,10 +813,13 @@ QWEN3_PREFILL = dict(b=1, s=512, h=32, kv=4, dqk=128, dv=128, window=0, cap=0.0)
 GEMMA_PREFILL = dict(b=1, s=512, h=16, kv=8, dqk=256, dv=256, window=4096,
                      cap=50.0)
 HD8_PREFILL = dict(b=2, s=512, h=7, kv=1, dqk=8, dv=8, window=0, cap=0.0)
+# stablelm-3b's prefill and decode: hd 80, MHA (H = KV = 32)
+HD80_PREFILL = dict(b=1, s=512, h=32, kv=32, dqk=80, dv=80, window=0, cap=0.0)
 # qwen3-moe's group of 8 heads: two K3 blocks of 4 heads a KV head (G=8)
 QWEN3_DECODE = dict(b=8, s=640, h=32, kv=4, hd=128, cur=576, window=0, cap=0.0)
 GEMMA_DECODE = dict(b=8, s=640, h=16, kv=8, hd=256, cur=576, window=0, cap=50.0)
 HD8_DECODE = dict(b=8, s=640, h=7, kv=1, hd=8, cur=576, window=0, cap=0.0)
+HD80_DECODE = dict(b=8, s=640, h=32, kv=32, hd=80, cur=576, window=0, cap=0.0)
 
 
 def flex_yardstick(s_q: int, s_k: int, scale: float, cap: float, window: int,
@@ -851,7 +869,8 @@ def phase_new_shapes(k1, k3) -> list[dict]:
     """Phase 2, K1 at MLA's qk 192 / v 128 (deepseek-v2-lite prefill), at
     qwen3-moe's prefill (H=32, KV=4) and at gemma2-9b's hd 256 with soft-cap
     50 and window 4,096, K3 at qwen3-moe's decode (G=8: two blocks of 4 heads a
-    KV head) and gemma2's (hd 256, G=2, soft-cap 50), both at hd 8: against
+    KV head) and gemma2's (hd 256, G=2, soft-cap 50), both at hd 8 and at
+    stablelm-3b's hd 80 (MHA, H = KV = 32): against
     their plain versions (bf16 and float32), timed by graph replay beside
     their bounds, with SDPA as the yardstick where there is no soft-cap and
     ``flex_attention`` (``flex_yardstick``, held against the plain version
@@ -861,7 +880,8 @@ def phase_new_shapes(k1, k3) -> list[dict]:
     rows = []
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for tag, shape in (("mla", MLA_PREFILL), ("qwen3", QWEN3_PREFILL),
-                       ("gemma2", GEMMA_PREFILL), ("hd8", HD8_PREFILL)):
+                       ("gemma2", GEMMA_PREFILL), ("hd8", HD8_PREFILL),
+                       ("hd80", HD80_PREFILL)):
         b, s, h, kv, dqk, dv, window, cap = shape.values()
         sc = dqk ** -0.5
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
@@ -921,7 +941,7 @@ def phase_new_shapes(k1, k3) -> list[dict]:
                   f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, "
                   f"{n_flops / 1e9:.3f} GFLOP)")
     for tag, shape in (("qwen3", QWEN3_DECODE), ("gemma2", GEMMA_DECODE),
-                       ("hd8", HD8_DECODE)):
+                       ("hd8", HD8_DECODE), ("hd80", HD80_DECODE)):
         b, s, h, kv, hd, cur, window, cap = shape.values()
         cur_len = torch.tensor(cur, dtype=torch.int32, device="cuda")
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
@@ -1327,12 +1347,16 @@ def request_latency(engine, label: str) -> None:
     breakdown(f"{label} request", lambda: engine.infer_logits(toks))
 
 
-def phase_family_serve(serve, arch: str, counters, per_request: dict):
+def phase_family_serve(serve, arch: str, counters, per_request: dict,
+                       n_layers: int | None = None):
     """Serve 8 requests of 512 tokens through full-width bf16 ``arch`` with
-    int8 boundaries; ``per_request`` the launches one request makes."""
+    int8 boundaries (its first ``n_layers`` layers where given: a cut in
+    depth, ``serve --n-layers``); ``per_request`` the launches one request
+    makes."""
     reset(counters)
     t0 = time.perf_counter()
-    out, engine = serve.run(serve.parse_args(["--arch", arch] + SERVE_ARGV))
+    depth = [] if n_layers is None else ["--n-layers", str(n_layers)]
+    out, engine = serve.run(serve.parse_args(["--arch", arch] + SERVE_ARGV + depth))
     torch.cuda.synchronize()
     counts = counts_of(counters)
     print(f"serve {arch}: {out} in {time.perf_counter() - t0:.1f} s (init "
@@ -1435,11 +1459,14 @@ def conditioned_griffin(params, cfg):
     return {**params, "groups": groups, "tail": tail}
 
 
-def prefill_decode_rel(bundle, params, toks) -> float:
-    """rel max |logits| gap: full prefill vs prefill of S-1 + one decode."""
-    s = toks.shape[1]
-    logits_full, _ = bundle.prefill(params, {"tokens": toks})
-    _, cache = bundle.prefill(params, {"tokens": toks[:, :-1]}, max_len=s)
+def prefill_decode_rel(bundle, params, toks, prefix=None) -> float:
+    """rel max |logits| gap: full prefill vs prefill of S-1 + one decode;
+    ``prefix`` (modality embeddings [B, P, prefix_dim]) goes before the
+    tokens of both prefills, and the decode position counts it."""
+    extra = {} if prefix is None else {"prefix_embeds": prefix}
+    s = toks.shape[1] + (0 if prefix is None else prefix.shape[1])
+    logits_full, _ = bundle.prefill(params, {"tokens": toks, **extra})
+    _, cache = bundle.prefill(params, {"tokens": toks[:, :-1], **extra}, max_len=s)
     logits_dec, _ = bundle.decode(params, cache, toks[:, -1], s - 1)
     a, d = logits_full.float(), logits_dec.float()
     if not bool(torch.isfinite(d).all()):
@@ -1452,18 +1479,28 @@ def phase_family_prefill_decode(bundle, params, counters, b: int, s: int,
                                 conditioner=None, per_decode=None) -> None:
     """prefill + one decode step == the full prefill's logits, rel < ``tol``;
     with a ``conditioner`` the check holds on its weights, and the served
-    weights' figure is printed beside it."""
-    toks = torch.as_tensor(np.random.default_rng(6).integers(
-        0, bundle.cfg.vocab, (b, s), dtype=np.int32), device="cuda")
-    served = prefill_decode_rel(bundle, params, toks) if conditioner else None
+    weights' figure is printed beside it.  A config with a modality prefix
+    (internvl2-1b: 256 patch embeddings of width 1,024, as its
+    ``input_specs`` ships them) gets seeded bf16 embeddings before the S
+    tokens of both prefills."""
+    rng = np.random.default_rng(6)
+    toks = torch.as_tensor(rng.integers(0, bundle.cfg.vocab, (b, s), dtype=np.int32),
+                           device="cuda")
+    n_prefix = getattr(bundle.cfg, "prefix_tokens", 0)
+    prefix = torch.as_tensor(rng.standard_normal(
+        (b, n_prefix, bundle.cfg.prefix_dim), dtype=np.float32),
+        device="cuda").bfloat16() if n_prefix else None
+    served = prefill_decode_rel(bundle, params, toks, prefix) if conditioner else None
     held = conditioner(params, bundle.cfg) if conditioner else params
     reset(counters)
-    rel = prefill_decode_rel(bundle, held, toks)
+    rel = prefill_decode_rel(bundle, held, toks, prefix)
     torch.cuda.synchronize()
     counts = counts_of(counters)
     del held
-    print(f"{bundle.arch} prefill+decode vs full forward (B={b}, S={s}, bf16, "
-          f"full width and depth): rel {rel:.3e} (held < {tol:g}"
+    print(f"{bundle.arch} prefill+decode vs full forward (B={b}, S={s}"
+          + (f" after {n_prefix} prefix embeddings" if n_prefix else "")
+          + f", bf16, full width, {bundle.cfg.n_layers} layers): rel {rel:.3e} "
+          f"(held < {tol:g}"
           + (f", unit-variance scores; served weights {served:.3e}, not held"
              if conditioner else "") + f"); launches {counts}")
     per_decode = per_decode or {}
@@ -1841,23 +1878,31 @@ def phase_examples(counters, card: str) -> None:
 
 
 def phase_zoo(serve, arch: str, counters) -> tuple[dict, dict]:
-    """The rest of the transformer zoo at full width and depth, bf16: serve
-    8 requests through the orchestrator's split with int8 boundaries, split
-    == monolith, generate 16 requests, and prefill + decode == full forward
-    with the reference's gate for it (5e-2; tests/test_serving.py) and, for
-    MoE, its capacity factor of 64 so that no token is dropped in either
-    path: for MLA (absorbed decode) and gemma2 (soft-caps, windows, hd 256)
-    on unit-variance scores (``conditioned``), for qwen3-moe on the served
-    weights, whose QK-norm already gives unit-variance scores.  Frees the
-    model after; prints the peak of allocated device memory.  Returns the
-    launches of the serving and the generation runs."""
+    """The rest of the transformer zoo at full width, bf16, at the depth
+    ``ZOO`` gives (all layers but command-r-plus-104b's, cut to its first
+    16): serve 8 requests through the orchestrator's split with int8
+    boundaries, split == monolith, generate 16 requests, and prefill +
+    decode == full forward with the reference's gate for it (5e-2;
+    tests/test_serving.py) and, for MoE, its capacity factor of 64 so that
+    no token is dropped in either path: on unit-variance scores
+    (``conditioned``) where the reference's init puts them near an argmax,
+    on the served weights for qwen3-moe, whose QK-norm already gives
+    unit-variance scores; internvl2-1b's with its 256 patch embeddings
+    before the tokens.  Frees the model after; prints the peak of allocated
+    device memory.  Returns the launches of the serving and the generation
+    runs."""
+    from repro_torch.configs import get
     from repro_torch.models.api import bundle_for
 
-    per_forward, per_step = ZOO[arch]
+    per_forward, per_step, n_layers = ZOO[arch]
+    if n_layers is not None:
+        print(f"{arch}: full width, cut in depth to its first {n_layers} of "
+              f"{get(arch).n_layers} layers (the whole model's bf16 weights do "
+              "not fit one card)")
     torch.cuda.reset_peak_memory_stats()
     serve_counts, engine = phase_family_serve(
         serve, arch, counters, {"flash_attention": per_forward, "ssd": 0,
-                                "rglru": 0})
+                                "rglru": 0}, n_layers)
     bundle, params, config = engine.bundle, engine.params, engine.config
     del engine
     torch.cuda.empty_cache()
@@ -1877,7 +1922,7 @@ def phase_zoo(serve, arch: str, counters) -> tuple[dict, dict]:
         per_decode={"decode_attention": per_step})
     del bundle, params
     torch.cuda.empty_cache()
-    print(f"{arch}: peak device memory allocated "
+    print(f"{arch} ({cfg.n_layers} layers): peak device memory allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return serve_counts, gen_counts
 
@@ -3309,7 +3354,7 @@ def phase_simulator(counters, card: str) -> None:
 # gemma2-9b (hd 256, GQA 16/8, soft-cap 50, scale 224^-1/2; windows 4,096
 # and 0), recurrentgemma-9b (hd 256, MQA: G=16 through the sum pass, window
 # 2,048) and deepseek-v2-lite (MLA, qk 192 / v 128), reduced MLA (24 / 16)
-# and a ragged S at hd 256
+# and a ragged S at hd 256; last, stablelm-3b's (hd 80, MHA: H = KV = 32)
 TRAIN_BWD = [
     ("llama3-8b", 2, 512, 32, 8, 128, 128, 0, 0.0, None),
     ("quickstart", 8, 256, 8, 8, 64, 64, 0, 0.0, None),
@@ -3322,7 +3367,11 @@ TRAIN_BWD = [
     ("deepseek-v2-lite", 2, 512, 16, 16, 192, 128, 0, 0.0, 192.0 ** -0.5),
     ("mla reduced", 2, 256, 4, 4, 24, 16, 0, 0.0, 24.0 ** -0.5),
     ("ragged hd 256", 2, 333, 16, 8, 256, 256, 0, 50.0, None),
+    ("stablelm-3b", 2, 512, 32, 32, 80, 80, 0, 0.0, None),
 ]
+# the TRAIN_BWD shapes at which the float32 and bf16 forwards with lse are
+# held and timed (the first gives the kernels line's row)
+TRAIN_FWD = ("llama3-8b", "quickstart", "stablelm-3b")
 # the kernels line's rows of K1's float32 backward, one per instance the
 # float32 training path runs, by the TRAIN_BWD shape that times it; off the
 # bf16 path since bf16 training, their launches come from the float32
@@ -3343,9 +3392,10 @@ BWD_BF16_TOL = 2e-2
 # lse, one per instance a bf16 training path runs, by the TRAIN_BWD shape
 # that times it; their launches come from the full-width bf16 steps
 # (Llama-3-8B: hd 128; gemma2-9b's and recurrentgemma-9b's: hd 256;
-# deepseek-v2-lite's: MLA), the quickstart's (hd 64) and reduced
-# deepseek-v2-lite's bf16 gradients (24, 16)
+# deepseek-v2-lite's: MLA; stablelm-3b's: hd 80), the quickstart's (hd 64)
+# and reduced deepseek-v2-lite's bf16 gradients (24, 16)
 BWD_BF16_ROWS = {"llama3-8b": "flash_attention_bwd@bf16",
+                 "stablelm-3b": "flash_attention_bwd@hd80",
                  "quickstart": "flash_attention_bwd@bf16_hd64",
                  "gemma2-9b local": "flash_attention_bwd@bf16_hd256",
                  "deepseek-v2-lite": "flash_attention_bwd@bf16_mla",
@@ -3409,8 +3459,10 @@ FULL_RECURRENT = {"mamba2-1.3b": None, "recurrentgemma-9b": 3}
 # only, as Llama (AdamW's float32 state of the whole model does not fit):
 # gemma2-9b at 4 layers, two (local, global) pairs (K1 bwd at hd 256 with
 # the soft-cap, 1.71 B parameters), and deepseek-v2-lite-16b at 4, its
-# dense lead layer and three MoE layers (K1 bwd at qk 192 / v 128, 2.76 B)
-FULL_ZOO = {"gemma2-9b": 4, "deepseek-v2-lite-16b": 4}
+# dense lead layer and three MoE layers (K1 bwd at qk 192 / v 128, 2.76 B);
+# stablelm-3b at all 32 layers (K1 bwd at hd 80, 2.80 B: ~20 bytes a
+# parameter of float32 state and AdamW's temporaries fit one card)
+FULL_ZOO = {"gemma2-9b": 4, "deepseek-v2-lite-16b": 4, "stablelm-3b": None}
 # the float32 training path at full width, cut in depth: step-0 gradients
 # of llama3-8b at 1 layer (K1 at hd 128), gemma2-9b at 2 (a local and a
 # global layer: hd 256 with the soft-cap) and deepseek-v2-lite-16b at 2 (its
@@ -3541,7 +3593,8 @@ def train_forward_f32(k1) -> dict:
     block's recompute) at Llama-3-8B's training shape and the quickstart's
     (``TRAIN_BWD``'s first two rows).  At each, o and lse are held against
     the plain version (2e-5, 1e-5), a repeat and the call without lse give
-    the same o bit for bit; then the call is timed by CUDA-graph replay
+    the same o bit for bit, and at stablelm-3b's (``TRAIN_FWD``, hd 80);
+    then the call is timed by CUDA-graph replay
     beside its two bounds (3xTF32 on the tensor cores, as the kernel runs
     the products, and float32 on the CUDA cores), the plain version and
     SDPA's float32 forward (the port never calls it), with the HMMA issue
@@ -3550,7 +3603,7 @@ def train_forward_f32(k1) -> dict:
 
     row = None
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    for label, b, s, h, kv, hd, _, _, _, _ in TRAIN_BWD[:2]:
+    for label, b, s, h, kv, hd, _, _, _, _ in (r for r in TRAIN_BWD if r[0] in TRAIN_FWD):
         q = normal((b, s, h, hd), torch.float32, 21)
         k = normal((b, s, kv, hd), torch.float32, 22)
         v = normal((b, s, kv, hd), torch.float32, 23)
@@ -3739,8 +3792,9 @@ def phase_train_kernel(k1) -> list[dict]:
 
 def train_forward_bf16(k1) -> dict:
     """Phase 13: K1's bf16 forward with lse (``flash_attention_lse``, run
-    twice a layer by a bf16 training step) at Llama-3-8B's and the
-    quickstart's training shapes: o against the plain version (2e-2), lse
+    twice a layer by a bf16 training step) at Llama-3-8B's, the
+    quickstart's and stablelm-3b's (hd 80) training shapes (``TRAIN_FWD``):
+    o against the plain version (2e-2), lse
     against the plain log-normaliser of the same bf16 inputs (1e-5), a
     repeat and the serving call without lse give the same o bit for bit;
     timed by CUDA-graph replay beside its bound (bf16 products on the tensor
@@ -3749,7 +3803,7 @@ def train_forward_bf16(k1) -> dict:
     import torch.nn.functional as F
 
     row = None
-    for label, b, s, h, kv, hd, _, _, _, _ in TRAIN_BWD[:2]:
+    for label, b, s, h, kv, hd, _, _, _, _ in (r for r in TRAIN_BWD if r[0] in TRAIN_FWD):
         q = normal((b, s, h, hd), torch.bfloat16, 21)
         k = normal((b, s, kv, hd), torch.bfloat16, 22)
         v = normal((b, s, kv, hd), torch.bfloat16, 23)
@@ -4306,6 +4360,52 @@ def train_full_model(arch: str, n_layers: int | None, counters, card: str) -> di
                       bundle_for(arch, cfg), counters, card, step_launches(cfg))
 
 
+def train_depth_witness(k1, card: str) -> None:
+    """Phase 13: where stablelm-3b's full-width step-0 gradient norm comes
+    from (all 32 layers, B=2, S=512, the served init), printed, not held:
+    in bf16 and in float32 (``f32_activations``), each with K1 and with K1's
+    plain version on the card (``plain_attention``), with the largest leaf
+    gap between the two; then in bf16 on unit-variance scores
+    (``conditioned``).  The reference's ``dense_init`` takes wq's and wk's
+    fan-in from the heads, so every layer's scores sit near an argmax, and
+    32 such layers amplify the gradient whatever computes the attention."""
+    from repro_torch.configs import get
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models.api import bundle_for
+
+    cfg = get("stablelm-3b")
+    big = bundle_for("stablelm-3b", cfg)
+    params = big.init(torch.Generator(device="cuda").manual_seed(0), "cuda",
+                      torch.float32)
+    batch = SyntheticTokens(DataConfig(vocab=cfg.vocab, batch=FULL_TRAIN["batch"],
+                                       seq_len=FULL_TRAIN["seq"])).batch_at(0)
+
+    def grads(p, plain, f32):
+        with plain_attention(k1) if plain else contextlib.nullcontext(), \
+                f32_activations() if f32 else contextlib.nullcontext():
+            return loss_grads(big, p, batch, "cuda")
+
+    def norm(gs):
+        return float(torch.sqrt(sum((g.double() ** 2).sum() for g in gs)))
+
+    out = []
+    for f32 in (False, True):
+        kern = grads(params, False, f32)
+        plain = grads(params, True, f32)
+        gap = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                  for a, b in zip(kern, plain))
+        out.append(f"{'float32' if f32 else 'bf16'}: K1 {norm(kern):.4e}, plain "
+                   f"attention {norm(plain):.4e}, largest leaf gap {gap:.2e}")
+        del kern, plain
+    unit = norm(grads(conditioned(params, cfg), False, False))
+    print(f"train stablelm-3b full width, 32 layers, step-0 gradient norms "
+          f"(B={FULL_TRAIN['batch']}, S={FULL_TRAIN['seq']}; not held): "
+          + "; ".join(out) + f"; bf16 on unit-variance scores {unit:.4e}; "
+          f"card: {card}")
+    del params
+    torch.cuda.empty_cache()
+
+
 def train_f32_witness(counters, card: str) -> dict:
     """Phase 13: the float32 training path at full width, step-0 gradients
     (``f32_activations``) of ``F32_WITNESS``'s models at ``FULL_TRAIN``'s B
@@ -4447,6 +4547,10 @@ def phase_train(k1, k4, k5, counters, card: str,
     launches["flash_attention_bwd@bf16_hd256"] = {
         k: zoo["gemma2-9b"][k] + launches["rglru_bwd"][k] for k in llama}
     launches["flash_attention_bwd@bf16_mla"] = zoo["deepseek-v2-lite-16b"]
+    launches["flash_attention_bwd@hd80"] = zoo["stablelm-3b"]
+    train_depth_witness(k1, card)
+    tally()
+    lap("stablelm-3b gradient norm witness")
     f32 = train_f32_witness(counters, card)
     tally()
     launches |= {"flash_attention_bwd": f32["llama3-8b"],
@@ -4692,7 +4796,9 @@ def main() -> int:
         "decode_attention@qwen3": zoo["qwen3-moe-30b-a3b"][1],
         "flash_attention@gemma2": zoo["gemma2-9b"][0],
         "decode_attention@gemma2": zoo["gemma2-9b"][1],
-        "flash_attention@hd8": hd8, "decode_attention@hd8": hd8, **train_counts}
+        "flash_attention@hd8": hd8, "decode_attention@hd8": hd8,
+        "flash_attention@hd80": zoo["stablelm-3b"][0],
+        "decode_attention@hd80": zoo["stablelm-3b"][1], **train_counts}
     for row in rows:
         row["launches"] = launches_from.get(row["name"], serve_counts)[
             row["name"].split("@")[0]]

@@ -11,14 +11,16 @@ Each checkout is measured in its own process (each imports its own
 ``repro_torch`` and builds its own kernels), in the order other, this, this,
 other, so a drift of the card over the run shows as a gap between the two
 readings of one checkout.  Every measurement prints the device time per call
-of K1 (flash prefill attention) at Llama-3-8B's prefill shape and at
-Griffin's hd 256 shape, of K3 (decode attention) at the generation path's
+of K1 (flash prefill attention) at Llama-3-8B's prefill shape, at
+Griffin's hd 256 shape and at stablelm-3b's hd 80 (where the checkout
+builds it), of K3 (decode attention) at the generation path's
 decode shape, and of K4 (the SSD chunk scan, bf16, final state returned) at
 Mamba-2's prefill shape, of K1's float32 forward with lse (as training
 calls it) at Llama-3-8B's and the quickstart's training shapes, of K1's
 backward (float32, and bf16 where the checkout builds it) at Llama-3-8B's
 training shape, the quickstart's (hd 64), at hd 8 with G=7 and at
-gemma2-9b's, recurrentgemma-9b's (hd 256) and deepseek-v2-lite's (MLA)
+gemma2-9b's, recurrentgemma-9b's (hd 256), deepseek-v2-lite's (MLA) and
+stablelm-3b's (hd 80)
 (``chip_smoke.TRAIN_BWD``; where a checkout builds the instance), of K4's
 float32 forward and K4's backward at each shape of ``chip_smoke.SSD_BWD``
 (Mamba-2's training shape first), from a CUDA-graph replay
@@ -34,7 +36,10 @@ also times this checkout's K3 over other values of
 ``BLOCKS_PER_SM``, the split plan's one knob, and its bf16 K1 backward
 over the values of ``BWD_MIN_ITEMS`` that change its plan (the query heads
 a dK/dV work item walks, ``bwd_heads_per_item``).  Prints one JSON line per
-measurement and the card's name and power limit.
+measurement and the card's name and power limit; last, one JSON line
+compares the two builds' machine code kernel by kernel (``cuobjdump``):
+how many kernels both build have identical instructions, and which differ
+or are built by one checkout only.
 """
 
 from __future__ import annotations
@@ -49,12 +54,14 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parent
 
 # (label, b, s, h, kv, hd, window): K1 at the two model paths' prefill shapes
+# and at stablelm-3b's (hd 80, where the measured checkout builds it)
 K1_SHAPES = [("llama", 1, 512, 32, 8, 128, 0),
-             ("griffin", 1, 512, 16, 1, 256, 2048)]
+             ("griffin", 1, 512, 16, 1, 256, 2048),
+             ("stablelm", 1, 512, 32, 32, 80, 0)]
 # K1's backward at these rows of chip_smoke.TRAIN_BWD (each where the
 # measured checkout builds its instance)
 K1_BWD_SHAPES = ("llama3-8b", "quickstart", "hd 8, G=7", "gemma2-9b local",
-                 "recurrentgemma-9b", "deepseek-v2-lite")
+                 "recurrentgemma-9b", "deepseek-v2-lite", "stablelm-3b")
 
 
 def measure_k2(cs, k2) -> list[dict]:
@@ -121,6 +128,10 @@ def measure_k4_f32(cs, k4) -> list[dict]:
 
 def measure(root: pathlib.Path, sweep: bool) -> list[dict]:
     import chip_smoke as cs  # this checkout's timing helpers
+    # chip_smoke imports this checkout's repro_torch (its counts, the
+    # examples): drop it, so the kernels below come from the measured root
+    for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[name]
     sys.path.insert(0, str(root / "src"))
     import torch
 
@@ -141,6 +152,8 @@ def measure(root: pathlib.Path, sweep: bool) -> list[dict]:
     rows.append(dict(kernel="K4", shape="mamba2", us=1e3 * cs.graph_ms(ssd, 50),
                      by_name=cs.kernel_split(ssd, 20)))
     for label, b, s, h, kv, hd, window in K1_SHAPES:
+        if not k1.supported(hd, hd):
+            continue                    # a checkout without this instance
         q = cs.normal((b, s, h, hd), torch.bfloat16, 1)
         k = cs.normal((b, s, kv, hd), torch.bfloat16, 2)
         v = cs.normal((b, s, kv, hd), torch.bfloat16, 3)
@@ -246,6 +259,8 @@ def main() -> int:
     if args.measure is not None:
         for row in measure(args.measure.resolve(), args.sweep):
             print("AB " + json.dumps(row))
+        from repro_torch.kernels import build
+        print("AB_LIB " + str(build.build().path))
         return 0
 
     import torch
@@ -261,6 +276,7 @@ def main() -> int:
     print(f"card: {smi.stdout.strip()}")
     order = [("other", args.other), ("this", ROOT), ("this", ROOT),
              ("other", args.other)]
+    libs = {}
     for turn, (who, root) in enumerate(order):
         cmd = [sys.executable, str(ROOT / "kernel_ab.py"), "--measure", str(root)]
         if args.sweep and who == "this" and turn == 1:
@@ -271,6 +287,8 @@ def main() -> int:
             print(run.stdout[-4000:], run.stderr[-4000:], file=sys.stderr)
             return 1
         for line in run.stdout.splitlines():
+            if line.startswith("AB_LIB "):
+                libs[who] = pathlib.Path(line[7:])
             if line.startswith("AB "):
                 row = json.loads(line[3:])
                 by_name = {k: round(v, 3)
@@ -278,7 +296,44 @@ def main() -> int:
                 print(json.dumps({"turn": turn, "checkout": who, **row,
                                   "us": round(row["us"], 3),
                                   "profiler_us_by_kernel": by_name}))
+    print(json.dumps({"sass": sass_compare(libs["other"], libs["this"])}))
     return 0
+
+
+def sass_functions(lib: pathlib.Path) -> dict[str, list[str]]:
+    """Each kernel's SASS instructions in a built library (``cuobjdump``),
+    addresses and encodings stripped, by name (the anonymous namespace's
+    hash, which differs between builds, dropped)."""
+    import re
+    import shutil
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([cuobjdump, "--dump-sass", str(lib)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    funcs: dict[str, list[str]] = {}
+    body = None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            body = funcs.setdefault(re.sub(r"_GLOBAL__N__[0-9a-f_]+_", "",
+                                           m.group(1)), [])
+            continue
+        ins = re.sub(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/", "", line).strip()
+        if body is not None and ins:
+            body.append(ins)
+    return funcs
+
+
+def sass_compare(other: pathlib.Path, this: pathlib.Path) -> dict:
+    """Which kernels of two builds have the same machine code: the count
+    of kernels both build with identical instructions, the names of those
+    that differ, and of those only one builds."""
+    a, b = sass_functions(other), sass_functions(this)
+    shared = sorted(set(a) & set(b))
+    return {"shared": len(shared),
+            "identical": sum(a[k] == b[k] for k in shared),
+            "differ": [k for k in shared if a[k] != b[k]],
+            "only_other": sorted(set(a) - set(b)), "only_this": sorted(set(b) - set(a))}
 
 
 if __name__ == "__main__":

@@ -27,7 +27,13 @@
 //   a lane takes two neighbouring pieces of one row), so the ring needs no
 //   barrier; keys at or past the block's last valid key are not copied.  A
 //   stage is 16 KB at every head dim: it holds 512 keys at HD 8 (one lane a
-//   bf16 row) and 16 at HD 256 (a warp a row).  8 warps a block (2 blocks
+//   bf16 row) and 16 at HD 256 (a warp a row).  Where a row's pieces are
+//   not a power of two (HD 80: 10 bf16 or 20 float32 pieces) the row takes
+//   the next power of two of lanes, so the shuffles that sum its dot
+//   product stay inside its lanes, and the lanes past its pieces (6 of 16
+//   in bf16, 12 of 32 in float32) copy nothing and add zeros: a stage then
+//   holds 32 (bf16) or 16 (float32) whole key rows, as at HD 128 and 256,
+//   in 16 KB of lane slots of which 10 KB are written.  8 warps a block (2 blocks
 //   an SM) keep each warp's share of a stage short; a block takes at most 4
 //   query heads (GB): at HD 256 8 heads' float32 partials (66 KB) would not
 //   fit the ring's 64 KB for the fold, and at HD 128 8 heads take 212
@@ -125,6 +131,13 @@ __device__ __forceinline__ void fma4(float4& acc, float4 x, float w) {
 // Workspace layout, with P = B * (H / GB) * n_split partials (one per
 // block): ws_acc [P][GB][HD] the unnormalised output, ws_ml [P][GB][2] its
 // (m, l), m in log2 units.  counters [B * (H / GB)] are 0 between calls.
+// the smallest power of two at or above n
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p *= 2;
+  return p;
+}
+
 template <typename T, int HD, int GB>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -138,14 +151,14 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // piece a lane would need more than a warp for the row (float32, HD 256)
   constexpr int PPL = HD / VEC > 32 ? HD / VEC / 32 : 1;
   constexpr int E = VEC * PPL;           // elements of a row a lane holds
-  constexpr int TPK = HD / E;            // lanes that share one key row
-  static_assert(TPK >= 1 && TPK <= 32 && 32 % TPK == 0 && TPK * E == HD,
-                "unsupported head dim");
+  constexpr int ACT = HD / E;            // lanes that hold a piece of a key row
+  constexpr int TPK = pow2_at_least(ACT);  // lanes that share one key row
+  static_assert(TPK <= 32 && ACT * E == HD, "unsupported head dim");
   constexpr int ROWS = PIECES / PPL;     // key rows a lane group takes per stage
   static_assert(ROWS >= 1 && ROWS * PPL == PIECES, "pieces per row");
   constexpr int NG = THREADS / TPK;      // lane groups in the block
   constexpr int KS = NG * ROWS;          // keys a stage holds
-  static_assert(2 * KS * HD * (int)sizeof(T) == STAGE_BYTES, "stage size");
+  static_assert(2 * KS * TPK * E * (int)sizeof(T) == STAGE_BYTES, "stage size");
   static_assert(WARPS * GB * (HD + 2) * 4 <= STAGES * STAGE_BYTES, "fold size");
   extern __shared__ uint4 ring[];       // STAGES * STAGE_BYTES (dynamic)
 
@@ -162,6 +175,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid / 32;
   const int t = tid % TPK;               // this lane's HD slice: [t*E, t*E+E)
   const int grp = tid / TPK;
+  const bool act = ACT == TPK || t < ACT;  // the lane holds a slice of the row
 
   // q, scaled by scale * log2(e) (scores in log2 units, exp2), is loaded
   // while cur_len is
@@ -170,7 +184,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int g = 0; g < GB; ++g) {
 #pragma unroll
     for (int pc = 0; pc < PPL; ++pc)
-      Pack<T>::unpack(load16(q + ((size_t)b * H + h0 + g) * HD + t * E + pc * VEC),
+      Pack<T>::unpack(act ? load16(q + ((size_t)b * H + h0 + g) * HD + t * E + pc * VEC)
+                          : make_uint4(0u, 0u, 0u, 0u),
                       qv[g] + pc * VEC);
 #pragma unroll
     for (int i = 0; i < E; ++i) qv[g][i] *= scale * LOG2E;
@@ -204,7 +219,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < ROWS; ++u) {
         const int s = lo + tile * KS + grp + NG * u;
-        if (s < hi) {
+        if (s < hi && act) {
 #pragma unroll
           for (int pc = 0; pc < PPL; ++pc) {
             const uint32_t slot = (tid + THREADS * (u * PPL + pc)) * 16;
@@ -233,12 +248,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < ROWS; ++u) {
         ok[u] = base + grp + NG * u < hi;
+        const bool copied = ok[u] && act;  // an idle lane's slot holds nothing
 #pragma unroll
         for (int pc = 0; pc < PPL; ++pc) {
           const int j = u * PPL + pc;
-          kr[j] = ok[u] ? st[tid + THREADS * j] : make_uint4(0u, 0u, 0u, 0u);
-          vr[j] = ok[u] ? st[STAGE_BYTES / 32 + tid + THREADS * j]
-                        : make_uint4(0u, 0u, 0u, 0u);
+          kr[j] = copied ? st[tid + THREADS * j] : make_uint4(0u, 0u, 0u, 0u);
+          vr[j] = copied ? st[STAGE_BYTES / 32 + tid + THREADS * j]
+                         : make_uint4(0u, 0u, 0u, 0u);
         }
       }
 
@@ -326,7 +342,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();  // every thread is done reading the ring
   float* f_acc = reinterpret_cast<float*>(ring);        // [WARPS][GB][HD]
   float* f_ml = f_acc + WARPS * GB * HD;                // [WARPS][GB][2]
-  if (lane < TPK) {
+  if (lane < ACT) {
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
 #pragma unroll
@@ -477,6 +493,7 @@ cudaError_t dispatch_hd(int HD, int GB, const void* q, const void* k,
     case 16: REPRO_DECODE_HD(16);
     case 32: REPRO_DECODE_HD(32);
     case 64: REPRO_DECODE_HD(64);
+    case 80: REPRO_DECODE_HD(80);
     case 128: REPRO_DECODE_HD(128);
     case 256: REPRO_DECODE_HD(256);
     default: return cudaErrorInvalidValue;

@@ -13,7 +13,8 @@
 // DQK, the head dim of q and k, may exceed DV, that of v and o: MLA
 // (DeepSeek-V2) attends with q/k of 192 = 128 nope + 64 rope columns against
 // v of 128 (reduced: 24 against 16).  The instances are pairs (DQK, DV):
-// (8..256, same) and (192, 128), (24, 16).  Query head h reads KV
+// (8, 16, 32, 64, 80, 128, 256, same) and (192, 128), (24, 16); 80 is
+// StableLM's head dim (d 2,560 over 32 heads).  Query head h reads KV
 // head h / (H / KV), the Pallas index map's b // g.  The ragged edge of S is
 // masked here, not padded by the caller.  KV tiles that the causal or window
 // mask rules out for the whole query tile are never loaded.
@@ -39,8 +40,12 @@
 // is computed.  Q K^T runs over DQK rounded up to wgmma's k-step of 16: the
 // columns from DQK to that (DQK = 8 and 24) are zero-filled by the copies,
 // which is exact for the product.  Head dims under 64 are stored in a
-// 64-column panel; P V writes the V tile's width (at least 64, a legal wgmma
-// N) and the output columns past DV are dropped.  At (192, 128) the shared
+// 64-column panel, others in whole panels (80: a 64- and a 16-column k-step
+// span of a 128-column tile); P V writes the V tile's width (at least 64, a
+// legal wgmma N: 128 at DV = 80) and the output columns past DV are dropped.
+// The V tile's columns from pad16(DV) on are never written by the copies;
+// each output column reads only its own V column, so whatever they hold
+// reaches only the dropped columns, never o or lse.  At (192, 128) the shared
 // memory is the Q tile (24 KB) and two stages of a K (24 KB) and a V (16 KB)
 // tile, 107,520 bytes with the alignment pad; at 256 it is 164,864.  The
 // grid's y axis walks query tiles from the last, so the causal tiles with the
@@ -683,6 +688,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
   REPRO_FLASH_PAIR(16, 16, 64, 2)
   REPRO_FLASH_PAIR(32, 32, 64, 2)
   REPRO_FLASH_PAIR(64, 64, 64, 2)
+  REPRO_FLASH_PAIR(80, 80, 64, 2)
   REPRO_FLASH_PAIR(128, 128, 128, 2)
   REPRO_FLASH_PAIR(256, 256, 64, 1)
   REPRO_FLASH_PAIR(192, 128, 64, 2)

@@ -23,9 +23,9 @@
 //   dQ = scale dS K,   dK = scale dS^T q
 //
 // with dK and dV summed over the G = H / KV query heads that read one KV head
-// (GQA).  Instances: DQK = DV in {8, 16, 32, 64, 128, 256} and MLA's
+// (GQA).  Instances: DQK = DV in {8, 16, 32, 64, 80, 128, 256} and MLA's
 // (DQK, DV) = (192, 128) and (24, 16), the pairs the forward builds, each in
-// float32 and in bf16.
+// float32 and in bf16 (80: StableLM's head dim).
 //
 // What bounds it: the five products of the causal pairs (s and dK, dQ over
 // DQK; dP and dV over DV: 6 DQK + 4 DV operations a pair), against q, k, v,
@@ -87,7 +87,7 @@
 // warp holding both spills over 2 KB a thread and runs about 1.4x slower;
 // at (192, 128) and 128 one warp is faster).
 // Tiles are row-major in shared memory, rows DQK + 4 and DV + 4 floats (4 x
-// an odd number, mod 32: 12, 20, 28, 36, 68, 132, 196, 260), so the 32
+// an odd number, mod 32: 12, 20, 28, 36, 68, 84, 132, 196, 260), so the 32
 // lanes of every fragment load hit 32 banks, whether it reads along rows or
 // down columns.  The streamed tiles (q and dO, or k and v) come 32 rows a
 // step by 16-byte cp.async: where a head dim reaches 128 in one stage (at
@@ -112,7 +112,8 @@
 // - flash_bwd_dq_wgmma_kernel: a warpgroup owns 64 query rows.  s = q k^T
 //   and dP = dO v^T are shared x shared; dQ += dS k takes dS from registers
 //   and reads k MN-major.
-// - flash_bwd_dot_bf16_kernel: D, 16 bytes of o and dO a thread.
+// - flash_bwd_dot_bf16_kernel: D, 16 bytes of o and dO a thread, a row's
+//   DV / 8 threads rounded up to a power of two lanes (10 of 16 at 80).
 // - Work items: one per (b, group of ``heads`` query heads of one KV head,
 //   64-key tile) (the wrapper's bwd_work_table); the item walks its heads'
 //   query tiles, one 64-row step each (heads x query tiles steps), and sums
@@ -156,7 +157,10 @@
 // - Head dims under 16 columns, and 24, are zero-filled to wgmma's k-step of
 //   16 (exact for the products that reduce over them); a tile is stored in
 //   panels of 64 columns, and the output columns past the head dim are
-//   dropped.  At 256 the dK/dV block takes 215,040 bytes of shared memory and
+//   dropped.  At 80 (five k-steps over a 64- and a 16-column span) the
+//   tiles are 128 columns wide, as at 128, and dV, dK and dQ are N = 128
+//   products whose columns from 80 on (zero-filled by the copies, which
+//   run over whole panels there) reach only those dropped output columns.  At 256 the dK/dV block takes 215,040 bytes of shared memory and
 //   the dQ block 230,400; at 128, 100,352 and 99,328 (two blocks an SM).
 // P and dS are rounded to bf16 only as operands of their products, as the
 // forward rounds P (the reference's attention rounds P to the value dtype
@@ -861,19 +865,29 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
+// whether NT threads cover whole 64-row sw128 tiles of cpr 16-byte chunks a
+// row with one chunk column each, 8 rows (a swizzle period) apart at least
+__host__ __device__ constexpr bool by_columns(int cpr, int nt) {
+  return nt % cpr == 0 && nt / cpr % 8 == 0;
+}
+
 // positions [r0, r0 + 64) of one head (rows ``stride`` elements apart, D
 // real columns) -> an sw128 tile of 64 rows, by 16-byte cp.async from NT
 // threads; the columns from D to pad16(D), and positions at or past S, are
 // zero-filled.  The trip count is a constant: where the NT threads cover
 // whole rows (NT a multiple of the row's 16-byte chunks) each thread keeps
 // one chunk column and steps down the rows, its addresses computed once
-// (the swizzle of a row repeats every 8 rows).
+// (the swizzle of a row repeats every 8 rows).  Where a row's chunks do not
+// divide NT but its panels' do (80: 10 chunks, two panels of 8), the copies
+// run over the whole panels, the chunks past pad16(D) zero-filled: the
+// same, with no division a copy (which spilled the hd-80 dK/dV kernel).
 template <int D, int NT>
 __device__ __forceinline__ void load_sw(uint32_t dst, const bf16* src, size_t stride,
                                         int r0, int S, int tid) {
-  constexpr int CPR = pad16(D) / 8;               // 16-byte chunks a row
+  constexpr int CPR = by_columns(pad16(D) / 8, NT) || !by_columns(panels(D) / 8, NT)
+                          ? pad16(D) / 8 : panels(D) / 8;   // 16-byte chunks a row
   static_assert(64 * CPR % NT == 0, "tile must split over the threads");
-  if constexpr (NT % CPR == 0 && NT / CPR % 8 == 0) {
+  if constexpr (by_columns(CPR, NT)) {
     constexpr int RS = NT / CPR;                  // rows between a thread's chunks
     const int r = tid / CPR, c = tid % CPR;
     const bool col = c < D / 8;
@@ -988,20 +1002,29 @@ __device__ __forceinline__ void store_rows(void* out, int f32_out, size_t row, i
       }
 }
 
-// D[b, h, s] = sum_c dO[b, s, h, c] O[b, s, h, c] in float32: DV / 8
-// threads a (b, s, h) row, 16 bytes of each a thread (o and dout 16-byte
-// aligned; DV / 8 is a power of two at every pair built)
+// lanes of the D kernel a row of DV bf16 takes: its DV / 8 16-byte pieces
+// rounded up to a power of two, so that the row's shuffles stay in its lanes
+__host__ __device__ constexpr int dot_lanes(int dv) {
+  int n = 1;
+  while (n < dv / 8) n *= 2;
+  return n;
+}
+
+// D[b, h, s] = sum_c dO[b, s, h, c] O[b, s, h, c] in float32:
+// dot_lanes(DV) threads a (b, s, h) row, the first DV / 8 of them 16 bytes
+// of each (o and dout 16-byte aligned); at DV = 80, 10 of 16 lanes read and
+// the other 6 add zeros
 template <int DV>
 __global__ void flash_bwd_dot_bf16_kernel(const bf16* __restrict__ o,
                                           const bf16* __restrict__ dout,
                                           float* __restrict__ delta, int rows, int S,
                                           int H) {
-  constexpr int TPR = DV / 8;
-  static_assert((TPR & (TPR - 1)) == 0 && TPR <= 32, "threads a row");
+  constexpr int TPR = dot_lanes(DV);
+  static_assert(DV % 8 == 0 && TPR <= 32, "threads a row");
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = t / TPR, c = t % TPR * 8;
   float acc = 0.f;
-  if (row < rows) {
+  if (row < rows && (TPR * 8 == DV || c < DV)) {
     const uint4 a = *reinterpret_cast<const uint4*>(o + (size_t)row * DV + c);
     const uint4 d = *reinterpret_cast<const uint4*>(dout + (size_t)row * DV + c);
     const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
@@ -1461,7 +1484,7 @@ cudaError_t launch_bwd_bf16(const void* q_, const void* k_, const void* v_,
   if (err != cudaSuccess) return err;
 
   const int rows = B * S * H;
-  const unsigned dot_blocks = (unsigned)(((size_t)rows * (DV / 8) + 255) / 256);
+  const unsigned dot_blocks = (unsigned)(((size_t)rows * dot_lanes(DV) + 255) / 256);
   flash_bwd_dot_bf16_kernel<DV><<<dot_blocks, 256, 0, stream>>>(o, dout, delta, rows, S, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1560,9 +1583,9 @@ cudaError_t launch_bwd(const void* q_, const void* k_, const void* v_,
 // head, key tile)); heads is 1 for float32 and divides G = H / KV.  scratch
 // holds the G / heads groups' partials of dK [G / heads, B, S, KV, HD] and
 // then of dV [G / heads, B, S, KV, HD_V] (unused, and may be null, with one
-// group).  (HD, HD_V) is (8, 8), (16, 16), (32, 32), (64, 64), (128, 128),
-// (256, 256), (192, 128) or (24, 16) (the wrapper's _HEAD_DIMS and
-// _QK_V_PAIRS), in either type.
+// group).  (HD, HD_V) is (8, 8), (16, 16), (32, 32), (64, 64), (80, 80),
+// (128, 128), (256, 256), (192, 128) or (24, 16) (the wrapper's _HEAD_DIMS
+// and _QK_V_PAIRS), in either type.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* lse,
                                    const void* dout, void* delta, void* dq,
@@ -1594,6 +1617,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   REPRO_FLASH_BWD(16, 16)
   REPRO_FLASH_BWD(32, 32)
   REPRO_FLASH_BWD(64, 64)
+  REPRO_FLASH_BWD(80, 80)
   REPRO_FLASH_BWD(128, 128)
   REPRO_FLASH_BWD(256, 256)
   REPRO_FLASH_BWD(192, 128)

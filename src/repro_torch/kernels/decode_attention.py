@@ -31,7 +31,10 @@ takes at most 4 query heads (``heads_per_block``): at hd 256 8 heads'
 float32 partials would outgrow the ring that the fold reuses, and at hd
 128 8 heads' registers leave one block an SM, slower than two blocks of 4
 (qwen3-moe's decode, G = 8; PERF.md).  At hd 8 one lane holds a bf16 key
-row.
+row.  At hd 80 (StableLM) a row is 10 bf16 or 20 float32 pieces of 16
+bytes: it takes 16 or 32 lanes, the power of two at or above its pieces,
+the idle lanes copying nothing, so a stage holds 32 or 16 whole rows, as at
+hd 128 and 256.
 
 The wrapper keeps one zeroed counter buffer per card for those tickets (the
 kernel leaves it at 0), so calls on one card must be ordered on one stream
@@ -55,7 +58,7 @@ __all__ = ["decode_attention", "decode_attention_plain", "split_plan"]
 
 NEG_INF = -2.0e38
 _DTYPES = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+_HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
 SPLIT_MIN_KEYS = 64      # no chunk shorter than this many cache entries
 BLOCKS_PER_SM = 2        # kernel blocks resident on an SM: one wave of them
 
@@ -152,7 +155,7 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, logit_cap=0.0,
     """Decode attention: q [B,H,hd] vs caches [B,S,KV,hd] -> [B,H,hd].
 
     CPU tensors take :func:`decode_attention_plain`; CUDA tensors launch the
-    Hopper kernel (contiguous float32 or bfloat16, hd in 8/16/32/64/128/256,
+    Hopper kernel (contiguous float32 or bfloat16, hd in 8/16/32/64/80/128/256,
     ``cur_len`` an int or an integer tensor on q's card) or raise.
     ``decode_attention.launches`` counts kernel launches.  The kernel has
     no backward: a CUDA call raises where grad mode is on and q or a cache

@@ -25,14 +25,17 @@ block, K and V split as loaded, streamed through ``cp.async`` copies that
 overlap the products, P passed from the score accumulators to P V in
 registers, the longest causal query tiles first.  Griffin's local attention runs it at hd=256 (B=1, S=512, H=16, KV=1, window
 2048), Gemma-2 at hd=256 (H=16, KV=8, soft-cap 50, windows 4,096 and 0),
-MLA (DeepSeek-V2) with a qk head dim of 192 against a v head dim of 128.
+MLA (DeepSeek-V2) with a qk head dim of 192 against a v head dim of 128,
+StableLM at hd=80 (H=KV=32; the bf16 instance stores 80 columns in a
+128-column tile, as at 128, and drops P V's columns past 80).
 
 Training differentiates it: for CUDA tensors that need a gradient the
 wrapper runs the forward of the inputs' dtype through an autograd function
 whose forward also writes the rows' log-sum-exp (both instances write it)
 and whose backward is a kernel of its own (``csrc/flash_attention_bwd.cu``,
-float32 and bf16, at every pair the forward builds: hd = hd_v in 8 to 256
-and MLA's (192, 128) and (24, 16)), which replaces no TPU kernel (the
+float32 and bf16, at every pair the forward builds: hd = hd_v in 8 to 256,
+80 among them, and MLA's (192, 128) and (24, 16)), which replaces no TPU
+kernel (the
 reference differentiates its XLA attention).  Training runs bf16
 activations, as the reference does, so the bf16 instances are its path; the
 float32 ones serve float32 training and every float32 check.  What bounds
@@ -91,10 +94,10 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse",
 NEG_INF = -2.0e38
 _DTYPES = (torch.float32, torch.bfloat16)
 # the kernel's instances: q, k and v of one head dim (8: the reduced
-# deepseek-coder-33b, musicgen-medium and internvl2-1b; 256: Gemma-2,
-# Griffin), and MLA's (qk head dim, v head dim) pairs, (192, 128) at full
-# width and (24, 16) reduced
-_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+# deepseek-coder-33b, musicgen-medium and internvl2-1b; 80: stablelm-3b;
+# 256: Gemma-2, Griffin), and MLA's (qk head dim, v head dim) pairs,
+# (192, 128) at full width and (24, 16) reduced
+_HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
 _QK_V_PAIRS = ((192, 128), (24, 16))
 _BWD_TILE = 64                      # keys and query rows per tile of the backward
 _BWD_TABLES: dict = {}              # (device, b, s, h, kv, causal, window, heads) -> table

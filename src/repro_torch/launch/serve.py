@@ -12,12 +12,16 @@ Usage:
       --param-dtype bfloat16 --compress --requests 8 --prompt-len 512
 
 ``--full`` serves the full-width, full-depth model (random weights from a
-seed); the default is the reduced model.  ``--device`` defaults to cuda.
+seed); the default is the reduced model.  ``--n-layers N`` keeps the first
+N layers only (full or reduced width unchanged: a model whose weights do not
+fit one card is cut in depth, never in width).  ``--device`` defaults to
+cuda.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -35,6 +39,7 @@ from repro_torch.core import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.edgesim import MECScenarioParams, base_system_state
+from repro_torch.models.api import bundle_for
 from repro_torch.serving import ActivationTransport, SplitInferenceEngine
 
 _PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -52,6 +57,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="full-width, full-depth model instead of the reduced one")
     ap.add_argument("--param-dtype", choices=sorted(_PARAM_DTYPES),
                     default="float32")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="keep the first N layers (a cut in depth only)")
     return ap.parse_args(argv)
 
 
@@ -59,6 +66,12 @@ def run(args: argparse.Namespace) -> tuple[dict, SplitInferenceEngine]:
     """Serve ``args.requests`` requests; returns the summary and the engine."""
     dev = resolve_device(args.device)
     bundle = get_bundle(args.arch, reduced=not args.full)
+    if args.n_layers is not None:
+        if not 0 < args.n_layers <= bundle.cfg.n_layers:
+            raise ValueError(f"--n-layers {args.n_layers}: {args.arch} has "
+                             f"{bundle.cfg.n_layers} layers")
+        bundle = bundle_for(args.arch, dataclasses.replace(
+            bundle.cfg, n_layers=args.n_layers))
     gen = torch.Generator(device=dev).manual_seed(0)
     params = bundle.init(gen, dev, _PARAM_DTYPES[args.param_dtype])
     engine = SplitInferenceEngine(

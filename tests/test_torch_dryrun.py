@@ -6,7 +6,8 @@ imported, so it is imported in a subprocess of its own).  The
 llama3-8b, mamba2-1.3b and recurrentgemma-9b cells at ``train_4k`` and
 ``decode_32k`` run at full size on ``meta`` tensors with ``status: "ok"``,
 the ratio of ``model_flops`` to the counted operations printed and inside
-(0.3, 1.0]; each kernel's ``meta`` branch returns its output's shape, adds
+(0.3, 1.0]; stablelm-3b's ``prefill_32k`` cell (hd 80) counts K1 by
+``cost.py``'s formula; each kernel's ``meta`` branch returns its output's shape, adds
 ``kernels/cost.py``'s count to the tally and counts no launch; the
 per-chip param bytes equal the reference's ``NamedSharding.shard_shape``
 sum; a failing cell is recorded and the sweep goes on.  ``cost.py``'s
@@ -99,6 +100,23 @@ def test_dryrun_cell_runs_on_meta_at_full_size(arch, shape, tmp_path):
     assert rec["memory_per_chip"]["params"] == want
     if kind == "train":
         assert rec["memory_per_chip"]["opt_state"] == 2 * want
+
+
+def test_stablelm_prefill_cell_counts_k1_at_hd80(tmp_path):
+    """stablelm-3b's full-size ``prefill_32k`` cell (hd 80, 32 layers, B=32,
+    S=32,768) runs on ``meta`` with ``status: "ok"``: one K1 call a layer,
+    whose counted operations are ``kernels/cost.py``'s formula at hd 80,
+    and no launch."""
+    before = (k1.flash_attention.launches, k3.decode_attention.launches)
+    rec = dryrun.run_cell("stablelm-3b", "prefill_32k", "pod", tmp_path)
+    assert rec["status"] == "ok", rec.get("traceback")
+    spec = SHAPES["prefill_32k"]
+    cfg = get_bundle("stablelm-3b").cfg
+    k1_row = rec["cost"]["kernels"]["flash_attention"]
+    assert cfg.hd == 80 and k1_row["calls"] == cfg.n_layers
+    assert k1_row["ops"] == cfg.n_layers * cost.flash_attention_ops(
+        spec.global_batch, spec.seq_len, cfg.n_heads, 80, 80, True, 0)
+    assert (k1.flash_attention.launches, k3.decode_attention.launches) == before
 
 
 def test_failing_cell_is_recorded_and_the_sweep_goes_on(tmp_path, monkeypatch, capsys):

@@ -21,12 +21,12 @@ decides its result besides the card's arithmetic is checked here:
   from zero, is ``cvt.rna.tf32.f32``'s), meets the kernel's tolerance, 1e-4
   of the largest gradient against float64, where one TF32 product (rounded
   to nearest) does not: at Llama-3-8B's hd 128, Gemma-2's hd 256 (soft-cap
-  50) and MLA's qk 192 / v 128;
+  50), MLA's qk 192 / v 128 and StableLM's hd 80;
 - the bf16 instance's arithmetic (wgmma: bf16 operands, float32 sums; P
   and dS rounded to bf16 as operands, outputs rounded once), emulated, meets
   its bf16 tolerance, 2e-2 of the largest gradient against float64, and
-  not the float32 one, at hd 128, hd 256 with the soft-cap and both MLA
-  pairs;
+  not the float32 one, at hd 128, hd 256 with the soft-cap, both MLA
+  pairs and StableLM's hd 80;
 - the rules that split a tile's work between two warps (float32) or two
   warpgroups (bf16) by role (read from the source) are the stated ones.
 
@@ -53,7 +53,8 @@ TILE = 64
 # (b, s, h, kv, hd, hd_v, causal, window, cap, scale): the card test's eight
 # shapes, then S = 512 at G = 4 and S = 1, then the wide instances: hd 256
 # GQA with Gemma-2's soft-cap and scale, hd 256 MQA at G = 16 with a window
-# (Griffin), MLA's qk 192 / v 128 and, ragged at G = 3, 24 / 16
+# (Griffin), MLA's qk 192 / v 128 and, ragged at G = 3, 24 / 16; then hd 80
+# (StableLM: MHA, and G = 4 with a window and a soft-cap)
 SHAPES = [
     (2, 512, 32, 8, 128, 128, True, 0, 0.0, None),
     (8, 256, 8, 8, 64, 64, True, 0, 0.0, None),
@@ -69,6 +70,8 @@ SHAPES = [
     (1, 200, 16, 1, 256, 256, True, 64, 0.0, None),
     (2, 160, 4, 4, 192, 128, True, 0, 0.0, None),
     (2, 77, 6, 2, 24, 16, True, 0, 0.0, None),
+    (2, 150, 4, 4, 80, 80, True, 0, 0.0, None),
+    (1, 130, 8, 2, 80, 80, True, 48, 20.0, None),
 ]
 
 
@@ -220,8 +223,8 @@ def _bf16_rules():
     return kv, q
 
 
-PAIRS = [(8, 8), (16, 16), (32, 32), (64, 64), (128, 128), (256, 256), (192, 128),
-         (24, 16)]
+PAIRS = [(8, 8), (16, 16), (32, 32), (64, 64), (80, 80), (128, 128), (256, 256),
+         (192, 128), (24, 16)]
 
 
 @pytest.mark.parametrize("dqk,dv", PAIRS)
@@ -327,7 +330,8 @@ def test_3xtf32_products_meet_the_gradient_tolerance(mode, meets):
 @pytest.mark.parametrize("g,hd,hd_v,cap,scale", [
     (2, 256, 256, 50.0, 224.0 ** -0.5),       # Gemma-2-9B: G = 2, soft-cap 50
     (1, 192, 128, 0.0, 192 ** -0.5),          # DeepSeek-V2-Lite's MLA
-], ids=["gemma2-hd256", "mla-192-128"])
+    (1, 80, 80, 0.0, 80 ** -0.5),             # StableLM's hd 80 (MHA)
+], ids=["gemma2-hd256", "mla-192-128", "stablelm-hd80"])
 def test_3xtf32_products_meet_the_gradient_tolerance_at_wide_heads(
         g, hd, hd_v, cap, scale, mode, meets):
     """The wide instances' training shapes cut to one head group (S=512,
@@ -351,7 +355,8 @@ def test_3xtf32_products_meet_the_gradient_tolerance_at_wide_heads(
     (2, 256, 256, 50.0, 224.0 ** -0.5),       # Gemma-2-9B: soft-cap 50
     (1, 192, 128, 0.0, 192 ** -0.5),          # DeepSeek-V2-Lite's MLA
     (2, 24, 16, 0.0, 24 ** -0.5),             # MLA reduced (qk padded to 32)
-], ids=["llama-hd128", "gemma2-hd256", "mla-192-128", "mla-24-16"])
+    (1, 80, 80, 0.0, 80 ** -0.5),             # StableLM's hd 80 (MHA)
+], ids=["llama-hd128", "gemma2-hd256", "mla-192-128", "mla-24-16", "stablelm-hd80"])
 def test_bf16_products_meet_the_bf16_tolerance(g, hd, hd_v, cap, scale):
     """The bf16 instance's arithmetic, emulated: q, k, v, dO (and o) in
     bf16, every product with bf16 operands and float32 sums (P and dS

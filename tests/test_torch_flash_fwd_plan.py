@@ -17,7 +17,7 @@ checked here:
 - the same walk with both products in the kernel's 3xTF32 split (emulated
   by ``_split`` / ``_product`` of tests/test_torch_flash_bwd_plan.py)
   meets the card tests' tolerances against float64, 2e-5 on o and 1e-5 on
-  lse, at the card tests' soft-caps (30, 50), windows, hd 8, (24, 16),
+  lse, at the card tests' soft-caps (30, 50), windows, hd 8, hd 80, (24, 16),
   (192, 128) and 256, where one TF32 product does not.
 
 The card holds the kernel itself against the plain version
@@ -183,6 +183,8 @@ WALKS = [
     (1, 70, 4, 4, 24, 16, True, 16, 30.0),        # reduced MLA: window, soft-cap
     (1, 512, 2, 2, 192, 128, True, 0, 0.0),       # MLA prefill
     (2, 96, 4, 4, 64, 64, False, 0, 30.0),        # non-causal, soft-cap
+    (1, 512, 2, 2, 80, 80, True, 0, 0.0),         # stablelm-3b prefill, hd 80
+    (2, 150, 4, 2, 80, 80, True, 40, 30.0),       # hd 80: window, soft-cap
 ]
 
 

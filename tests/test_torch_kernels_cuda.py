@@ -134,10 +134,14 @@ def test_flash_kernel_tile_edges(b, s, h, kv, hd, window, dtype, tol):
     (2, 150, 6, 6, 8, 8, 16, 0.0),        # reduced musicgen, windowed
     (1, 65, 4, 2, 8, 8, 0, 50.0),         # hd 8 over a tile edge, soft-cap
     (1, 512, 16, 8, 256, 256, 4096, 50.0),  # gemma2-9b prefill: soft-cap 50
+    (1, 512, 32, 32, 80, 80, 0, 0.0),     # stablelm-3b prefill (hd 80, MHA)
+    (2, 77, 8, 2, 80, 80, 48, 30.0),      # hd 80: GQA, ragged S, window, cap
+    (2, 130, 4, 4, 80, 80, 0, 0.0),       # hd 80 over two 64-row tiles
 ])
 def test_flash_kernel_new_head_dims(b, s, h, kv, dqk, dv, window, cap, dtype, tol):
-    """K1 at MLA's qk head dim wider than its v head dim and at hd 8: the
-    zero-padded k-steps of Q K^T and the narrow P V panel."""
+    """K1 at MLA's qk head dim wider than its v head dim, at hd 8 and at
+    hd 80: the zero-padded k-steps of Q K^T, the narrow P V panel and, at
+    80, the 128-column tiles whose columns past 80 P V drops."""
     q = _normal((b, s, h, dqk), dtype, 7)
     k = _normal((b, s, kv, dqk), dtype, 8)
     v = _normal((b, s, kv, dv), dtype, 9)
@@ -518,10 +522,16 @@ def test_decode_kernel_matches_plain(b, s, h, kv, hd, cur, window, cap, dtype, t
     (2, 64, 7, 1, 8, 33, 0, 0.0),           # hd 8, G=7
     (4, 640, 6, 6, 8, [1, 128, 300, 640], 0, 0.0),  # hd 8 MHA, per row
     (2, 100, 8, 8, 8, 100, 12, 0.0),        # hd 8, window
+    (8, 640, 32, 32, 80, 576, 0, 0.0),      # stablelm-3b decode (hd 80, MHA)
+    (3, 200, 8, 2, 80, [5, 199, 120], 16, 30.0),  # hd 80, per row, window, cap
+    (2, 100, 8, 1, 80, 77, 0, 0.0),         # hd 80, G=8: 4 heads a block
+    (1, 32768, 32, 32, 80, 30001, 0, 0.0),  # hd 80, many splits
+    (4, 640, 32, 32, 80, [1, 128, 300, 640], 0, 0.0),  # hd 80, ragged cur_len
 ])
 def test_decode_kernel_new_head_dims(b, s, h, kv, hd, cur, window, cap, dtype, tol):
     """K3 at hd 256 (a warp a bf16 key row, two pieces a lane in float32, at
-    most 4 heads a block) and hd 8 (one or two lanes a row)."""
+    most 4 heads a block), hd 8 (one or two lanes a row) and hd 80 (16 or 32
+    lanes a row, of which 10 or 20 hold a piece)."""
     q = _normal((b, h, hd), dtype, 1)
     kc = _normal((b, s, kv, hd), dtype, 2)
     vc = _normal((b, s, kv, hd), dtype, 3)
@@ -1023,6 +1033,9 @@ BWD_CASES = [
     (1, 130, 4, 2, 192, 128, True, 48, 20.0, None),    # (192, 128): G = 2, window, cap
     (2, 256, 4, 4, 24, 16, True, 0, 0.0, 24 ** -0.5),  # MLA reduced
     (2, 77, 6, 2, 24, 16, False, 24, 30.0, None),      # (24, 16): G = 3, ragged
+    (2, 512, 32, 32, 80, 80, True, 0, 0.0, None),      # stablelm-3b's training shape
+    (1, 130, 8, 2, 80, 80, True, 48, 20.0, None),      # hd 80: G = 4, window, cap
+    (2, 77, 4, 4, 80, 80, False, 0, 0.0, None),        # hd 80: non-causal, ragged
 ]
 
 
@@ -1149,7 +1162,7 @@ def test_flash_bf16_bwd_groups_of_heads_match_plain(case, min_items, heads,
         assert torch.equal(g, a)
 
 
-@pytest.mark.parametrize("hd,hd_v", [(8, 8), (16, 16), (32, 32), (64, 64),
+@pytest.mark.parametrize("hd,hd_v", [(8, 8), (16, 16), (32, 32), (64, 64), (80, 80),
                                      (128, 128), (256, 256), (192, 128), (24, 16)])
 def test_flash_bf16_fwd_lse_equals_forward_and_plain(hd, hd_v):
     """The bf16 forward with lse writes the same o, bit for bit, as without
@@ -1170,7 +1183,7 @@ def test_flash_bf16_fwd_lse_equals_forward_and_plain(hd, hd_v):
                                    rtol=1e-5)
 
 
-@pytest.mark.parametrize("hd,hd_v", [(8, 8), (16, 16), (32, 32), (64, 64),
+@pytest.mark.parametrize("hd,hd_v", [(8, 8), (16, 16), (32, 32), (64, 64), (80, 80),
                                      (128, 128), (256, 256), (192, 128), (24, 16)])
 def test_flash_fwd_lse_equals_forward_and_plain(hd, hd_v):
     """The float32 forward with lse writes the same o, bit for bit, as

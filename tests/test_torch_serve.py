@@ -38,3 +38,22 @@ def test_serve_requires_cuda_by_default():
         pytest.skip("a card is present, so the cuda default is valid here")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--requests", "1"])
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "command-r-plus-104b"])
+def test_serve_cuts_depth_only(arch):
+    """``--n-layers`` keeps the first layers of the model at its width: one
+    layer of the reduced model serves (its weights a stack of one block, the
+    graph three units), and a depth outside [1, n_layers] is refused."""
+    out, engine = serve.run(serve.parse_args(
+        ["--arch", arch, "--requests", "2", "--compress", "--device", "cpu",
+         "--n-layers", "1"]))
+    full = serve.get_bundle(arch, reduced=True).cfg
+    cfg = engine.bundle.cfg
+    assert cfg.n_layers == 1 and cfg.d_model == full.d_model and cfg.hd == full.hd
+    assert engine.params["blocks"]["attn"]["wq"].shape[0] == 1
+    assert len(engine.graph()) == 3 and out["requests"] == 2
+    for bad in ("0", str(full.n_layers + 1)):
+        with pytest.raises(ValueError, match="--n-layers"):
+            serve.run(serve.parse_args(["--arch", arch, "--device", "cpu",
+                                        "--n-layers", bad]))
