@@ -43,7 +43,13 @@ result line:
    gemma2's (hd 256, G=2, soft-cap 50), at hd 8 and at stablelm-3b's hd 80,
    each bf16 and float32, timed beside its bound and a yardstick:
    SDPA, or where there is a soft-cap ``flex_attention`` with a tanh
-   score_mod (compiled once, held against the plain version first);
+   score_mod (compiled once, held against the plain version first); K3's
+   partial form (slot 0 at a global position, host int or per row, and
+   each head's lse: tensor-parallel decode over a sequence-sharded cache)
+   o and lse against the plain version at Llama's, gemma2's, hd 80's and
+   the TP path's shapes cut in 4 slot ranges, merged by
+   ``combine_partials`` against the whole cache, timed at the TP path's
+   shape (``PARTIAL_PATH``, ``phase_decode_partial``);
 3. serve 8 requests of 512 tokens through full-width, full-depth bf16
    Llama-3-8B (random weights from a seed) with int8 boundaries, through
    ``repro_torch.launch.serve``;
@@ -88,6 +94,20 @@ result line:
    MoE capacity factor 64; qwen3-moe on its served weights, its QK-norm
    giving unit-variance scores already, the others on unit-variance scores;
    internvl2-1b's 256 patch embeddings fed before the tokens);
+   then tensor-parallel serving (``phase_tp``; one spawned process a card
+   over NCCL, ``make_serve_fns`` on a data 1 x model TP mesh, weights drawn
+   block by block by ``init_serving_params``, unit-variance scores): with
+   four or more cards, TP = 4 on command-r-plus-104b at full width and all
+   64 layers (8 prompts of 512 tokens, 8 decode steps; K1 = 64 a forward
+   and K3 = 64 a decode step on every rank; prefill + decode == full
+   forward, rel < 5e-2), its first 16 layers against card 0 alone at 16
+   layers (< 2e-2 of the logit scale) and internvl2-1b (heads whole on
+   every rank, the cache sharded over the sequence: K3's partial form)
+   against one card; with two or three cards TP = 2 on llama3-8b and
+   internvl2-1b; with one card a line saying that it needs two or more.
+   Each rank's peak memory (under 80 GB), the untraced prefill and decode
+   step, a traced step's device busy and idle share; it runs alone as
+   ``phase_tp(card)`` from a script under ``build/`` after ``build.build()``;
 7b. the port's examples at their own sizes (``quickstart`` and
    ``serve_batched`` on reduced llama3-8b, ``edge_orchestration``'s Table II
    and drill; ``train_quickstart`` runs in phase 13), each with its exact
@@ -256,7 +276,11 @@ result line:
    reduced llama3-8b and mamba2-1.3b, whose state must equal the
    uninterrupted run's bit for bit;
 14. print the ``kernels`` line (K1/K2 launches from phase 3, K3's from
-   phase 4, K4's from the Mamba-2 serve, K5's from the Griffin serve; the
+   phase 4, K3's partial form's from ``phase_tp``'s decode steps over a
+   sequence-sharded cache (rank 0; with fewer than four cards no config's
+   kv heads fail to divide the axis, no path launches the form and its
+   row is left out, with a line saying so),
+   K4's from the Mamba-2 serve, K5's from the Griffin serve; the
    rows of K1 and K3 at the new shapes with the launches of the deepseek,
    qwen3-moe, gemma2 and stablelm-3b (hd 80) serve and generation runs and
    of the hd-8 reduced runs; K4's and K5's backward with the launches of the full-width
@@ -1253,6 +1277,104 @@ def phase_decode_kernel(k3) -> dict:
     return row
 
 
+# K3's partial form at the main path's shape: internvl2-1b's decode at TP = 4
+# (every head's q against rank 3's block of a 520-slot cache sharded over
+# the sequence: 130 slots from position 390, 126 valid at cur_len 516)
+PARTIAL_PATH = dict(b=8, s=130, h=14, kv=2, hd=64, start=390, cur=516)
+K3_LSE_TOL = 1e-4   # lse's tolerance, absolute and relative, in both dtypes
+
+
+def phase_decode_partial(k3) -> dict:
+    """Phase 2, K3's partial form (slot 0 at a global ``start`` and each
+    head's lse): o and lse against the plain version at
+    the TP path's shape and at Llama's, gemma2's and hd 80's shapes cut in
+    4 slot ranges (a window across two, a range with no valid slot), the
+    ranges merged by ``combine_partials`` against the whole cache; time,
+    bound and SDPA (o only, over the valid entries) at the path's shape."""
+    import torch.nn.functional as F
+
+    cases = [  # (label, dtype, tol, b, s, h, kv, hd, cur, window, cap, ranges)
+        ("llama", torch.bfloat16, 2e-2, *DECODE.values(), DECODE_CUR, 0, 0.0, 4),
+        ("llama window", torch.bfloat16, 2e-2, *DECODE.values(), DECODE_CUR,
+         200, 0.0, 4),
+        ("llama cur_len per row", torch.bfloat16, 2e-2, *DECODE.values(),
+         [DECODE_CUR, 1, 640, 128, 129, 300, 511, 257], 0, 0.0, 4),
+        ("llama fp32", torch.float32, 2e-5, *DECODE.values(), DECODE_CUR, 0, 0.0, 4),
+        ("gemma2", torch.bfloat16, 2e-2, 8, 640, 16, 8, 256, 576, 0, 50.0, 4),
+        ("hd80", torch.bfloat16, 2e-2, 8, 640, 32, 32, 80, 576, 0, 0.0, 4),
+        ("internvl2 tp", torch.bfloat16, 2e-2, 8, 520, 14, 2, 64, 516, 0, 0.0, 4),
+    ]
+    worst = 0.0
+    for label, dt, tol, b, s, h, kv, hd, cur, window, cap, ranges in cases:
+        q = normal((b, h, hd), dt, 5)
+        kc, vc = normal((b, s, kv, hd), dt, 6), normal((b, s, kv, hd), dt, 7)
+        cur_len = torch.tensor(cur, dtype=torch.int32, device="cuda")
+        n = s // ranges
+        outs, lses, err, lse_err = [], [], 0.0, 0.0
+        for r in range(ranges):
+            part = (kc[:, r * n:(r + 1) * n].contiguous(),
+                    vc[:, r * n:(r + 1) * n].contiguous())
+            o, lse = k3.decode_attention(q, *part, cur_len, window=window,
+                                         logit_cap=cap, start=r * n,
+                                         return_lse=True)
+            wo, wl = k3.decode_attention_plain(q, *part, cur_len, window=window,
+                                               logit_cap=cap, start=r * n,
+                                               return_lse=True)
+            torch.cuda.synchronize()
+            empty = torch.isinf(wl)
+            if not torch.equal(torch.isinf(lse), empty) or o[empty].any():
+                raise AssertionError(f"K3 partial {label}: a range with no "
+                                     "valid slot must give o = 0, lse = -inf")
+            torch.testing.assert_close(o.float(), wo.float(), atol=tol, rtol=tol)
+            # lse is float32 arithmetic whatever the inputs' dtype
+            torch.testing.assert_close(lse[~empty], wl[~empty], atol=K3_LSE_TOL,
+                                       rtol=K3_LSE_TOL)
+            err = max(err, float((o.float() - wo.float()).abs().max()))
+            lse_err = max(lse_err, float((lse - wl).masked_fill(empty, 0.0)
+                                         .abs().max()))
+            outs.append(o)
+            lses.append(lse)
+        got = k3.combine_partials(torch.stack(outs), torch.stack(lses))
+        want = k3.decode_attention_plain(q, kc, vc, cur_len, window=window,
+                                         logit_cap=cap)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+        print(f"K3 partial {label}: q {tuple(q.shape)} cache {tuple(kc.shape)} in "
+              f"{ranges} ranges of {n} slots, {dt}, window={window} cap={cap}: o "
+              f"vs plain max_abs_err={err:.3e} (tol {tol}), lse {lse_err:.3e} "
+              f"(tol {K3_LSE_TOL}), combined vs whole "
+              f"{float((got.float() - want.float()).abs().max()):.3e} (tol {tol})")
+        if label.startswith("internvl2"):
+            worst = max(err, lse_err)
+    # time at the TP path's shape: rank 3's block, slot 0 at position 390
+    b, s, h, kv, hd, start, cur = PARTIAL_PATH.values()
+    q = normal((b, h, hd), torch.bfloat16, 5)
+    caches = [(normal((b, s, kv, hd), torch.bfloat16, 6 + i),
+               normal((b, s, kv, hd), torch.bfloat16, 16 + i)) for i in range(4)]
+    cur_len = torch.full((), cur, dtype=torch.int32, device="cuda")
+    ring = itertools.cycle(caches)
+    ms = timed("K3 partial kernel", lambda: k3.decode_attention(
+        q, *next(ring), cur_len, start=start, return_lse=True), 256, K3_KERNEL)
+    plain_ms = timed("K3 partial plain", lambda: k3.decode_attention_plain(
+        q, *next(ring), cur_len, start=start, return_lse=True), 64)
+    valid = cur - start
+    q4 = q[:, :, None, :]
+    views = itertools.cycle([tuple(t[:, :valid].transpose(1, 2) for t in c)
+                             for c in caches])
+    lib_ms = timed("K3 partial sdpa (o only)", lambda: F.scaled_dot_product_attention(
+        q4, *next(views), enable_gqa=True), 256)
+    # the valid entries, q, o and the float32 lse
+    n_bytes = decode_attention_bytes(b, valid, kv, hd, q.numel(), 2) + 4 * b * h
+    n_flops = decode_attention_ops(b, h, valid, hd)
+    b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+    print(f"K3 partial time {ms:.5f} ms at {PARTIAL_PATH}; plain {plain_ms:.4f} ms; "
+          f"sdpa {lib_ms:.5f} ms; bound {b_ms:.6f} ms ({b_by}: {n_bytes} B)")
+    return dict(name="decode_attention@partial", route="cuda",
+                source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:85",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
 def conditioned(params, cfg):
     """The served weights with wq and wk rescaled by sqrt(H/d) and
     sqrt(KV/d): unit-variance attention scores.
@@ -1925,6 +2047,340 @@ def phase_zoo(serve, arch: str, counters) -> tuple[dict, dict]:
     print(f"{arch} ({cfg.n_layers} layers): peak device memory allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return serve_counts, gen_counts
+
+
+# --------------------------------------------------------------------------- #
+# tensor-parallel serving over the cards of one host (NCCL)
+# --------------------------------------------------------------------------- #
+TP_B, TP_S, TP_STEPS = 8, 512, 8   # batch, prompt (prefix included), decode steps
+TP_CUT = 16                        # command-r-plus-104b's depth on one card
+TP_FULL_TOL = 5e-2                 # prefill + decode == full forward (the zoo's gate)
+TP_ONE_CARD_TOL = 2e-2             # TP == one card, of the one card's logit scale
+TP_JOIN_S = 900                    # the phase's ranks must end within this
+# cards: [(arch, depth on the mesh (None: all layers), one-card comparison,
+# prefill + decode == full forward)]; a cut case after a whole one of the
+# same arch runs on its first layers
+TP_PLAN = {4: [("command-r-plus-104b", None, False, True),
+               ("command-r-plus-104b", TP_CUT, True, False),
+               ("internvl2-1b", None, True, True)],
+           2: [("llama3-8b", None, True, True),
+               ("internvl2-1b", None, True, True)]}
+
+
+def unit_scores_(params, cfg) -> None:
+    """``conditioned``'s scaling of wq and wk, in place (a DTensor leaf's
+    block, which is the block of the scaled whole)."""
+    from torch.distributed.tensor import DTensor
+
+    attn = params["blocks"]["attn"]
+    for name, n in (("wq", cfg.n_heads), ("wk", cfg.n_kv)):
+        t = attn[name]
+        (t.to_local() if isinstance(t, DTensor) else t).mul_((n / cfg.d_model) ** 0.5)
+
+
+def tp_inputs(cfg):
+    """Seeded tokens [TP_B, text + TP_STEPS] (the text of a TP_S-position
+    prompt, then the decode steps' tokens) and, with a modality prefix,
+    bf16 embeddings [TP_B, P, prefix_dim]."""
+    rng = np.random.default_rng(12)
+    n_pre = cfg.prefix_tokens
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (TP_B, TP_S - n_pre + TP_STEPS),
+                                        dtype=np.int32), device="cuda")
+    prefix = torch.as_tensor(rng.standard_normal(
+        (TP_B, n_pre, cfg.prefix_dim), dtype=np.float32),
+        device="cuda").bfloat16() if n_pre else None
+    return toks, prefix
+
+
+def whole(x):
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def tp_steps(prefill, decode, cfg, counters) -> tuple[dict, object]:
+    """A TP_S-position prompt's prefill (``prefill(batch, max_len)``; once
+    to warm up, then timed), then TP_STEPS decode steps (``decode(cache,
+    tokens, pos)``) fed the next tokens; the logits whole (prefill's and
+    the last step's), the untraced times and the launches of each.  Returns
+    it and a function that runs the last step again (for the trace)."""
+    toks, prefix = tp_inputs(cfg)
+    n_text = TP_S - cfg.prefix_tokens
+    batch = {"tokens": toks[:, :n_text]}
+    if prefix is not None:
+        batch["prefix_embeds"] = prefix
+    prefill(batch, TP_S + TP_STEPS)
+    reset(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(batch, TP_S + TP_STEPS)
+    torch.cuda.synchronize()
+    out = {"prefill_ms": (time.perf_counter() - t0) * 1e3,
+           "prefill_launches": counts_of(counters), "prefill": whole(logits),
+           "step_ms": [], "step_launches": []}
+    for i in range(TP_STEPS):
+        tok = toks[:, n_text + i].contiguous()
+        reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = decode(cache, tok, TP_S + i)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["step_launches"].append(counts_of(counters))
+    out["decode"] = whole(logits)
+    if not (torch.isfinite(out["prefill"]).all() and torch.isfinite(out["decode"]).all()):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    return out, lambda: decode(cache, tok, TP_S + TP_STEPS - 1)
+
+
+def tp_full_rel(prefill, cfg, last) -> float:
+    """The full forward of the prompt and the decoded tokens (TP_S +
+    TP_STEPS positions) against the last decode step's logits, rel."""
+    toks, prefix = tp_inputs(cfg)
+    batch = {"tokens": toks}
+    if prefix is not None:
+        batch["prefix_embeds"] = prefix
+    full = whole(prefill(batch, TP_S + TP_STEPS)[0]).float()
+    return float((full - last.float()).abs().max() / full.abs().max())
+
+
+def tp_check_launches(label: str, res: dict, n_layers: int) -> None:
+    want_p = {"flash_attention": n_layers, "decode_attention": 0}
+    want_d = {"flash_attention": 0, "decode_attention": n_layers}
+    if res["prefill_launches"] != want_p or any(
+            c != want_d for c in res["step_launches"]):
+        raise AssertionError(f"{label}: launches {res['prefill_launches']} a "
+                             f"prefill, {res['step_launches']} the decode steps; "
+                             f"want {want_p} and {want_d}")
+
+
+def tp_traced(label: str, fn, rank: int) -> dict:
+    """The last decode step once more, traced on rank 0 (the others run it
+    untraced, for the collectives): device busy and idle share."""
+    if rank:
+        fn()
+        torch.cuda.synchronize()
+        return {}
+    split = breakdown(label, fn)
+    return {"busy_ms": sum(split.values()), "by_family": split}
+
+
+def tp_rank(rank: int, world: int, tmp: str, cases: list) -> None:
+    """One rank of ``phase_tp`` (a spawned process on card ``rank``): each
+    case of ``cases`` through ``make_serve_fns`` on a data 1 x model
+    ``world`` mesh over NCCL, params drawn block by block
+    (``init_serving_params``, seed 0, bf16) on unit-variance scores
+    (``unit_scores_``); then rank 0 alone runs the one-card comparisons.
+    Writes ``rank<r>.json`` (and rank 0 the TP logits) under ``tmp``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import decode_attention as k3
+    from repro_torch.kernels import flash_attention as k1
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.models.api import ShapeSpec, bundle_for
+    from repro_torch.training import init_serving_params, make_serve_fns
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = (k1.flash_attention, k3.decode_attention)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(f"{tmp}/store", world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=TP_JOIN_S),
+        device_id=torch.device("cuda", rank))
+    mesh = make_small_mesh(1, world)
+    report, kept = [], None
+    for i, (arch, depth, one_card, full_fwd) in enumerate(cases):
+        cfg = get(arch)
+        full_depth = cfg.n_layers
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        bundle = bundle_for(arch, cfg)
+        if kept is not None and kept[0] == arch:
+            torch.cuda.reset_peak_memory_stats()
+            params = first_layers(kept[1], cfg.n_layers, mesh)
+            init_s = 0.0
+        else:
+            kept = params = None
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params = init_serving_params(bundle, mesh, torch.Generator(
+                device="cuda").manual_seed(0), "cuda", torch.bfloat16)
+            unit_scores_(params, cfg)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            kept = (arch, params)
+        fn, _ = make_serve_fns(bundle, mesh, ShapeSpec("prefill", TP_S, TP_B,
+                                                       "prefill"), "cuda")
+        dfn, _ = make_serve_fns(bundle, mesh, ShapeSpec(
+            "decode", TP_S + TP_STEPS, TP_B, "decode"), "cuda")
+        res, again = tp_steps(lambda b, n: fn(params, b, max_len=n),
+                              lambda c, t, p: dfn(params, c, t, p), cfg, counters)
+        label = f"{arch} ({cfg.n_layers} of {full_depth} layers) at TP={world}"
+        tp_check_launches(label, res, cfg.n_layers)
+        trace = tp_traced(f"tp {label} decode step (B={TP_B})", again, rank)
+        row = {"arch": arch, "layers": cfg.n_layers, "init_s": init_s,
+               "prefill_ms": res["prefill_ms"], "step_ms": res["step_ms"],
+               "prefill_launches": res["prefill_launches"],
+               "step_launches": res["step_launches"][-1], **trace}
+        if full_fwd:
+            full_fn, _ = make_serve_fns(bundle, mesh, ShapeSpec(
+                "prefill", TP_S + TP_STEPS, TP_B, "prefill"), "cuda")
+            row["full_rel"] = tp_full_rel(lambda b, n: full_fn(params, b, max_len=n),
+                                          cfg, res["decode"])
+            if not row["full_rel"] < TP_FULL_TOL:
+                raise AssertionError(f"{label}: prefill + decode != full forward: "
+                                     f"{row['full_rel']}")
+        row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if rank == 0 and one_card:
+            torch.save({"prefill": res["prefill"].cpu(), "decode": res["decode"].cpu()},
+                       f"{tmp}/tp{i}.pt")
+        report.append(row)
+        del fn, dfn, res, again, params
+    del kept
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    if rank == 0:
+        for i, (arch, depth, one_card, _) in enumerate(cases):
+            if one_card:
+                report[i].update(tp_one_card(arch, depth, f"{tmp}/tp{i}.pt", counters))
+    with open(f"{tmp}/rank{rank}.json", "w") as f:
+        json.dump(report, f)
+
+
+def first_layers(params, n: int, mesh):
+    """The params of a model cut to its first ``n`` layers: the stacked
+    leaves' blocks sliced on their layer axis, as DTensors on ``mesh``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.common import tree_map
+
+    return {**params, "blocks": tree_map(lambda t: DTensor.from_local(
+        t.to_local()[:n], mesh, t.placements, run_check=False), params["blocks"])}
+
+
+def tp_one_card(arch: str, depth, path: str, counters) -> dict:
+    """The one-card run of a TP case on this card (after the mesh's params
+    are freed): the same seed, weights and inputs through ``bundle.prefill``
+    / ``bundle.decode``; its logits against the TP run's."""
+    from repro_torch.configs import get
+    from repro_torch.models.api import bundle_for
+
+    cfg = get(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    bundle = bundle_for(arch, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(0), "cuda",
+                         torch.bfloat16)
+    unit_scores_(params, cfg)
+    res, _ = tp_steps(lambda b, n: bundle.prefill(params, b, n),
+                      lambda c, t, p: bundle.decode(params, c, t, p), cfg, counters)
+    tp_check_launches(f"{arch} one card", res, cfg.n_layers)
+    tp = torch.load(path)
+    rel = {}
+    for key in ("prefill", "decode"):
+        one = res[key].float().cpu()
+        rel[key] = float((tp[key].float() - one).abs().max() / one.abs().max())
+    out = {"one_card_rel": rel, "one_card_prefill_ms": res["prefill_ms"],
+           "one_card_step_ms": res["step_ms"],
+           "one_card_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del params, res
+    torch.cuda.empty_cache()
+    if not all(v < TP_ONE_CARD_TOL for v in rel.values()):
+        raise AssertionError(f"{arch} ({cfg.n_layers} layers): TP != one card: {rel}")
+    return out
+
+
+def phase_tp(card: str) -> dict:
+    """Tensor-parallel serving (``make_serve_fns`` on a data 1 x model TP
+    mesh, one spawned process a card over NCCL, ``tp_rank``): with four or
+    more cards TP = 4 on command-r-plus-104b at full width and all 64
+    layers (prefill of ``TP_B`` prompts of ``TP_S`` tokens, ``TP_STEPS``
+    decode steps; K1 = 64 a forward and K3 = 64 a decode step on every rank;
+    prefill + decode == full forward within ``TP_FULL_TOL`` on unit-variance
+    scores), on its first 16 layers against one card at 16 layers, and on
+    internvl2-1b (14 heads and 2 kv heads that 4 does not divide: heads
+    whole on every rank, the cache sharded over the sequence, K3's partial
+    form) against one card, both within ``TP_ONE_CARD_TOL`` of the logit
+    scale; with two or three cards TP = 2 on llama3-8b and internvl2-1b at
+    full width against one card; with one card a line saying so.  Prints
+    each rank's peak memory, the untraced prefill and decode-step times and
+    the traced device busy and idle share, beside the card's name, power
+    limit and count.  Returns the K3 launches of the partial form (rank
+    0's, in the decode steps of the cases whose kv heads do not divide the
+    axis: internvl2-1b's at TP = 4), for the kernels line."""
+    import multiprocessing as mp
+
+    from repro_torch.configs import get as get_config
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"phase_tp: tensor-parallel serving needs two or more cards; this "
+              f"machine has {n} (NCCL runs one rank a card)")
+        return {"decode_attention": 0}
+    world = 4 if n >= 4 else 2
+    tmp = ROOT / "build" / "tp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=tp_rank, args=(r, world, str(tmp), TP_PLAN[world]))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                raise AssertionError(f"phase_tp: a rank failed, exit codes "
+                                     f"{[p.exitcode for p in procs]}")
+            if time.perf_counter() - t0 > TP_JOIN_S:
+                raise AssertionError(f"phase_tp: ranks still running after {TP_JOIN_S} s")
+            time.sleep(1.0)
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"phase_tp: exit codes {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)]
+    where = f"{card}, {n} cards, TP={world}"
+    partial = 0
+    for i, (arch, depth, one_card, full_fwd) in enumerate(TP_PLAN[world]):
+        r0 = ranks[0][i]
+        steps = r0["step_ms"]
+        print(f"tp {arch} ({r0['layers']} layers, full width, bf16, TP={world}): "
+              f"init {r0['init_s']:.1f} s (block by block); prefill of {TP_B} x "
+              f"{TP_S} positions {r0['prefill_ms']:.1f} ms (untraced); decode "
+              f"step (B={TP_B}) median {float(np.median(steps)):.3f} ms, min "
+              f"{min(steps):.3f}, max {max(steps):.3f} over {len(steps)}; "
+              f"launches a rank: prefill {r0['prefill_launches']}, decode step "
+              f"{r0['step_launches']}; traced step: device busy "
+              f"{r0.get('busy_ms', float('nan')):.3f} ms; peak allocated a rank "
+              f"(GiB): {[round(rk[i]['peak_gib'], 2) for rk in ranks]}; {where}")
+        if full_fwd:
+            print(f"tp {arch} ({r0['layers']} layers) prefill + {TP_STEPS} decode "
+                  f"steps vs full forward ({TP_S + TP_STEPS} positions), "
+                  f"unit-variance scores: rel {r0['full_rel']:.3e} (held < "
+                  f"{TP_FULL_TOL:g}); {where}")
+        if one_card:
+            print(f"tp {arch} ({r0['layers']} layers) TP={world} vs one card: rel "
+                  f"{json.dumps({k: round(v, 6) for k, v in r0['one_card_rel'].items()})}"
+                  f" (held < {TP_ONE_CARD_TOL:g} of the logit scale); one card: "
+                  f"prefill {r0['one_card_prefill_ms']:.1f} ms, decode step median "
+                  f"{float(np.median(r0['one_card_step_ms'])):.3f} ms, peak "
+                  f"{r0['one_card_peak_gib']:.2f} GiB; {where}")
+        if any(rk[i]["peak_gib"] * 2**30 >= 80e9 for rk in ranks):
+            raise AssertionError(f"tp {arch}: a rank's peak memory reaches 80 GB")
+        if get_config(arch).n_kv % world:      # the cache shards the sequence
+            partial += r0["step_launches"]["decode_attention"] * TP_STEPS
+    print(f"phase_tp: {time.perf_counter() - t0:.1f} s; {where}")
+    return {"decode_attention": partial}
 
 
 # --------------------------------------------------------------------------- #
@@ -4649,6 +5105,7 @@ def main() -> int:
     bwd_splits = train_bwd_bf16_splits(k1)   # printed in phase 13
     rows = phase_kernels(k1, k2)
     rows.append(phase_decode_kernel(k3))
+    rows.append(phase_decode_partial(k3))
     rows.append(phase_ssd_kernel(k4))
     rows.append(phase_rglru_kernel(k5))
     phase_flash_hd256(k1)
@@ -4741,6 +5198,11 @@ def main() -> int:
 
     lap("the zoo")
 
+    # ---- tensor-parallel serving over the host's cards (two or more) ----
+    tp_counts = phase_tp(card)
+
+    lap("phase_tp (tensor-parallel serving)")
+
     # ---- phase 8: card vs CPU on each family's reduced model ----
     for arch, per_forward, cond in (
             ("llama3-8b", {"flash_attention": 2}, None),
@@ -4798,7 +5260,15 @@ def main() -> int:
         "decode_attention@gemma2": zoo["gemma2-9b"][1],
         "flash_attention@hd8": hd8, "decode_attention@hd8": hd8,
         "flash_attention@hd80": zoo["stablelm-3b"][0],
-        "decode_attention@hd80": zoo["stablelm-3b"][1], **train_counts}
+        "decode_attention@hd80": zoo["stablelm-3b"][1],
+        "decode_attention@partial": tp_counts, **train_counts}
+    if not tp_counts["decode_attention"]:
+        # every row of the line is a kernel this run's paths launched
+        print("kernels line: K3's partial form (decode_attention@partial) left "
+              "out: no path of this run launched it (phase_tp's decode over a "
+              "sequence-sharded cache, four cards or more); phase 2 held it "
+              "against its plain version")
+        rows = [r for r in rows if r["name"] != "decode_attention@partial"]
     for row in rows:
         row["launches"] = launches_from.get(row["name"], serve_counts)[
             row["name"].split("@")[0]]

@@ -42,11 +42,13 @@ the reference's device at ``c`` holds the block of the spec's order.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Any, Mapping
 
-__all__ = ["TP", "batch_axes", "cache_pspecs", "dp_axes", "input_pspecs",
-           "local_slices", "mesh_shape", "param_pspecs", "placements",
-           "shard_shape", "strip_dp", "tree_placements"]
+__all__ = ["TP", "LocalHeads", "batch_axes", "block_keeper", "cache_pspecs",
+           "dp_axes", "input_pspecs", "local_heads", "local_slices", "mesh_shape",
+           "param_pspecs", "placements", "shard_shape", "strip_dp",
+           "tree_placements"]
 
 TP = "model"
 
@@ -340,6 +342,34 @@ def local_slices(shape: tuple[int, ...], spec: tuple, mesh: Any,
     return tuple(out)
 
 
+def spec_at(specs: Any, path: str) -> tuple:
+    """The spec at ``path`` ("blocks/attn/wq", list indices as digits) of a
+    spec tree."""
+    for key in path.split("/"):
+        specs = specs[int(key)] if isinstance(specs, list) else specs[key]
+    return specs
+
+
+def block_keeper(specs: Any, mesh: Any, coord: Mapping[str, int]):
+    """``keep(path, tensor, stacked)`` for a param init (the transformer's
+    ``init_params``): the block of a whole tensor that the rank at mesh
+    coordinates ``coord`` holds under the spec at ``path`` of ``specs``
+    (for one layer of a stacked leaf, the spec without its layer entry),
+    as a copy of its own so that the whole can be freed; a tensor the rank
+    holds whole comes back as it is."""
+    sizes = mesh_shape(mesh)
+
+    def keep(path: str, t, stacked: bool = False):
+        spec = spec_at(specs, path)
+        sl = local_slices(tuple(t.shape), spec[1:] if stacked else spec,
+                          sizes, coord)
+        if all(x.start == 0 and x.stop == n for x, n in zip(sl, t.shape)):
+            return t
+        return t[sl].clone()
+
+    return keep
+
+
 def placements(spec: tuple, mesh: Any) -> tuple:
     """DTensor placements (one per mesh dim) of ``spec`` on a ``DeviceMesh``."""
     from torch.distributed.tensor import Replicate, Shard
@@ -358,3 +388,44 @@ def placements(spec: tuple, mesh: Any) -> tuple:
 def tree_placements(specs: Any, mesh: Any) -> Any:
     """:func:`placements` over a spec tree."""
     return _map_specs(lambda s: placements(s, mesh), specs)
+
+
+# --------------------------------------------------------------------------- #
+# attention heads of a tensor-parallel rank
+# --------------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class LocalHeads:
+    """The attention heads one rank of a "model" axis runs: query heads
+    ``[q0, q0 + h)`` and the contiguous kv heads ``[kv0, kv0 + kv)`` they
+    read, h / kv query heads a kv head.  ``q_sharded`` /
+    ``kv_sharded``: whether the policy shards wq / wk (and the kv cache's
+    heads) over "model", else the rank holds them whole."""
+
+    h: int
+    kv: int
+    q0: int
+    kv0: int
+    q_sharded: bool
+    kv_sharded: bool
+
+
+def local_heads(n_heads: int, n_kv: int, tp: int, rank: int) -> LocalHeads:
+    """The heads the rank at ``rank`` on a "model" axis of ``tp`` runs.
+
+    Heads shard where H divides the axis (the policy's rule for wq and wo),
+    H_loc = H / tp a rank; with G = H / KV the rank's query heads read
+    H_loc / G kv heads (G divides H_loc) or one (H_loc divides G): its
+    local G is min(G, H_loc).  Where neither divides the other a rank's
+    heads would straddle kv heads unevenly, and this raises.  Where H does
+    not divide the axis every rank runs every head.
+    """
+    g = n_heads // n_kv
+    kv_sharded = n_kv % tp == 0
+    if n_heads % tp:
+        return LocalHeads(n_heads, n_kv, 0, 0, False, kv_sharded)
+    h = n_heads // tp
+    if h % g and g % h:
+        raise ValueError(f"{n_heads} query heads over {tp} ranks ({h} a rank) "
+                         f"do not nest with groups of {g} per kv head")
+    q0 = rank * h
+    return LocalHeads(h, max(1, h // g), q0, q0 // g, True, kv_sharded)

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "quantize_int8_fwd": [_VOID] * 3 + [_INT] * 3 + [_VOID],
     "dequantize_int8_fwd": [_VOID] * 3 + [_INT] * 3 + [_VOID],
     "decode_attention_fwd": [_VOID] * 4 + [_INT] + [_VOID] * 4 + [_INT] * 10
-    + [_FLOAT, _FLOAT, _VOID],
+    + [_FLOAT, _FLOAT, _INT, _VOID, _VOID],
     "ssd_chunk_fwd": [_VOID] * 14 + [_INT] * 8 + [_LONG] * 6 + [_VOID],
     "ssd_chunk_bwd": [_VOID] * 27 + [_INT] * 8 + [_LONG] * 6 + [_VOID],
     "rglru_fwd": [_VOID] * 5 + [_INT] * 4 + [_VOID],

@@ -52,8 +52,19 @@
 //   block came last.  With one split the block writes the output directly.
 //
 // cur_len is read on the device, as one int32 or one per row, so a decode
-// step needs no host sync for it.  Chunks past cur_len, or before the window,
-// load nothing (and still take their ticket).  Arithmetic is the TPU
+// step needs no host sync for it.
+//
+// The partial form (tensor-parallel decode over a sequence-sharded cache):
+// slot s of the cache holds global position start + s (one host int for
+// every row), and keys are masked by global position, [cur - window, cur) ∩ the cache's slots.  cur is never
+// clamped to the cache's end, so a slice that ends before cur keeps the
+// window's start.  Given an lse pointer, each (row, head) also writes its
+// log-sum-exp (natural log) beside o: (m + log2 l) ln 2 from the (m, l) the
+// combine already holds, -inf where no slot is valid (o is then 0).  The
+// ranks merge their (o, lse) pairs outside the kernel.
+//
+// Chunks past cur_len, or before the window, load nothing (and still take
+// their ticket).  Arithmetic is the TPU
 // kernel's, in float32: q scaled before the product (by scale * log2(e), so
 // the softmax is exp2 of scores in log2 units, the same function), P.V, and
 // the output acc / max(l, 1e-30) in q's dtype.  Masked keys are skipped,
@@ -76,6 +87,7 @@ constexpr int PIECES = 2;             // 16-byte K (and V) pieces a thread copie
 constexpr int STAGE_BYTES = 16384;    // K rows, then V rows, of one stage
 constexpr float NEG_INF = -2.0e38f;   // the Pallas kernel's mask value
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // 16 bytes of storage type T, widened to float32.
 template <typename T>
@@ -145,7 +157,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         int cur_per_row, T* __restrict__ o,
                         float* __restrict__ ws_ml, float* __restrict__ ws_acc,
                         unsigned* __restrict__ counters, int S, int H, int KV,
-                        int chunk, int window, float logit_cap, float scale) {
+                        int chunk, int window, float logit_cap, float scale,
+                        int start, float* __restrict__ lse) {
   constexpr int VEC = Pack<T>::N;        // elements per 16-byte piece
   // a lane takes PPL neighbouring pieces of a row: one, or two where one
   // piece a lane would need more than a warp for the row (float32, HD 256)
@@ -193,8 +206,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t pos_stride = (size_t)KV * HD;  // elements between positions
   const T* kb = k + ((size_t)b * S * KV + kvh) * HD + t * E;
   const T* vb = v + ((size_t)b * S * KV + kvh) * HD + t * E;
-  // valid keys: k_pos < cur and, with a window, k_pos > cur - 1 - window
-  const int cur = min(cur_len[cur_per_row ? b : 0], S);
+  // valid keys: k_pos < cur and, with a window, k_pos > cur - 1 - window,
+  // k_pos = start + slot; in slots, [cur - start - window, cur - start)
+  const int cur = cur_len[cur_per_row ? b : 0] - start;
   int lo = split * chunk;
   const int hi = min(min(lo + chunk, S), cur);
   if (window > 0) lo = max(lo, cur - window);
@@ -378,6 +392,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (n_split == 1) {
       const float r = 1.f / fmaxf(ls, 1e-30f);
       store4(ob + 4 * e, make_float4(as.x * r, as.y * r, as.z * r, as.w * r));
+      if (lse && e % (HD / 4) == 0)
+        lse[(size_t)b * H + h0 + g] =
+            ls > 0.f ? (mx + log2f(ls)) * LN2 : __uint_as_float(0xff800000u);
     } else {
       ws_acc4[(part0 + split) * NV4 + e] = as;
       if (e % (HD / 4) == 0) {
@@ -434,6 +451,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     const float r = 1.f / fmaxf(ls, 1e-30f);
     store4(ob + 4 * e, make_float4(as.x * r, as.y * r, as.z * r, as.w * r));
+    if (lse && e % (HD / 4) == 0)
+      lse[(size_t)b * H + h0 + g] =
+          ls > 0.f ? (mx + log2f(ls)) * LN2 : __uint_as_float(0xff800000u);
   }
   if (tid == 0) *counter = 0u;
 }
@@ -443,7 +463,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* cur_len, int cur_per_row, void* o, float* ws_ml,
                    float* ws_acc, unsigned* counters, int B, int S, int H,
                    int KV, int n_split, int chunk, int window, float logit_cap,
-                   float scale, cudaStream_t stream) {
+                   float scale, int start, float* lse, cudaStream_t stream) {
   constexpr int smem = STAGES * STAGE_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       decode_attention_kernel<T, HD, GB>,
@@ -453,7 +473,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   decode_attention_kernel<T, HD, GB><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), cur_len, cur_per_row, static_cast<T*>(o),
-      ws_ml, ws_acc, counters, S, H, KV, chunk, window, logit_cap, scale);
+      ws_ml, ws_acc, counters, S, H, KV, chunk, window, logit_cap, scale,
+      start, lse);
   return cudaGetLastError();
 }
 
@@ -462,12 +483,12 @@ cudaError_t dispatch_gb(int GB, const void* q, const void* k, const void* v,
                         const int* cur_len, int cur_per_row, void* o,
                         float* ws_ml, float* ws_acc, unsigned* counters, int B,
                         int S, int H, int KV, int n_split, int chunk,
-                        int window, float logit_cap, float scale,
-                        cudaStream_t stream) {
+                        int window, float logit_cap, float scale, int start,
+                        float* lse, cudaStream_t stream) {
 #define REPRO_DECODE_LAUNCH(gb)                                               \
   return launch<T, HD, gb>(q, k, v, cur_len, cur_per_row, o, ws_ml, ws_acc,  \
                            counters, B, S, H, KV, n_split, chunk, window,    \
-                           logit_cap, scale, stream)
+                           logit_cap, scale, start, lse, stream)
   switch (GB) {
     case 4: REPRO_DECODE_LAUNCH(4);
     case 2: REPRO_DECODE_LAUNCH(2);
@@ -483,11 +504,12 @@ cudaError_t dispatch_hd(int HD, int GB, const void* q, const void* k,
                         void* o, float* ws_ml, float* ws_acc,
                         unsigned* counters, int B, int S, int H, int KV,
                         int n_split, int chunk, int window, float logit_cap,
-                        float scale, cudaStream_t stream) {
+                        float scale, int start, float* lse,
+                        cudaStream_t stream) {
 #define REPRO_DECODE_HD(hd)                                                  \
   return dispatch_gb<T, hd>(GB, q, k, v, cur_len, cur_per_row, o, ws_ml,    \
                             ws_acc, counters, B, S, H, KV, n_split, chunk,  \
-                            window, logit_cap, scale, stream)
+                            window, logit_cap, scale, start, lse, stream)
   switch (HD) {
     case 8: REPRO_DECODE_HD(8);
     case 16: REPRO_DECODE_HD(16);
@@ -512,14 +534,16 @@ cudaError_t dispatch_hd(int HD, int GB, const void* q, const void* k,
 // ints that are 0 (and are 0 again when the kernel ends); chunk * n_split
 // must cover S.  GB, the query heads a block
 // takes, is chosen by the caller (the wrapper's heads_per_block): one of 4,
-// 2, 1 that divides H / KV.
+// 2, 1 that divides H / KV.  Slot 0 holds global position start; lse,
+// where not null, takes B * H floats.
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* cur_len, int cur_per_row,
                                     void* o, void* ws_ml, void* ws_acc,
                                     void* counters, int is_bf16, int B, int S,
                                     int H, int KV, int HD, int GB, int n_split,
                                     int chunk, int window, float logit_cap,
-                                    float scale, void* stream) {
+                                    float scale, int start, void* lse,
+                                    void* stream) {
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || GB <= 0 ||
       (H / KV) % GB != 0 || n_split <= 0 || chunk <= 0 ||
       (long long)chunk * n_split < S ||
@@ -530,11 +554,12 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
   float* ml = static_cast<float*>(ws_ml);
   float* ac = static_cast<float*>(ws_acc);
   unsigned* cn = static_cast<unsigned*>(counters);
+  float* ls = static_cast<float*>(lse);
   if (is_bf16)
     return dispatch_hd<__nv_bfloat16>(HD, GB, q, k, v, cl, cur_per_row, o, ml,
                                       ac, cn, B, S, H, KV, n_split, chunk,
-                                      window, logit_cap, scale, st);
+                                      window, logit_cap, scale, start, ls, st);
   return dispatch_hd<float>(HD, GB, q, k, v, cl, cur_per_row, o, ml, ac, cn, B,
                             S, H, KV, n_split, chunk, window, logit_cap, scale,
-                            st);
+                            start, ls, st);
 }

@@ -13,6 +13,15 @@ scalar only; the model path passes either (``pos + 1`` in decode).  The
 kernel reads it from an int32 tensor on the card, so a decode step makes no
 host sync for it.
 
+The partial form serves a cache whose sequence axis is sharded over ranks
+(tensor-parallel decode): ``start`` is the global position of the cache's
+first slot (a host int, the same for every row), keys are masked by
+global position ``start + slot`` (``cur_len`` and the window's start are
+global, never clamped to the slice), and ``return_lse`` also
+returns each (row, head)'s log-sum-exp of its scores, -inf where no slot is
+valid (o is then 0).  :func:`combine_partials` merges the ranks' (o, lse)
+into the whole cache's output.
+
 What bounds it on the H100, on paper: bytes.  At the decode shape of the
 generation path (B=8, cur_len 576, KV=8, hd=128, bf16) the cache read alone
 is 18.9 MB, 5.6 us at 3.35 TB/s, against 75 MFLOP; measured, a fixed cost
@@ -54,7 +63,8 @@ import torch
 
 from . import build, cost
 
-__all__ = ["decode_attention", "decode_attention_plain", "split_plan"]
+__all__ = ["combine_partials", "decode_attention", "decode_attention_plain",
+           "split_plan"]
 
 NEG_INF = -2.0e38
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -89,11 +99,14 @@ def _check(q, k_cache, v_cache, cur_len) -> None:
 
 
 def decode_attention_plain(q, k_cache, v_cache, cur_len, *, window=0,
-                           logit_cap=0.0, scale=None) -> torch.Tensor:
+                           logit_cap=0.0, scale=None, start=0,
+                           return_lse=False):
     """Direct softmax attention in float32; same function as the kernel.
 
     q [B,H,hd], caches [B,S,KV,hd], ``cur_len`` an int or an integer tensor
-    of shape [] or [B] -> [B,H,hd] in q's dtype.
+    of shape [] or [B] -> [B,H,hd] in q's dtype; with ``return_lse`` also
+    the float32 log-sum-exp [B,H].  Slot s holds position ``start + s``
+    (``start`` a host int).
     """
     _check(q, k_cache, v_cache, cur_len)
     b, h, hd = q.shape
@@ -104,17 +117,36 @@ def decode_attention_plain(q, k_cache, v_cache, cur_len, *, window=0,
     if logit_cap:
         sim = logit_cap * torch.tanh(sim / logit_cap)
     cur = torch.as_tensor(cur_len, device=q.device).long().reshape(-1, 1)
-    pos = torch.arange(s, device=q.device)[None, :]
+    pos = torch.arange(s, device=q.device)[None, :] + int(start)
     mask = pos < cur
     if window > 0:
         mask &= pos > cur - 1 - window
     mask = mask.expand(b, s)[:, None, None, :]
     sim = sim.masked_fill(~mask, NEG_INF)
     # masked keys weigh exactly 0, also in a row with no valid key (-> 0)
-    p = torch.exp(sim - sim.amax(dim=-1, keepdim=True)) * mask
+    m = sim.amax(dim=-1, keepdim=True)
+    p = torch.exp(sim - m) * mask
+    den = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
-    out = out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return out.reshape(b, h, hd).to(q.dtype)
+    out = (out / den.clamp_min(1e-30)).reshape(b, h, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(den > 0, m + torch.log(den), -math.inf)
+    return out, lse.reshape(b, h)
+
+
+def combine_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """The whole cache's output from R slices' partial outputs: o [R,B,H,hd]
+    (each normalised over its own slots) and their log-sum-exps lse [R,B,H]
+    -> [B,H,hd] in o's dtype.  In float32: o = sum_r w_r o_r / sum_r w_r
+    with w_r = exp(lse_r - max_r lse_r); a slice with no valid slot (lse
+    -inf) weighs 0."""
+    lse = lse.float()
+    m = lse.amax(dim=0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - m)                                     # [R,B,H]
+    out = torch.einsum("rbh,rbhd->bhd", w, o.float())
+    return (out / w.sum(dim=0).clamp_min(1e-30)[..., None]).to(o.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,8 +183,10 @@ def _cur_len_tensor(cur_len, b: int, device: torch.device) -> torch.Tensor:
 
 
 def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, logit_cap=0.0,
-                     scale=None) -> torch.Tensor:
-    """Decode attention: q [B,H,hd] vs caches [B,S,KV,hd] -> [B,H,hd].
+                     scale=None, start=0, return_lse=False):
+    """Decode attention: q [B,H,hd] vs caches [B,S,KV,hd] -> [B,H,hd]; with
+    ``return_lse`` also the float32 log-sum-exp [B,H] (the partial form:
+    module docstring), slot s at position ``start + s``.
 
     CPU tensors take :func:`decode_attention_plain`; CUDA tensors launch the
     Hopper kernel (contiguous float32 or bfloat16, hd in 8/16/32/64/80/128/256,
@@ -165,7 +199,8 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, logit_cap=0.0,
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cur_len,
                                       window=window, logit_cap=logit_cap,
-                                      scale=scale)
+                                      scale=scale, start=start,
+                                      return_lse=return_lse)
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no decode attention kernel for device {q.device}")
     if torch.is_grad_enabled() and any(
@@ -187,6 +222,8 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, logit_cap=0.0,
         cost.record("decode_attention", cost.decode_attention_ops(b, h, cur, hd),
                     cost.decode_attention_bytes(b, cur, kv, hd, q.numel(),
                                                 q.element_size()))
+        if return_lse:
+            return o, q.new_empty((b, h), dtype=torch.float32)
         return o
     if not (q.is_contiguous() and k_cache.is_contiguous()
             and v_cache.is_contiguous()):
@@ -200,6 +237,8 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, logit_cap=0.0,
     gb = heads_per_block(h // kv)
     n_split, chunk = split_plan(b, h, kv, s, _sm_count(device.index))
     o = torch.empty_like(q)
+    lse = torch.empty((b, h), dtype=torch.float32, device=device) \
+        if return_lse else None
     ws_ml = ws_acc = counters = 0                  # one split: no workspace
     if n_split > 1:
         rows = b * h * n_split
@@ -213,10 +252,11 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=0, logit_cap=0.0,
         int(cur.ndim == 1), o.data_ptr(), ws_ml, ws_acc, counters,
         int(q.dtype == torch.bfloat16), b, s, h, kv, hd, gb, n_split, chunk,
         int(window), float(logit_cap), float(sc),
+        int(start), 0 if lse is None else lse.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream)
     build.check(lib, err, "decode_attention")
     decode_attention.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 decode_attention.launches = 0

@@ -7,6 +7,12 @@ and K5's backward kernels carry the gradients on the card), prefill and
 decode over the family's cache (KV cache, SSM state, or LRU state plus a
 ring of the attention window), and the computational graph the orchestrator
 partitions.
+
+Under a mesh (``training.make_serve_fns``) ``prefill`` and ``decode`` run in
+a tensor-parallel region on each rank's blocks of the params, the inputs
+and the cache (the dense transformers; ``distributed/context.py``), while
+``cache_spec``, ``input_specs`` and ``param_specs`` stay global: the
+policy's specs are read off them.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core.graph import GraphNode, ModelGraph
+from ..distributed.context import current_region
 from . import griffin, mamba2, transformer, transformer_serve
 from .common import apply_norm, layer
 
@@ -172,6 +179,11 @@ def _lm_loss(module, cfg: Any, params: dict, batch: dict) -> torch.Tensor:
     ``embed_tokens`` default, as the reference's: attention runs K1's bf16
     forward and backward, the SSD and the RG-LRU scan in float32 inside
     (K4's and K5's float32 kernels), as the reference's do."""
+    if current_region() is not None:
+        raise NotImplementedError(
+            "the loss on a 'model' axis above 1 (the cross-entropy over a "
+            "sharded vocabulary) is tensor-parallel training, a later slice "
+            "of the port (ROADMAP, Queue 1)")
     x = module.embed_tokens(params, cfg, batch["tokens"])
     prefix = batch.get("prefix_embeds")
     if prefix is not None:

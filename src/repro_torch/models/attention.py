@@ -48,11 +48,16 @@ def decode_attention(
     window: int = 0,
     logit_cap: float = 0.0,
     scale: float | None = None,
-) -> torch.Tensor:
-    """Single-step GQA attention over the cache. Returns [B, H, hd]."""
+    start=0,                     # global position of the cache's slot 0
+    return_lse: bool = False,
+):
+    """Single-step GQA attention over the cache. Returns [B, H, hd], and
+    with ``return_lse`` the float32 log-sum-exp [B, H] beside it (K3's
+    partial form, for a cache whose sequence axis is sharded)."""
     return kops.decode_attention(q, k_cache, v_cache, cur_len,
                                  window=int(window), logit_cap=logit_cap,
-                                 scale=scale)
+                                 scale=scale, start=start,
+                                 return_lse=return_lse)
 
 
 def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -12,6 +12,18 @@ partial RoPE (StableLM-2); a projected modality prefix (InternVL2).
 Attention is the K1 flash kernel (``models/attention.py``), MLA's with a
 qk head dim wider than its v head dim; the projections, the experts, the
 FFN and the LM head are plain (batched) matrix products.
+
+Tensor parallelism (dense GQA configs, in a region of
+``distributed/context.py``): the functions run on this rank's blocks of the
+weights, as ``param_pspecs`` shards them, and take their local head and ff
+counts from the weights' shapes.  ``hidden`` activations [B,S,d] are
+sequence-parallel between the attention and FFN regions: each block
+all-gathers its normed input over S before the q/k/v and FFN products
+(``gather_seq``), and :func:`constrain` reduce-scatters the products with
+``wo`` back (or all-reduces them where ``hidden`` is replicated).  K1 runs
+on the rank's query heads and the kv heads they read (``local_heads``);
+the embedding is a vocab-parallel lookup and the logits come out sharded
+over the vocabulary where it divides the "model" axis.
 """
 
 from __future__ import annotations
@@ -27,6 +39,15 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..distributed.context import (
+    all_gather_model,
+    constrain,
+    current_region,
+    gather_seq,
+    seq_sharded,
+    to_hidden,
+)
+from ..distributed.sharding import LocalHeads, local_heads
 from .attention import chunked_attention
 from .common import (
     Params,
@@ -222,9 +243,20 @@ def _block_params(cfg: TransformerConfig, gen: torch.Generator, device,
     return p
 
 
+def _whole(path: str, t: torch.Tensor, stacked: bool = False) -> torch.Tensor:
+    return t
+
+
+def _kept(keep, path: str, tree: Any, stacked: bool = False) -> Any:
+    """``keep(path/key, leaf, stacked)`` over a dict tree of tensors."""
+    if isinstance(tree, dict):
+        return {k: _kept(keep, f"{path}/{k}", v, stacked) for k, v in tree.items()}
+    return keep(path, tree, stacked)
+
+
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device: str | torch.device = "cuda",
-                dtype=torch.float32) -> Params:
+                dtype=torch.float32, keep=None) -> Params:
     """Random weights made directly on ``device`` from ``generator``.
 
     The distributions are the reference's (``dense_init``: normal with std
@@ -232,37 +264,71 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     numbers differ, since the generators do.  Stacked layers are drawn one
     at a time into the stacked tensors (``stack_layers``); the lead blocks
     (DeepSeek-V2's dense first layers) are a list, ``prefix_proj`` projects
-    modality embeddings (InternVL2).
+    modality embeddings (InternVL2).  The embedding, the final norm and the
+    head come first, then the layers in order, so the first n layers of a
+    deeper config draw the same numbers.
+
+    ``keep(path, tensor, stacked)`` (``sharding.block_keeper``) is called on
+    every tensor as it is drawn, whole, with its path in the tree
+    ("blocks/attn/wq"; ``stacked``: one layer of a stacked leaf), and what
+    it returns is kept: a rank of a mesh keeps its block and frees the
+    rest, so a model that no card holds whole is drawn block by block, each
+    block bit for bit the one of the whole draw.
     """
     dev = resolve_device(device)
+    keep = keep or _whole
     params: dict[str, Any] = {
-        "embed": embed_init(generator, (cfg.vocab, cfg.d_model), dev, dtype),
-        "final_norm": norm_params(cfg.d_model, cfg.norm, dev, dtype),
+        "embed": keep("embed", embed_init(generator, (cfg.vocab, cfg.d_model),
+                                          dev, dtype)),
+        "final_norm": _kept(keep, "final_norm",
+                            norm_params(cfg.d_model, cfg.norm, dev, dtype)),
     }
     if not cfg.tie_embeddings:
-        params["head"] = dense_init(generator, (cfg.d_model, cfg.vocab), dev, dtype)
+        params["head"] = keep("head", dense_init(
+            generator, (cfg.d_model, cfg.vocab), dev, dtype))
     nl = n_lead(cfg)
     if nl:
-        params["lead_blocks"] = [_block_params(lead_config(cfg), generator, dev,
-                                               dtype) for _ in range(nl)]
+        params["lead_blocks"] = [
+            _kept(keep, f"lead_blocks/{i}",
+                  _block_params(lead_config(cfg), generator, dev, dtype))
+            for i in range(nl)]
     params["blocks"] = stack_layers(
-        cfg.n_layers - nl, lambda: _block_params(cfg, generator, dev, dtype))
+        cfg.n_layers - nl,
+        lambda: _kept(keep, "blocks", _block_params(cfg, generator, dev, dtype),
+                      stacked=True))
     if cfg.prefix_tokens:
-        params["prefix_proj"] = dense_init(
-            generator, (cfg.prefix_dim or cfg.d_model, cfg.d_model), dev, dtype)
+        params["prefix_proj"] = keep("prefix_proj", dense_init(
+            generator, (cfg.prefix_dim or cfg.d_model, cfg.d_model), dev, dtype))
     return params
+
+
+# --------------------------------------------------------------------------- #
+# tensor-parallel layout
+# --------------------------------------------------------------------------- #
+def heads_of(cfg: TransformerConfig) -> LocalHeads:
+    """The attention heads this rank runs: ``local_heads`` in a
+    tensor-parallel region, else all of them."""
+    r = current_region()
+    if r is None:
+        return LocalHeads(cfg.n_heads, cfg.n_kv, 0, 0, False, False)
+    return local_heads(cfg.n_heads, cfg.n_kv, r.tp, r.rank)
 
 
 # --------------------------------------------------------------------------- #
 # FFN: dense and MoE
 # --------------------------------------------------------------------------- #
 def dense_ffn(x: torch.Tensor, p: Params, cfg: TransformerConfig) -> torch.Tensor:
-    hg = x @ p["wi"].to(x.dtype)
+    """The (gated) MLP of x [B,S,d] (whole S) -> [B,S,d] in ``hidden``'s
+    layout, its inner products constrained as ``ff``, its output as
+    ``hidden`` (a partial sum where the rank holds a block of ff)."""
+    hg = constrain(x @ p["wi"].to(x.dtype), "ff", width=cfg.d_ff)
     if cfg.glu:
-        h = activation(hg, cfg.act) * (x @ p["wg"].to(x.dtype))
+        h = activation(hg, cfg.act) * constrain(x @ p["wg"].to(x.dtype), "ff",
+                                                width=cfg.d_ff)
     else:
         h = activation(hg, cfg.act)
-    return h @ p["wo"].to(h.dtype)
+    return constrain(h @ p["wo"].to(h.dtype), "hidden",
+                     partial=p["wo"].shape[0] != cfg.d_ff)
 
 
 @dataclass(frozen=True)
@@ -366,9 +432,10 @@ def ffn_forward(x: torch.Tensor, p: Params, cfg: TransformerConfig) -> torch.Ten
 def project_qkv(x: torch.Tensor, p: Params, cfg: TransformerConfig,
                 pos: torch.Tensor):
     """q [B,S,H,hd], k/v [B,S,KV,hd] of x [B,S,d] at positions ``pos`` [S]:
-    projections, optional qk-norm, RoPE on q and k."""
+    projections, optional qk-norm, RoPE on q and k.  H and KV are the
+    weights' (a rank's blocks in a tensor-parallel region)."""
     b, s, d = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    h, kv, hd = p["wq"].shape[-2], p["wk"].shape[-2], cfg.hd
     q = (x @ p["wq"].to(x.dtype).reshape(d, h * hd)).view(b, s, h, hd)
     k = (x @ p["wk"].to(x.dtype).reshape(d, kv * hd)).view(b, s, kv, hd)
     v = (x @ p["wv"].to(x.dtype).reshape(d, kv * hd)).view(b, s, kv, hd)
@@ -431,21 +498,41 @@ def attn_forward(x: torch.Tensor, p: Params, cfg: TransformerConfig, *,
         return out, {"ckv": ckv, "kr": kr}
     hd = cfg.hd
     q, k, v = project_qkv(x, p, cfg, pos)
-    o = chunked_attention(q, k, v, causal=True, window=window,
+    q = constrain(q, "heads", width=cfg.n_heads)
+    k = constrain(k, "heads", width=cfg.n_kv)
+    v = constrain(v, "heads", width=cfg.n_kv)
+    lh = heads_of(cfg)
+    kq, vq = _kv_of_queries(k, v, lh)
+    o = chunked_attention(q, kq, vq, causal=True, window=window,
                           logit_cap=cfg.attn_softcap, scale=cfg.attn_scale)
-    out = o.reshape(b, s, h * hd) @ p["wo"].to(o.dtype).reshape(h * hd, d)
-    return out, {"k": k, "v": v}
+    out = o.reshape(b, s, lh.h * hd) @ p["wo"].to(o.dtype).reshape(lh.h * hd, d)
+    return constrain(out, "hidden", partial=lh.q_sharded), {"k": k, "v": v}
+
+
+def _kv_of_queries(k: torch.Tensor, v: torch.Tensor, lh: LocalHeads):
+    """The kv heads [B,S,kv,hd] a rank's query heads read: k/v as they are
+    where the rank holds just those (kv heads sharded, or all heads run),
+    else the slice ``[kv0, kv0 + kv)`` of the whole kv heads."""
+    if lh.kv_sharded or not lh.q_sharded:
+        return k, v
+    sl = slice(lh.kv0, lh.kv0 + lh.kv)
+    return k[:, :, sl], v[:, :, sl]
 
 
 # --------------------------------------------------------------------------- #
 # block + full model forward (prefill)
 # --------------------------------------------------------------------------- #
 def block_forward(x: torch.Tensor, p: Params, cfg: TransformerConfig, *,
-                  window: int, return_kv: bool = False):
+                  window: int, return_kv: bool = False, seq: int | None = None):
     """One block: pre-norm attention and FFN, with Gemma-2's post-norms on
     both outputs, or Command-R's parallel block (x + attn(h) + ffn(h)).
-    With ``return_kv``: ``(x, cache entries)`` as attn_forward's."""
-    h = apply_norm(x, p["ln1"], cfg.norm)
+    With ``return_kv``: ``(x, cache entries)`` as attn_forward's.
+
+    x is in ``hidden``'s layout; ``seq`` is the global sequence length
+    (default x's), which says whether that layout shards S.  Each normed
+    input is gathered whole over S for the products."""
+    s = x.shape[1] if seq is None else seq
+    h = gather_seq(apply_norm(x, p["ln1"], cfg.norm), s)
     attn, kv = attn_forward(h, p["attn"], cfg, window=window)
     if cfg.post_norm:
         attn = apply_norm(attn, p["ln1_post"], cfg.norm)
@@ -453,7 +540,7 @@ def block_forward(x: torch.Tensor, p: Params, cfg: TransformerConfig, *,
         x = x + attn + ffn_forward(h, p, cfg)
     else:
         x = x + attn
-        f = ffn_forward(apply_norm(x, p["ln2"], cfg.norm), p, cfg)
+        f = ffn_forward(gather_seq(apply_norm(x, p["ln2"], cfg.norm), s), p, cfg)
         if cfg.post_norm:
             f = apply_norm(f, p["ln2_post"], cfg.norm)
         x = x + f
@@ -469,25 +556,55 @@ def embed_tokens(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
     ``F.embedding``, whose gradient sums each row's tokens in a fixed order
     (an indexing gradient accumulates in parallel on the CPU, in no fixed
     order).
+
+    In a tensor-parallel region the result is in ``hidden``'s layout.  Where
+    the embedding's rows are sharded over "model" (the vocabulary divides
+    it) each rank looks up the tokens in its rows, zeros the others and the
+    lookup ends in the ``hidden`` reduce (a sum with one nonzero term:
+    exact); else the lookup is whole on every rank.
     """
-    x = F.embedding(tokens, params["embed"]).to(compute_dtype)
+    emb = params["embed"]
+    if emb.shape[0] == cfg.vocab:
+        x = F.embedding(tokens, emb).to(compute_dtype)
+        partial = False
+    else:                                   # this rank's rows of the vocab
+        n = emb.shape[0]
+        local = tokens - current_region().rank * n
+        inside = (local >= 0) & (local < n)
+        x = (F.embedding(local.clamp(0, n - 1), emb).to(compute_dtype)
+             * inside[..., None].to(compute_dtype))
+        partial = True
     if cfg.embed_scale:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=compute_dtype)
-    return x
+    return to_hidden(x, partial)
 
 
 def embed_prefix(params: Params, prefix_embeds: torch.Tensor,
-                 x: torch.Tensor) -> torch.Tensor:
+                 x: torch.Tensor, seq: int | None = None) -> torch.Tensor:
     """Modality embeddings [B,P,prefix_dim], projected to d and put before
-    the text activations x [B,S,d] (InternVL2's patch embeddings)."""
+    the text activations x [B,S,d] (InternVL2's patch embeddings).
+
+    In a tensor-parallel region x is in ``hidden``'s layout (``seq``: its
+    global S, default x's) and so is the result; ``prefix_proj``'s output
+    columns may be sharded over "model", and are gathered."""
     pe = prefix_embeds.to(x.dtype) @ params["prefix_proj"].to(x.dtype)
-    return torch.cat([pe, x], dim=1)
+    if current_region() is None:
+        return torch.cat([pe, x], dim=1)
+    if pe.shape[-1] != x.shape[-1]:        # d's columns sharded: gather them
+        pe = torch.cat(all_gather_model(pe).unbind(0), dim=-1)
+    x = gather_seq(x, x.shape[1] if seq is None else seq)
+    return to_hidden(torch.cat([pe, x], dim=1), partial=False)
 
 
-def forward_hidden(params: Params, cfg: TransformerConfig,
-                   x: torch.Tensor) -> torch.Tensor:
+def forward_hidden(params: Params, cfg: TransformerConfig, x: torch.Tensor,
+                   seq: int | None = None) -> torch.Tensor:
     """Run all blocks on embedded inputs x: [B,S,d] -> [B,S,d] (pre-head):
     the lead blocks first, then the stacked ones.
+
+    x is in ``hidden``'s layout, as :func:`embed_tokens` and
+    :func:`embed_prefix` return it, and so is the result; ``seq`` is the
+    global sequence length (default x's), which a tensor-parallel region
+    needs where S is sharded.
 
     Under grad mode each stacked block is checkpointed
     (``torch.utils.checkpoint``, non-reentrant): its activations are
@@ -496,23 +613,38 @@ def forward_hidden(params: Params, cfg: TransformerConfig,
     blocks are not, as in the reference.  The stacked leaves are unbound
     once (``unstack_layers``).
     """
+    s = x.shape[1] if seq is None else seq
+    x = constrain(x, "hidden", width=s)
     nl = n_lead(cfg)
     for i in range(nl):
-        x = block_forward(x, params["lead_blocks"][i], lead_config(cfg), window=0)
+        x = block_forward(x, params["lead_blocks"][i], lead_config(cfg),
+                          window=0, seq=s)
     remat = torch.is_grad_enabled()
     windows = cfg.windows()
     for j, lp in enumerate(unstack_layers(params["blocks"])):
         w = int(windows[nl + j])
         if remat:
-            x = checkpoint(block_forward, x, lp, cfg, window=w,
+            x = checkpoint(block_forward, x, lp, cfg, window=w, seq=s,
                            use_reentrant=False, preserve_rng_state=False)
         else:
-            x = block_forward(x, lp, cfg, window=w)
+            x = block_forward(x, lp, cfg, window=w, seq=s)
     return apply_norm(x, params["final_norm"], cfg.norm)
+
+
+def last_position(x: torch.Tensor, seq: int) -> torch.Tensor:
+    """x[:, -1:] of ``hidden`` x of global length ``seq``: where S is
+    sharded the last position lives on the last rank, whose row every rank
+    gathers."""
+    if not seq_sharded(seq):
+        return x[:, -1:]
+    return all_gather_model(x[:, -1:])[-1]
 
 
 def logits_fn(params: Params, cfg: TransformerConfig,
               h: torch.Tensor) -> torch.Tensor:
+    """Logits [..., V] in float32 with the final soft-cap; in a
+    tensor-parallel region the rank's block of the vocabulary where the
+    head's (or the tied embedding's) vocab is sharded."""
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     logits = h @ w.to(h.dtype)
     return softcap(logits.float(), cfg.final_softcap)

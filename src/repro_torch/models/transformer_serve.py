@@ -13,6 +13,17 @@ absorbed form: W_uk folds into the query and W_uv into the output, so the
 scores and the context live in the latent space and no per-step K/V is
 decompressed; that is plain torch, as it is XLA in the reference, with bf16
 operands and float32 accumulation.
+
+Tensor-parallel serving (dense GQA configs, in a region of
+``distributed/context.py``): each rank holds its block of the cache, as
+``cache_pspecs`` lays it out.  Where the kv heads divide the "model" axis
+the rank holds its kv heads and K3 runs on its query heads against them.
+Else the cache's sequence axis is sharded (the distributed flash-decoding
+layout): the rank holds slots ``[r n, (r + 1) n)`` of every kv head;
+decode gathers q over the axis, runs K3's partial form on its slots for
+every head (masked by global position, with each head's log-sum-exp), and
+the ranks merge their (o, lse) pairs through one all-gather; only the rank
+that owns slot ``pos`` writes the new entry.
 """
 
 from __future__ import annotations
@@ -21,6 +32,14 @@ from typing import Any
 
 import torch
 
+from ..distributed.context import (
+    all_gather_model,
+    all_reduce_model,
+    current_region,
+    to_hidden,
+)
+from ..distributed.sharding import shard_shape
+from ..kernels.decode_attention import combine_partials
 from .attention import decode_attention, update_kv_cache, write_at
 from .common import Params, apply_norm, softcap
 from .transformer import (
@@ -29,6 +48,8 @@ from .transformer import (
     embed_prefix,
     embed_tokens,
     ffn_forward,
+    heads_of,
+    last_position,
     layer_at,
     logits_fn,
     n_lead,
@@ -66,11 +87,43 @@ def cache_spec(cfg: TransformerConfig, batch: int, max_len: int,
     return out
 
 
+def seq_sharded_cache(cfg: TransformerConfig) -> bool:
+    """Whether this rank's cache block shards the sequence (a
+    tensor-parallel region whose "model" axis the kv heads do not divide)."""
+    return current_region() is not None and not heads_of(cfg).kv_sharded
+
+
+def _local_shape(cfg: TransformerConfig, shape: tuple[int, ...]) -> tuple[int, ...]:
+    """This rank's block of a cache leaf [L, B, S, KV, hd] whose batch is
+    already the rank's: kv heads or the sequence over "model" (an uneven
+    split of the sequence raises, as the reference's ``NamedSharding``)."""
+    r = current_region()
+    if r is None:
+        return shape
+    if seq_sharded_cache(cfg):
+        return shard_shape(shape, (None, None, "model", None, None), r.sizes)
+    return shard_shape(shape, (None, None, None, "model", None), r.sizes)
+
+
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device: str | torch.device = "cuda") -> Any:
-    return {g: {name: torch.zeros(t.shape, dtype=t.dtype, device=device)
+    """A zero cache; in a tensor-parallel region this rank's block of it
+    (``batch`` is the rank's rows)."""
+    return {g: {name: torch.zeros(_local_shape(cfg, tuple(t.shape)),
+                                  dtype=t.dtype, device=device)
                 for name, t in tree.items()}
             for g, tree in cache_spec(cfg, batch, max_len, dtype).items()}
+
+
+def _fill(cfg: TransformerConfig, dst: torch.Tensor, t: torch.Tensor) -> None:
+    """Write prefill entries t [B,S,...] at positions [0, S) into this
+    rank's cache block dst [B,n,...]: the positions its slots hold (slot 0
+    is position r n where the sequence is sharded, else 0)."""
+    n, s = dst.shape[1], t.shape[1]
+    start = current_region().rank * n if seq_sharded_cache(cfg) else 0
+    stop = min(start + n, s)
+    if stop > start:
+        dst[:, :stop - start] = t[:, start:stop]
 
 
 def _layer_cache(cache: Any, group: str, j: int) -> dict:
@@ -93,19 +146,25 @@ def prefill(params: Params, cfg: TransformerConfig, tokens: torch.Tensor, *,
     The cache holds what each layer's attention used (post-RoPE k and v, or
     MLA's latent and rope key), in ``cache_dtype`` whatever the param dtype,
     zero past the prompt.
+
+    In a tensor-parallel region the inputs are the rank's rows, and the
+    logits and the cache come back as its blocks (module docstring).
     """
-    x = tokens if cfg.embed_inputs else embed_tokens(params, cfg, tokens)
+    x = to_hidden(tokens, partial=False) if cfg.embed_inputs \
+        else embed_tokens(params, cfg, tokens)
+    s = tokens.shape[1]
     if prefix_embeds is not None:
-        x = embed_prefix(params, prefix_embeds, x)
-    b, s, _ = x.shape
+        x = embed_prefix(params, prefix_embeds, x, seq=s)
+        s += prefix_embeds.shape[1]
+    b = x.shape[0]
     cache = init_cache(cfg, b, max(s, max_len or s), cache_dtype, x.device)
     for i in range(cfg.n_layers):
         lp, lcfg, window, group, j = layer_at(params, cfg, i)
-        x, kv = block_forward(x, lp, lcfg, window=window, return_kv=True)
+        x, kv = block_forward(x, lp, lcfg, window=window, return_kv=True, seq=s)
         for name, t in kv.items():
-            cache[group][name][j, :, :s] = t
+            _fill(lcfg, cache[group][name][j], t)
     # the norm is per position: normalising the last one alone is the same
-    x = apply_norm(x[:, -1:], params["final_norm"], cfg.norm)
+    x = apply_norm(last_position(x, s), params["final_norm"], cfg.norm)
     return logits_fn(params, cfg, x)[:, 0], cache
 
 
@@ -114,16 +173,47 @@ def prefill(params: Params, cfg: TransformerConfig, tokens: torch.Tensor, *,
 # --------------------------------------------------------------------------- #
 def _decode_attn_dense(x, p, cfg: TransformerConfig, layer_cache, pos,
                        positions, cur_len, window):
-    """x: [B,1,d]; cache {k,v}: [B,S,KV,hd], written at ``pos`` in place."""
+    """x: [B,1,d]; cache {k,v}: [B,S,KV,hd], written at ``pos`` in place.
+    In a tensor-parallel region the rank's query heads attend over its
+    block of the cache, which holds its kv heads or its slots of all."""
     b = x.shape[0]
     q, k, v = project_qkv(x, p, cfg, positions)
-    k_cache, v_cache = update_kv_cache(layer_cache["k"], layer_cache["v"],
-                                       k, v, pos)
-    o = decode_attention(q[:, 0], k_cache, v_cache, cur_len, window=window,
-                         logit_cap=cfg.attn_softcap, scale=cfg.attn_scale)
-    hd_all = cfg.n_heads * cfg.hd
+    lh = heads_of(cfg)
+    if current_region() is None or lh.kv_sharded:
+        k_cache, v_cache = update_kv_cache(layer_cache["k"], layer_cache["v"],
+                                           k, v, pos)
+        o = decode_attention(q[:, 0], k_cache, v_cache, cur_len, window=window,
+                             logit_cap=cfg.attn_softcap, scale=cfg.attn_scale)
+    else:
+        o = _decode_attn_slots(q[:, 0], k, v, cfg, layer_cache, pos, cur_len,
+                               window, lh)
+    hd_all = lh.h * cfg.hd
     out = o.reshape(b, hd_all) @ p["wo"].to(o.dtype).reshape(hd_all, -1)
-    return out[:, None]
+    # hidden is replicated at S = 1: a partial sum over the heads is all-reduced
+    return (all_reduce_model(out) if lh.q_sharded else out)[:, None]
+
+
+def _decode_attn_slots(q, k, v, cfg: TransformerConfig, layer_cache, pos,
+                       cur_len, window, lh):
+    """Decode attention over a sequence-sharded cache: q [B,H_loc,hd], the
+    new k/v [B,1,KV,hd] (every kv head) -> this rank's heads' output
+    [B,H_loc,hd]."""
+    r = current_region()
+    k_cache, v_cache = layer_cache["k"], layer_cache["v"]
+    n = k_cache.shape[1]
+    # write_at's placement over the global S = n * tp: the owner writes
+    s = n * r.tp
+    at = min(max(pos + s if pos < 0 else pos, 0), s - 1)
+    if at // n == r.rank:
+        update_kv_cache(k_cache, v_cache, k, v, at - r.rank * n)
+    if lh.q_sharded:                       # every head's q, in head order
+        q = all_gather_model(q).transpose(0, 1).reshape(q.shape[0], -1, q.shape[2])
+    o, lse = decode_attention(q, k_cache, v_cache, cur_len, window=window,
+                              logit_cap=cfg.attn_softcap, scale=cfg.attn_scale,
+                              start=r.rank * n, return_lse=True)
+    parts = all_gather_model(torch.cat([o.float(), lse[..., None]], dim=-1))
+    o = combine_partials(parts[..., :-1], parts[..., -1]).to(q.dtype)
+    return o[:, lh.q0:lh.q0 + lh.h]
 
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -190,7 +280,9 @@ def decode_step(params: Params, cfg: TransformerConfig, cache: Any,
     ``embed_inputs``); pos: host int, shared by the batch.
 
     Returns (logits [B,V] float32, cache): the cache is the one given,
-    updated in place at ``pos``.  Attention sees ``pos + 1`` entries.
+    updated in place at ``pos``.  Attention sees ``pos + 1`` entries.  In
+    a tensor-parallel region the tokens are the rank's rows, the cache its
+    block, and the logits come back as its block.
     """
     if cfg.embed_inputs:
         x = tokens[:, None, :]

@@ -1,5 +1,6 @@
 """Training: AdamW, the train step (one card or data-parallel on a mesh),
-int8 error-feedback gradient compression, the serving functions on a mesh."""
+int8 error-feedback gradient compression, the serving functions on a mesh
+(tensor-parallel for the dense transformers) and their sharded init."""
 
 from .optimizer import (
     AdamWConfig,
@@ -9,9 +10,10 @@ from .optimizer import (
     global_norm,
     lr_schedule,
 )
-from .train_step import (TrainStepConfig, compress_grads_int8, make_serve_fns,
-                         make_train_step)
+from .train_step import (TrainStepConfig, compress_grads_int8,
+                         init_serving_params, make_serve_fns, make_train_step)
 
 __all__ = ["AdamWConfig", "TrainStepConfig", "adamw_init", "adamw_update",
            "clip_by_global_norm", "compress_grads_int8", "global_norm",
-           "lr_schedule", "make_serve_fns", "make_train_step"]
+           "init_serving_params", "lr_schedule", "make_serve_fns",
+           "make_train_step"]

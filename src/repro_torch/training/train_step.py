@@ -3,8 +3,8 @@ int8 error-feedback compression -> AdamW; and the serving functions on a
 mesh.
 
 The reference's ``training/train_step.py`` on one card, or data-parallel
-over a mesh's dp axes (a "model" axis of 1; tensor-parallel execution is a
-later slice).  The gradients flow through the forward and backward kernels of K1
+over a mesh's dp axes (a "model" axis of 1 for training; tensor-parallel
+training is a later slice).  The gradients flow through the forward and backward kernels of K1
 in every attention layer, K4 in every Mamba-2 block and K5 in every
 recurrent layer, and with compression on every gradient leaf crosses
 K2a (quantize) and K2b (dequantize) once a step: the numerics of a
@@ -22,10 +22,19 @@ update.  The loss is a mean over counted tokens, so the ranks all-reduce
 their gradient sums and token counts: the gradient is the whole batch's, as
 the reference's GSPMD step computes it, and every rank compresses that one
 gradient and carries the same residual.
+
+Serving (:func:`make_serve_fns`) also runs on a "model" axis above 1, for
+the dense GQA transformers: each rank holds its blocks of the weights
+(:func:`serving_pspecs`) and of the caches (``cache_pspecs``) and runs the
+model Megatron-style on them in a tensor-parallel region
+(``distributed/context.py``), the activations moving between ranks through
+``torch.distributed`` collectives over the "model" axis (NCCL on the card).
+:func:`init_serving_params` draws such weights block by block.
 """
 
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass
 from typing import Any
@@ -33,9 +42,12 @@ from typing import Any
 import torch
 
 from ..device import resolve_device
+from ..distributed.context import TPRegion, tensor_parallel
 from ..distributed.sharding import (
     batch_axes,
+    block_keeper,
     cache_pspecs,
+    dp_axes,
     input_pspecs,
     local_slices,
     mesh_shape,
@@ -47,8 +59,8 @@ from ..kernels import ops as kops
 from ..models.common import tree_flatten, tree_map, tree_unflatten
 from .optimizer import AdamWConfig, adamw_init, adamw_update
 
-__all__ = ["TrainStepConfig", "compress_grads_int8", "make_serve_fns",
-           "make_train_step", "serving_pspecs"]
+__all__ = ["TrainStepConfig", "compress_grads_int8", "init_serving_params",
+           "make_serve_fns", "make_train_step", "serving_pspecs"]
 
 
 @dataclass(frozen=True)
@@ -80,22 +92,34 @@ def compress_grads_int8(grads: Any, residual: Any):
 
 
 class _MeshPlace:
-    """This rank's place on a mesh whose "model" axis is 1: its coordinates,
-    and the process group of the dp axes (all of the mesh's ranks)."""
+    """This rank's place on a mesh: its coordinates, the process group of
+    the dp axes (all of the mesh's ranks; training takes a "model" axis of
+    1 only) and, for serving, that of the "model" axis."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, serving: bool = False):
         import torch.distributed as dist
 
         self.sizes = mesh_shape(mesh)
-        if self.sizes.get("model", 1) > 1:
+        self.tp = int(self.sizes.get("model", 1))
+        if self.tp > 1 and not serving:
             raise NotImplementedError(
-                f"mesh {self.sizes}: tensor-parallel execution (a 'model' "
-                "axis above 1) is a later slice of the port; use model=1")
+                f"mesh {self.sizes}: tensor-parallel training (a 'model' "
+                "axis above 1) is a later slice of the port (ROADMAP, "
+                "Queue 1); use model=1")
         self.mesh = mesh
         self.coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
         self.n = mesh.size()
         self.group = None if self.n == dist.get_world_size() else \
             dist.new_group(mesh.mesh.flatten().tolist())
+        self.model_group = mesh.get_group("model") if self.tp > 1 else None
+
+    def region(self, batch: int) -> TPRegion:
+        """The tensor-parallel region of a step whose global batch is
+        ``batch`` (split over dp where it divides, as ``batch_axes``)."""
+        dp = math.prod(self.sizes[a] for a in dp_axes(self.sizes))
+        split = dp if batch_axes(batch, self.sizes) is not None else 1
+        return TPRegion(self.sizes, int(self.coord.get("model", 0)),
+                        self.model_group, split)
 
     def local(self, x: torch.Tensor, spec: tuple) -> torch.Tensor:
         """This rank's block of the global tensor ``x`` under ``spec``,
@@ -202,13 +226,40 @@ def make_train_step(bundle, cfg: TrainStepConfig = TrainStepConfig(),
     return step_fn, init_state
 
 
-def _gathered(params: Any) -> Any:
-    """Params whole on every rank: a DTensor leaf (FSDP storage) is
-    all-gathered, a plain tensor is already whole."""
+def _tp_blocks(place: _MeshPlace, params: Any, tp_specs: Any) -> Any:
+    """This rank's blocks of the params under the TP-only specs: a DTensor
+    leaf in those placements is its local block; one whose placements add
+    dp axes (FSDP storage, ``REPRO_SERVE_FSDP``) is all-gathered over them
+    first; a plain tensor is whole, and sliced."""
     from torch.distributed.tensor import DTensor
 
-    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t,
-                    params)
+    def leaf(t, spec):
+        if not isinstance(t, DTensor):
+            return place.local(t, spec)
+        want = placements(spec, place.mesh)
+        if tuple(t.placements) != want:
+            t = t.redistribute(place.mesh, want)
+        return t.to_local()
+
+    return _with_specs(leaf, params, tp_specs)
+
+
+def _check_tp(bundle) -> None:
+    """Tensor-parallel serving runs the dense GQA transformers; the other
+    families keep raising on a "model" axis above 1."""
+    cfg = bundle.cfg
+    what = None
+    if bundle.family != "transformer":
+        what = f"the {bundle.family} family"
+    elif cfg.moe is not None:
+        what = "MoE experts"
+    elif cfg.mla is not None:
+        what = "MLA's latent cache"
+    if what is not None:
+        raise NotImplementedError(
+            f"{bundle.arch}: tensor-parallel serving (a 'model' axis above 1) "
+            f"runs the dense GQA transformers; {what} under tensor parallelism "
+            "is a later slice of the port (ROADMAP, Queue 1)")
 
 
 def serving_pspecs(bundle, mesh) -> Any:
@@ -217,6 +268,28 @@ def serving_pspecs(bundle, mesh) -> Any:
     baseline, for before/after measurement)."""
     pspecs = param_pspecs(bundle.param_specs(torch.bfloat16), mesh)
     return pspecs if os.environ.get("REPRO_SERVE_FSDP") else strip_dp(pspecs)
+
+
+def init_serving_params(bundle, mesh, generator: torch.Generator,
+                        device: str | torch.device = "cuda",
+                        dtype=torch.bfloat16) -> Any:
+    """Serving weights drawn by ``bundle.init`` from ``generator``, each rank
+    keeping only its blocks under :func:`serving_pspecs` (``block_keeper``:
+    every tensor is drawn whole, in the one-device order, its block kept
+    and the rest freed), as DTensors on ``mesh`` in those placements.  The
+    blocks are bit for bit ``local_slices`` of the one-device init from the
+    same generator state.  Every rank draws every tensor, so a rank's
+    device must hold the largest one whole (in float32) beside its blocks.
+    """
+    place = _MeshPlace(mesh, serving=True)
+    specs = serving_pspecs(bundle, place.sizes)
+    dev = resolve_device(device)
+    if bundle.family != "transformer":
+        raise NotImplementedError(f"{bundle.arch}: sharded init draws the "
+                                  "transformers' params")
+    local = bundle.init(generator, dev, dtype,
+                        keep=block_keeper(specs, place.sizes, place.coord))
+    return _with_specs(place.wrap, local, specs)
 
 
 def make_serve_fns(bundle, mesh, shape, device: str | torch.device = "cuda"):
@@ -232,32 +305,45 @@ def make_serve_fns(bundle, mesh, shape, device: str | torch.device = "cuda"):
     DTensors on ``mesh``.
 
     ``fn.param_specs`` is the params' placement, :func:`serving_pspecs`
-    (replicated at model 1 unless ``REPRO_SERVE_FSDP`` is set).  Params may
-    be plain tensors or DTensors so placed; a DTensor leaf is all-gathered
-    for the step.
-    A "model" axis above 1 raises ``NotImplementedError``.
+    (TP only unless ``REPRO_SERVE_FSDP`` is set).  Params may be DTensors
+    so placed (:func:`init_serving_params`), whose blocks each rank runs on
+    (under ``REPRO_SERVE_FSDP`` gathered over the dp axes only), or plain
+    whole tensors, which each rank slices.
+
+    On a "model" axis above 1 each rank runs the dense GQA transformer on
+    its blocks (module docstring); the results equal the one-device
+    computation's.  A prefill's ``fn(params, batch, max_len=None)`` sizes
+    the cache for ``max_len`` (default ``shape.seq_len``), as
+    ``bundle.prefill`` does; a sequence-sharded cache's length must divide
+    the "model" axis.  The MoE, MLA, Mamba-2 and Griffin families raise
+    ``NotImplementedError`` there.
     """
     dev = resolve_device(device)
-    place = _MeshPlace(mesh)
+    place = _MeshPlace(mesh, serving=True)
     sizes = place.sizes
+    if place.tp > 1:
+        _check_tp(bundle)
     pspecs = serving_pspecs(bundle, sizes)
+    tp_specs = strip_dp(pspecs)
     ispecs = bundle.input_specs(shape)
     in_sh = input_pspecs(ispecs, sizes, family=bundle.family)
     dpb = batch_axes(shape.global_batch, sizes)
     logits_spec = (dpb, "model" if bundle.cfg.vocab % sizes["model"] == 0
                    else None)
+    region = place.region(shape.global_batch)
 
     def on_rank(x, spec):
         return place.local(torch.as_tensor(x, device=dev), spec)
 
     if shape.kind == "prefill":
-        cache_sh = cache_pspecs(bundle.cache_spec(shape.global_batch,
-                                                  shape.seq_len),
-                                sizes, family=bundle.family)
-
-        def prefill_fn(params, batch):
+        def prefill_fn(params, batch, max_len=None):
+            n = max(shape.seq_len, max_len or 0)
+            cache_sh = cache_pspecs(bundle.cache_spec(shape.global_batch, n),
+                                    sizes, family=bundle.family)
             local = {k: on_rank(v, in_sh[k]) for k, v in batch.items()}
-            logits, cache = bundle.prefill(_gathered(params), local)
+            blocks = _tp_blocks(place, params, tp_specs)
+            with tensor_parallel(region):
+                logits, cache = bundle.prefill(blocks, local, n)
             return (place.wrap(logits, logits_spec),
                     _with_specs(place.wrap, cache, cache_sh))
 
@@ -271,8 +357,10 @@ def make_serve_fns(bundle, mesh, shape, device: str | torch.device = "cuda"):
 
         local = _with_specs(lambda t, sp: t.to_local() if isinstance(t, DTensor)
                             else on_rank(t, sp), cache, cache_sh)
-        logits, local = bundle.decode(_gathered(params), local,
-                                      on_rank(tokens, (dpb,)), int(pos))
+        blocks = _tp_blocks(place, params, tp_specs)
+        with tensor_parallel(region):
+            logits, local = bundle.decode(blocks, local,
+                                          on_rank(tokens, (dpb,)), int(pos))
         return (place.wrap(logits, logits_spec),
                 _with_specs(place.wrap, local, cache_sh))
 

@@ -22,11 +22,23 @@ WAIT_S = 240
 def run(target, world: int, tmp: Path, *args) -> list[dict]:
     """``target(rank, world, tmp, *args)`` in ``world`` spawned processes;
     the ranks' saved results, in rank order."""
+    return finish(start(target, world, tmp, *args), tmp)
+
+
+def start(target, world: int, tmp: Path, *args) -> list:
+    """:func:`run`'s processes, started; :func:`finish` waits for them (the
+    caller works in between)."""
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_entry, args=(target, r, world, str(tmp), *args))
              for r in range(world)]
     for p in procs:
         p.start()
+    return procs
+
+
+def finish(procs: list, tmp: Path) -> list[dict]:
+    """The results of :func:`start`'s processes, in rank order."""
+    world = len(procs)
     for p in procs:
         p.join(WAIT_S)
     alive = [p for p in procs if p.is_alive()]
@@ -57,6 +69,15 @@ def f32_activations() -> None:
     for mod in (transformer, mamba2, griffin):
         mod.embed_tokens = functools.partial(mod.embed_tokens,
                                              compute_dtype=torch.float32)
+
+
+def f32_serving(serve, embed_fn, dtype) -> None:
+    """A package's transformer serving in float32: its ``transformer_serve``
+    module's ``embed_tokens`` (``embed_fn``, the transformer module's) and
+    the cache ``prefill`` makes (the bundles call both through the module),
+    as ``tests/test_torch_tp_serve.py`` sets them in both packages."""
+    serve.embed_tokens = functools.partial(embed_fn, compute_dtype=dtype)
+    serve.prefill = functools.partial(serve.prefill, cache_dtype=dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -91,7 +112,10 @@ def placements_case(rank, world, tmp, specs, shape, act_cases):
 
 def mesh_step_case(rank, world, tmp, cfg_kw, batches, serve):
     """The data-parallel train step on a data ``world`` x model 1 mesh, the
-    serving functions on it, and a model axis of 2 refused."""
+    serving functions on it; on a model axis of ``world`` the train step
+    and the serving functions of the MoE, MLA, Mamba-2 and Griffin families
+    refused, and the dense serving functions run (in float32 serving,
+    beside the one-process calls made here)."""
     from repro_torch.configs import get_bundle
     from repro_torch.launch.mesh import make_small_mesh
     from repro_torch.models.api import ShapeSpec
@@ -128,15 +152,142 @@ def mesh_step_case(rank, world, tmp, cfg_kw, batches, serve):
     out["decode"] = dec
     out["decode_cache"] = {k: v.full_tensor() for k, v in cache["blocks"].items()}
 
-    tp = make_small_mesh(1, 2, device_type="cpu")
+    tp = make_small_mesh(1, world, device_type="cpu")
     refused = []
-    for make in (lambda: make_train_step(bundle, TrainStepConfig(), "cpu", mesh=tp),
-                 lambda: make_serve_fns(bundle, tp, ShapeSpec("p", s, b, "prefill"),
-                                        "cpu")):
+    makers = [lambda: make_train_step(bundle, TrainStepConfig(), "cpu", mesh=tp)]
+    makers += [lambda a=a: make_serve_fns(get_bundle(a, reduced=True), tp,
+                                          ShapeSpec("p", s, b, "prefill"), "cpu")
+               for a in ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b",
+                         "mamba2-1.3b", "recurrentgemma-9b")]
+    for make in makers:
         try:
             make()
             refused.append(False)
         except NotImplementedError:
             refused.append(True)
     out["tp_refused"] = refused
+
+    from repro_torch.models import transformer, transformer_serve
+
+    f32_serving(transformer_serve, transformer.embed_tokens, torch.float32)
+    fn, _ = make_serve_fns(bundle, tp, ShapeSpec("p", s, b, "prefill"), "cpu")
+    logits, tcache = fn(serve_params, {"tokens": toks}, max_len=s_cache)
+    dfn, _ = make_serve_fns(bundle, tp, ShapeSpec("d", s_cache, b, "decode"), "cpu")
+    dl, tcache = dfn(serve_params, tcache, next_toks[0], s)
+    want, wcache = bundle.prefill(serve_params, {"tokens": toks}, s_cache)
+    want_d, wcache = bundle.decode(serve_params, wcache, next_toks[0], s)
+    out["tp_serve"] = [(logits.full_tensor(), want), (dl.full_tensor(), want_d),
+                       (tcache["blocks"]["k"].full_tensor(), wcache["blocks"]["k"])]
     return out
+
+
+def unit_scores(params, cfg):
+    """The params with wq and wk scaled by sqrt(H/d) and sqrt(KV/d): unit-
+    variance attention scores (chip_smoke.py's ``conditioned``; the init's
+    fan-in of wq [d,H,hd] is H, which puts the scores near an argmax).
+    Elementwise, so a block of the result is the result of the block; the
+    leaves may be DTensors.  Shares every other tensor with ``params``."""
+    attn = dict(params["blocks"]["attn"])
+    attn["wq"] = attn["wq"] * (cfg.n_heads / cfg.d_model) ** 0.5
+    attn["wk"] = attn["wk"] * (cfg.n_kv / cfg.d_model) ** 0.5
+    return {**params, "blocks": {**params["blocks"], "attn": attn}}
+
+
+def tp_serve_case(rank, world, tmp, data, model, cases):
+    """``make_serve_fns`` on a data ``data`` x model ``model`` mesh in
+    float32 (``f32_serving``): per case the sharded init
+    (``init_serving_params``), a prefill and decode steps with those
+    DTensors on unit-variance scores (``unit_scores``), the same prefill
+    with the whole params (``case["whole"]``, so conditioned), and a spy on every
+    ``constrain`` call of the models (kind, the global shape that
+    ``activation_spec`` was given, the local block that came out)."""
+    from repro_torch.distributed import context
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.models import transformer, transformer_serve
+    from repro_torch.models.api import ShapeSpec, bundle_for
+    from repro_torch.models.common import tree_map
+    from repro_torch.training import init_serving_params, make_serve_fns
+
+    f32_serving(transformer_serve, transformer.embed_tokens, torch.float32)
+    mesh = make_small_mesh(data, model, device_type="cpu")
+    seen: list = []
+    spec_fn, constrain_fn = context.activation_spec, transformer.constrain
+
+    def spec_spy(shape, kind, sizes):
+        seen.append([kind, tuple(shape)])
+        return spec_fn(shape, kind, sizes)
+
+    def constrain_spy(x, kind, *args, **kw):
+        out = constrain_fn(x, kind, *args, **kw)
+        seen[-1].append(tuple(out.shape))
+        return out
+
+    context.activation_spec = spec_spy
+    transformer.constrain = constrain_spy
+    results = []
+    for case in cases:
+        bundle = bundle_for(case["arch"], case["cfg"])
+        batch, nxt = case["batch"], case["next"]
+        b, s = batch["tokens"].shape
+        s += case["cfg"].prefix_tokens if "prefix_embeds" in batch else 0
+        params = init_serving_params(
+            bundle, mesh, torch.Generator().manual_seed(case["seed"]), "cpu",
+            torch.float32)
+        init = tree_map(lambda t: t.to_local(), params)
+        params = unit_scores(params, case["cfg"])
+        fn, _ = make_serve_fns(bundle, mesh, ShapeSpec("p", s, b, "prefill"), "cpu")
+        whole_logits, _ = fn(torch.load(tmp / case["whole"]), batch,
+                             max_len=case["max_len"])
+        del seen[:]
+        logits, cache = fn(params, batch, max_len=case["max_len"])
+        out = {"init": init,
+               "prefill": logits.full_tensor(),
+               "prefill_whole_params": whole_logits.full_tensor(),
+               "prefill_cache": tree_map(lambda t: t.full_tensor(), cache),
+               "prefill_spy": [tuple(x) for x in seen]}
+        dfn, _ = make_serve_fns(bundle, mesh, ShapeSpec(
+            "d", case["max_len"], b, "decode"), "cpu")
+        out["decode"], out["decode_spy"] = [], []
+        for i, tok in enumerate(nxt):
+            del seen[:]
+            dl, cache = dfn(params, cache, tok, s + i)
+            out["decode"].append(dl.full_tensor())
+            out["decode_spy"].append([tuple(x) for x in seen])
+        out["cache"] = tree_map(lambda t: t.full_tensor(), cache)
+        out["cache_local"] = tree_map(lambda t: t.to_local(), cache)
+        out["logits_local"] = dl.to_local()
+        out.update(_tp_forward(mesh, case, params, seen))
+        results.append(out)
+    return {"coord": dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())),
+            "cases": results}
+
+
+def _tp_forward(mesh, case, params, seen):
+    """``embed_tokens`` (+ ``embed_prefix``) and ``forward_hidden`` on this
+    rank's blocks in its tensor-parallel region, in float32 and without
+    grad: the result gathered over S (``hidden``, the rank's batch rows
+    ``hidden_rows``) and the spy's record of the ``constrain`` calls."""
+    from repro_torch.distributed.context import gather_seq, tensor_parallel
+    from repro_torch.models import transformer
+    from repro_torch.models.common import tree_map
+    from repro_torch.training.train_step import _MeshPlace
+
+    place = _MeshPlace(mesh, serving=True)
+    cfg, batch = case["cfg"], case["batch"]
+    b, s_text = batch["tokens"].shape
+    region = place.region(b)
+    rows = b // region.batch_split
+    r0 = rows * (place.coord.get("data", 0) if region.batch_split > 1 else 0)
+    blocks = tree_map(lambda t: t.to_local(), params)
+    s = s_text + (cfg.prefix_tokens if "prefix_embeds" in batch else 0)
+    del seen[:]
+    with torch.no_grad(), tensor_parallel(region):
+        x = transformer.embed_tokens(blocks, cfg, batch["tokens"][r0:r0 + rows],
+                                     compute_dtype=torch.float32)
+        if "prefix_embeds" in batch:
+            x = transformer.embed_prefix(
+                blocks, batch["prefix_embeds"][r0:r0 + rows], x, seq=s_text)
+        h = transformer.forward_hidden(blocks, cfg, x, seq=s)
+        h = gather_seq(h, s)
+    return {"hidden": h, "hidden_rows": (r0, r0 + rows),
+            "forward_spy": [tuple(x) for x in seen]}

@@ -593,6 +593,57 @@ def test_decode_kernel_int_cur_len_and_rejects():
         k3.decode_attention(q, kc, kc, torch.tensor(3))
 
 
+LSE_TOL = 1e-4   # K3's lse is float32 arithmetic in both dtypes
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kv,hd,cur,window,cap,ranks", [
+    (8, 640, 32, 8, 128, 576, 0, 0.0, 4),       # llama3-8b decode, 4 slices
+    (8, 640, 32, 8, 128, [576, 1, 640, 128, 129, 64, 65, 2], 0, 0.0, 2),
+    (8, 640, 16, 8, 256, 576, 0, 50.0, 4),      # gemma2-9b, soft-cap
+    (8, 640, 16, 8, 256, 576, 200, 50.0, 4),    # a window across 2 slices
+    (8, 640, 32, 32, 80, 576, 0, 0.0, 4),       # stablelm-3b's hd 80
+    (3, 200, 8, 2, 80, [5, 199, 120], 16, 30.0, 2),
+    (1, 32768, 32, 8, 128, 30001, 0, 0.0, 4),   # many splits a slice
+])
+def test_decode_kernel_partial_form(b, s, h, kv, hd, cur, window, cap, ranks,
+                                    dtype, tol):
+    """K3's partial form: on each of ``ranks`` slot ranges of the cache
+    (slot 0 at ``start``) o matches the plain version's at the output's
+    tolerance and lse, a float32 result in both dtypes, at 1e-4 (absolute
+    and relative); a range with no valid slot gives o = 0 and lse = -inf;
+    the ranges combined by lse match the whole cache."""
+    q = _normal((b, h, hd), dtype, 1)
+    kc = _normal((b, s, kv, hd), dtype, 2)
+    vc = _normal((b, s, kv, hd), dtype, 3)
+    cur_len = torch.tensor(cur, dtype=torch.int32, device="cuda")
+    n = s // ranks
+    outs, lses = [], []
+    for r in range(ranks):
+        part = (kc[:, r * n:(r + 1) * n].contiguous(),
+                vc[:, r * n:(r + 1) * n].contiguous())
+        before = k3.decode_attention.launches
+        o, lse = k3.decode_attention(q, *part, cur_len, window=window,
+                                     logit_cap=cap, start=r * n, return_lse=True)
+        torch.cuda.synchronize()
+        assert k3.decode_attention.launches == before + 1
+        wo, wl = k3.decode_attention_plain(q, *part, cur_len, window=window,
+                                           logit_cap=cap, start=r * n,
+                                           return_lse=True)
+        torch.testing.assert_close(o.float(), wo.float(), atol=tol, rtol=tol)
+        empty = torch.isinf(wl)
+        assert torch.equal(torch.isinf(lse), empty)
+        assert not o[empty].any()
+        torch.testing.assert_close(lse[~empty], wl[~empty], atol=LSE_TOL,
+                                   rtol=LSE_TOL)
+        outs.append(o)
+        lses.append(lse)
+    got = k3.combine_partials(torch.stack(outs), torch.stack(lses))
+    want = k3.decode_attention_plain(q, kc, vc, cur_len, window=window,
+                                     logit_cap=cap)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 def _recording(bundle, logits_log):
     def prefill(params, batch, max_len=None):
         logits, cache = bundle.prefill(params, batch, max_len=max_len)
