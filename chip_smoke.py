@@ -29,7 +29,11 @@ result line:
    quantize/dequantize bit for bit (K2a also at Mamba-2's boundary width
    and over the whole bf16 domain, ``bf16_domain_rows``, through both its
    instances; its time L2-warm and L2-cold beside the graph-replay floor
-   of ``torch.cuda._sleep(0)``), K4 SSD chunk scan 1e-4 fp32 (y and
+   of ``torch.cuda._sleep(0)``; its absmax and given-absmax modes, which
+   tensor-parallel gradient compression runs on rows that several ranks
+   hold pieces of, at each of ``K2A_SPLIT_ROWS`` (the fast and the general
+   instance): a row cut in 4 pieces quantized with their reduced absmax ==
+   the whole row, ``phase_k2a_split``), K4 SSD chunk scan 1e-4 fp32 (y and
    state) / 2e-2 bf16 y with the state at 1e-4 at the mamba2-1.3b prefill
    shape, a ragged S with state_in, G=2 and S=2,048 over 8 chunks, each of
    K4's two bf16 kernels against its plain stages (chunk states and carry
@@ -108,6 +112,22 @@ result line:
    Each rank's peak memory (under 80 GB), the untraced prefill and decode
    step, a traced step's device busy and idle share; it runs alone as
    ``phase_tp(card)`` from a script under ``build/`` after ``build.build()``;
+   then tensor-parallel training (``phase_tp_train``; one spawned process
+   a card over NCCL, ``make_train_step`` on a mesh with a "model" axis,
+   state stored FSDP x TP under ``param_pspecs``): with four cards,
+   Llama-3-8B at full width, B=2, S=512, int8 gradients, unit-variance
+   scores; gate 1 cut to 4 layers on data 1 x model 4 and data 2 x model 2
+   against card 0 alone (float32 step-0 loss, grad norm and every gathered
+   gradient leaf within ``TRAIN_GRAD_TOL``, the bf16 step-0 loss by the
+   bf16 rule, the params after 3 float32 steps within 3 lr and a mean gap
+   under ``TRAIN_MEAN_LR`` lr); gate 2 at all 32 layers on data 1 x model
+   4, 6 bf16 steps: step 0 (labels at the last position) against the
+   cross-entropy of the TP prefill's logits (``TP_TRAIN_PREFILL_TOL``),
+   finite losses, each rank's peak under 80 GB, exact launches a step (K1
+   64, K1 bwd 32, K2a and K2b one a leaf, K2a's absmax pass and its
+   given-absmax mode one each a leaf whose rows "model" splits), step times and a traced step with NCCL's
+   share; with fewer cards a line saying it needs four; it runs alone as
+   ``phase_tp_train(card)`` from a script under ``build/``;
 7b. the port's examples at their own sizes (``quickstart`` and
    ``serve_batched`` on reduced llama3-8b, ``edge_orchestration``'s Table II
    and drill; ``train_quickstart`` runs in phase 13), each with its exact
@@ -149,19 +169,19 @@ result line:
    ``FleetOrchestrator.save/load``; no hand-written kernel: the launch
    counts stay 0) on the §IV cluster with the five-arch catalog, fixed
    point on, forecast H = S = 8 and heartbeats, one tick and one monitoring
-   cycle a second for 60 s, arrivals drawn up front from one seed, in the
+   cycle a second, arrivals drawn up front from one seed, in the
    simulator's tick order: ``admit 64`` (benchmarks/fleet_scaling.py
-   ``fleet_qos`` at cap 64, seed 0) and ``storm 32`` (``failure_storm``'s
-   handling arm, seed 11: MEC-1 and MEC-2 dead from 20 s for 25 s,
-   preemption patience 30 s; with ``chaos_ab``'s ``FlakyAgent`` transport
-   faults in [5, 10) and [30, 35) s and two controller crashes, at 15 and
-   38 s, each restored from the journal saved at the end of every tick).
-   Each arm runs twice on the card (verdicts, ``kpis()``, the defer queue,
-   every step's decisions and latencies and the final resident tables bit
-   for bit) and once on the CPU (identical, latencies to 1e-9); the storm
-   also without its crashes (identical at every tick, epochs and
-   broadcast stats aside), and the crashed controller's stale rollout must
-   be refused by every agent.  Prints request and step p50/p90, verdict
+   ``fleet_qos`` at cap 64, seed 0; 30 s) and ``storm 32`` (45 s;
+   ``failure_storm``'s handling arm, seed 11: MEC-1 and MEC-2 dead from 20
+   s for 25 s, preemption patience 30 s; with ``chaos_ab``'s ``FlakyAgent``
+   transport faults in [5, 10) and [30, 35) s and two controller crashes,
+   at 15 and 38 s, each restored from the journal saved at the end of
+   every tick).  Each arm runs once on the card; the storm also a second
+   time (verdicts, ``kpis()``, the defer queue, every step's decisions and
+   latencies and the final resident tables bit for bit), once on the CPU
+   (identical, latencies to 1e-9) and without its crashes (identical at
+   every tick, epochs and broadcast stats aside), and the crashed
+   controller's stale rollout must be refused by every agent.  Prints request and step p50/p90, verdict
    counts, ``kpis()``, preemptions by QoS class, the journal's size and
    save/load times at the largest fleet, and one traced burst of 8
    requests' device-busy time and idle share;
@@ -194,15 +214,16 @@ result line:
    tests/test_edgesim_paper.py does (adaptive below static with a
    reconfiguration at every bandwidth, the gain at 20 Mb/s above 0.45 and
    above the gain at 200), the re-split DP on the card; then
-   benchmarks/fleet_scaling.py's ``failure_storm`` (cap 32, 60 s, 0.5 s
-   tick, MEC-1 and MEC-2 blasted at 20 s for 25 s) and ``chaos_ab`` (cap
-   32, 120 s, 0.25 s tick, 0.5 s cycles, crashes at 30 and 75 s plus the
-   drawn ones, transport faults, NaN telemetry, the ``InvariantChecker``
-   after every cycle), both arms, gated by
-   benchmarks/check_regression.py's ``check_storm`` / ``check_chaos``
-   limits.  Each adaptive and fleet arm runs twice on the card (session
-   log, ticks, decisions, chaos stats and violations, floats bit for bit)
-   and once on the CPU (identical, floats to 1e-9).  Prints Table II
+   benchmarks/fleet_scaling.py's ``failure_storm`` (cap 32, 30 s of its
+   60, 0.5 s tick, MEC-1 and MEC-2 blasted at 20 s for 25 s) and
+   ``chaos_ab`` (cap 32, 60 s of its 120, 0.25 s tick, 0.5 s cycles,
+   crashes at 15 and 37.5 s plus the drawn ones, transport faults, NaN
+   telemetry, the ``InvariantChecker`` after every cycle), both arms,
+   gated by benchmarks/check_regression.py's ``check_storm`` /
+   ``check_chaos`` limits.  The adaptive run at 50 Mb/s and the ``chaos
+   on`` arm run twice on the card (session log, ticks, decisions, chaos
+   stats and violations, floats bit for bit) and once on the CPU
+   (identical, floats to 1e-9).  Prints Table II
    beside the paper's static column, the monitoring + decision time
    against the paper's 10 ms, and per fleet arm the wall time, ticks a
    second, ``price_fleet`` and ``step`` p50 (synchronised host clock),
@@ -212,13 +233,15 @@ result line:
    activations as the reference trains, float32 where ``f32_activations``
    says so): K1's float32 backward kernel against
    ``flash_attention_bwd_plain`` at ``TRAIN_BWD``'s
-   twelve shapes (Llama-3-8B's B=2, S=512, H=32, KV=8, hd 128; the
+   fourteen shapes (Llama-3-8B's B=2, S=512, H=32, KV=8, hd 128; the
    quickstart's B=8, S=256, H=8, hd 64; reduced gemma2's hd 32 with soft-cap
    50, window 16 and ``attn_scale``; hd 8 at G=7; a ragged S; at B=2, S=512
    gemma2-9b's hd 256, GQA 16/8, soft-cap 50 and scale 224^-1/2 with windows
    4,096 and 0, recurrentgemma-9b's hd 256 MQA (G=16) with window 2,048 and
    deepseek-v2-lite's MLA at qk 192 / v 128; reduced MLA's 24 / 16; a ragged
-   S at hd 256; stablelm-3b's hd 80, H = KV = 32), max |diff| <= 1e-4 of the largest reference gradient, each
+   S at hd 256; stablelm-3b's hd 80, H = KV = 32; a tensor-parallel
+   rank's heads of Llama-3-8B at model 4 and 2, H=8 / KV=2 and H=16 /
+   KV=4), max |diff| <= 1e-4 of the largest reference gradient, each
    repeated bit for bit and timed beside its two bounds (float32 products on
    the CUDA cores; 3xTF32 on the tensor cores, as the kernel runs them), the
    plain version and one PyTorch call's backward (SDPA's, or where there is
@@ -279,7 +302,10 @@ result line:
    phase 4, K3's partial form's from ``phase_tp``'s decode steps over a
    sequence-sharded cache (rank 0; with fewer than four cards no config's
    kv heads fail to divide the axis, no path launches the form and its
-   row is left out, with a line saying so),
+   row is left out, with a line saying so), K2a's absmax and given-absmax
+   modes' (``row_absmax``, ``quantize_int8@given_absmax``) from
+   ``phase_tp_train``'s 32-layer steps (rank 0; with fewer than four cards
+   left out likewise),
    K4's from the Mamba-2 serve, K5's from the Griffin serve; the
    rows of K1 and K3 at the new shapes with the launches of the deepseek,
    qwen3-moe, gemma2 and stablelm-3b (hd 80) serve and generation runs and
@@ -366,7 +392,7 @@ FAMILIES = {K1_BF16: "K1", K1_F32: "K1", K1_BWD: "K1 bwd", "quantize_rows": "K2"
             K3_KERNEL: "K3", **dict.fromkeys(K4_BF16 + K4_F32, "K4"),
             K4_BWD: "K4 bwd", K5_BWD: "K5 bwd", "rglru_": "K5",
             "gemm": "matmul", "nvjet": "matmul", "xmma": "matmul",
-            "cutlass": "matmul"}
+            "cutlass": "matmul", "nccl": "NCCL"}
 SERVE_ARGV = ["--full", "--param-dtype", "bfloat16", "--compress",
               "--requests", "8", "--prompt-len", "512", "--device", "cuda"]
 # mamba2-1.3b prefill of 512 tokens: x [1,512,64,64], B/C [1,512,1,128]
@@ -719,6 +745,7 @@ def phase_kernels(k1, k2) -> list[dict]:
               f"{qa_b:.5f} ms ({qa_by}); K2b time {dq_ms:.4f} ms; plain "
               f"{dq_plain:.4f} ms; bound {dq_b:.5f} ms ({dq_by})")
     phase_k2a_sweep(k2)
+    rows += phase_k2a_split(k2)
     return rows
 
 
@@ -786,6 +813,90 @@ def phase_k2a_sweep(k2) -> None:
         print(f"K2a exhaustive bf16 sweep, rows of {width}: {pairs} elements "
               f"({k2.BF16_FINITE} absmax values) bit-identical to the plain "
               f"version in {time.perf_counter() - t0:.2f} s")
+
+
+# K2a's modes for rows that several ranks hold pieces of (tensor-parallel
+# gradient compression), at two blocks a rank holds at TP = 4 (wi, wg and
+# the head are the leaves whose rows "model" splits on that path): one layer
+# of Llama-3-8B's wi gradient, float32 [d, ff / 4] (the fast instance), and
+# its head's, [d, vocab / 4] (the general instance: past 8,192 float32 a row)
+K2A_SPLIT_ROWS = ((4096, 3584), (4096, 32064))
+
+
+def phase_k2a_split(k2) -> list[dict]:
+    """Phase 2, K2a's absmax mode (``row_absmax``) and given-absmax mode
+    (``quantize_int8(x, absmax=)``) against their plain versions, bit for
+    bit, at each of ``K2A_SPLIT_ROWS`` in float32 and bf16: a row cut in 4
+    pieces, each piece quantized with the pieces' reduced absmax, equals the
+    whole row's codes and scales; a given absmax above the row's own
+    (another piece's) quantizes as the plain version does.  Float32 times
+    beside their bounds, the plain versions and, for the absmax, one
+    PyTorch call (``torch.linalg.vector_norm`` of order inf).  Returns the
+    kernels-line rows, at the first shape (launches filled from
+    ``phase_tp_train``)."""
+    rows = []
+    for shape in K2A_SPLIT_ROWS:
+        for dt in (torch.float32, torch.bfloat16):
+            x = normal(shape, dt, 21) * 3
+            n, d = x.shape
+            amax = k2.row_absmax(x)
+            torch.cuda.synchronize()
+            if not torch.equal(amax, k2.row_absmax_plain(x)):
+                raise AssertionError(f"K2a absmax mode {shape} {dt}: differs from "
+                                     "the plain version")
+            q, s = k2.quantize_int8(x)
+            pieces = x.reshape(n, 4, d // 4).unbind(1)
+            reduced = torch.stack([k2.row_absmax(p.contiguous())
+                                   for p in pieces]).amax(0)
+            parts = [k2.quantize_int8(p.contiguous(), absmax=reduced) for p in pieces]
+            if not (torch.equal(torch.cat([p[0] for p in parts], 1), q)
+                    and all(torch.equal(p[1], s) for p in parts)):
+                raise AssertionError(f"K2a given-absmax mode {shape} {dt}: the "
+                                     "pieces' codes or scales differ from the "
+                                     "whole rows'")
+            bigger = amax * torch.linspace(1.0, 3.0, n, device="cuda")[:, None]
+            gq, gs = k2.quantize_int8(x, absmax=bigger)
+            pq, ps = k2.quantize_int8_plain(x, bigger)
+            if not (torch.equal(gq, pq) and torch.equal(gs, ps)):
+                raise AssertionError(f"K2a given-absmax mode {shape} {dt}: differs "
+                                     "from the plain version")
+            print(f"K2a absmax and given-absmax modes {shape} {dt}: "
+                  "bit-identical to the plain versions; 4 pieces quantized with "
+                  "their reduced absmax == the whole rows")
+            if dt != torch.float32:
+                continue
+            ab_ms = timed("K2a absmax mode", lambda: k2.row_absmax(x), 200,
+                          "quantize_rows")
+            ab_plain = timed("K2a absmax plain", lambda: k2.row_absmax_plain(x), 50)
+            ab_lib = timed("K2a absmax library (vector_norm, inf)",
+                           lambda: torch.linalg.vector_norm(x, float("inf"), dim=1,
+                                                            keepdim=True), 200)
+            ab_b, ab_by = bound(x.numel() * 4 + n * 4, 2.0 * x.numel(), FP32_FLOPS)
+            gv_ms = timed("K2a given-absmax mode",
+                          lambda: k2.quantize_int8(x, absmax=amax), 200,
+                          "quantize_rows")
+            gv_plain = timed("K2a given-absmax plain",
+                             lambda: k2.quantize_int8_plain(x, amax), 50)
+            gv_b, gv_by = bound(x.numel() * 5 + n * 8, quantize_ops(n, d),
+                                FP32_FLOPS)
+            print(f"K2a absmax mode {shape} float32: {ab_ms * 1e3:.3f} us; plain "
+                  f"{ab_plain * 1e3:.3f} us; vector_norm {ab_lib * 1e3:.3f} us; "
+                  f"bound {ab_b * 1e3:.3f} us ({ab_by}); given-absmax mode "
+                  f"{gv_ms * 1e3:.3f} us; plain {gv_plain * 1e3:.3f} us; bound "
+                  f"{gv_b * 1e3:.3f} us ({gv_by})")
+            if rows:
+                continue
+            rows.append(dict(name="row_absmax", route="cuda",
+                             source="src/repro_torch/kernels/csrc/int8_transfer.cu",
+                             replaces="src/repro/kernels/int8_transfer.py:32",
+                             max_abs_err=0.0, ms=ab_ms, plain_ms=ab_plain,
+                             bound_ms=ab_b, bound_by=ab_by, library_ms=ab_lib))
+            rows.append(dict(name="quantize_int8@given_absmax", route="cuda",
+                             source="src/repro_torch/kernels/csrc/int8_transfer.cu",
+                             replaces="src/repro/kernels/int8_transfer.py:32",
+                             max_abs_err=0.0, ms=gv_ms, plain_ms=gv_plain,
+                             bound_ms=gv_b, bound_by=gv_by, library_ms=None))
+    return rows
 
 
 def phase_flash_hd256(k1) -> None:
@@ -2384,6 +2495,412 @@ def phase_tp(card: str) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# tensor-parallel training (four cards)
+# --------------------------------------------------------------------------- #
+TP_TRAIN_ARCH = "llama3-8b"
+TP_TRAIN_CUT = 4                   # gate 1's depth (one card holds its state)
+TP_TRAIN_MESHES = ((1, 4), (2, 2))  # gate 1's meshes (data, model)
+TP_TRAIN_JOIN_S = 600              # the phase's ranks must end within this
+# step 0 of the 32-layer run against the cross-entropy of the TP prefill's
+# last-position logits on the same weights and tokens (labels counted at the
+# last position only), relative to the loss: two bf16 forwards of one
+# function, measured 7.1e-8 apart on an H100 80GB HBM3 at 700 W; the limit
+# leaves that reading about 140x of room
+TP_TRAIN_PREFILL_TOL = 1e-5
+
+
+def tp_train_batches(vocab: int) -> tuple[dict, list]:
+    """FULL_TRAIN's batches (``SyntheticTokens``, seed 0): the first with
+    its labels counted at the last position only (gate 2's step 0, the
+    prefill's cross-entropy), then the stream's first five."""
+    from repro_torch.data import DataConfig, SyntheticTokens
+
+    data = SyntheticTokens(DataConfig(vocab=vocab, batch=FULL_TRAIN["batch"],
+                                      seq_len=FULL_TRAIN["seq"]))
+    batches = [data.batch_at(i) for i in range(FULL_TRAIN["steps"])]
+    last = {k: v.copy() for k, v in batches[0].items()}
+    last["labels"][:, :-1] = -1
+    return last, batches
+
+
+def tp_train_steps(step_fn, state, batches, counters) -> dict:
+    """``step_fn`` over ``batches``, each step synchronised: losses, grad
+    norms, host-clock step times (ms) and each step's launches."""
+    out = {"loss": [], "grad_norm": [], "step_ms": [], "launches": []}
+    for batch in batches:
+        reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(dict(counts_of(counters), **{
+            f"{fn.__name__}@given_absmax": fn.given_launches
+            for fn in counters if hasattr(fn, "given_launches")}))
+    return out
+
+
+def tp_whole_grads(step_fn, state, batch, mesh):
+    """(loss, every gradient leaf gathered whole) of ``step_fn``'s step on
+    ``batch``, before compression: its ``loss_and_grads`` blocks, each
+    wrapped in its leaf's placements and gathered (a collective)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.fsdp import full_tensor, spec_leaves
+    from repro_torch.distributed.sharding import placements
+
+    loss, flat = step_fn.loss_and_grads(state, batch)
+    return loss, [full_tensor(DTensor.from_local(g, mesh, placements(sp, mesh),
+                                                 run_check=False))
+                  for g, sp in zip(flat, spec_leaves(step_fn.param_specs))]
+
+
+def tp_train_one_card(bundle, batches, opt) -> dict:
+    """Gate 1's run on card 0 alone (before the mesh's): the seed-0 init on
+    unit-variance scores; the float32 step-0 loss and gradients (kept on
+    the host), the bf16 step-0 loss; three float32 steps with int8
+    gradients and the params after them (on the host)."""
+    from repro_torch.models.common import tree_flatten, tree_unflatten
+    from repro_torch.training import TrainStepConfig, make_train_step
+
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(0), "cuda",
+                         torch.float32)
+    unit_scores_(params, bundle.cfg)
+    leaves, structure = tree_flatten(params)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batches[0].items()}
+    with f32_activations():
+        ws = [p.detach().requires_grad_(True) for p in leaves]
+        loss = bundle.loss(tree_unflatten(structure, ws), batch)
+        out = {"loss32": float(loss.detach()),
+               "grads": [g.cpu() for g in torch.autograd.grad(loss, ws)]}
+        del ws, loss
+    with torch.no_grad():
+        out["loss16"] = float(bundle.loss(params, batch))
+    step_fn, init_state = make_train_step(bundle, TrainStepConfig(
+        opt=opt, grad_compression=True), "cuda")
+    state = init_state(params=params)
+    with f32_activations():
+        out.update(tp_train_steps(step_fn, state, batches[:3], ()))
+    out["params"] = [p.cpu() for p in tree_flatten(state["params"])[0]]
+    del state, params, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_train_gate1(mesh, bundle, batches, opt, one, counters) -> dict:
+    """Gate 1 on ``mesh``: the sharded init from seed 0 on unit-variance
+    scores; the float32 step-0 loss and every gradient leaf gathered whole,
+    the bf16 step-0 loss, three float32 steps with int8 gradients and the
+    params after them, gathered, against card 0 alone (``one``, which rank
+    0 holds; the other ranks pass None)."""
+    from repro_torch.distributed.fsdp import full_tensor
+    from repro_torch.models.common import tree_flatten
+    from repro_torch.training import TrainStepConfig, make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    step_fn, init_state = make_train_step(bundle, TrainStepConfig(
+        opt=opt, grad_compression=True), "cuda", mesh=mesh)
+    state = init_state(seed=0)
+    unit_scores_(state["params"], bundle.cfg)
+    res = {}
+    with f32_activations():
+        loss, grads = tp_whole_grads(step_fn, state, batches[0], mesh)
+        res["loss32"] = float(loss)
+        if one is not None:
+            res["grad_gap"] = max(
+                float((g - w.cuda()).abs().max() / w.abs().max().clamp_min(1e-30))
+                for g, w in zip(grads, one["grads"]))
+        del grads
+    res["loss16"] = float(step_fn.loss_and_grads(state, batches[0])[0])
+    with f32_activations():
+        res.update(tp_train_steps(step_fn, state, batches[:3], counters))
+    gap_max = gap_mean = 0.0
+    for i, t in enumerate(tree_flatten(state["params"])[0]):
+        got = full_tensor(t)                 # collective: every rank gathers
+        if one is not None:
+            gap = (got - one["params"][i].cuda()).abs()
+            gap_max, gap_mean = max(gap_max, float(gap.max())), \
+                max(gap_mean, float(gap.mean()))
+        del got
+    if one is not None:
+        res["param_max_lr"], res["param_mean_lr"] = gap_max / opt.lr, \
+            gap_mean / opt.lr
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_wrap(params, specs, mesh):
+    """DTensors in ``specs``' placements around the blocks of ``params``
+    (DTensors whose local blocks are those blocks: on data 1 a leaf's FSDP
+    block is its TP block)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import placements
+
+    if isinstance(params, dict):
+        return {k: tp_wrap(v, specs[k], mesh) for k, v in params.items()}
+    return DTensor.from_local(params.to_local(), mesh, placements(specs, mesh),
+                              run_check=False)
+
+
+def tp_train_full(mesh, bundle, last, batches, opt, counters, rank: int) -> dict:
+    """Gate 2 on ``mesh`` (data 1): the whole model's sharded init from
+    seed 0 on unit-variance scores; the TP prefill (``make_serve_fns``) of
+    ``last``'s tokens on the params' blocks and the cross-entropy of its
+    last-position logits; bf16 steps on ``last`` (labels at the last
+    position only) and on ``batches``, each step's launches; a traced step
+    (rank 0; the others run it untraced); the peak memory."""
+    from repro_torch.distributed.sharding import strip_dp
+    from repro_torch.models.api import ShapeSpec
+    from repro_torch.models.common import tree_flatten
+    from repro_torch.training import TrainStepConfig, make_serve_fns, make_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn, init_state = make_train_step(bundle, TrainStepConfig(
+        opt=opt, grad_compression=True), "cuda", mesh=mesh)
+    t0 = time.perf_counter()
+    state = init_state(seed=0)
+    unit_scores_(state["params"], bundle.cfg)
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0,
+           "leaves": len(tree_flatten(state["params"])[0])}
+    b, s = last["tokens"].shape
+    fn, _ = make_serve_fns(bundle, mesh, ShapeSpec("prefill", s, b, "prefill"),
+                           "cuda")
+    reset(counters)
+    with torch.no_grad():
+        logits, _ = fn(tp_wrap(state["params"], strip_dp(step_fn.param_specs), mesh),
+                       {"tokens": torch.as_tensor(last["tokens"], device="cuda")})
+    res["prefill_launches"] = counts_of(counters)
+    logits = whole(logits).float()
+    label = torch.as_tensor(last["labels"][:, -1], device="cuda").long()
+    res["prefill_loss"] = float((torch.logsumexp(logits, -1) - logits.gather(
+        -1, label[:, None])[:, 0]).mean())
+    del logits, fn
+    res.update(tp_train_steps(step_fn, state, [last] + batches, counters))
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res.update(tp_traced(f"tp_train {bundle.arch} ({bundle.cfg.n_layers} layers, "
+                         "data 1 x model 4) step", lambda: step_fn(state, batches[-1]),
+                         rank))
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_train_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of ``phase_tp_train`` (a spawned process on card ``rank``,
+    NCCL over a ``FileStore``): gate 1 (card 0 alone first, the others
+    waiting; then each of ``TP_TRAIN_MESHES``) and gate 2.  Writes
+    ``rank<r>.json`` under ``tmp``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import flash_attention as k1
+    from repro_torch.kernels import int8_transfer as k2
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.models.api import bundle_for
+    from repro_torch.training import AdamWConfig
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = (k1.flash_attention, k1.flash_attention_bwd, k2.quantize_int8,
+                k2.dequantize_int8, k2.row_absmax)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(f"{tmp}/store", world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=TP_TRAIN_JOIN_S),
+        device_id=torch.device("cuda", rank))
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=FULL_TRAIN["steps"])
+    full = get(TP_TRAIN_ARCH)
+    cut = bundle_for(TP_TRAIN_ARCH, dataclasses.replace(full, n_layers=TP_TRAIN_CUT))
+    last, batches = tp_train_batches(full.vocab)
+    report = {"gate1": {}}
+    t0 = time.perf_counter()
+    one = tp_train_one_card(cut, batches, opt) if rank == 0 else None
+    dist.barrier()
+    report["one_card_s"] = time.perf_counter() - t0
+    for data, model in TP_TRAIN_MESHES:
+        t0 = time.perf_counter()
+        mesh = make_small_mesh(data, model)
+        res = tp_train_gate1(mesh, cut, batches, opt, one, counters)
+        res["s"] = time.perf_counter() - t0
+        report["gate1"][f"{data}x{model}"] = res
+    if one is not None:
+        report["one_card"] = {k: v for k, v in one.items()
+                              if k not in ("grads", "params")}
+    del one
+    t0 = time.perf_counter()
+    mesh = make_small_mesh(1, world)
+    report["gate2"] = tp_train_full(mesh, bundle_for(TP_TRAIN_ARCH, full), last,
+                                    batches, opt, counters, rank)
+    report["gate2"]["s"] = time.perf_counter() - t0
+    dist.destroy_process_group()
+    with open(f"{tmp}/rank{rank}.json", "w") as f:
+        json.dump(report, f)
+
+
+def tp_train_split_leaves(bundle, sizes) -> int:
+    """Leaves whose rows (``reshape(-1, last)``) the mesh splits: their
+    last dim sharded over an axis above 1 (K2a's absmax pass a step)."""
+    from repro_torch.distributed import param_pspecs
+    from repro_torch.distributed.fsdp import spec_leaves
+
+    n = 0
+    for spec in spec_leaves(param_pspecs(bundle.param_specs(torch.float32), sizes)):
+        entry = spec[-1]
+        axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
+        n += any(sizes[a] > 1 for a in axes)
+    return n
+
+
+def phase_tp_train(card: str) -> dict:
+    """Tensor-parallel training (``make_train_step`` on a mesh with a
+    "model" axis of 4 or 2, one spawned process a card over NCCL,
+    ``tp_train_rank``), four cards: Llama-3-8B at full width.  Gate 1, cut
+    to ``TP_TRAIN_CUT`` layers on data 1 x model 4 and data 2 x model 2
+    (FSDP) against card 0 alone on the same weights and batches
+    (unit-variance scores): float32 step-0 loss, grad norm and every
+    gradient leaf gathered whole within ``TRAIN_GRAD_TOL``, the bf16 step-0
+    loss by the bf16 rule (``TRAIN_BF16_C`` x card 0's own bf16-vs-float32
+    gap + ``TRAIN_BF16_FLOOR``), the params after three float32 steps with
+    int8 gradients within 3 lr, the mean gap under ``TRAIN_MEAN_LR`` lr.
+    Gate 2, all 32 layers on data 1 x model 4, 6 bf16 steps with int8
+    gradients (B=2, S=512): step 0 (labels at the last position) equal to
+    the cross-entropy of the TP prefill's logits within
+    ``TP_TRAIN_PREFILL_TOL``, finite losses and grad norms, each rank's
+    peak under 80 GB, exact launches a step (K1 2 a layer, K1 bwd 1, K2a
+    and K2b 1 a leaf, K2a's absmax pass and its given-absmax mode each 1 a
+    leaf whose rows "model" splits, the latter counted apart as
+    ``quantize_int8.given_launches``); step times, a traced step's busy time, idle share and NCCL's
+    share.  With fewer cards, a line saying so.  Returns gate 2's launches
+    of K2a's two modes for split rows, for the kernels line."""
+    import multiprocessing as mp
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        print(f"phase_tp_train: tensor-parallel training needs four cards (data 1 "
+              f"x model 4, data 2 x model 2); this machine has {n}")
+        return {"row_absmax": 0, "quantize_int8": 0}
+    world = 4
+    tmp = ROOT / "build" / "tp_train"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=tp_train_rank, args=(r, world, str(tmp)))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                raise AssertionError(f"phase_tp_train: a rank failed, exit codes "
+                                     f"{[p.exitcode for p in procs]}")
+            if time.perf_counter() - t0 > TP_TRAIN_JOIN_S:
+                raise AssertionError(f"phase_tp_train: ranks still running after "
+                                     f"{TP_TRAIN_JOIN_S} s")
+            time.sleep(1.0)
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"phase_tp_train: exit codes "
+                                 f"{[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)]
+    out = tp_train_check(ranks, f"{card}, {n} cards")
+    print(f"phase_tp_train: {time.perf_counter() - t0:.1f} s; {card}, {n} cards")
+    return out
+
+
+def tp_train_check(ranks: list, where: str) -> dict:
+    """``phase_tp_train``'s gates on the ranks' reports; prints them.
+    Returns gate 2's launches of K2a's absmax and given-absmax modes."""
+    from repro_torch.configs import get as get_config
+    from repro_torch.models.api import bundle_for
+
+    world = len(ranks)
+    one = ranks[0]["one_card"]
+    cfg = get_config(TP_TRAIN_ARCH)
+    gap16 = abs(one["loss16"] - one["loss32"])
+    print(f"tp_train {TP_TRAIN_ARCH} ({TP_TRAIN_CUT} layers, full width) card 0 "
+          f"alone: float32 step-0 loss {one['loss32']:.6f}, bf16 "
+          f"{one['loss16']:.6f}; 3 float32 steps (int8 gradients) losses "
+          f"{[round(x, 6) for x in one['loss']]}, grad norms "
+          f"{[round(x, 6) for x in one['grad_norm']]}; {ranks[0]['one_card_s']:.1f} s")
+    for mesh, r0 in ranks[0]["gate1"].items():
+        loss_rel = abs(r0["loss32"] - one["loss32"]) / abs(one["loss32"])
+        gn_rel = abs(r0["grad_norm"][0] - one["grad_norm"][0]) / one["grad_norm"][0]
+        bf16_limit = TRAIN_BF16_C * gap16 + TRAIN_BF16_FLOOR * abs(one["loss16"])
+        print(f"tp_train gate 1, {TP_TRAIN_ARCH} ({TP_TRAIN_CUT} layers) on data "
+              f"{mesh.replace('x', ' x model ')} vs card 0 alone: float32 step-0 "
+              f"loss rel {loss_rel:.3e}, grad norm rel {gn_rel:.3e}, gradient "
+              f"leaves (max |d| / max |one card|) {r0['grad_gap']:.3e} (held < "
+              f"{TRAIN_GRAD_TOL:g}); bf16 step-0 loss {r0['loss16']:.6f} vs "
+              f"{one['loss16']:.6f} (|d| {abs(r0['loss16'] - one['loss16']):.3e}, "
+              f"held <= {bf16_limit:.3e}); params after 3 float32 steps: max "
+              f"{r0['param_max_lr']:.3f} lr (held <= 3), worst leaf mean "
+              f"{r0['param_mean_lr']:.4f} lr (held < {TRAIN_MEAN_LR:g}); step "
+              f"times {[round(x, 1) for x in r0['step_ms']]} ms; peak a rank "
+              f"(GiB) {[round(rk['gate1'][mesh]['peak_gib'], 2) for rk in ranks]}; "
+              f"{r0['s']:.1f} s; {where}")
+        if not (loss_rel <= TRAIN_GRAD_TOL and gn_rel <= TRAIN_GRAD_TOL
+                and r0["grad_gap"] <= TRAIN_GRAD_TOL
+                and abs(r0["loss16"] - one["loss16"]) <= bf16_limit
+                and r0["param_max_lr"] <= 3.0
+                and r0["param_mean_lr"] < TRAIN_MEAN_LR):
+            raise AssertionError(f"tp_train gate 1 on {mesh}: {r0}")
+    g2 = [rk["gate2"] for rk in ranks]
+    r0 = g2[0]
+    bundle = bundle_for(TP_TRAIN_ARCH, cfg)
+    split = tp_train_split_leaves(bundle, {"data": 1, "model": world})
+    want = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+            "quantize_int8": r0["leaves"], "dequantize_int8": r0["leaves"],
+            "row_absmax": split, "quantize_int8@given_absmax": split}
+    rel = abs(r0["loss"][0] - r0["prefill_loss"]) / abs(r0["prefill_loss"])
+    steps = r0["step_ms"][1:]
+    print(f"tp_train gate 2, {TP_TRAIN_ARCH} (all {cfg.n_layers} layers, full "
+          f"width, {r0['leaves']} leaves, {split} with rows split over model) on "
+          f"data 1 x model {world}, B={FULL_TRAIN['batch']}, S={FULL_TRAIN['seq']}, "
+          f"bf16 activations, int8 gradients: init {r0['init_s']:.1f} s (block by "
+          f"block); step-0 loss (labels at the last position) {r0['loss'][0]:.6f} vs "
+          f"the TP prefill's cross-entropy {r0['prefill_loss']:.6f}: rel {rel:.3e} "
+          f"(held < {TP_TRAIN_PREFILL_TOL:g}); losses "
+          f"{[round(x, 4) for x in r0['loss']]}; grad norms "
+          f"{[round(x, 4) for x in r0['grad_norm']]}; step times "
+          f"{[round(x, 1) for x in r0['step_ms']]} ms, p50 of steps 2-{len(r0['step_ms'])} "
+          f"{float(np.median(steps)):.1f} ms; launches a step {r0['launches'][-1]} "
+          f"(prefill {r0['prefill_launches']}); traced step busy "
+          f"{r0.get('busy_ms', float('nan')):.3f} ms by family "
+          f"{json.dumps({k: round(v, 3) for k, v in r0.get('by_family', {}).items()})}; "
+          f"peak a rank (GiB) {[round(x['peak_gib'], 2) for x in g2]}; {r0['s']:.1f} s; "
+          f"{where}")
+    if not rel < TP_TRAIN_PREFILL_TOL:
+        raise AssertionError(f"tp_train gate 2: step-0 loss {r0['loss'][0]} vs the "
+                             f"prefill's {r0['prefill_loss']}")
+    for rk in g2:
+        if not (np.isfinite(rk["loss"]).all() and np.isfinite(rk["grad_norm"]).all()):
+            raise AssertionError(f"tp_train gate 2: non-finite {rk['loss']}, "
+                                 f"{rk['grad_norm']}")
+        if rk["peak_gib"] * 2**30 >= 80e9:
+            raise AssertionError(f"tp_train gate 2: a rank's peak {rk['peak_gib']} GiB")
+        if any(c != want for c in rk["launches"]):
+            raise AssertionError(f"tp_train gate 2: launches {rk['launches']}, want "
+                                 f"{want} a step")
+    total = {k: sum(c[k] for c in r0["launches"]) for k in want}
+    return {"row_absmax": total["row_absmax"],
+            "quantize_int8": total["quantize_int8@given_absmax"]}
+
+
+# --------------------------------------------------------------------------- #
 # the fleet control plane (FleetOrchestrator on float64 device tables)
 # --------------------------------------------------------------------------- #
 # the reference's monitoring-cost fleets (benchmarks/fleet_scaling.py
@@ -2659,11 +3176,16 @@ def phase_fleet(counters, card: str) -> None:
 # handling arm at cap 32 with chaos_ab's transport faults and two controller
 # crashes, with FleetSimConfig's defaults; one tick (and one monitoring
 # cycle) a second instead of the simulator's 0.1-0.5 s, no load traces
-ADMISSION_ARMS = {  # name: (cap, initial sessions, arrivals/s, seed, storm)
-    "admit 64": (64, 2, 64 / 60.0 * 2.0, 0, False),
-    "storm 32": (32, 16, 32 / 60.0 * 2.0, 11, True),
+# the phase's time is host-bound (a tick a second of simulated time, each a
+# few controller calls, the later ones over a longer defer queue): "admit
+# 64", which only needs its arrivals to overload the cap, runs 30 ticks once
+# on the card; the storm arm runs 45 (its fault windows, crashes at 15 and
+# 38 s and the blast from 20 s inside) and carries the repeat gates (card ==
+# card, card vs CPU, restored == uncrashed)
+ADMISSION_ARMS = {  # name: (cap, initial sessions, arrivals/s, seed, storm, ticks)
+    "admit 64": (64, 2, 64 / 60.0 * 2.0, 0, False, 30),
+    "storm 32": (32, 16, 32 / 60.0 * 2.0, 11, True, 45),
 }
-ADMISSION_TICKS = 60             # seconds simulated, one tick each
 ADMISSION_LIFE_S = 30.0          # mean session lifetime (exponential)
 ADMISSION_QOS = (("interactive", 0.2), ("standard", 0.55), ("batch", 0.25))
 STORM_NODES, STORM_AT, STORM_MTTR = (1, 2), 20.0, 25.0
@@ -2678,7 +3200,7 @@ def admission_stream(arm: str) -> tuple[list, list]:
     """The arm's arrivals, drawn up front from one seed: (initial draws,
     draws per tick); a draw is (arch index, tokens in, tokens out, λ,
     ingress node, QoS name, lifetime), FleetSimConfig's ranges."""
-    cap, n0, rate, seed, _ = ADMISSION_ARMS[arm]
+    cap, n0, rate, seed, _, n_ticks = ADMISSION_ARMS[arm]
     rng = np.random.default_rng(seed)
     names = [q for q, _ in ADMISSION_QOS]
     probs = np.array([p for _, p in ADMISSION_QOS])
@@ -2692,7 +3214,7 @@ def admission_stream(arm: str) -> tuple[list, list]:
 
     initial = [draw() for _ in range(n0)]
     ticks = [[draw() for _ in range(int(rng.poisson(rate)))]
-             for _ in range(ADMISSION_TICKS)]
+             for _ in range(n_ticks)]
     return initial, ticks
 
 
@@ -2723,7 +3245,7 @@ def admission_fleet(arm: str, device: str, agents):
     from repro_torch.distributed import HeartbeatRegistry
     from repro_torch.edgesim import MECScenarioParams, base_system_state
 
-    cap, _, _, _, storm = ADMISSION_ARMS[arm]
+    cap, _, _, _, storm, _ = ADMISSION_ARMS[arm]
     state = base_system_state(MECScenarioParams())
     orch = FleetOrchestrator(
         profiler=CapacityProfiler(base_state=state),
@@ -2776,7 +3298,7 @@ def admission_run(arm: str, device: str, crashes: bool = True) -> dict:
                                   InProcessAgent, QOS_CLASSES, Workload)
     from repro_torch.edgesim import fleet_model_catalog
 
-    cap, _, _, _, storm = ADMISSION_ARMS[arm]
+    cap, _, _, _, storm, _ = ADMISSION_ARMS[arm]
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     catalog = fleet_model_catalog()
     initial, ticks = admission_stream(arm)
@@ -2819,7 +3341,7 @@ def admission_run(arm: str, device: str, crashes: bool = True) -> dict:
         return verdict(v, "request")
 
     first = [submit(d, 0.0) for d in initial]
-    for tick in range(ADMISSION_TICKS):
+    for tick in range(len(ticks)):
         t = float(tick)
         rec = dict(verdicts=first if tick == 0 else [])
         if storm and crashes and t in CRASH_AT:
@@ -2928,9 +3450,10 @@ def admission_same(a: dict, b: dict, latency, tables: bool) -> str | None:
 
 
 def phase_admission(counters, card: str) -> None:
-    """Admission control and the crash journal on the card: each arm twice
-    on the card (bit-identical) and once on the CPU (identical verdicts and
-    decisions, latencies to 1e-9); the storm also without its crashes
+    """Admission control and the crash journal on the card: each arm once on
+    the card; the storm arm (crashes, transport faults, a blast) also a
+    second time on the card (bit-identical), once on the CPU (identical
+    verdicts and decisions, latencies to 1e-9) and without its crashes
     (identical at every tick, epochs and broadcast stats aside)."""
     from repro_torch.core import (AdmissionRequest, QOS_CLASSES, Workload)
     from repro_torch.edgesim import fleet_model_catalog
@@ -2939,20 +3462,22 @@ def phase_admission(counters, card: str) -> None:
     close = lambda x, y: np.allclose(y, x, rtol=1e-9, atol=0,  # noqa: E731
                                      equal_nan=True)
     seen: dict[str, int] = {}
-    for arm, (cap, _, _, _, storm) in ADMISSION_ARMS.items():
+    for arm, (cap, _, _, _, storm, n_ticks) in ADMISSION_ARMS.items():
         reset(counters)
         a = admission_run(arm, "cuda")
         assert not any(counts_of(counters).values()), \
             "the admission path launched a hand-written kernel"
-        b = admission_run(arm, "cuda")
-        cpu = admission_run(arm, "cpu")
-        for other, cmp, where in ((b, exact, "card vs card"),
-                                  (cpu, close, "card vs CPU")):
-            diff = admission_same(a, other, cmp, tables=cmp is exact)
-            if diff:
-                raise AssertionError(f"admission {arm}: {where} differs "
-                                     f"({diff})")
+        cpu = None
         if storm:
+            b = admission_run(arm, "cuda")
+            cpu = admission_run(arm, "cpu")
+            for other, cmp, where in ((b, exact, "card vs card"),
+                                      (cpu, close, "card vs CPU")):
+                diff = admission_same(a, other, cmp, tables=cmp is exact)
+                if diff:
+                    raise AssertionError(f"admission {arm}: {where} differs "
+                                         f"({diff})")
+            del b
             nc = admission_run(arm, "cuda", crashes=False)
             diff = admission_same(a, nc, exact, tables=False)
             if diff:
@@ -2990,21 +3515,23 @@ def phase_admission(counters, card: str) -> None:
         torch.cuda.synchronize()
         load_ms = (time.perf_counter() - t0) * 1e3
         del orch, ctrl
-        print(f"admission {arm}: cap {cap}, {ADMISSION_TICKS} ticks; request "
+        on_cpu = "" if cpu is None else (
+            f"; CPU request p50 {np.percentile(cpu['request_ms'], 50):.3f} ms,"
+            f" step p50 {np.percentile(cpu['step_ms'], 50):.3f} ms")
+        print(f"admission {arm}: cap {cap}, {n_ticks} ticks; request "
               f"p50 {np.percentile(rq, 50):.3f} ms p90 "
               f"{np.percentile(rq, 90):.3f} ms ({rq.size} calls); step p50 "
               f"{np.percentile(st, 50):.3f} ms p90 {np.percentile(st, 90):.3f}"
-              f" ms; CPU request p50 {np.percentile(cpu['request_ms'], 50):.3f}"
-              f" ms, step p50 {np.percentile(cpu['step_ms'], 50):.3f} ms; "
-              f"card: {card}")
+              f" ms{on_cpu}; card: {card}")
         print(f"admission {arm}: verdicts {json.dumps(a['verdicts'])}; kpis "
               + json.dumps({k2: round(v, 4) for k2, v in k.items()})
               + "; preempted by class "
               + json.dumps(a["ctrl"].preempted_by_class))
         print(f"admission {arm}: journal at the largest fleet ({n} sessions) "
               f"{size} bytes, save {save_ms:.3f} ms, load with the tables' "
-              f"rebuild {load_ms:.3f} ms; card == card bit for bit, card == "
-              "CPU (latencies 1e-9)")
+              f"rebuild {load_ms:.3f} ms"
+              + ("; card == card bit for bit, card == CPU (latencies 1e-9)"
+                 if storm else ""))
         catalog = fleet_model_catalog()
         rng = np.random.default_rng(1)
         burst = [AdmissionRequest(
@@ -3014,10 +3541,10 @@ def phase_admission(counters, card: str) -> None:
             source_node=i % 3, arch=catalog[i % 5][0],
             qos=QOS_CLASSES["batch"]) for i in range(ADMISSION_BURST)]
         ctrl = a["ctrl"]
-        t_end = float(ADMISSION_TICKS)
+        t_end = float(n_ticks)
         breakdown(f"admission {arm} burst of {ADMISSION_BURST} requests",
                   lambda: [ctrl.request(r, now=t_end) for r in burst])
-        del a, b, cpu
+        del a, cpu
         torch.cuda.empty_cache()
     missing = [key for key, v in seen.items() if v <= 0]
     if missing:
@@ -3534,6 +4061,17 @@ SIM_COUNTS = ("t", "n_sessions", "admitted", "departed", "rejected",
               "n_dead_nodes", "preempted", "recovered", "n_conflict_keep",
               "fp_sweeps")
 SIM_BLAST_AT = 20.0               # failure_storm's blast onset
+# the phase is host-bound (the storm's defer-queue polls, ~0.25 s a tick on
+# the card): failure_storm runs 30 s of its default 60 (the blast at 20 s
+# and the recovery, 5-9 s after it, inside) and chaos_ab 60 s of its 120
+# (its two controller crashes at 0.25 and 0.625 of the run), and the repeat
+# gates (card == card, card vs CPU at 1e-9) run at one bandwidth of Table II
+# and on one fleet arm, "chaos on" (controller crashes, the journal, the
+# InvariantChecker)
+SIM_STORM_S = 30.0
+SIM_CHAOS_S = 60.0
+SIM_REPEAT_BW = 50.0
+SIM_REPEAT_ARM = "chaos on"
 
 
 def mec_run(bw: float, adaptive: bool, device: str) -> dict:
@@ -3564,21 +4102,22 @@ def mec_run(bw: float, adaptive: bool, device: str) -> dict:
 
 def sim_fleet_params(arm: str, handling: bool, device: str):
     """benchmarks/fleet_scaling.py's ``failure_storm`` and ``chaos_ab`` at
-    their defaults (cap 32), one arm."""
+    their defaults (cap 32) but their horizons (``SIM_STORM_S``,
+    ``SIM_CHAOS_S``), one arm."""
     from repro_torch.edgesim import (ChaosSpec, FailureSpec,
                                      FleetScenarioParams, FleetSimConfig)
 
     cap = 32
     if arm == "storm":
         return FleetScenarioParams(sim=FleetSimConfig(
-            duration_s=60.0, tick_s=0.5, monitor_interval_s=1.0,
+            duration_s=SIM_STORM_S, tick_s=0.5, monitor_interval_s=1.0,
             max_sessions=cap, initial_sessions=cap // 2,
             session_arrival_per_s=max(0.2, cap / 60.0 * 2.0),
             mean_lifetime_s=30.0, seed=11, admission=True,
             failures=FailureSpec(seed=5, blast_at_s=SIM_BLAST_AT,
                                  blast_nodes=(1, 2), blast_mttr_s=25.0),
             failure_handling=handling, preempt_patience_s=30.0))
-    dur = 120.0
+    dur = SIM_CHAOS_S
     spec = ChaosSpec(
         seed=9, crash_rate_per_s=0.01, min_crash_spacing_s=20.0,
         crash_times=(0.25 * dur, 0.625 * dur),
@@ -3692,10 +4231,11 @@ def sim_same(a: dict, b: dict, exact: bool, what: str,
 
 def phase_simulator(counters, card: str) -> None:
     """The edge simulator on the card: Table II (static and adaptive at 20,
-    50, 100 and 200 Mb/s), ``failure_storm`` and ``chaos_ab`` (both arms,
-    the InvariantChecker after every cycle); adaptive and fleet arms twice
-    on the card (bit for bit) and once on the CPU (floats to 1e-9); no
-    hand-written kernel is launched."""
+    50, 100 and 200 Mb/s), ``failure_storm`` (``SIM_STORM_S``) and
+    ``chaos_ab`` (both arms, the InvariantChecker after every cycle); the
+    adaptive run at ``SIM_REPEAT_BW`` and the fleet arm ``SIM_REPEAT_ARM``
+    twice on the card (bit for bit) and once on the CPU (floats to 1e-9);
+    no hand-written kernel is launched."""
     t_phase = time.perf_counter()
     pct = lambda x, q: float(np.percentile(np.asarray(x), q))  # noqa: E731
     reset(counters)
@@ -3706,11 +4246,15 @@ def phase_simulator(counters, card: str) -> None:
     for bw, paper in zip(SIM_BANDWIDTHS, PAPER_STATIC_MS):
         st = mec_run(bw, False, "cuda")
         a = mec_run(bw, True, "cuda")
-        b = mec_run(bw, True, "cuda")
-        cpu = mec_run(bw, True, "cpu")
-        disc = ("ticks", "events", "decisions")
-        sim_same(a, b, True, f"sim {bw:.0f} Mb/s", disc)
-        sim_same(a, cpu, False, f"sim {bw:.0f} Mb/s", disc)
+        repeat = ""
+        if bw == SIM_REPEAT_BW:
+            b = mec_run(bw, True, "cuda")
+            cpu = mec_run(bw, True, "cpu")
+            disc = ("ticks", "events", "decisions")
+            sim_same(a, b, True, f"sim {bw:.0f} Mb/s", disc)
+            sim_same(a, cpu, False, f"sim {bw:.0f} Mb/s", disc)
+            repeat = (f" [run 2 {b['wall']:.2f} s, CPU {cpu['wall']:.2f} s]; "
+                      "card == card, card == CPU")
         s_ms = 1e3 * st["kpis"]["mean_latency_s"]
         a_ms = 1e3 * a["kpis"]["mean_latency_s"]
         n_re = len(a["events"])
@@ -3727,9 +4271,8 @@ def phase_simulator(counters, card: str) -> None:
               + ", ".join(f"{t:.1f} s {k}" for t, k, _ in a["events"])
               + f"; solver p50 {pct(warm, 50):.3f} ms mean "
               f"{np.mean(warm):.3f} ms over {len(warm)} cycles; run "
-              f"{a['wall']:.2f} s [run 2 {b['wall']:.2f} s, CPU "
-              f"{cpu['wall']:.2f} s, static {st['wall']:.2f} s]; card == "
-              f"card, card == CPU; card: {card}")
+              f"{a['wall']:.2f} s, static {st['wall']:.2f} s{repeat}; card: "
+              f"{card}")
     if not (gain[20.0] > gain[200.0] and gain[20.0] > 0.45):
         raise AssertionError(f"sim: gain at 20 Mb/s {gain[20.0]:.3f}, at "
                              f"200 Mb/s {gain[200.0]:.3f}")
@@ -3744,28 +4287,32 @@ def phase_simulator(counters, card: str) -> None:
         for handling in (False, True):
             name = f"{arm} {'on' if handling else 'off'}"
             a = sim_fleet_run(arm, handling, "cuda", probe=True)
-            b = sim_fleet_run(arm, handling, "cuda", probe=False)
-            cpu = sim_fleet_run(arm, handling, "cpu", probe=True)
-            sim_same(a, b, True, f"sim {name}")
-            sim_same(a, cpu, False, f"sim {name}")
             arms[name] = a
+            repeat = ""
+            if name == SIM_REPEAT_ARM:
+                b = sim_fleet_run(arm, handling, "cuda", probe=False)
+                cpu = sim_fleet_run(arm, handling, "cpu", probe=True)
+                sim_same(a, b, True, f"sim {name}")
+                sim_same(a, cpu, False, f"sim {name}")
+                repeat = (
+                    f" [run 2 {b['wall']:.2f} s, {b['ticks'] / b['wall']:.1f} "
+                    f"ticks/s; CPU {cpu['wall']:.2f} s for {cpu['ticks']} "
+                    f"ticks, price_fleet p50 "
+                    f"{pct(cpu['times']['price_fleet'], 50):.3f} ms, step p50 "
+                    f"{pct(cpu['times']['step'], 50):.3f} ms, spent "
+                    + ", ".join(f"{sum(v) / 1e3:.2f}"
+                                for v in cpu["times"].values())
+                    + " s]; card == card, card == CPU")
             rec = a["recovery"]
             print(f"sim {name}: {a['ticks']} ticks in {a['wall']:.2f} s "
-                  f"({a['ticks'] / a['wall']:.1f} ticks/s, probed) [run 2 "
-                  f"{b['wall']:.2f} s, {b['ticks'] / b['wall']:.1f} ticks/s; "
-                  f"CPU {cpu['wall']:.2f} s for {cpu['ticks']} ticks]; "
+                  f"({a['ticks'] / a['wall']:.1f} ticks/s, probed); "
                   f"price_fleet p50 {pct(a['times']['price_fleet'], 50):.3f} "
                   f"ms over {len(a['times']['price_fleet'])}, step p50 "
                   f"{pct(a['times']['step'], 50):.3f} ms over "
-                  f"{len(a['times']['step'])} [CPU "
-                  f"{pct(cpu['times']['price_fleet'], 50):.3f} / "
-                  f"{pct(cpu['times']['step'], 50):.3f} ms]; run 1 spent "
+                  f"{len(a['times']['step'])}; run 1 spent "
                   + ", ".join(f"{k} {sum(v) / 1e3:.2f} s ({len(v)})"
                               for k, v in a["times"].items())
-                  + " [CPU "
-                  + ", ".join(f"{sum(v) / 1e3:.2f}"
-                              for v in cpu["times"].values())
-                  + " s]; recovery "
+                  + "; recovery "
                   f"{'none' if rec is None else f'{rec:.1f} s'}; memory "
                   f"violation {a['mem_min']:.4f} min; SLO breach "
                   f"{a['slo_min']:.4f} min; preempted "
@@ -3774,8 +4321,7 @@ def phase_simulator(counters, card: str) -> None:
                   f"{a['chaos']['zombie_fenced']} committed "
                   f"{a['chaos']['zombie_committed']}; invariant violations "
                   f"{len(a['violations'])}; max restore "
-                  f"{a['restore_ms']:.2f} ms; card == card, card == CPU; "
-                  f"card: {card}")
+                  f"{a['restore_ms']:.2f} ms{repeat}; card: {card}")
     if any(counts_of(counters).values()):
         raise AssertionError("the edge simulator launched a hand-written "
                              "kernel")
@@ -3824,10 +4370,14 @@ TRAIN_BWD = [
     ("mla reduced", 2, 256, 4, 4, 24, 16, 0, 0.0, 24.0 ** -0.5),
     ("ragged hd 256", 2, 333, 16, 8, 256, 256, 0, 50.0, None),
     ("stablelm-3b", 2, 512, 32, 32, 80, 80, 0, 0.0, None),
+    # a rank's heads of Llama-3-8B in phase_tp_train: model 4 and model 2
+    ("llama3-8b TP=4 rank", 2, 512, 8, 2, 128, 128, 0, 0.0, None),
+    ("llama3-8b TP=2 rank", 2, 512, 16, 4, 128, 128, 0, 0.0, None),
 ]
 # the TRAIN_BWD shapes at which the float32 and bf16 forwards with lse are
 # held and timed (the first gives the kernels line's row)
-TRAIN_FWD = ("llama3-8b", "quickstart", "stablelm-3b")
+TRAIN_FWD = ("llama3-8b", "quickstart", "stablelm-3b", "llama3-8b TP=4 rank",
+             "llama3-8b TP=2 rank")
 # the kernels line's rows of K1's float32 backward, one per instance the
 # float32 training path runs, by the TRAIN_BWD shape that times it; off the
 # bf16 path since bf16 training, their launches come from the float32
@@ -5044,6 +5594,8 @@ class Clock:
 def reset(counters) -> None:
     for fn in counters:
         fn.launches = 0
+        if hasattr(fn, "given_launches"):   # K2a's given-absmax mode
+            fn.given_launches = 0
 
 
 def main() -> int:
@@ -5203,6 +5755,11 @@ def main() -> int:
 
     lap("phase_tp (tensor-parallel serving)")
 
+    # ---- tensor-parallel training over four cards ----
+    tp_train_counts = phase_tp_train(card)
+
+    lap("phase_tp_train (tensor-parallel training)")
+
     # ---- phase 8: card vs CPU on each family's reduced model ----
     for arch, per_forward, cond in (
             ("llama3-8b", {"flash_attention": 2}, None),
@@ -5261,7 +5818,8 @@ def main() -> int:
         "flash_attention@hd8": hd8, "decode_attention@hd8": hd8,
         "flash_attention@hd80": zoo["stablelm-3b"][0],
         "decode_attention@hd80": zoo["stablelm-3b"][1],
-        "decode_attention@partial": tp_counts, **train_counts}
+        "decode_attention@partial": tp_counts, "row_absmax": tp_train_counts,
+        "quantize_int8@given_absmax": tp_train_counts, **train_counts}
     if not tp_counts["decode_attention"]:
         # every row of the line is a kernel this run's paths launched
         print("kernels line: K3's partial form (decode_attention@partial) left "
@@ -5269,6 +5827,13 @@ def main() -> int:
               "sequence-sharded cache, four cards or more); phase 2 held it "
               "against its plain version")
         rows = [r for r in rows if r["name"] != "decode_attention@partial"]
+    if not tp_train_counts["row_absmax"]:
+        print("kernels line: K2a's absmax and given-absmax modes (row_absmax, "
+              "quantize_int8@given_absmax) left out: no path of this run launched "
+              "them (phase_tp_train's gradient compression on four cards); phase 2 "
+              "held them against their plain versions")
+        rows = [r for r in rows if r["name"] not in ("row_absmax",
+                                                     "quantize_int8@given_absmax")]
     for row in rows:
         row["launches"] = launches_from.get(row["name"], serve_counts)[
             row["name"].split("@")[0]]

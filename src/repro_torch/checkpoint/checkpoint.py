@@ -9,6 +9,14 @@ written by one package restores in the other:
     rename: a crash mid-save never corrupts the latest checkpoint.
   * ``restore``: rebuilds the tree of ``like``, each leaf a tensor on
     ``device`` (or on the device of ``like``'s leaf).
+  * In a process group every rank calls ``save`` and rank 0 alone writes,
+    the others waiting for it at a barrier (so no rank resumes from a step
+    still being written).  A state sharded over a mesh (DTensor leaves:
+    the mesh train step's) is saved whole: each DTensor leaf is gathered
+    (``distributed.fsdp.full_tensor``), so the files are the one-device
+    state's and any mesh shape, or either package, restores them.
+    ``restore`` into such a ``like`` gives each rank its blocks of the
+    whole arrays under each leaf's placements.
   * ``latest_step`` / retention for periodic checkpointing.
 """
 
@@ -22,6 +30,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 __all__ = ["save", "restore", "latest_step", "CheckpointManager"]
 
@@ -50,15 +59,38 @@ def _treedef(tree: Any) -> str:
     return "*"
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _whole(leaf) -> torch.Tensor:
+    """A leaf whole; a DTensor's gathered (a collective)."""
+    from ..distributed.fsdp import full_tensor
+
+    return full_tensor(leaf) if _is_dtensor(leaf) else leaf
+
+
 def save(ckpt_dir: str | Path, step: int, state: Any, *, keep: int = 3) -> Path:
     ckpt_dir = Path(ckpt_dir)
     tmp = ckpt_dir / f".tmp_step_{step}"
     final = ckpt_dir / f"step_{step:09d}"
+    ranked = dist.is_initialized()
+    writer = not ranked or dist.get_rank() == 0
+    # every rank gathers each DTensor leaf; only the writer keeps a host copy
+    flat = {}
+    for path, leaf in _paths(state):
+        whole = _whole(leaf)
+        if writer:
+            flat[_SEP.join(path)] = whole.detach().cpu().numpy()
+        del whole
+    if not writer:                      # rank 0 writes; the others wait for it
+        dist.barrier()
+        return final
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
-    flat = {_SEP.join(path): leaf.detach().cpu().numpy()
-            for path, leaf in _paths(state)}
     np.savez(tmp / "arrays.npz", **flat)
     manifest = {
         "step": step,
@@ -72,6 +104,8 @@ def save(ckpt_dir: str | Path, step: int, state: Any, *, keep: int = 3) -> Path:
         shutil.rmtree(final)
     os.rename(tmp, final)                       # atomic publish
     _retain(ckpt_dir, keep)
+    if ranked:
+        dist.barrier()
     return final
 
 
@@ -91,12 +125,20 @@ def restore(ckpt_dir: str | Path, step: int, like: Any,
             device: str | torch.device | None = None) -> Any:
     """Restore into the structure of ``like`` (a tree of tensors): each leaf
     a tensor of the saved dtype on ``device``, or, when None, on the device
-    of ``like``'s leaf."""
+    of ``like``'s leaf; where ``like``'s leaf is a DTensor, this rank's
+    block of the saved array under its placements, as a DTensor on its
+    mesh."""
+    from ..distributed.fsdp import from_whole, spec_of
+
     path = Path(ckpt_dir) / f"step_{step:09d}"
     with np.load(path / "arrays.npz") as data:
         def load(keys, leaf):
             dev = leaf.device if device is None else device
-            return torch.from_numpy(np.array(data[_SEP.join(keys)])).to(dev)
+            x = torch.from_numpy(np.array(data[_SEP.join(keys)]))
+            if _is_dtensor(leaf):
+                return from_whole(x.to(leaf.to_local().device), spec_of(leaf),
+                                  leaf.device_mesh)
+            return x.to(dev)
 
         def build(tree, prefix=()):
             if isinstance(tree, dict):

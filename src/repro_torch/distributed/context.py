@@ -10,7 +10,8 @@ products as ``ff``, the attention and FFN outputs and the entry of
 set:
 
 * a tensor-parallel region (:func:`tensor_parallel`, set by the serving
-  functions of ``training/train_step.py``): every tensor is this rank's
+  functions and the tensor-parallel train step of
+  ``training/train_step.py``): every tensor is this rank's
   local block and the port runs Megatron-style on it.  ``heads`` and ``ff``
   come out of products with the rank's weight blocks already in their
   layout (the policy shards a weight's heads or ff exactly where the spec
@@ -21,7 +22,9 @@ set:
   ``hidden`` block already in its layout, given its global S, is checked.
   :func:`gather_seq` is the all-gather over S before the q/k/v and FFN
   products.  The collectives run over the "model" axis's process group
-  (NCCL on the card, gloo on the CPU), outside the kernels;
+  (NCCL on the card, gloo on the CPU), outside the kernels; under grad
+  mode each is differentiable (its backward the adjoint collective, see
+  the note above ``_gather0``);
 * an activation mesh (:func:`activation_mesh`) and a DTensor: it is
   redistributed to the spec's placements on its own mesh;
 * neither: the input comes back unchanged, as it does with
@@ -44,10 +47,11 @@ import torch.distributed as dist
 from .sharding import dp_axes, mesh_shape, placements, shard_shape
 
 __all__ = ["TPRegion", "activation_mesh", "activation_spec", "all_gather_model",
-           "all_reduce_model", "constrain", "current_mesh", "current_region",
-           "gather_seq", "seq_sharded", "tensor_parallel", "to_hidden"]
+           "all_reduce_model", "batch_group", "constrain", "current_mesh",
+           "current_region", "gather_seq", "seq_sharded", "split_batch",
+           "tensor_parallel", "to_hidden"]
 
-_STATE: dict[str, Any] = {"mesh": None, "tp": None}
+_STATE: dict[str, Any] = {"mesh": None, "tp": None, "batch": None}
 
 
 @dataclass(frozen=True)
@@ -83,6 +87,27 @@ def current_region() -> TPRegion | None:
     axis of 1)."""
     r = _STATE["tp"]
     return r if r is not None and r.tp > 1 else None
+
+
+@contextmanager
+def split_batch(group):
+    """Run the body on this rank's rows of a batch that the ranks of
+    ``group`` split in their group order (the mesh train step's dp rows),
+    or on the whole batch where ``group`` is None.  What couples the rows,
+    token-choice MoE routing's expert slots
+    (``models/transformer.moe_route``), is then taken over the whole
+    batch."""
+    prev = _STATE["batch"]
+    _STATE["batch"] = group
+    try:
+        yield
+    finally:
+        _STATE["batch"] = prev
+
+
+def batch_group():
+    """The process group :func:`split_batch` set, or None."""
+    return _STATE["batch"]
 
 
 @contextmanager
@@ -141,18 +166,79 @@ def activation_spec(shape: tuple[int, ...], kind: str, mesh: Any) -> tuple:
 # --------------------------------------------------------------------------- #
 # collectives over the "model" axis, on local tensors
 # --------------------------------------------------------------------------- #
-def _all_gather0(x: torch.Tensor, group) -> torch.Tensor:
-    """The ranks' ``x`` [n, ...] stacked on dim 0 -> [tp * n, ...]."""
+# Under grad mode (tensor-parallel training) each collective is an autograd
+# function whose backward is its adjoint, with every rank's copy of a
+# replicated tensor its own variable: the ranks' cotangents of a replicated
+# tensor are terms of its gradient, which sum over "model" to the whole.
+# So an all-gather's backward reduce-scatters, a reduce-scatter's
+# all-gathers, an all-reduce's all-reduces, and keeping one's block of a
+# whole tensor (a slice) pads the block's gradient with zeros.  Work that
+# every rank repeats then counts once in the sum, and the gradient of a
+# leaf that "model" replicates is the sum of the ranks' (the train step's
+# reduction); the loss, replicated over "model", is seeded 1 / tp a rank.
+def _gather0(x: torch.Tensor, group) -> torch.Tensor:
     out = x.new_empty((dist.get_world_size(group) * x.shape[0], *x.shape[1:]))
     dist.all_gather_into_tensor(out, x.contiguous(), group=group)
     return out
 
 
-def _reduce_scatter0(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum over ranks of ``x`` [tp * n, ...], this rank's block [n, ...]."""
+def _scatter0(x: torch.Tensor, group) -> torch.Tensor:
     out = x.new_empty((x.shape[0] // dist.get_world_size(group), *x.shape[1:]))
     dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
     return out
+
+
+def _reduced(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _AllGather0(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather0(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter0(g, ctx.group), None
+
+
+class _ReduceScatter0(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _scatter0(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather0(g, ctx.group), None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduced(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduced(g, ctx.group), None
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _all_gather0(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``x`` [n, ...] stacked on dim 0 -> [tp * n, ...]."""
+    return _AllGather0.apply(x, group) if _tracked(x) else _gather0(x, group)
+
+
+def _reduce_scatter0(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ranks of ``x`` [tp * n, ...], this rank's block [n, ...]."""
+    return _ReduceScatter0.apply(x, group) if _tracked(x) else _scatter0(x, group)
 
 
 def all_gather_model(x: torch.Tensor) -> torch.Tensor:
@@ -165,10 +251,14 @@ def all_gather_model(x: torch.Tensor) -> torch.Tensor:
 
 
 def all_reduce_model(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the "model" axis (in place)."""
+    """The sum of ``x`` over the "model" axis (in place, but under grad
+    mode, where the sum is a new tensor)."""
     r = current_region()
-    if r is not None:
-        dist.all_reduce(x, group=r.group)
+    if r is None:
+        return x
+    if _tracked(x):
+        return _AllReduce.apply(x, r.group)
+    dist.all_reduce(x, group=r.group)
     return x
 
 

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "flash_attention_fwd": [_VOID] * 5 + [_INT] * 9 + [_FLOAT, _FLOAT, _VOID],
     "flash_attention_bwd": [_VOID] * 12 + [_INT] * 11 + [_FLOAT, _FLOAT, _VOID],
     "quantize_int8_fwd": [_VOID] * 3 + [_INT] * 3 + [_VOID],
+    "quantize_int8_given_fwd": [_VOID] * 4 + [_INT] * 3 + [_VOID],
+    "row_absmax_fwd": [_VOID] * 2 + [_INT] * 3 + [_VOID],
     "dequantize_int8_fwd": [_VOID] * 3 + [_INT] * 3 + [_VOID],
     "decode_attention_fwd": [_VOID] * 4 + [_INT] + [_VOID] * 4 + [_INT] * 10
     + [_FLOAT, _FLOAT, _INT, _VOID, _VOID],

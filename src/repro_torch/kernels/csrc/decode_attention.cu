@@ -61,7 +61,11 @@
 // window's start.  Given an lse pointer, each (row, head) also writes its
 // log-sum-exp (natural log) beside o: (m + log2 l) ln 2 from the (m, l) the
 // combine already holds, -inf where no slot is valid (o is then 0).  The
-// ranks merge their (o, lse) pairs outside the kernel.
+// ranks merge their (o, lse) pairs outside the kernel.  The form is its own
+// kernel, decode_attention_kernel_partial: both kernels inline one body
+// (decode_attention_body) whose PARTIAL template parameter compiles the
+// offset and the lse writes in or out, so the plain kernel takes the
+// arguments and runs the code it did before the form existed.
 //
 // Chunks past cur_len, or before the window, load nothing (and still take
 // their ticket).  Arithmetic is the TPU
@@ -150,15 +154,13 @@ __host__ __device__ constexpr int pow2_at_least(int n) {
   return p;
 }
 
-template <typename T, int HD, int GB>
-__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const int* __restrict__ cur_len,
-                        int cur_per_row, T* __restrict__ o,
-                        float* __restrict__ ws_ml, float* __restrict__ ws_acc,
-                        unsigned* __restrict__ counters, int S, int H, int KV,
-                        int chunk, int window, float logit_cap, float scale,
-                        int start, float* __restrict__ lse) {
+template <typename T, int HD, int GB, bool PARTIAL>
+__device__ __forceinline__ void decode_attention_body(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const int* __restrict__ cur_len, int cur_per_row, T* __restrict__ o,
+    float* __restrict__ ws_ml, float* __restrict__ ws_acc,
+    unsigned* __restrict__ counters, int S, int H, int KV, int chunk, int window,
+    float logit_cap, float scale, int start, float* __restrict__ lse) {
   constexpr int VEC = Pack<T>::N;        // elements per 16-byte piece
   // a lane takes PPL neighbouring pieces of a row: one, or two where one
   // piece a lane would need more than a warp for the row (float32, HD 256)
@@ -208,7 +210,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + ((size_t)b * S * KV + kvh) * HD + t * E;
   // valid keys: k_pos < cur and, with a window, k_pos > cur - 1 - window,
   // k_pos = start + slot; in slots, [cur - start - window, cur - start)
-  const int cur = cur_len[cur_per_row ? b : 0] - start;
+  const int cur = cur_len[cur_per_row ? b : 0] - (PARTIAL ? start : 0);
   int lo = split * chunk;
   const int hi = min(min(lo + chunk, S), cur);
   if (window > 0) lo = max(lo, cur - window);
@@ -392,9 +394,11 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (n_split == 1) {
       const float r = 1.f / fmaxf(ls, 1e-30f);
       store4(ob + 4 * e, make_float4(as.x * r, as.y * r, as.z * r, as.w * r));
-      if (lse && e % (HD / 4) == 0)
-        lse[(size_t)b * H + h0 + g] =
-            ls > 0.f ? (mx + log2f(ls)) * LN2 : __uint_as_float(0xff800000u);
+      if constexpr (PARTIAL) {
+        if (lse && e % (HD / 4) == 0)
+          lse[(size_t)b * H + h0 + g] =
+              ls > 0.f ? (mx + log2f(ls)) * LN2 : __uint_as_float(0xff800000u);
+      }
     } else {
       ws_acc4[(part0 + split) * NV4 + e] = as;
       if (e % (HD / 4) == 0) {
@@ -451,11 +455,42 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     const float r = 1.f / fmaxf(ls, 1e-30f);
     store4(ob + 4 * e, make_float4(as.x * r, as.y * r, as.z * r, as.w * r));
-    if (lse && e % (HD / 4) == 0)
-      lse[(size_t)b * H + h0 + g] =
-          ls > 0.f ? (mx + log2f(ls)) * LN2 : __uint_as_float(0xff800000u);
+    if constexpr (PARTIAL) {
+      if (lse && e % (HD / 4) == 0)
+        lse[(size_t)b * H + h0 + g] =
+            ls > 0.f ? (mx + log2f(ls)) * LN2 : __uint_as_float(0xff800000u);
+    }
   }
   if (tid == 0) *counter = 0u;
+}
+
+template <typename T, int HD, int GB>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const int* __restrict__ cur_len,
+                        int cur_per_row, T* __restrict__ o,
+                        float* __restrict__ ws_ml, float* __restrict__ ws_acc,
+                        unsigned* __restrict__ counters, int S, int H, int KV,
+                        int chunk, int window, float logit_cap, float scale) {
+  decode_attention_body<T, HD, GB, false>(q, k, v, cur_len, cur_per_row, o, ws_ml,
+                                          ws_acc, counters, S, H, KV, chunk,
+                                          window, logit_cap, scale, 0, nullptr);
+}
+
+// the partial form: slot 0 at global position start, lse beside o
+template <typename T, int HD, int GB>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+decode_attention_kernel_partial(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v,
+                                const int* __restrict__ cur_len, int cur_per_row,
+                                T* __restrict__ o, float* __restrict__ ws_ml,
+                                float* __restrict__ ws_acc,
+                                unsigned* __restrict__ counters, int S, int H,
+                                int KV, int chunk, int window, float logit_cap,
+                                float scale, int start, float* __restrict__ lse) {
+  decode_attention_body<T, HD, GB, true>(q, k, v, cur_len, cur_per_row, o, ws_ml,
+                                         ws_acc, counters, S, H, KV, chunk, window,
+                                         logit_cap, scale, start, lse);
 }
 
 template <typename T, int HD, int GB>
@@ -465,16 +500,25 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int KV, int n_split, int chunk, int window, float logit_cap,
                    float scale, int start, float* lse, cudaStream_t stream) {
   constexpr int smem = STAGES * STAGE_BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_attention_kernel<T, HD, GB>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const bool partial = start != 0 || lse != nullptr;
+  cudaError_t err = partial
+      ? cudaFuncSetAttribute(decode_attention_kernel_partial<T, HD, GB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+      : cudaFuncSetAttribute(decode_attention_kernel<T, HD, GB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_split, H / GB, B);
-  decode_attention_kernel<T, HD, GB><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), cur_len, cur_per_row, static_cast<T*>(o),
-      ws_ml, ws_acc, counters, S, H, KV, chunk, window, logit_cap, scale,
-      start, lse);
+  if (partial)
+    decode_attention_kernel_partial<T, HD, GB><<<grid, THREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), cur_len, cur_per_row, static_cast<T*>(o),
+        ws_ml, ws_acc, counters, S, H, KV, chunk, window, logit_cap, scale,
+        start, lse);
+  else
+    decode_attention_kernel<T, HD, GB><<<grid, THREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), cur_len, cur_per_row, static_cast<T*>(o),
+        ws_ml, ws_acc, counters, S, H, KV, chunk, window, logit_cap, scale);
   return cudaGetLastError();
 }
 

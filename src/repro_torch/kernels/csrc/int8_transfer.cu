@@ -23,6 +23,14 @@
 // unaligned rows take the general instance `quantize_rows`: one block of 256
 // threads a row, reading it twice (absmax, then quotient).
 //
+// Two more modes of both instances serve a row that several ranks hold
+// pieces of (gradient compression on a tensor-parallel mesh): kAbsmax
+// writes each row's absmax (float32) and nothing else, and kGiven takes the
+// row's absmax from a buffer (the ranks' absmaxes reduced by MAX) instead of
+// reducing its own, then quantizes as kQuant does.  A row's codes and scale
+// depend only on its absmax and its elements, so the pieces' codes and
+// scales are the whole row's, bit for bit.
+//
 // The arithmetic is the reference's, bit for bit:
 //   scale = max(absmax, 1e-12) / 127          (IEEE division, once a row)
 //   q     = clip(rint(x / scale), -127, 127)  (rint rounds half to even,
@@ -56,6 +64,10 @@ constexpr int ROW_THREADS = 32 * ROW_WARPS;
 constexpr int VEC_ROWS = 2;    // two rows a block
 constexpr int MAX_VEC = 2048;  // 16-byte vectors a row on the fast path
 constexpr float ROUNDER = 12582912.0f;  // 1.5 * 2^23
+
+// kQuant: absmax, scale, codes; kAbsmax: the absmax alone (into `scales`);
+// kGiven: scale and codes from the absmax in `given`
+enum Mode { kQuant = 0, kAbsmax = 1, kGiven = 2 };
 
 __device__ __forceinline__ float row_scale(float amax) {
   return __fdiv_rn(fmaxf(amax, 1e-12f), 127.0f);
@@ -160,10 +172,11 @@ struct Vec<float> {
 
 // K2a, fast instance: NV vectors a lane; the row's vectors past D / kElems
 // are masked.
-template <typename T, int NV>
+template <typename T, int NV, int M>
 __global__ void __launch_bounds__(VEC_ROWS * ROW_THREADS)
 quantize_rows_vec(const T* __restrict__ x, int8_t* __restrict__ q,
-                  float* __restrict__ scales, int N, int D) {
+                  float* __restrict__ scales, const float* __restrict__ given,
+                  int N, int D) {
   using V = Vec<T>;
   __shared__ uint32_t warp_max[VEC_ROWS * ROW_WARPS];
   const int group = threadIdx.x / ROW_THREADS, t = threadIdx.x % ROW_THREADS;
@@ -178,15 +191,25 @@ quantize_rows_vec(const T* __restrict__ x, int8_t* __restrict__ q,
     const int i = j * ROW_THREADS + t;
     v[j] = i < nvec ? load_once(xr + i) : make_uint4(0u, 0u, 0u, 0u);
   }
-  uint32_t mag = 0;
+  float amax;
+  if constexpr (M == kGiven) {
+    amax = given[row];
+  } else {
+    uint32_t mag = 0;
 #pragma unroll
-  for (int j = 0; j < NV; ++j) mag = V::max_mag(mag, v[j]);
-  mag = __reduce_max_sync(0xffffffffu, V::fold(mag));
-  if (t % 32 == 0) warp_max[threadIdx.x / 32] = mag;
-  row_barrier(1 + group, ROW_THREADS);
+    for (int j = 0; j < NV; ++j) mag = V::max_mag(mag, v[j]);
+    mag = __reduce_max_sync(0xffffffffu, V::fold(mag));
+    if (t % 32 == 0) warp_max[threadIdx.x / 32] = mag;
+    row_barrier(1 + group, ROW_THREADS);
 #pragma unroll
-  for (int w = 0; w < ROW_WARPS; ++w) mag = max(mag, warp_max[group * ROW_WARPS + w]);
-  const float scale = row_scale(__uint_as_float(mag));
+    for (int w = 0; w < ROW_WARPS; ++w) mag = max(mag, warp_max[group * ROW_WARPS + w]);
+    amax = __uint_as_float(mag);
+  }
+  if constexpr (M == kAbsmax) {
+    if (t == 0) scales[row] = amax;
+    return;
+  }
+  const float scale = row_scale(amax);
   const float r = __frcp_rn(scale);
 
   int8_t* qr = q + row * D;
@@ -199,10 +222,10 @@ quantize_rows_vec(const T* __restrict__ x, int8_t* __restrict__ q,
 }
 
 // K2a, general instance: one block a row, any D, any alignment.
-template <typename T>
+template <typename T, int M>
 __global__ void __launch_bounds__(THREADS)
 quantize_rows(const T* __restrict__ x, int8_t* __restrict__ q,
-              float* __restrict__ scales, int D) {
+              float* __restrict__ scales, const float* __restrict__ given, int D) {
   __shared__ float warp_max[THREADS / 32];
   const size_t row = blockIdx.x;
   const T* xr = x + row * D;
@@ -210,15 +233,23 @@ quantize_rows(const T* __restrict__ x, int8_t* __restrict__ q,
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
 
   float amax = 0.f;
-  for (int i = threadIdx.x; i < D; i += THREADS) amax = fmaxf(amax, fabsf(to_f32(xr[i])));
+  if constexpr (M == kGiven) {
+    amax = given[row];
+  } else {
+    for (int i = threadIdx.x; i < D; i += THREADS) amax = fmaxf(amax, fabsf(to_f32(xr[i])));
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  if (lane == 0) warp_max[warp] = amax;
-  __syncthreads();
-  amax = warp_max[0];
+    for (int off = 16; off > 0; off >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    if (lane == 0) warp_max[warp] = amax;
+    __syncthreads();
+    amax = warp_max[0];
 #pragma unroll
-  for (int w = 1; w < THREADS / 32; ++w) amax = fmaxf(amax, warp_max[w]);
+    for (int w = 1; w < THREADS / 32; ++w) amax = fmaxf(amax, warp_max[w]);
+  }
+  if constexpr (M == kAbsmax) {
+    if (threadIdx.x == 0) scales[row] = amax;
+    return;
+  }
 
   const float scale = row_scale(amax);
   const float r = __frcp_rn(scale);
@@ -239,31 +270,50 @@ dequantize_rows(const int8_t* __restrict__ q, const float* __restrict__ scales,
     xr[i] = from_f32<T>(static_cast<float>(qr[i]) * scale);
 }
 
-template <typename T, int NV>
-void launch_vec(const T* x, int8_t* q, float* scales, int N, int D, cudaStream_t st) {
-  quantize_rows_vec<T, NV><<<(N + VEC_ROWS - 1) / VEC_ROWS, VEC_ROWS * ROW_THREADS,
-                              0, st>>>(x, q, scales, N, D);
+template <typename T, int NV, int M>
+void launch_vec(const T* x, int8_t* q, float* scales, const float* given, int N,
+                int D, cudaStream_t st) {
+  quantize_rows_vec<T, NV, M><<<(N + VEC_ROWS - 1) / VEC_ROWS,
+                                VEC_ROWS * ROW_THREADS, 0, st>>>(x, q, scales,
+                                                                 given, N, D);
 }
 
-template <typename T>
-void launch_quantize(const T* x, int8_t* q, float* scales, int N, int D,
-                     cudaStream_t st) {
+template <typename T, int M>
+void launch_quantize(const T* x, int8_t* q, float* scales, const float* given,
+                     int N, int D, cudaStream_t st) {
   constexpr int E = Vec<T>::kElems;
   const int nvec = D / E;
   if (D % E != 0 || nvec > MAX_VEC || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(q) % 8 != 0) {
-    quantize_rows<T><<<N, THREADS, 0, st>>>(x, q, scales, D);
+    quantize_rows<T, M><<<N, THREADS, 0, st>>>(x, q, scales, given, D);
   } else if (nvec <= ROW_THREADS) {  // bf16 D <= 1,024
-    launch_vec<T, 1>(x, q, scales, N, D, st);
+    launch_vec<T, 1, M>(x, q, scales, given, N, D, st);
   } else if (nvec <= 2 * ROW_THREADS) {  // D <= 2,048
-    launch_vec<T, 2>(x, q, scales, N, D, st);
+    launch_vec<T, 2, M>(x, q, scales, given, N, D, st);
   } else if (nvec <= 4 * ROW_THREADS) {  // D <= 4,096
-    launch_vec<T, 4>(x, q, scales, N, D, st);
+    launch_vec<T, 4, M>(x, q, scales, given, N, D, st);
   } else if (nvec <= 8 * ROW_THREADS) {  // D <= 8,192
-    launch_vec<T, 8>(x, q, scales, N, D, st);
+    launch_vec<T, 8, M>(x, q, scales, given, N, D, st);
   } else {  // D <= 16,384
-    launch_vec<T, 16>(x, q, scales, N, D, st);
+    launch_vec<T, 16, M>(x, q, scales, given, N, D, st);
   }
+}
+
+template <int M>
+int quantize_any(const void* x, void* q, void* scales, const void* given,
+                 int is_bf16, int N, int D, void* stream) {
+  if (N <= 0 || D <= 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    launch_quantize<__nv_bfloat16, M>(static_cast<const __nv_bfloat16*>(x),
+                                      static_cast<int8_t*>(q),
+                                      static_cast<float*>(scales),
+                                      static_cast<const float*>(given), N, D, st);
+  else
+    launch_quantize<float, M>(static_cast<const float*>(x), static_cast<int8_t*>(q),
+                              static_cast<float*>(scales),
+                              static_cast<const float*>(given), N, D, st);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -272,15 +322,21 @@ void launch_quantize(const T* x, int8_t* q, float* scales, int N, int D,
 // float32 [N].  Returns the cudaError_t of the launch.
 extern "C" int quantize_int8_fwd(const void* x, void* q, void* scales,
                                  int is_bf16, int N, int D, void* stream) {
-  if (N <= 0 || D <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    launch_quantize(static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q),
-                    static_cast<float*>(scales), N, D, st);
-  else
-    launch_quantize(static_cast<const float*>(x), static_cast<int8_t*>(q),
-                    static_cast<float*>(scales), N, D, st);
-  return cudaGetLastError();
+  return quantize_any<kQuant>(x, q, scales, nullptr, is_bf16, N, D, stream);
+}
+
+// x: [N, D] -> amax float32 [N]: each row's absmax (K2a's first pass alone).
+extern "C" int row_absmax_fwd(const void* x, void* amax, int is_bf16, int N, int D,
+                              void* stream) {
+  return quantize_any<kAbsmax>(x, nullptr, amax, nullptr, is_bf16, N, D, stream);
+}
+
+// x: [N, D], amax float32 [N] (each row's absmax, reduced over the rows'
+// pieces) -> q int8 [N, D], scales float32 [N].
+extern "C" int quantize_int8_given_fwd(const void* x, const void* amax, void* q,
+                                       void* scales, int is_bf16, int N, int D,
+                                       void* stream) {
+  return quantize_any<kGiven>(x, q, scales, amax, is_bf16, N, D, stream);
 }
 
 // q int8 [N, D], scales float32 [N] -> x [N, D] (out_bf16: 1 bfloat16,

@@ -35,17 +35,26 @@ import torch
 
 from . import build, cost
 
-__all__ = ["quantize_int8", "dequantize_int8", "quantize_int8_plain",
-           "dequantize_int8_plain", "bf16_domain_rows", "BF16_FINITE"]
+__all__ = ["quantize_int8", "dequantize_int8", "row_absmax", "quantize_int8_plain",
+           "dequantize_int8_plain", "row_absmax_plain", "bf16_domain_rows",
+           "BF16_FINITE"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 BF16_FINITE = 0x7F80    # bit patterns 0 .. 0x7F7F: +0 to the largest finite bf16
 
 
-def quantize_int8_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [N, D] -> (int8 [N, D], float32 scales [N, 1])."""
+def row_absmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """x [N, D] -> each row's absmax, float32 [N, 1]."""
+    return x.float().abs().amax(dim=1, keepdim=True)
+
+
+def quantize_int8_plain(x: torch.Tensor, absmax: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [N, D] -> (int8 [N, D], float32 scales [N, 1]); ``absmax`` [N, 1]
+    replaces each row's own (a row that several ranks hold pieces of)."""
     xf = x.float()
-    absmax = xf.abs().amax(dim=1, keepdim=True)
+    if absmax is None:
+        absmax = row_absmax_plain(xf)
     # a tensor divisor: PyTorch turns division by a Python scalar into a
     # multiplication by its reciprocal on CUDA, which is not the IEEE quotient
     scale = torch.clamp_min(absmax, 1e-12) / torch.full_like(absmax, 127.0)
@@ -107,23 +116,41 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [N, D] (float32 or bfloat16) -> (int8 [N, D], float32 scales [N, 1]).
-
-    ``quantize_int8.launches`` counts kernel launches.  The kernel has no
-    backward: a CUDA call raises where grad mode is on and x requires a
-    gradient.
-    """
+def _check_rows(x: torch.Tensor) -> None:
     if x.ndim != 2:
         raise ValueError(f"want x [N, D], got {tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return quantize_int8_plain(x)
-    if x.device.type not in ("cuda", "meta"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no int8 kernel for device {x.device}")
-    _no_grad(x)
-    if x.dtype not in _DTYPES or not x.is_contiguous() or x.numel() == 0:
-        raise ValueError(f"kernel takes non-empty contiguous {_DTYPES}; "
-                         f"got {x.dtype}, {tuple(x.shape)}")
+    if x.device.type != "cpu":
+        _no_grad(x)
+        if x.dtype not in _DTYPES or not x.is_contiguous() or x.numel() == 0:
+            raise ValueError(f"kernel takes non-empty contiguous {_DTYPES}; "
+                             f"got {x.dtype}, {tuple(x.shape)}")
+
+
+def quantize_int8(x: torch.Tensor, absmax: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [N, D] (float32 or bfloat16) -> (int8 [N, D], float32 scales [N, 1]).
+
+    ``absmax`` (float32 [N, 1]) gives each row's absmax instead of the
+    kernel reducing its own (the kernel's given-absmax mode): a rank
+    quantizing its piece of rows that other ranks hold pieces of passes the
+    rows' absmax over all pieces (:func:`row_absmax`, reduced by MAX), and
+    its codes and scales are then the whole rows'.
+
+    ``quantize_int8.launches`` counts kernel launches, and
+    ``quantize_int8.given_launches`` those of them in the given-absmax
+    mode.  The kernel has no backward: a CUDA call raises where grad mode
+    is on and x requires a gradient.
+    """
+    _check_rows(x)
+    if absmax is not None and (absmax.shape != (x.shape[0], 1)
+                               or absmax.dtype != torch.float32
+                               or absmax.device != x.device):
+        raise ValueError(f"want absmax float32 [{x.shape[0]}, 1] on {x.device}; "
+                         f"got {absmax.dtype} {tuple(absmax.shape)}")
+    if x.device.type == "cpu":
+        return quantize_int8_plain(x, absmax)
     n, d = x.shape
     q = torch.empty((n, d), dtype=torch.int8, device=x.device)
     scales = torch.empty((n, 1), dtype=torch.float32, device=x.device)
@@ -131,11 +158,39 @@ def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         cost.record("quantize_int8", cost.quantize_ops(n, d), cost.nbytes(x, q, scales))
         return q, scales
     lib = build.load()
-    err = lib.quantize_int8_fwd(x.data_ptr(), q.data_ptr(), scales.data_ptr(),
-                                int(x.dtype == torch.bfloat16), n, d, _stream(x))
+    bf16 = int(x.dtype == torch.bfloat16)
+    if absmax is None:
+        err = lib.quantize_int8_fwd(x.data_ptr(), q.data_ptr(), scales.data_ptr(),
+                                    bf16, n, d, _stream(x))
+    else:
+        err = lib.quantize_int8_given_fwd(
+            x.data_ptr(), absmax.contiguous().data_ptr(), q.data_ptr(),
+            scales.data_ptr(), bf16, n, d, _stream(x))
     build.check(lib, err, "quantize_int8")
     quantize_int8.launches += 1
+    if absmax is not None:
+        quantize_int8.given_launches += 1
     return q, scales
+
+
+def row_absmax(x: torch.Tensor) -> torch.Tensor:
+    """x [N, D] (float32 or bfloat16) -> each row's absmax, float32 [N, 1]:
+    K2a's first pass alone (its absmax mode), for rows that several ranks
+    hold pieces of.  ``row_absmax.launches`` counts kernel launches."""
+    _check_rows(x)
+    if x.device.type == "cpu":
+        return row_absmax_plain(x)
+    n, d = x.shape
+    amax = torch.empty((n, 1), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        cost.record("row_absmax", float(n * d), cost.nbytes(x, amax))
+        return amax
+    lib = build.load()
+    err = lib.row_absmax_fwd(x.data_ptr(), amax.data_ptr(),
+                             int(x.dtype == torch.bfloat16), n, d, _stream(x))
+    build.check(lib, err, "row_absmax")
+    row_absmax.launches += 1
+    return amax
 
 
 def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,
@@ -175,4 +230,6 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,
 
 
 quantize_int8.launches = 0
+quantize_int8.given_launches = 0
 dequantize_int8.launches = 0
+row_absmax.launches = 0

@@ -13,9 +13,10 @@ from __future__ import annotations
 
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention
-from .int8_transfer import dequantize_int8, quantize_int8
+from .int8_transfer import dequantize_int8, quantize_int8, row_absmax
 from .rglru import rglru, rglru_bwd
 from .ssd_chunk import ssd, ssd_bwd
 
 __all__ = ["decode_attention", "flash_attention", "quantize_int8",
-           "dequantize_int8", "rglru", "rglru_bwd", "ssd", "ssd_bwd"]
+           "dequantize_int8", "row_absmax", "rglru", "rglru_bwd", "ssd",
+           "ssd_bwd"]

@@ -8,9 +8,11 @@ decode over the family's cache (KV cache, SSM state, or LRU state plus a
 ring of the attention window), and the computational graph the orchestrator
 partitions.
 
-Under a mesh (``training.make_serve_fns``) ``prefill`` and ``decode`` run in
-a tensor-parallel region on each rank's blocks of the params, the inputs
-and the cache (the dense transformers; ``distributed/context.py``), while
+Under a mesh (``training.make_serve_fns``, ``training.make_train_step``)
+``prefill``, ``decode`` and ``loss`` run in a tensor-parallel region on
+each rank's blocks of the params, the inputs and the cache (the dense
+transformers; ``distributed/context.py``; the loss's cross-entropy over a
+vocabulary sharded over "model" never gathers the logits), while
 ``cache_spec``, ``input_specs`` and ``param_specs`` stay global: the
 policy's specs are read off them.
 """
@@ -27,7 +29,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core.graph import GraphNode, ModelGraph
-from ..distributed.context import current_region
+from ..distributed.context import all_reduce_model, current_region, gather_seq
 from . import griffin, mamba2, transformer, transformer_serve
 from .common import apply_norm, layer
 
@@ -66,30 +68,59 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return per_tok.sum() / mask.sum().clamp_min(1)
 
 
-def _xent_chunk(hx, w_head, lx, final_softcap):
+def _vocab_parallel_lse_ll(logits: torch.Tensor, safe: torch.Tensor):
+    """(logsumexp, the label's logit) over the vocabulary, from this rank's
+    block of it: the max and the sum of exponentials reduced over "model"
+    (the max detached: the logsumexp does not depend on it), the label's
+    logit taken on the rank whose rows hold it and summed over the axis."""
+    import torch.distributed as dist
+
+    r = current_region()
+    n = logits.shape[-1]
+    m = logits.detach().amax(dim=-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=r.group)
+    lse = m + torch.log(all_reduce_model(
+        torch.exp(logits - m[..., None]).sum(dim=-1)))
+    local = safe - r.rank * n
+    inside = (local >= 0) & (local < n)
+    ll = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    return lse, all_reduce_model(torch.where(inside, ll, 0.0))
+
+
+def _xent_chunk(hx, w_head, lx, final_softcap, vocab):
     """(summed xent, token count) of one sequence chunk: logits [B,c,V] in
-    float32, soft-capped, labels < 0 masked."""
+    float32, soft-capped, labels < 0 masked.  Where ``w_head`` holds this
+    rank's block of the ``vocab`` columns (a tensor-parallel region), the
+    logits are that block [B,c,V/tp] and the logsumexp is reduced over
+    "model" (``_vocab_parallel_lse_ll``)."""
     logits = (hx @ w_head.to(hx.dtype)).float()
     if final_softcap:
         logits = final_softcap * torch.tanh(logits / final_softcap)
     mask = lx >= 0
     safe = lx.clamp_min(0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, safe[..., None])[..., 0]
+    if logits.shape[-1] != vocab:
+        lse, ll = _vocab_parallel_lse_ll(logits, safe)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, safe[..., None])[..., 0]
     return ((lse - ll) * mask).sum(), mask.sum(dtype=torch.int32)
 
 
 def chunked_softmax_xent(h: torch.Tensor, w_head: torch.Tensor,
                          labels: torch.Tensor, *, chunk: int = 512,
-                         final_softcap: float = 0.0) -> torch.Tensor:
+                         final_softcap: float = 0.0,
+                         vocab: int | None = None) -> torch.Tensor:
     """Sequence-chunked xent: logits never materialize beyond [B,chunk,V].
 
     S is padded to a multiple of the chunk with labels -1; the chunks' sums
     and counts add in order, as the reference's scan does.  Under grad mode
     each chunk is checkpointed, so its logits are recomputed in the backward
-    instead of kept.
+    instead of kept.  In a tensor-parallel region ``w_head`` may be this
+    rank's block of the ``vocab`` columns (default: its own width): each
+    chunk's logits are then that block only, never gathered.
     """
     b, s, d = h.shape
+    vocab = w_head.shape[-1] if vocab is None else vocab
     c = min(chunk, s)
     pad = (-s) % c
     if pad:
@@ -101,9 +132,10 @@ def chunked_softmax_xent(h: torch.Tensor, w_head: torch.Tensor,
         hx, lx = h[:, i:i + c], labels[:, i:i + c]
         if torch.is_grad_enabled():
             part, n = checkpoint(_xent_chunk, hx, w_head, lx, final_softcap,
-                                 use_reentrant=False, preserve_rng_state=False)
+                                 vocab, use_reentrant=False,
+                                 preserve_rng_state=False)
         else:
-            part, n = _xent_chunk(hx, w_head, lx, final_softcap)
+            part, n = _xent_chunk(hx, w_head, lx, final_softcap, vocab)
         tot, cnt = tot + part, cnt + n
     return tot / cnt.clamp_min(1)
 
@@ -179,19 +211,25 @@ def _lm_loss(module, cfg: Any, params: dict, batch: dict) -> torch.Tensor:
     ``embed_tokens`` default, as the reference's: attention runs K1's bf16
     forward and backward, the SSD and the RG-LRU scan in float32 inside
     (K4's and K5's float32 kernels), as the reference's do."""
-    if current_region() is not None:
+    region = current_region() is not None
+    if region and module is not transformer:
         raise NotImplementedError(
-            "the loss on a 'model' axis above 1 (the cross-entropy over a "
-            "sharded vocabulary) is tensor-parallel training, a later slice "
-            "of the port (ROADMAP, Queue 1)")
-    x = module.embed_tokens(params, cfg, batch["tokens"])
+            f"the {cfg.name} loss on a 'model' axis above 1: tensor-parallel "
+            "training runs the dense GQA transformers (ROADMAP, Queue 1)")
+    tokens = batch["tokens"]
+    x = module.embed_tokens(params, cfg, tokens)
+    s = tokens.shape[1]
     prefix = batch.get("prefix_embeds")
     if prefix is not None:
-        x = module.embed_prefix(params, prefix, x)
-    h = module.forward_hidden(params, cfg, x)
+        x = module.embed_prefix(params, prefix, x, seq=s)
+        s += prefix.shape[1]
+    # in a region: hidden in its layout, gathered whole for the head
+    h = gather_seq(module.forward_hidden(params, cfg, x, seq=s), s) if region \
+        else module.forward_hidden(params, cfg, x)
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     return chunked_softmax_xent(h, w, batch["labels"],
-                                final_softcap=getattr(cfg, "final_softcap", 0.0))
+                                final_softcap=getattr(cfg, "final_softcap", 0.0),
+                                vocab=cfg.vocab)
 
 
 def _transformer_bundle(arch: str, cfg: transformer.TransformerConfig) -> ModelBundle:

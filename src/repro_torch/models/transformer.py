@@ -35,12 +35,14 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..distributed.context import (
     all_gather_model,
+    batch_group,
     constrain,
     current_region,
     gather_seq,
@@ -362,6 +364,14 @@ def moe_route(xf: torch.Tensor, router: torch.Tensor,
     slots from a stable sort by expert.  Every shape follows from t, k and
     E, and nothing here waits on the device (no ``bincount``, no boolean
     indexing).
+
+    Where ``xf`` is this rank's rows of a batch that a group of ranks
+    splits (``distributed.context.split_batch``), the capacity is the whole
+    batch's and a choice's place in its expert's group counts the choices
+    of the ranks ahead of this one first (one all-gather of the per-expert
+    counts), as the one-device routing of the whole batch orders them;
+    ``slot`` is then the choice's column in this rank's [E, cap] buffer,
+    ``cap`` where the whole batch's routing drops it.
     """
     t, k, e = xf.shape[0], moe.top_k, moe.num_experts
     gates = torch.softmax(xf.float() @ router.float(), dim=-1)      # [t, E]
@@ -369,13 +379,25 @@ def moe_route(xf: torch.Tensor, router: torch.Tensor,
     topv, tope = topv[:, :k], tope[:, :k]
     if moe.router_scale:
         topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
-    cap = moe_capacity(t, moe)
     e_flat = tope.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
     e_sorted = e_flat[order]
     # rank inside the expert's group: position minus the group's first one
     first = torch.searchsorted(e_sorted, e_sorted)
     slot_sorted = torch.arange(t * k, device=xf.device) - first
+    group = batch_group()
+    if group is None:
+        cap = moe_capacity(t, moe)
+    else:
+        n = dist.get_world_size(group)
+        counts = torch.zeros(e, dtype=torch.long, device=xf.device).index_add_(
+            0, e_flat, torch.ones_like(e_flat))
+        every = counts.new_empty(n * e)
+        dist.all_gather_into_tensor(every, counts, group=group)
+        ahead = every.view(n, e)[:dist.get_rank(group)].sum(0)
+        cap = moe_capacity(t * n, moe)
+        slot_sorted = torch.where(slot_sorted + ahead[e_sorted] < cap,
+                                  slot_sorted, cap)
     slot = torch.empty_like(slot_sorted)
     slot[order] = slot_sorted
     # overflow lands in a dump column (cap), sliced off

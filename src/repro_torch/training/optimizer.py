@@ -56,34 +56,52 @@ def adamw_init(params: Any) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, summed leaf by leaf."""
-    total = 0
-    for x in tree_flatten(tree)[0]:
-        total = total + torch.sum(torch.square(x.float()))
+def global_norm(tree: Any, counted=None, reduce=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, summed leaf by leaf.
+
+    On a mesh each leaf is this rank's block of the global leaf: ``counted``
+    (per leaf, in ``tree_flatten``'s order) says whether this rank adds its
+    block (a block that several ranks hold counts once), and ``reduce``
+    sums the local total over the mesh (an all-reduce, in place)."""
+    leaves = tree_flatten(tree)[0]
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for x, c in zip(leaves, counted or [True] * len(leaves)):
+        if c:
+            total = total + torch.sum(torch.square(x.float()))
+    if reduce is not None:
+        total = reduce(total)
     return torch.sqrt(total)
+
+
+def _scaled(grads: Any, max_norm: float, norm: torch.Tensor) -> Any:
+    scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-12), 1.0)
+    return tree_map(lambda g: g.mul_(scale), grads)
 
 
 def clip_by_global_norm(grads: Any, max_norm: float):
     """(grads scaled in place to a global norm of at most ``max_norm``, the
     norm before)."""
     norm = global_norm(grads)
-    scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-12), 1.0)
-    return tree_map(lambda g: g.mul_(scale), grads), norm
+    return _scaled(grads, max_norm, norm), norm
 
 
-def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, state: dict):
+def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, state: dict,
+                 gnorm: torch.Tensor | None = None):
     """One AdamW step in place.  Returns ``(params, state, metrics)``: the
     trees passed in, updated, and {"grad_norm", "lr"} (0-d tensors).
+    ``gnorm`` is the gradients' global norm where the caller computed it
+    (on a mesh, over the ranks' blocks: :func:`global_norm` with
+    ``counted`` and ``reduce``); by default :func:`global_norm` of
+    ``grads``.
 
     Weight decay applies to leaves of two or more dimensions (the stacked
     norm scales [L, d] included), as in the reference.
     """
     grads = tree_map(lambda g: g.float(), grads)
-    if cfg.grad_clip:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
-    else:
+    if gnorm is None:
         gnorm = global_norm(grads)
+    if cfg.grad_clip:
+        grads = _scaled(grads, cfg.grad_clip, gnorm)
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
     b1c = 1 - cfg.b1 ** step.float()

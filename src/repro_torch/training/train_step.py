@@ -2,9 +2,9 @@
 int8 error-feedback compression -> AdamW; and the serving functions on a
 mesh.
 
-The reference's ``training/train_step.py`` on one card, or data-parallel
-over a mesh's dp axes (a "model" axis of 1 for training; tensor-parallel
-training is a later slice).  The gradients flow through the forward and backward kernels of K1
+The reference's ``training/train_step.py`` on one card or on a mesh:
+data-parallel over its dp axes, tensor-parallel on a "model" axis above 1.  The
+gradients flow through the forward and backward kernels of K1
 in every attention layer, K4 in every Mamba-2 block and K5 in every
 recurrent layer, and with compression on every gradient leaf crosses
 K2a (quantize) and K2b (dequantize) once a step: the numerics of a
@@ -15,13 +15,14 @@ residual with compression on), the reference's tree, so its checkpoints
 cross between the packages.  A step updates it in place and returns it, as
 the reference's jit donates it.
 
-On a mesh the policy of ``distributed/sharding.py`` places the batch (each
-rank takes its rows by ``batch_axes``), while params and AdamW state stay
-replicated: every rank builds them from the same seed and applies the same
-update.  The loss is a mean over counted tokens, so the ranks all-reduce
-their gradient sums and token counts: the gradient is the whole batch's, as
-the reference's GSPMD step computes it, and every rank compresses that one
-gradient and carries the same residual.
+On a mesh of more than one device the state is stored as the reference
+stores it, FSDP × TP under ``param_pspecs``: each rank holds DTensor
+blocks, gathers them into its TP blocks for the step, runs the loss on its
+dp rows (on a "model" axis above 1 Megatron-style in a tensor-parallel
+region, the dense GQA transformers), reduces the gradients back into its
+blocks as the whole batch's, which it compresses (each row's absmax
+reduced over the ranks that split the row) and updates
+(:func:`_make_mesh_train_step`).
 
 Serving (:func:`make_serve_fns`) also runs on a "model" axis above 1, for
 the dense GQA transformers: each rank holds its blocks of the weights
@@ -34,6 +35,7 @@ model Megatron-style on them in a tensor-parallel region
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from dataclasses import dataclass
@@ -42,7 +44,8 @@ from typing import Any
 import torch
 
 from ..device import resolve_device
-from ..distributed.context import TPRegion, tensor_parallel
+from ..distributed.context import TPRegion, split_batch, tensor_parallel
+from ..distributed.fsdp import axis_group, layouts
 from ..distributed.sharding import (
     batch_axes,
     block_keeper,
@@ -57,7 +60,7 @@ from ..distributed.sharding import (
 )
 from ..kernels import ops as kops
 from ..models.common import tree_flatten, tree_map, tree_unflatten
-from .optimizer import AdamWConfig, adamw_init, adamw_update
+from .optimizer import AdamWConfig, adamw_init, adamw_update, global_norm
 
 __all__ = ["TrainStepConfig", "compress_grads_int8", "init_serving_params",
            "make_serve_fns", "make_train_step", "serving_pspecs"]
@@ -69,22 +72,37 @@ class TrainStepConfig:
     grad_compression: bool = False    # int8 error-feedback on gradients
 
 
-def compress_grads_int8(grads: Any, residual: Any):
+def compress_grads_int8(grads: Any, residual: Any, row_groups=None):
     """Error-feedback int8 compression: returns (decompressed, residual).
 
     Per leaf, g + r (float32) is quantized per row by K2a and dequantized by
     K2b (rows as the reference makes them: ``reshape(-1, last)``, a 1-D leaf
     one row); the float32 residual g + r - deq is written into ``residual``
     in place, and the decompressed gradient comes back in g's dtype.
+
+    On a mesh a leaf may be a rank's block of the global leaf, whose rows
+    other ranks hold pieces of: ``row_groups`` gives per leaf (in
+    ``tree_flatten``'s order) the process group of those ranks, or None.
+    Such a block's row absmax (K2a's absmax pass) is reduced (MAX) over the
+    group before K2a quantizes the block with it, so the codes and scales
+    are the global leaf's, bit for bit.
     """
+    import torch.distributed as dist
+
     flat_g, structure = tree_flatten(grads)
     flat_r = tree_flatten(residual)[0]
+    groups = row_groups or [None] * len(flat_g)
     out = []
-    for g, r in zip(flat_g, flat_r):
+    for g, r, group in zip(flat_g, flat_r, groups):
         g32 = g.float() + r
         flat = g32.reshape(-1, g32.shape[-1]) if g32.ndim >= 2 \
             else g32.reshape(1, -1)
-        q, scale = kops.quantize_int8(flat)
+        if group is None:
+            q, scale = kops.quantize_int8(flat)
+        else:
+            amax = kops.row_absmax(flat)
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+            q, scale = kops.quantize_int8(flat, absmax=amax)
         deq = kops.dequantize_int8(q, scale, torch.float32).reshape(g32.shape)
         torch.sub(g32, deq, out=r)
         out.append(deq.to(g.dtype))
@@ -93,19 +111,13 @@ def compress_grads_int8(grads: Any, residual: Any):
 
 class _MeshPlace:
     """This rank's place on a mesh: its coordinates, the process group of
-    the dp axes (all of the mesh's ranks; training takes a "model" axis of
-    1 only) and, for serving, that of the "model" axis."""
+    all of the mesh's ranks and that of the "model" axis."""
 
-    def __init__(self, mesh, serving: bool = False):
+    def __init__(self, mesh):
         import torch.distributed as dist
 
         self.sizes = mesh_shape(mesh)
         self.tp = int(self.sizes.get("model", 1))
-        if self.tp > 1 and not serving:
-            raise NotImplementedError(
-                f"mesh {self.sizes}: tensor-parallel training (a 'model' "
-                "axis above 1) is a later slice of the port (ROADMAP, "
-                "Queue 1); use model=1")
         self.mesh = mesh
         self.coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
         self.n = mesh.size()
@@ -145,25 +157,6 @@ def _with_specs(fn, tree: Any, specs: Any) -> Any:
     return fn(tree, specs)
 
 
-def _whole_batch_mean(loss: torch.Tensor, grads: list, labels: torch.Tensor,
-                      group) -> tuple[torch.Tensor, list]:
-    """The whole batch's mean loss and gradients from each rank's mean over
-    its own counted tokens (labels >= 0, as the loss counts them): one
-    all-reduce of the count-weighted sums and the counts."""
-    import torch.distributed as dist
-
-    n = (labels >= 0).sum(dtype=torch.float32)
-    flat = torch.cat([g.reshape(-1).float() * n for g in grads]
-                     + [(loss.detach().float() * n).reshape(1), n.reshape(1)])
-    dist.all_reduce(flat, group=group)
-    total = flat[-1].clamp_min(1)
-    out, at = [], 0
-    for g in grads:
-        out.append((flat[at:at + g.numel()] / total).view_as(g).to(g.dtype))
-        at += g.numel()
-    return flat[-2] / total, out
-
-
 def make_train_step(bundle, cfg: TrainStepConfig = TrainStepConfig(),
                     device: str | torch.device = "cuda", mesh=None):
     """``(step_fn, init_state)``: ``step_fn(state, batch) -> (state,
@@ -176,34 +169,27 @@ def make_train_step(bundle, cfg: TrainStepConfig = TrainStepConfig(),
     "prefix_embeds" for a modality prefix); they are moved to ``device``.
 
     ``mesh`` (a named ``DeviceMesh``, from ``launch/mesh.py``): every rank
-    passes the whole batch and steps on its dp rows, the gradients summed
-    over the dp axes (module docstring).  A mesh of one device runs the
-    one-card step itself; a "model" axis above 1 raises
-    ``NotImplementedError``.
+    passes the whole batch and steps on its dp rows, the state stored FSDP
+    × TP (:func:`_make_mesh_train_step`).  A mesh of one device runs the
+    one-card step itself.  On a "model" axis above 1 the step is
+    tensor-parallel for the dense GQA transformers; the other families
+    raise ``NotImplementedError`` there.
     """
     if bundle.loss is None:
         raise ValueError(f"{bundle.arch} ({bundle.family}) has no training loss")
     dev = resolve_device(device)
-    place = _MeshPlace(mesh) if mesh is not None else None
-    if place is not None and place.n == 1:
-        place = None                    # one device: the one-card step
+    if mesh is not None and mesh.size() > 1:
+        return _make_mesh_train_step(bundle, cfg, dev, _MeshPlace(mesh))
 
     def step_fn(state: dict, batch: dict):
         leaves, structure = tree_flatten(state["params"])
         ws = [p.detach().requires_grad_(True) for p in leaves]
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        rows = batch_axes(batch["labels"].shape[0], place.sizes) \
-            if place is not None else None
-        if rows is not None:
-            batch = {k: place.local(v, (rows,)) for k, v in batch.items()}
         loss = bundle.loss(tree_unflatten(structure, ws), batch)
         # a leaf the loss does not read (prefix_proj without a prefix) gets zeros
         flat = list(torch.autograd.grad(loss, ws, allow_unused=True,
                                         materialize_grads=True))
         del ws
-        if rows is not None:
-            loss, flat = _whole_batch_mean(loss, flat, batch["labels"],
-                                           place.group)
         grads = tree_unflatten(structure, flat)
         if cfg.grad_compression:
             grads, state["residual"] = compress_grads_int8(grads,
@@ -226,6 +212,138 @@ def make_train_step(bundle, cfg: TrainStepConfig = TrainStepConfig(),
     return step_fn, init_state
 
 
+def _make_mesh_train_step(bundle, cfg: TrainStepConfig, dev: torch.device,
+                          place: _MeshPlace):
+    """:func:`make_train_step` on a mesh of more than one device.
+
+    The state's ``params``, ``mu``, ``nu`` and ``residual`` are DTensors
+    under ``param_pspecs`` of the float32 params (FSDP × TP, the
+    reference's ``state_specs``); the step counter is replicated.  A step:
+
+    1. each leaf's FSDP block is gathered into the rank's TP block
+       (``LeafLayout.tp_block``: an all-gather over the dp axes that shard
+       it, none where they are 1);
+    2. ``bundle.loss`` runs on the rank's dp rows and TP blocks, on a
+       "model" axis above 1 in its tensor-parallel region
+       (``distributed/context.py``), whose collectives carry the gradients
+       back; the loss is seeded ``n / (N tp)``: the rank's share of the
+       whole batch's mean (n its counted tokens, N the batch's, the tp
+       ranks of "model" holding the same rows);
+    3. ``LeafLayout.reduce`` sums each gradient over the ranks into the
+       FSDP block (over "model" for a leaf it replicates, then
+       reduce-scattered over the dp axes that shard it and all-reduced over
+       the others), so every block holds the whole batch's gradient, as the
+       reference's GSPMD step computes it;
+    4. int8 compression on the blocks (``compress_grads_int8`` with the
+       groups that split each leaf's rows), the global norm from local
+       sums of squares all-reduced over the mesh (a block that several
+       ranks hold counted once), and AdamW in place on the blocks.
+
+    ``step_fn.loss_and_grads(state, batch)`` runs steps 1-3 alone (the
+    whole batch's loss and this rank's gradient blocks, in
+    ``tree_flatten``'s order) and ``step_fn.param_specs`` is the state's
+    spec tree.
+    """
+    import torch.distributed as dist
+
+    if place.tp > 1:
+        _check_tp(bundle, "training")
+    sizes = place.sizes
+    shapes = bundle.param_specs(torch.float32)
+    specs = param_pspecs(shapes, sizes)
+    lays = layouts(shapes, specs, place.mesh)
+    dp = tuple(a for a in dp_axes(sizes) if sizes[a] > 1)
+    dp_group = axis_group(place.mesh, dp) if dp else None
+    row_groups = [lay.row_group() for lay in lays] if cfg.grad_compression \
+        else None
+    counted = [lay.counted for lay in lays]
+
+    def norm_reduce(total: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(total, group=place.group)
+        return total
+
+    def loss_and_grads(state: dict, batch: dict):
+        leaves, structure = tree_flatten(state["params"])
+        ws = [lay.tp_block(t.to_local()).detach().requires_grad_(True)
+              for lay, t in zip(lays, leaves)]
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        b = batch["labels"].shape[0]
+        rows = batch_axes(b, sizes)
+        if rows is not None:
+            batch = {k: place.local(v, (rows,)) for k, v in batch.items()}
+        n = (batch["labels"] >= 0).sum(dtype=torch.float32)
+        total = n.clone()
+        if dp_group is not None:
+            dist.all_reduce(total, group=dp_group)
+        total = total.clamp_min(1)
+        region = place.region(b) if place.tp > 1 else None
+        with tensor_parallel(region), \
+                split_batch(dp_group if rows is not None else None):
+            loss = bundle.loss(tree_unflatten(structure, ws), batch)
+            # a leaf the loss does not read (prefix_proj without a prefix)
+            # gets zeros
+            flat = list(torch.autograd.grad(
+                loss, ws, grad_outputs=n / (total * place.tp),
+                allow_unused=True, materialize_grads=True))
+        del ws
+        mean = loss.detach().float() * n
+        if dp_group is not None:
+            dist.all_reduce(mean, group=dp_group)
+        for i, lay in enumerate(lays):
+            flat[i] = lay.reduce(flat[i])
+        return mean / total, flat
+
+    def step_fn(state: dict, batch: dict):
+        loss, flat = loss_and_grads(state, batch)
+        leaves, structure = tree_flatten(state["params"])
+        grads = tree_unflatten(structure, flat)
+        del flat
+        if cfg.grad_compression:
+            grads, _ = compress_grads_int8(
+                grads, tree_map(lambda t: t.to_local(), state["residual"]),
+                row_groups)
+        opt = {"mu": tree_map(lambda t: t.to_local(), state["opt"]["mu"]),
+               "nu": tree_map(lambda t: t.to_local(), state["opt"]["nu"]),
+               "step": state["opt"]["step"]}
+        _, opt, metrics = adamw_update(
+            cfg.opt, tree_unflatten(structure, [t.to_local() for t in leaves]),
+            grads, opt, global_norm(grads, counted, norm_reduce))
+        state["opt"]["step"] = opt["step"]
+        return state, dict(metrics, loss=loss)
+
+    def init_state(seed: int = 0, params: Any = None) -> dict:
+        """The state's blocks: ``params`` given whole (each rank keeps its
+        blocks), else drawn from ``seed`` in float32, the transformers'
+        block by block (``block_keeper``); each rank's blocks bit for bit
+        ``local_slices`` of the one-device init."""
+        if params is None and bundle.family == "transformer":
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            params = bundle.init(gen, dev, torch.float32,
+                                 keep=block_keeper(specs, sizes, place.coord))
+        else:
+            if params is None:
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                params = bundle.init(gen, dev, torch.float32)
+            params = _with_specs(lambda t, sp: place.local(t.to(dev), sp),
+                                 params, specs)
+
+        def zeros():
+            return wrap(tree_map(lambda x: torch.zeros(
+                x.shape, dtype=torch.float32, device=x.device), params))
+
+        wrap = functools.partial(_with_specs, place.wrap, specs=specs)
+        state = {"params": wrap(params), "opt": {
+            "mu": zeros(), "nu": zeros(),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}}
+        if cfg.grad_compression:
+            state["residual"] = zeros()
+        return state
+
+    step_fn.param_specs = specs
+    step_fn.loss_and_grads = loss_and_grads
+    return step_fn, init_state
+
+
 def _tp_blocks(place: _MeshPlace, params: Any, tp_specs: Any) -> Any:
     """This rank's blocks of the params under the TP-only specs: a DTensor
     leaf in those placements is its local block; one whose placements add
@@ -244,9 +362,9 @@ def _tp_blocks(place: _MeshPlace, params: Any, tp_specs: Any) -> Any:
     return _with_specs(leaf, params, tp_specs)
 
 
-def _check_tp(bundle) -> None:
-    """Tensor-parallel serving runs the dense GQA transformers; the other
-    families keep raising on a "model" axis above 1."""
+def _check_tp(bundle, use: str = "serving") -> None:
+    """Tensor-parallel serving and training run the dense GQA transformers;
+    the other families keep raising on a "model" axis above 1."""
     cfg = bundle.cfg
     what = None
     if bundle.family != "transformer":
@@ -254,12 +372,13 @@ def _check_tp(bundle) -> None:
     elif cfg.moe is not None:
         what = "MoE experts"
     elif cfg.mla is not None:
-        what = "MLA's latent cache"
+        what = "MLA's latent cache" if use == "serving" else "MLA"
     if what is not None:
         raise NotImplementedError(
-            f"{bundle.arch}: tensor-parallel serving (a 'model' axis above 1) "
+            f"{bundle.arch}: tensor-parallel {use} (a 'model' axis above 1) "
             f"runs the dense GQA transformers; {what} under tensor parallelism "
-            "is a later slice of the port (ROADMAP, Queue 1)")
+            "is a later slice of the port (ROADMAP, Queue 1: the other "
+            "families under TP)")
 
 
 def serving_pspecs(bundle, mesh) -> Any:
@@ -281,7 +400,7 @@ def init_serving_params(bundle, mesh, generator: torch.Generator,
     same generator state.  Every rank draws every tensor, so a rank's
     device must hold the largest one whole (in float32) beside its blocks.
     """
-    place = _MeshPlace(mesh, serving=True)
+    place = _MeshPlace(mesh)
     specs = serving_pspecs(bundle, place.sizes)
     dev = resolve_device(device)
     if bundle.family != "transformer":
@@ -301,8 +420,9 @@ def make_serve_fns(bundle, mesh, shape, device: str | torch.device = "cuda"):
     where the port's decode does.  Inputs are global (every rank passes the
     whole batch; a cache may also be the DTensors a prefill returned); each
     rank runs its rows, split over dp by ``batch_axes(shape.global_batch)``
-    and the caches by ``cache_pspecs``; logits and caches come back as
-    DTensors on ``mesh``.
+    (MoE routing takes them as the whole batch's: ``split_batch``), and the
+    caches by ``cache_pspecs``; logits and caches come back as DTensors on
+    ``mesh``.
 
     ``fn.param_specs`` is the params' placement, :func:`serving_pspecs`
     (TP only unless ``REPRO_SERVE_FSDP`` is set).  Params may be DTensors
@@ -319,7 +439,7 @@ def make_serve_fns(bundle, mesh, shape, device: str | torch.device = "cuda"):
     ``NotImplementedError`` there.
     """
     dev = resolve_device(device)
-    place = _MeshPlace(mesh, serving=True)
+    place = _MeshPlace(mesh)
     sizes = place.sizes
     if place.tp > 1:
         _check_tp(bundle)
@@ -331,6 +451,8 @@ def make_serve_fns(bundle, mesh, shape, device: str | torch.device = "cuda"):
     logits_spec = (dpb, "model" if bundle.cfg.vocab % sizes["model"] == 0
                    else None)
     region = place.region(shape.global_batch)
+    dp = tuple(a for a in dp_axes(sizes) if sizes[a] > 1)
+    rows = axis_group(place.mesh, dp) if dpb is not None and dp else None
 
     def on_rank(x, spec):
         return place.local(torch.as_tensor(x, device=dev), spec)
@@ -342,7 +464,7 @@ def make_serve_fns(bundle, mesh, shape, device: str | torch.device = "cuda"):
                                     sizes, family=bundle.family)
             local = {k: on_rank(v, in_sh[k]) for k, v in batch.items()}
             blocks = _tp_blocks(place, params, tp_specs)
-            with tensor_parallel(region):
+            with tensor_parallel(region), split_batch(rows):
                 logits, cache = bundle.prefill(blocks, local, n)
             return (place.wrap(logits, logits_spec),
                     _with_specs(place.wrap, cache, cache_sh))
@@ -358,7 +480,7 @@ def make_serve_fns(bundle, mesh, shape, device: str | torch.device = "cuda"):
         local = _with_specs(lambda t, sp: t.to_local() if isinstance(t, DTensor)
                             else on_rank(t, sp), cache, cache_sh)
         blocks = _tp_blocks(place, params, tp_specs)
-        with tensor_parallel(region):
+        with tensor_parallel(region), split_batch(rows):
             logits, local = bundle.decode(blocks, local,
                                           on_rank(tokens, (dpb,)), int(pos))
         return (place.wrap(logits, logits_spec),

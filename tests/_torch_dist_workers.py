@@ -110,12 +110,39 @@ def placements_case(rank, world, tmp, specs, shape, act_cases):
             "blocks": blocks, "acts": acts, "plain_unchanged": same}
 
 
+def _state_out(state) -> dict:
+    """A mesh train step's state tensors (params, AdamW's moments, the
+    residual), gathered whole and as this rank's blocks."""
+    from repro_torch.distributed.fsdp import full_tensor
+    from repro_torch.models.common import tree_map
+
+    tensors = {"params": state["params"], "mu": state["opt"]["mu"],
+               "nu": state["opt"]["nu"], "residual": state["residual"]}
+    return {"whole": tree_map(full_tensor, tensors),
+            "local": tree_map(lambda t: t.to_local().clone(), tensors)}
+
+
+def whole_grads(step_fn, state, batch, mesh):
+    """(loss, the gradient leaves gathered whole) of a mesh train step's
+    ``loss_and_grads``: the step's gradients before compression."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.fsdp import full_tensor, spec_leaves
+    from repro_torch.distributed.sharding import placements
+
+    loss, flat = step_fn.loss_and_grads(state, batch)
+    return loss, [full_tensor(DTensor.from_local(g, mesh, placements(sp, mesh),
+                                                 run_check=False))
+                  for g, sp in zip(flat, spec_leaves(step_fn.param_specs))]
+
+
 def mesh_step_case(rank, world, tmp, cfg_kw, batches, serve):
-    """The data-parallel train step on a data ``world`` x model 1 mesh, the
-    serving functions on it; on a model axis of ``world`` the train step
-    and the serving functions of the MoE, MLA, Mamba-2 and Griffin families
-    refused, and the dense serving functions run (in float32 serving,
-    beside the one-process calls made here)."""
+    """The data-parallel train step on a data ``world`` x model 1 mesh (its
+    state gathered whole and as this rank's blocks), the serving functions
+    on it; on a model axis of ``world`` the train steps and the serving
+    functions of the MoE, MLA, Mamba-2 and Griffin families refused, and
+    the dense serving functions run (in float32 serving, beside the
+    one-process calls made here)."""
     from repro_torch.configs import get_bundle
     from repro_torch.launch.mesh import make_small_mesh
     from repro_torch.models.api import ShapeSpec
@@ -134,7 +161,8 @@ def mesh_step_case(rank, world, tmp, cfg_kw, batches, serve):
         state, m = step_fn(state, batch)
         out["loss"].append(float(m["loss"]))
         out["grad_norm"].append(float(m["grad_norm"]))
-    out["params"], out["residual"] = state["params"], state["residual"]
+    out.update(_state_out(state))
+    out["coord"] = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
 
     serve_params = torch.load(tmp / "serve_params.pt")
     toks, cache, next_toks = serve["tokens"], serve["cache"], serve["next"]
@@ -154,11 +182,14 @@ def mesh_step_case(rank, world, tmp, cfg_kw, batches, serve):
 
     tp = make_small_mesh(1, world, device_type="cpu")
     refused = []
-    makers = [lambda: make_train_step(bundle, TrainStepConfig(), "cpu", mesh=tp)]
+    others = ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "mamba2-1.3b",
+              "recurrentgemma-9b")
+    makers = [lambda a=a: make_train_step(get_bundle(a, reduced=True),
+                                          TrainStepConfig(), "cpu", mesh=tp)
+              for a in others]
     makers += [lambda a=a: make_serve_fns(get_bundle(a, reduced=True), tp,
                                           ShapeSpec("p", s, b, "prefill"), "cpu")
-               for a in ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b",
-                         "mamba2-1.3b", "recurrentgemma-9b")]
+               for a in others]
     for make in makers:
         try:
             make()
@@ -179,6 +210,73 @@ def mesh_step_case(rank, world, tmp, cfg_kw, batches, serve):
     out["tp_serve"] = [(logits.full_tensor(), want), (dl.full_tensor(), want_d),
                        (tcache["blocks"]["k"].full_tensor(), wcache["blocks"]["k"])]
     return out
+
+
+def dp_family_case(rank, world, tmp, cfg_kw, cases, serve):
+    """Per (arch, batches) of ``cases``: the data-parallel train step on a
+    data ``world`` x model 1 mesh with int8 gradients from the params saved
+    as ``<arch>.pt`` (float32 activations): its losses, grad norms and
+    state (:func:`_state_out`); the params ``init_state(seed=7)`` draws,
+    gathered whole; and on those saved params ``make_serve_fns``' prefill
+    of ``serve``'s tokens and one decode step of its next tokens, their
+    logits gathered whole."""
+    from repro_torch.configs import get_bundle
+    from repro_torch.distributed.fsdp import full_tensor
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.models.api import ShapeSpec
+    from repro_torch.models.common import tree_map
+    from repro_torch.training import (AdamWConfig, TrainStepConfig,
+                                      make_serve_fns, make_train_step)
+
+    f32_activations()
+    mesh = make_small_mesh(world, 1, device_type="cpu")
+    results = []
+    for arch, batches in cases:
+        bundle = get_bundle(arch, reduced=True)
+        step_fn, init_state = make_train_step(bundle, TrainStepConfig(
+            opt=AdamWConfig(**cfg_kw), grad_compression=True), "cpu", mesh=mesh)
+        state = init_state(params=torch.load(tmp / f"{arch}.pt"))
+        out = {"loss": [], "grad_norm": []}
+        for batch in batches:
+            state, m = step_fn(state, batch)
+            out["loss"].append(float(m["loss"]))
+            out["grad_norm"].append(float(m["grad_norm"]))
+        out.update(_state_out(state))
+        out["seed_init"] = tree_map(full_tensor, init_state(seed=7)["params"])
+        toks, nxt = serve
+        b, s = toks.shape
+        params = torch.load(tmp / f"{arch}.pt")
+        fn, _ = make_serve_fns(bundle, mesh, ShapeSpec("p", s, b, "prefill"), "cpu")
+        logits, cache = fn(params, {"tokens": toks}, max_len=s + 1)
+        dfn, _ = make_serve_fns(bundle, mesh, ShapeSpec("d", s + 1, b, "decode"), "cpu")
+        dl, _ = dfn(params, cache, nxt, s)
+        out["serve"] = [logits.full_tensor(), dl.full_tensor()]
+        results.append(out)
+    return {"coord": dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())),
+            "cases": results}
+
+
+def check_local_slices(ranks: list, specs, sizes: dict) -> None:
+    """Each rank's blocks (``out["local"]``) of params, moments and
+    residual are its ``local_slices`` under ``specs`` of the whole state it
+    gathered (``out["whole"]``), and every rank gathered the same whole;
+    ``ranks`` holds (coordinate, out) pairs."""
+    from repro_torch.distributed.fsdp import spec_leaves
+    from repro_torch.distributed.sharding import local_slices
+    from repro_torch.models.common import tree_flatten
+
+    leaves = spec_leaves(specs)
+    first = ranks[0][1]["whole"]
+    for coord, out in ranks:
+        for key, tree in out["local"].items():
+            wholes = tree_flatten(out["whole"][key])[0]
+            blocks = tree_flatten(tree)[0]
+            assert len(blocks) == len(wholes) == len(leaves), key
+            for i, (block, whole, same, spec) in enumerate(zip(
+                    blocks, wholes, tree_flatten(first[key])[0], leaves)):
+                assert torch.equal(whole, same), (key, i)
+                assert torch.equal(block, whole[local_slices(
+                    tuple(whole.shape), spec, sizes, coord)]), (key, i, spec)
 
 
 def unit_scores(params, cfg):
@@ -272,7 +370,7 @@ def _tp_forward(mesh, case, params, seen):
     from repro_torch.models.common import tree_map
     from repro_torch.training.train_step import _MeshPlace
 
-    place = _MeshPlace(mesh, serving=True)
+    place = _MeshPlace(mesh)
     cfg, batch = case["cfg"], case["batch"]
     b, s_text = batch["tokens"].shape
     region = place.region(b)
@@ -291,3 +389,86 @@ def _tp_forward(mesh, case, params, seen):
         h = gather_seq(h, s)
     return {"hidden": h, "hidden_rows": (r0, r0 + rows),
             "forward_spy": [tuple(x) for x in seen]}
+
+
+# --------------------------------------------------------------------------- #
+# tensor-parallel training
+# --------------------------------------------------------------------------- #
+TRAIN_OPT = dict(lr=1e-4, warmup_steps=2, total_steps=20)
+
+
+def tp_train_case(rank, world, tmp, data, model, cases):
+    """``make_train_step`` on a data ``data`` x model ``model`` mesh with
+    int8 gradients, float32 activations (``f32_activations``), per case:
+    the step-0 loss and gradients gathered whole (:func:`whole_grads`),
+    three steps' losses and grad norms, and after them the state gathered
+    whole and this rank's blocks of it; on the last mesh case also a
+    checkpoint of the state (``ckpt``, the whole tree, rank 0 writing)."""
+    from repro_torch.checkpoint import save
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.models.api import bundle_for
+    from repro_torch.training import AdamWConfig, TrainStepConfig, make_train_step
+
+    f32_activations()
+    mesh = make_small_mesh(data, model, device_type="cpu")
+    results = []
+    for case in cases:
+        bundle = bundle_for(case["arch"], case["cfg"])
+        step_fn, init_state = make_train_step(bundle, TrainStepConfig(
+            opt=AdamWConfig(**TRAIN_OPT), grad_compression=True), "cpu", mesh=mesh)
+        state = init_state(params=torch.load(tmp / case["whole"]))
+        loss, grads = whole_grads(step_fn, state, case["batches"][0], mesh)
+        out = {"loss0": float(loss), "grads": grads, "loss": [], "grad_norm": []}
+        for batch in case["batches"]:
+            state, m = step_fn(state, batch)
+            out["loss"].append(float(m["loss"]))
+            out["grad_norm"].append(float(m["grad_norm"]))
+        out.update(_state_out(state))
+        if case.get("ckpt"):
+            save(tmp / "ckpt", 3, state)
+        results.append(out)
+    return {"coord": dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())),
+            "cases": results}
+
+
+def compress_case(rank, world, tmp, leaves):
+    """On a data 2 x model 2 mesh: per (global g, residual r, spec) of
+    ``leaves``, this rank's blocks through ``compress_grads_int8`` with the
+    group that splits the rows (``LeafLayout.row_group``), and through
+    ``row_absmax`` + MAX + ``quantize_int8(absmax=)`` directly."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.fsdp import LeafLayout
+    from repro_torch.distributed.sharding import local_slices, mesh_shape
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.training import compress_grads_int8
+
+    mesh = make_small_mesh(2, 2, device_type="cpu")
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    out = []
+    for g, r, spec in leaves:
+        sl = local_slices(tuple(g.shape), spec, mesh_shape(mesh), coord)
+        lay = LeafLayout(tuple(g.shape), spec, mesh)
+        group = lay.row_group()
+        gl, rl = g[sl].clone(), r[sl].clone()
+        deq, res = compress_grads_int8([gl], [rl.clone()], [group])
+        flat = (gl + rl).reshape(-1, gl.shape[-1])
+        amax = ops.row_absmax(flat)
+        if group is not None:
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        q, scale = ops.quantize_int8(flat, absmax=amax)
+        out.append({"slices": sl, "deq": deq[0], "residual": res[0], "q": q,
+                    "scale": scale, "split": group is not None})
+    return out
+
+
+def train_launch_case(rank, world, tmp, argv):
+    """``launch/train.main(argv)`` on this process group; its result, or
+    the code it exited with."""
+    from repro_torch.launch import train
+
+    try:
+        return {"result": train.main(argv)}
+    except SystemExit as e:
+        return {"exit": e.code}

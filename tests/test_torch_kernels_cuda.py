@@ -1179,6 +1179,57 @@ def test_flash_bf16_bwd_kernel_matches_plain(b, s, h, kv, hd, hd_v, causal,
         assert torch.equal(g, a)                       # no float atomics
 
 
+# the tensor-parallel training ranks' shapes: Llama-3-8B at B=2, S=512 with
+# its 32 query and 8 kv heads split over model 4 (8 / 2 a rank) and model 2
+# (16 / 4)
+BWD_TP_RANKS = [
+    (2, 512, 8, 2, 128, 128, True, 0, 0.0, None),
+    (2, 512, 16, 4, 128, 128, True, 0, 0.0, None),
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,hd_v,causal,window,cap,scale", BWD_TP_RANKS,
+                         ids=["model-4-rank", "model-2-rank"])
+def test_flash_bf16_bwd_kernel_at_tensor_parallel_rank_shapes(
+        b, s, h, kv, hd, hd_v, causal, window, cap, scale):
+    """K1's bf16 backward on one rank's heads of the tensor-parallel train
+    step, against its plain version as above."""
+    test_flash_bf16_bwd_kernel_matches_plain(b, s, h, kv, hd, hd_v, causal,
+                                             window, cap, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,d,pieces", [(33, 3584, 4), (512, 4096, 2),
+                                        (7, 32064, 4), (5, 100, 2)])
+def test_int8_absmax_and_given_absmax_modes_match_plain(n, d, pieces, dtype):
+    """K2a's absmax mode (``row_absmax``) equals the plain row absmax; its
+    given-absmax mode equals the plain quantizer given the same absmax
+    (here up to 3x the row's own, as another rank's piece may hold), and a
+    row cut in pieces, each quantized with the pieces' reduced absmax,
+    gives the whole row's codes and scales bit for bit (the fast instance,
+    the general one past 8,192 float32 or at a ragged width)."""
+    x = _int8_rows(n, d, dtype, n + d + pieces)
+    before = (k2.row_absmax.launches, k2.quantize_int8.launches,
+              k2.quantize_int8.given_launches)
+    amax = k2.row_absmax(x)
+    torch.cuda.synchronize()
+    assert torch.equal(amax, k2.row_absmax_plain(x))
+    bigger = amax * torch.linspace(1.0, 3.0, n, device="cuda")[:, None]
+    q, s = k2.quantize_int8(x, absmax=bigger)
+    pq, ps = k2.quantize_int8_plain(x, bigger)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    whole_q, whole_s = k2.quantize_int8(x)
+    cut = [x[:, i * d // pieces:(i + 1) * d // pieces].contiguous()
+           for i in range(pieces)]
+    reduced = torch.stack([k2.row_absmax(c) for c in cut]).amax(0)
+    parts = [k2.quantize_int8(c, absmax=reduced) for c in cut]
+    assert torch.equal(torch.cat([p[0] for p in parts], 1), whole_q)
+    assert all(torch.equal(p[1], whole_s) for p in parts)
+    assert (k2.row_absmax.launches, k2.quantize_int8.launches,
+            k2.quantize_int8.given_launches) == \
+        (before[0] + 1 + pieces, before[1] + 2 + pieces, before[2] + 1 + pieces)
+
+
 @pytest.mark.parametrize("case,min_items,heads", [
     ((2, 512, 16, 1, 256, 256, True, 2048, 0.0, None), 64, 4),   # MQA: 4 groups
     ((2, 512, 16, 1, 256, 256, True, 2048, 0.0, None), 1, 16),   # one group

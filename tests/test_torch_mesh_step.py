@@ -8,16 +8,27 @@ one-process step on the whole batch and the one-process ``bundle.prefill``
 / ``bundle.decode``: float32 activations on both sides, loss and logits
 within 1e-5; the params within 1e-5 but where an int8 code rounds the
 other way at a tie (the rule of tests/test_torch_training.py's three
-steps: at most one element in 10^4 over 1e-5, none over 3 lr).  Both ranks
-hold the same params and int8 residual bit for bit (every rank compresses
-the one all-reduced gradient).  The residual is not held against the
-one-process run element by element: where a row's gradient is 0 (a token
-absent from the batch) the row quantizes its own residual, whose codes sit
-at rounding ties, so a last-bit difference moves an element by a whole
-quantization step; the params, which the compressed gradient moves, are
-held.  On a model axis of 2 the train step and the serving functions of
-the MoE, MLA, Mamba-2 and Griffin families raise ``NotImplementedError``,
-and the dense serving functions run and equal the one-process calls
+steps: at most one element in 10^4 over 1e-5, none over 3 lr).  The state
+is stored as the reference stores it, FSDP under ``param_pspecs``: each
+rank's blocks of params, AdamW's moments and the residual are its
+``local_slices`` of the state the ranks gather, the same whole on both.
+The residual is not held against the one-process run element by element:
+where a row's gradient is 0 (a token absent from the batch) the row
+quantizes its own residual, whose codes sit at rounding ties, so a
+last-bit difference moves an element by a whole quantization step; the
+params, which the compressed gradient moves, are held.  The same step
+trains the MoE, MLA, Mamba-2 and Griffin families (reduced qwen3-moe,
+deepseek-v2-lite, mamba2-1.3b, recurrentgemma-9b) by the same rules, its
+``init_state(seed=7)`` draws the one-process params bit for bit, and
+their ``make_serve_fns`` prefill and a decode step on the data axis equal
+``bundle.prefill`` / ``bundle.decode`` within 1e-5 of the logit scale
+(MoE routing takes a rank's rows as the whole batch's: per-rank capacity
+and slots moved qwen3-moe's and deepseek-v2-lite's losses by up to 1.5e-3
+and 2.6e-3).  On a
+model axis of 2 the train steps and the serving functions of
+the MoE, MLA, Mamba-2 and Griffin families raise ``NotImplementedError``
+(the dense train step runs there: tests/test_torch_tp_train.py), and the
+dense serving functions run and equal the one-process calls
 (float32 serving in the workers, 1e-5 of the logit scale; the full
 tensor-parallel checks are tests/test_torch_tp_serve.py's).  In one
 process a 1 × 1 mesh runs the mesh-less step and serving calls, bit for
@@ -34,6 +45,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_bundle
 from repro_torch.data import DataConfig, SyntheticTokens
+from repro_torch.distributed import param_pspecs
 from repro_torch.launch.mesh import make_production_mesh, make_small_mesh
 from repro_torch.models import griffin, mamba2, transformer
 from repro_torch.models.api import ShapeSpec
@@ -129,23 +141,88 @@ def test_data_parallel_step_and_serve_fns_on_two_processes(tmp_path):
     for out in ranks:
         np.testing.assert_allclose(out["loss"], losses, atol=TOL, rtol=TOL)
         np.testing.assert_allclose(out["grad_norm"], gnorms, rtol=TOL)
-        _hold_params(out["params"], state["params"], OPT["lr"])
+        _hold_params(out["whole"]["params"], state["params"], OPT["lr"])
         _close(out["prefill"], logits)
         for k in ("k", "v"):
             _close(out["prefill_cache"][k], pcache["blocks"][k])
             _close(out["decode_cache"][k], cache["blocks"][k])
         for a, b in zip(out["decode"], dec):
             _close(a, b)
-        assert out["tp_refused"] == [True] * 5
+        assert out["tp_refused"] == [True] * 8
         for got, want in out["tp_serve"]:
             scale = float(want.abs().max())
             np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                        atol=TOL * scale)
     a, b = ranks
     assert a["loss"] == b["loss"]
-    for name in ("params", "residual"):
-        for x, y in zip(tree_flatten(a[name])[0], tree_flatten(b[name])[0]):
-            assert torch.equal(x, y), name
+    sizes = {"data": 2, "model": 1}
+    workers.check_local_slices([(r["coord"], r) for r in ranks],
+                               param_pspecs(bundle.param_specs(torch.float32), sizes),
+                               sizes)
+
+
+DP_FAMILIES = ["qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "mamba2-1.3b",
+               "recurrentgemma-9b"]
+
+
+@pytest.fixture(scope="module")
+def dp_families(tmp_path_factory):
+    """The ranks' and the one-process port's runs of each of DP_FAMILIES
+    (float32 activations, restored after)."""
+    tmp = tmp_path_factory.mktemp("dp_families")
+    cases, want = [], {}
+    rng = np.random.default_rng(12)
+    toks = torch.as_tensor(rng.integers(0, 256, (4, 12), dtype=np.int32))
+    nxt = torch.as_tensor(rng.integers(0, 256, (4,), dtype=np.int32))
+    for arch in DP_FAMILIES:
+        bundle = get_bundle(arch, reduced=True)
+        assert bundle.cfg.vocab >= 256
+        torch.save(_params(bundle, seed=2), tmp / f"{arch}.pt")
+        cases.append((arch, _batches(bundle.cfg.vocab)))
+    procs = workers.start(workers.dp_family_case, 2, tmp, OPT, cases, (toks, nxt))
+    saved = [(m, m.embed_tokens) for m in (transformer, mamba2, griffin)]
+    workers.f32_activations()
+    try:
+        for arch, batches in cases:
+            bundle = get_bundle(arch, reduced=True)
+            step_fn, init_state = make_train_step(bundle, TrainStepConfig(
+                opt=AdamWConfig(**OPT), grad_compression=True), "cpu")
+            state = init_state(params=_params(bundle, seed=2))
+            losses, gnorms = [], []
+            for batch in batches:
+                state, m = step_fn(state, batch)
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["grad_norm"]))
+            params = _params(bundle, seed=2)
+            logits, cache = bundle.prefill(params, {"tokens": toks}, 13)
+            dl, _ = bundle.decode(params, cache, nxt, 12)
+            want[arch] = dict(loss=losses, grad_norm=gnorms, params=state["params"],
+                              seed_init=init_state(seed=7)["params"],
+                              serve=[logits, dl])
+    finally:
+        for mod, fn in saved:
+            mod.embed_tokens = fn
+    ranks = workers.finish(procs, tmp)
+    return {arch: ([(r["coord"], r["cases"][i]) for r in ranks], want[arch])
+            for i, arch in enumerate(DP_FAMILIES)}
+
+
+@pytest.mark.parametrize("arch", DP_FAMILIES)
+def test_data_parallel_step_of_the_other_families(dp_families, arch):
+    ranks, want = dp_families[arch]
+    for _, out in ranks:
+        np.testing.assert_allclose(out["loss"], want["loss"], atol=TOL, rtol=TOL)
+        np.testing.assert_allclose(out["grad_norm"], want["grad_norm"], rtol=TOL)
+        _hold_params(out["whole"]["params"], want["params"], OPT["lr"])
+        for x, y in zip(tree_flatten(out["seed_init"])[0],
+                        tree_flatten(want["seed_init"])[0]):
+            assert torch.equal(x, y)
+        for got, ref in zip(out["serve"], want["serve"]):
+            np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(),
+                                       rtol=0, atol=TOL * float(ref.abs().max()))
+    sizes = {"data": 2, "model": 1}
+    workers.check_local_slices(ranks, param_pspecs(
+        get_bundle(arch, reduced=True).param_specs(torch.float32), sizes), sizes)
 
 
 @pytest.mark.usefixtures("one_process_group")
